@@ -1,0 +1,47 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+- ``ring_allreduce`` (``csrc/ring_kernels.cu``) replaces the JAX package's
+  ``ops/ring_kernels.py:_ring_phases_kernel`` in allreduce mode;
+- ``ring_broadcast`` (``csrc/ring_kernels.cu``) replaces
+  ``ops/ring_kernels.py:_ring_broadcast_kernel``;
+- ``accumulate`` (``csrc/reduce_kernel.cu``) replaces
+  ``ops/reduce_kernel.py:_accumulate_kernel``.
+
+Every wrapper counts its launches; :func:`launch_counts` reads the counts
+and :func:`reset_launch_counts` sets them to 0.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from . import reduce_kernel, ring_kernels
+from .reduce_kernel import accumulate, accumulate_plain
+from .ring_kernels import (
+    ring_allreduce,
+    ring_allreduce_plain,
+    ring_broadcast,
+    ring_broadcast_plain,
+)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {**ring_kernels.launches, **reduce_kernel.launches}
+
+
+def reset_launch_counts() -> None:
+    for counts in (ring_kernels.launches, reduce_kernel.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+__all__ = [
+    "accumulate",
+    "accumulate_plain",
+    "launch_counts",
+    "reset_launch_counts",
+    "ring_allreduce",
+    "ring_allreduce_plain",
+    "ring_broadcast",
+    "ring_broadcast_plain",
+]
