@@ -11,25 +11,34 @@ phase fails:
 2. builds every kernel from ``torchmpi_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together);
 3. holds each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and over a sweep of dtypes, ranks and ragged
-   sizes: every comparison must be exact (the plain versions repeat the
-   kernels' arithmetic in the same order and type), and the closed form
-   "rank r contributes r" must sum to p(p-1)/2;
+   the main paths' shapes and over a sweep of dtypes, wires, modes, ranks
+   and ragged sizes: every comparison must be exact (the plain versions
+   repeat the kernels' arithmetic in the same order and type), and the
+   closed form "rank r contributes r" must sum to p(p-1)/2;
 4. checks the trainer on a small input against the same trainer on the
-   CPU (plain versions), then drives the main path: MNIST LeNet
-   synchronous AllReduce-SGD, p=8 virtual ranks, global batch 336,
-   lr 0.2, two epochs of ``synthetic_mnist`` (the first warms up), with
-   every launch count set to 0 just before and read just after;
-   then profiles 5 more steps (``torch.profiler``) and prints one
-   ``{"profile": ...}`` line: device time by kernel and the busy share;
-5. times each kernel, its plain version and one PyTorch call computing
-   the same function with CUDA events at the main path's shapes, and
-   prints one ``{"kernels": [...]}`` line;
-6. prints samples/sec/chip, and last ``{"ok": true, "device": {...}}``.
+   CPU (plain versions), then drives the two main paths, MNIST LeNet at
+   p=8 virtual ranks, global batch 336, lr 0.2, two epochs of
+   ``synthetic_mnist`` each (the first warms up), with every launch count
+   set to 0 just before each path and read just after it:
+   - synchronous AllReduce-SGD (one fused ring allreduce per step);
+   - asynchronous AllReduce-SGD with the int8 wire (two gradient buckets
+     per step: the first through the quantized ring kernel, the second
+     on the vendor path), which prints the replicas' spread;
+5. holds the async buckets against blocking allreduces of the same
+   buckets, bit for bit, step by step, for the 'full' and int8 wires, and
+   runs one async 'full' epoch through ``check_with_allreduce``;
+6. profiles 5 steps of each main path (``torch.profiler``) and prints one
+   ``{"profile": ...}`` line each: device time by kernel and busy share;
+7. times each kernel, its plain version and, where there is one, a PyTorch
+   call computing the same function with CUDA events at the main paths'
+   shapes, on inputs rotated past the L2, and prints one
+   ``{"kernels": [...]}`` line;
+8. prints last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -55,11 +64,15 @@ from torchmpi_tpu_torch.ops import _build  # noqa: E402
 from torchmpi_tpu_torch.utils import DistributedIterator, synthetic_mnist  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
+L2_BYTES = 50 * 2**20  # H100 L2 cache
 P = 8  # virtual ranks on the main path
 BATCH = 336
 LR = 0.2
 LENET_PARAMS = 857738  # LeNet's fused gradient buffer, per rank
+BUCKET0 = 805386  # LeNet's first async gradient bucket, per rank
 LARGEST_LEAF = (256, 7 * 7 * 64)  # LeNet dense0.weight, the largest update
+WIRES = ("int8", "bf16")
 
 
 def require(cond: bool, what: str) -> None:
@@ -105,13 +118,16 @@ def time_ms(fn, reps: int = 5, per: int = 20) -> float:
     return statistics.median(times)
 
 
-def phase_device() -> None:
-    # the card's name and power limit, on a line of its own as nvidia-smi
-    # prints them
-    print(subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0])
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> None:
+    print(card())
     nvcc = _build.nvcc_path()
     nvcc_version = subprocess.run(
         [nvcc, "--version"], capture_output=True, text=True, check=True
@@ -126,6 +142,48 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     paths = _build.build_all()
     print(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
+
+
+def check_quant(dev, gen) -> dict:
+    """The quantized ring against its plain version: both wires, both
+    modes, p in {2, 3, 8}, ragged sizes, a second segment above
+    8 x 896 x 128 elements, and the main paths' shapes (the async bucket
+    [8, 805386] and the sync-wire buffer [8, 857738])."""
+    err = {}
+    for wire in WIRES:
+        for n in (BUCKET0, LENET_PARAMS):
+            x = torch.randn((P, n), generator=gen, device=dev)
+            k, pl = ops.ring_allreduce_quant(x, wire), ops.ring_allreduce_quant_plain(x, wire)
+            torch.cuda.synchronize()
+            require(torch.equal(bits(k), bits(pl)), f"ring_allreduce_quant {wire} [8, {n}] != plain")
+            if n == BUCKET0:
+                err[f"ring_allreduce_quant_{wire}"] = float((k - pl).abs().max())
+            exact = x.double().sum(0)
+            rel = float((k.double() - exact).abs().max() / exact.abs().max())
+            require(rel < 2e-2, f"ring_allreduce_quant {wire} [8, {n}] off the sum by {rel}")
+        x = torch.randn((P, P * 100674), generator=gen, device=dev)
+        k, pl = ops.ring_reduce_scatter_quant(x, wire), ops.ring_reduce_scatter_quant_plain(x, wire)
+        torch.cuda.synchronize()
+        require(torch.equal(bits(k), bits(pl)), f"ring_reduce_scatter_quant {wire} [8, 805392] != plain")
+        err[f"ring_reduce_scatter_quant_{wire}"] = float((k - pl).abs().max())
+        for p in (2, 3, 8):
+            for n in (1, 1000, 5000, 100003, 8 * 896 * 128 + 4099):
+                x = torch.randn((p, n), generator=gen, device=dev)
+                require(torch.equal(bits(ops.ring_allreduce_quant(x, wire)),
+                                    bits(ops.ring_allreduce_quant_plain(x, wire))),
+                        f"ring_allreduce_quant {wire} p={p} n={n} != plain")
+                x = torch.randn((p, p, n), generator=gen, device=dev)
+                require(torch.equal(bits(ops.ring_reduce_scatter_quant(x, wire)),
+                                    bits(ops.ring_reduce_scatter_quant_plain(x, wire))),
+                        f"ring_reduce_scatter_quant {wire} p={p} seg={n} != plain")
+    # zeros and constant rows: the scale floor and exact codes
+    z = torch.zeros((3, 5000), device=dev)
+    z[1, 128:256] = 2.5
+    for wire in WIRES:
+        require(torch.equal(bits(ops.ring_allreduce_quant(z, wire)),
+                            bits(ops.ring_allreduce_quant_plain(z, wire))),
+                f"ring_allreduce_quant {wire} on zeros != plain")
+    return err
 
 
 def phase_kernels(dev) -> dict:
@@ -199,6 +257,8 @@ def phase_kernels(dev) -> dict:
     torch.cuda.synchronize()
     err["accumulate"] = float((k - pl).abs().max())
     require(torch.equal(bits(k), bits(pl)), "accumulate [8, 256, 3136] != plain")
+
+    err.update(check_quant(dev, gen))
     print(f"kernels: all comparisons exact; main-path max|kernel - plain| = {err}")
     return err
 
@@ -212,6 +272,69 @@ def small_trainer(device, batches, params) -> tuple:
         return losses, {k: v.cpu() for k, v in eng.params.items()}
     finally:
         mpi.stop()
+
+
+def main_path(dev, mode: str, wire: str) -> dict:
+    """Drive one main path for two epochs: counts to 0 just before, read
+    just after. Returns what the run showed."""
+    (xtr, ytr), (xte, yte) = synthetic_mnist()
+    model = LeNet()
+    step_losses, epoch_t = [], {}
+
+    def on_start_epoch(s):
+        torch.cuda.synchronize()
+        epoch_t[s["epoch"]] = time.perf_counter()
+
+    def on_end_epoch(s):
+        torch.cuda.synchronize()
+        epoch_t[s["epoch"]] = time.perf_counter() - epoch_t[s["epoch"]]
+
+    ops.reset_launch_counts()
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        engine = AllReduceSGDEngine(
+            make_loss_fn(model), init_params(model, seed=0), lr=LR, comm=comm,
+            mode=mode, wire_dtype=wire,
+            hooks={
+                "on_update": lambda s: step_losses.append(s["loss"]),
+                "on_start_epoch": on_start_epoch,
+                "on_end_epoch": on_end_epoch,
+            },
+        )
+        it = DistributedIterator(xtr, ytr, BATCH, P, device=comm.device)
+        state = engine.train(lambda: iter(it), max_epochs=2)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        params = engine.params
+        spread = max(float((v - v[0:1]).abs().max()) for v in params.values())
+        if wire == "full":
+            mpinn.check_with_allreduce(params, comm)
+    finally:
+        mpi.stop()
+
+    losses = [float(v) for v in step_losses]
+    steps = state["t"]
+    require(all(abs(v) < float("inf") for v in losses), f"{mode}/{wire}: non-finite loss")
+    first, last = losses[0], sum(losses[-3:]) / 3
+    require(last < first, f"{mode}/{wire}: loss did not fall: first step {first:.4f}, last three {last:.4f}")
+    final = {k: v[0] for k, v in params.items()}
+    x_test = torch.as_tensor(xte, device=dev)
+    logits = torch.func.functional_call(model, final, (x_test,))
+    require(tuple(logits.shape) == (len(xte), 10) and bool(torch.isfinite(logits).all()),
+            f"{mode}/{wire}: test logits malformed")
+    acc = float(accuracy(logits, torch.as_tensor(yte, device=dev)))
+    steady = len(it) * BATCH / epoch_t[1]
+    print(
+        f"trainer: MNIST LeNet {mode} wire={wire} p={P} batch={BATCH} lr={LR}: {steps} steps, "
+        f"loss {first:.4f} -> {last:.4f} (epoch ends {state['losses']}), test_acc={acc:.4f}, "
+        f"max replica spread max|params[r] - params[0]| = {spread!r}, launches {counts}"
+    )
+    print(
+        f"samples/sec/chip ({mode}, wire {wire}): {steady:.1f} (second epoch; both epochs "
+        f"with warm-up: {state['samples'] / state['time']:.1f}; {P} virtual ranks on 1 card)"
+    )
+    return {"counts": counts, "steps": steps, "spread": spread, "samples_per_s": steady}
 
 
 def phase_trainer(dev) -> dict:
@@ -229,65 +352,62 @@ def phase_trainer(dev) -> dict:
         require(d <= 1e-5, f"small trainer {k} differs from CPU by {d}")
     print(f"trainer: 3 steps at p=4 match the CPU plain path (losses {gl})")
 
-    # the main path: counts to 0 just before, read just after
-    (xtr, ytr), (xte, yte) = synthetic_mnist()
+    sync = main_path(dev, "sync", "full")
+    c, steps = sync["counts"], sync["steps"]
+    require(c["ring_allreduce"] == steps,
+            f"sync: ring_allreduce launched {c['ring_allreduce']} times in {steps} steps")
+    require(c["ring_broadcast"] >= 1, "sync: ring_broadcast never launched")
+    require(c["accumulate"] >= steps, "sync: accumulate not launched every step")
+    require(not any(v for k, v in c.items() if "quant" in k), "sync: a quantized ring launched")
+    print("sync path: check_with_allreduce passed")
+
+    quant = main_path(dev, "async", "int8")
+    c, steps = quant["counts"], quant["steps"]
+    require(c["ring_allreduce_quant_int8"] == steps,
+            f"async int8: quantized ring launched {c['ring_allreduce_quant_int8']} times in {steps} steps")
+    require(c["ring_allreduce"] == 0, f"async int8: K3 ring_allreduce launched {c['ring_allreduce']} times")
+    require(c["ring_broadcast"] >= 1, "async int8: ring_broadcast never launched")
+    require(c["accumulate"] >= steps, "async int8: accumulate not launched every step")
+    require(quant["spread"] > 0, "async int8: replicas identical; the wire did not engage")
+    return {"sync": sync, "async_int8": quant}
+
+
+def phase_async(dev) -> None:
+    """Each step's async buckets against blocking allreduces of the same
+    packed buckets, bit for bit ('full' and int8), then one async 'full'
+    epoch through check_with_allreduce."""
+    (xtr, ytr), _ = synthetic_mnist()
     model = LeNet()
-    step_losses, epoch_t = [], {}
-
-    def on_start_epoch(s):
-        torch.cuda.synchronize()
-        epoch_t[s["epoch"]] = time.perf_counter()
-
-    def on_end_epoch(s):
-        torch.cuda.synchronize()
-        epoch_t[s["epoch"]] = time.perf_counter() - epoch_t[s["epoch"]]
-
-    ops.reset_launch_counts()
-    mpi.start(ranks=P)
-    comm = mpi.current_communicator()
-    engine = AllReduceSGDEngine(
-        make_loss_fn(model), init_params(model, seed=0), lr=LR, comm=comm,
-        hooks={
-            "on_update": lambda s: step_losses.append(s["loss"]),
-            "on_start_epoch": on_start_epoch,
-            "on_end_epoch": on_end_epoch,
-        },
-    )
-    it = DistributedIterator(xtr, ytr, BATCH, P, device=comm.device)
-    state = engine.train(lambda: iter(it), max_epochs=2)
-    mpinn.check_with_allreduce(engine.params, comm)
-    counts = ops.launch_counts()
-    mpi.stop()
-
-    losses = [float(v) for v in step_losses]
-    steps = state["t"]
-    require(all(abs(v) < float("inf") for v in losses), "non-finite loss")
-    first, last = losses[0], sum(losses[-3:]) / 3
-    require(last < first, f"loss did not fall: first step {first:.4f}, last three {last:.4f}")
-    require(counts["ring_allreduce"] == steps,
-            f"ring_allreduce launched {counts['ring_allreduce']} times in {steps} steps")
-    require(counts["ring_broadcast"] >= 1, "ring_broadcast never launched")
-    require(counts["accumulate"] >= steps, "accumulate not launched every step")
-    final = {k: v[0] for k, v in engine.params.items()}
-    x_test = torch.as_tensor(xte, device=dev)
-    logits = torch.func.functional_call(model, final, (x_test,))
-    require(tuple(logits.shape) == (len(xte), 10) and bool(torch.isfinite(logits).all()),
-            "test logits malformed")
-    acc = float(accuracy(logits, torch.as_tensor(yte, device=dev)))
-    steady = len(it) * BATCH / epoch_t[1]
-    print(
-        f"trainer: MNIST LeNet sync p={P} batch={BATCH} lr={LR}: {steps} steps, "
-        f"loss {first:.4f} -> {last:.4f} (epoch ends {state['losses']}), "
-        f"test_acc={acc:.4f}, check_with_allreduce passed, launches {counts}"
-    )
-    print(
-        f"samples/sec/chip: {steady:.1f} (second epoch; both epochs with warm-up: "
-        f"{state['samples'] / state['time']:.1f}; {P} virtual ranks on 1 card)"
-    )
-    return counts
+    for wire in ("full", "int8"):
+        mpi.start(ranks=P)
+        try:
+            comm = mpi.current_communicator()
+            engine = AllReduceSGDEngine(make_loss_fn(model), init_params(model, seed=0),
+                                        lr=LR, comm=comm, mode="async", wire_dtype=wire)
+            buckets = engine.buckets
+            it = DistributedIterator(xtr, ytr, BATCH, P, device=comm.device)
+            for step, batch in zip(range(6), iter(it)):
+                grads, _ = engine._grad_fn(engine.params, batch)
+                handles = buckets.allreduce_async(grads, comm, wire_dtype=wire)
+                got = [None] * len(handles)
+                for b in reversed(range(len(handles))):
+                    got[b] = handles[b].wait()
+                want = [mpi.allreduce_tensor(buckets.pack(grads, b, P), comm=comm, wire_dtype=wire)
+                        for b in range(buckets.num_buckets)]
+                for b in range(buckets.num_buckets):
+                    require(torch.equal(bits(got[b]), bits(want[b])),
+                            f"async {wire}: step {step} bucket {b} differs from the blocking allreduce")
+                engine.step(batch)
+            if wire == "full":
+                state = engine.train(lambda: iter(it), max_epochs=1)
+                mpinn.check_with_allreduce(engine.params, comm)
+                print(f"async full: {state['t']} more steps, check_with_allreduce passed")
+        finally:
+            mpi.stop()
+    print("async: every step's buckets equal the blocking allreduce bit for bit ('full', int8)")
 
 
-def phase_profile() -> None:
+def phase_profile(mode: str, wire: str) -> None:
     """Where a main-path step's time goes: ``torch.profiler`` over 5 steps
     after 3 warm-up steps, device time by kernel and the share of the
     window the device was busy (the profiler's own host cost lengthens the
@@ -300,7 +420,7 @@ def phase_profile() -> None:
         comm = mpi.current_communicator()
         model = LeNet()
         engine = AllReduceSGDEngine(make_loss_fn(model), init_params(model, seed=0),
-                                    lr=LR, comm=comm)
+                                    lr=LR, comm=comm, mode=mode, wire_dtype=wire)
         it = DistributedIterator(xtr, ytr, BATCH, P, device=comm.device)
         batches = [b for _, b in zip(range(8), iter(it))]
         for b in batches[:3]:
@@ -326,66 +446,121 @@ def phase_profile() -> None:
     )
     busy_us = sum(r[0] for r in rows)
     print(json.dumps({"profile": {
-        "steps": 5, "window_us_per_step": wall_us / 5,
+        "path": f"{mode}, wire {wire}", "steps": 5, "window_us_per_step": wall_us / 5,
         "device_busy_us_per_step": busy_us / 5,
         "device_busy_share": busy_us / wall_us if rows else None,
         "top_kernels_us_per_step": [
             {"name": k[:80], "us": us / 5, "calls_per_step": n / 5} for us, k, n in rows[:10]
         ],
+        "port_kernels_us_per_step": [
+            {"name": k[:80], "us": us / 5, "calls_per_step": n / 5}
+            for us, k, n in rows if "tmpi::" in k
+        ],
     }}))
 
 
-def phase_timing(dev, counts: dict, errs: dict) -> None:
+def bound(nbytes: int, nops: int) -> tuple:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the f32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def rotating(fn, make, in_bytes: int):
+    """``fn`` over enough copies of its inputs (made by ``make``) that
+    together they exceed twice the card's 50 MB L2: back-to-back calls
+    cycle through them, so each call reads its inputs from device memory,
+    as the main path's calls do."""
+    copies = max(2, -(-2 * L2_BYTES // in_bytes))
+    sets = itertools.cycle([make() for _ in range(copies)])
+    return lambda: fn(*next(sets))
+
+
+def phase_timing(dev, runs: dict, errs: dict) -> None:
     """Time each kernel, its plain version and one PyTorch call computing
-    the same function, at the main path's shapes; bound_ms is the bytes
-    the function must move (each input read once, each output written
-    once) over the card's memory rate."""
+    the same function where there is one, at the main paths' shapes, on
+    inputs rotated past the L2 (:func:`rotating`); bound_ms counts each
+    input read once and each output written once. ``launches`` is the sum
+    over the two main-path runs, split in ``launches_by_path``."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    n = LENET_PARAMS
-    x = torch.randn((P, n), generator=gen, device=dev)
-    a = torch.randn((P,) + LARGEST_LEAF, generator=gen, device=dev)
-    b = torch.randn((P,) + LARGEST_LEAF, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n, hops, seg = LENET_PARAMS, 2 * (P - 1), 100674  # seg: bucket 0's slice per rank
     rows = [
         dict(
-            name="ring_allreduce",
-            source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            name="ring_allreduce", source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
             replaces="torchmpi_tpu/ops/ring_kernels.py:201",
-            shape=[P, n], bytes=2 * P * n * 4,
-            kernel=lambda: ops.ring_allreduce(x),
-            plain=lambda: ops.ring_allreduce_plain(x),
-            library=lambda: x.sum(0, keepdim=True).expand_as(x).contiguous(),
+            shape=[P, n], make=lambda: (randn(P, n),), in_bytes=P * n * 4,
+            bytes=2 * P * n * 4, ops=(P - 1) * n,
+            kernel=ops.ring_allreduce, plain=ops.ring_allreduce_plain,
+            library=lambda x: x.sum(0, keepdim=True).expand_as(x).contiguous(),
         ),
         dict(
-            name="ring_broadcast",
-            source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            name="ring_broadcast", source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
             replaces="torchmpi_tpu/ops/ring_kernels.py:1282",
-            shape=[P, n], bytes=(1 + P) * n * 4,
-            kernel=lambda: ops.ring_broadcast(x, 0),
-            plain=lambda: ops.ring_broadcast_plain(x, 0),
-            library=lambda: x[0:1].expand_as(x).clone(),
+            shape=[P, n], make=lambda: (randn(P, n),), in_bytes=P * n * 4,
+            bytes=(1 + P) * n * 4, ops=0,
+            kernel=lambda x: ops.ring_broadcast(x, 0),
+            plain=lambda x: ops.ring_broadcast_plain(x, 0),
+            library=lambda x: x[0:1].expand_as(x).clone(),
         ),
         dict(
-            name="accumulate",
-            source="torchmpi_tpu_torch/csrc/reduce_kernel.cu",
+            name="accumulate", source="torchmpi_tpu_torch/csrc/reduce_kernel.cu",
             replaces="torchmpi_tpu/ops/reduce_kernel.py:28",
-            shape=[P, *LARGEST_LEAF], bytes=3 * a.numel() * 4,
-            kernel=lambda: ops.accumulate(a, b),
-            plain=lambda: ops.accumulate_plain(a, b),
-            library=lambda: torch.add(a, b),
+            shape=[P, *LARGEST_LEAF], make=lambda: (randn(P, *LARGEST_LEAF), randn(P, *LARGEST_LEAF)),
+            in_bytes=2 * P * LARGEST_LEAF[0] * LARGEST_LEAF[1] * 4,
+            bytes=3 * P * LARGEST_LEAF[0] * LARGEST_LEAF[1] * 4, ops=P * LARGEST_LEAF[0] * LARGEST_LEAF[1],
+            kernel=ops.accumulate, plain=ops.accumulate_plain, library=torch.add,
         ),
     ]
+    for wire in WIRES:
+        # per element and hop: int8 |v|, max, divide, round, convert, then a
+        # multiply and an add (f64 in the reduce-scatter); bf16 a cast and an add
+        per_hop = 7 if wire == "int8" else 2
+        rows.append(dict(
+            name=f"ring_allreduce_quant_{wire}", source="torchmpi_tpu_torch/csrc/ring_quant.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:551",
+            shape=[P, BUCKET0], make=lambda: (randn(P, BUCKET0),), in_bytes=P * BUCKET0 * 4,
+            bytes=2 * P * BUCKET0 * 4, ops=hops * per_hop * BUCKET0,
+            kernel=lambda x, w=wire: ops.ring_allreduce_quant(x, w),
+            plain=lambda x, w=wire: ops.ring_allreduce_quant_plain(x, w),
+            library=None, k3=ops.ring_allreduce,
+        ))
+        rows.append(dict(
+            name=f"ring_reduce_scatter_quant_{wire}", source="torchmpi_tpu_torch/csrc/ring_quant.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:551",
+            shape=[P, P * seg], make=lambda: (randn(P, P * seg),), in_bytes=P * P * seg * 4,
+            bytes=(P + 1) * P * seg * 4, ops=(P - 1) * per_hop * P * seg,
+            kernel=lambda x, w=wire: ops.ring_reduce_scatter_quant(x, w),
+            plain=lambda x, w=wire: ops.ring_reduce_scatter_quant_plain(x, w),
+            library=None,
+        ))
     out = []
     for r in rows:
-        ms = time_ms(r["kernel"])
-        out.append({
+
+        def timed(fn):
+            return time_ms(rotating(fn, r["make"], r["in_bytes"]))
+
+        ms = timed(r["kernel"])
+        bound_ms, bound_by = bound(r["bytes"], r["ops"])
+        by_path = {path: run["counts"][r["name"]] for path, run in runs.items()}
+        row = {
             "name": r["name"], "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": counts[r["name"]],
+            "replaces": r["replaces"], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[r["name"]], "ms": ms, "kernel_ms": ms,
-            "plain_ms": time_ms(r["plain"]),
-            "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": time_ms(r["library"]),
+            "plain_ms": timed(r["plain"]),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes a requantizing ring
+            "library_ms": timed(r["library"]) if r["library"] else None,
             "shape": r["shape"], "dtype": "float32",
-        })
+        }
+        if "k3" in r:
+            row["k3_f32_ms"] = timed(r["k3"])  # K3's f32 ring at the same shape
+        out.append(row)
     print(json.dumps({"kernels": out}))
 
 
@@ -394,13 +569,20 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; this run needs one card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # deterministic convolution algorithms: the seeded run then follows one
+    # loss trajectory on every call, so "the loss falls" is reproducible
+    # (LeNet at lr 0.2 has spikes, and cuDNN's default algorithms moved
+    # them from call to call)
+    torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda", 0)
     phase_device()
     phase_build()
     errs = phase_kernels(dev)
-    counts = phase_trainer(dev)
-    phase_profile()
-    phase_timing(dev, counts, errs)
+    runs = phase_trainer(dev)
+    phase_async(dev)
+    phase_profile("sync", "full")
+    phase_profile("async", "int8")
+    phase_timing(dev, runs, errs)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -101,7 +101,11 @@ def test_selector_cuda_row():
     assert selector.select("broadcast", cuda) == "kernel"
     for op in ("allgather", "reducescatter", "alltoall", "sendreceive", "reduce"):
         assert selector.select(op, cuda) == "xla"
-    assert selector.select("allreduce", cuda, mode="async") == "xla"
+    # async allreduce on the card is the same ring on a side stream, as the
+    # reference's GPU async allreduce was its p2p ring
+    assert selector.select("allreduce", cuda, mode="async") == "kernel"
+    assert selector.select("broadcast", cuda, mode="async") == "xla"
+    assert selector.select("allreduce", cpu, mode="async") == "xla"
     assert selector.select("allreduce", cuda, multinode=True) == "xla"
     assert selector.select("allreduce", cpu) == "xla"
     assert selector.select("broadcast", cpu) == "xla"

@@ -198,10 +198,17 @@ def test_wrappers_launch_or_raise_off_the_cpu():
     fallback to a plain version."""
     x = torch.empty(2, 8, device="meta")
     for call in (lambda: ops.ring_allreduce(x), lambda: ops.ring_broadcast(x),
-                 lambda: ops.accumulate(x, x)):
+                 lambda: ops.accumulate(x, x),
+                 lambda: ops.ring_allreduce_quant(x, "int8"),
+                 lambda: ops.ring_reduce_scatter_quant(x, "bf16")):
         with pytest.raises(ValueError, match="CUDA or the CPU"):
             call()
-    assert ops.launch_counts() == {"ring_allreduce": 0, "ring_broadcast": 0, "accumulate": 0}
+    counts = ops.launch_counts()
+    assert set(counts) == {"ring_allreduce", "ring_broadcast", "accumulate"} | {
+        f"{op}_{wire}" for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant")
+        for wire in ("int8", "bf16")
+    }
+    assert not any(counts.values())
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -215,7 +222,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 def test_build_is_keyed_on_the_sources():
     names = {_build.target(s).name for s in _build.SOURCES}
-    assert len(names) == 2
+    assert len(names) == len(_build.SOURCES) == 3
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)
     assert _build.target("ring_kernels").parent == _build.BUILD_DIR
 

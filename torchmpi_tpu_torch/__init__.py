@@ -6,7 +6,8 @@ which p devices of one process hold rank-stacked arrays. The kernels the
 JAX package wrote in Pallas are written by hand in CUDA for Hopper
 (``ops/``, ``csrc/``) and carry the collectives on a CUDA communicator.
 
-This slice carries the MNIST synchronous AllReduce-SGD path::
+This port carries the MNIST AllReduce-SGD paths, synchronous and
+asynchronous, with an optional compressed wire::
 
     import torchmpi_tpu_torch as mpi
     mpi.start(ranks=8)                      # cuda:0; device='cpu' for tests
@@ -14,6 +15,10 @@ This slice carries the MNIST synchronous AllReduce-SGD path::
     engine.train(lambda: iter(it))          # ring-allreduce kernel per step
     mpi.nn.check_with_allreduce(engine.params)
     mpi.stop()
+
+``AllReduceSGDEngine(..., mode='async', wire_dtype='int8')`` syncs the
+gradients in buckets, async on a side stream, through the quantized ring
+kernel; ``mpi.collectives.async_`` returns handles to wait on.
 
 The package imports ``torch`` and never ``jax`` or ``torchmpi_tpu``.
 """

@@ -2,23 +2,30 @@
 
 The port of ``torchmpi_tpu/collectives/eager.py`` for flat plans: ``run``
 validates a rank-stacked ``[p, ...]`` tensor, resolves the backend (the
-size cutoff of :func:`op_route` and the kernel's dtype gate) and calls the
-backend's function directly. The JAX package compiles each request through
-the schedule compiler (``schedule/compiler.py:607``); that, the other
-schedule families and the async surface wait for later slices
-(ROADMAP queue A2). This slice carries allreduce and broadcast.
+size cutoff of :func:`op_route` and the kernel's dtype gate) and the wire
+format (:func:`resolve_wire_dtype`), and calls the backend's function
+directly; :func:`run_async` runs the same call on a side stream and
+returns a :class:`~torchmpi_tpu_torch.runtime.handles.SyncHandle`. The JAX
+package compiles each request through the schedule compiler
+(``schedule/compiler.py:607``); that and the other schedule families wait
+for later slices (ROADMAP queue A2). This slice carries allreduce and
+broadcast.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from .. import constants
 from ..runtime.communicator import Communicator
+from ..runtime.handles import SyncHandle, handles
 
 _OPS = ("allreduce", "broadcast")
+# collectives the compressed wire formats apply to (the bandwidth-path
+# reductions; data movers are lossless by contract and stay verbatim)
+_WIRE_OPS = ("allreduce", "reducescatter")
 
 
 class CollectiveArgumentError(ValueError):
@@ -75,13 +82,36 @@ def effective_backend(op: str, nelem: int, dtype: torch.dtype, platform: str,
     return effective
 
 
+def resolve_wire_dtype(op: str, nelem: int, dtype: torch.dtype,
+                       requested: Optional[str] = None) -> str:
+    """The wire format of one eager call (``eager.py:529``): the explicit
+    ``wire_dtype=`` argument wins, else the ``wire_dtype`` constant; 'full'
+    whenever the encoding cannot engage -- another op, a payload that is
+    not f32 (ints pass uncompressed, exactness is their contract), or
+    fewer than ``wire_quant_min_elements`` elements per rank."""
+    wire = requested if requested is not None else constants.get("wire_dtype")
+    if wire in (None, "", "full"):
+        return "full"
+    if wire not in ("int8", "bf16"):
+        raise CollectiveArgumentError(
+            f"unknown wire_dtype {wire!r}; expected 'full', 'bf16' or 'int8'"
+        )
+    if op not in _WIRE_OPS or dtype != torch.float32:
+        return "full"
+    if nelem < constants.get("wire_quant_min_elements"):
+        return "full"
+    return wire
+
+
 def _xla_allreduce(x: torch.Tensor) -> torch.Tensor:
     return x.sum(0, keepdim=True, dtype=x.dtype).expand_as(x).contiguous()
 
 
-def _kernels(op: str, backend: str, root: int) -> Callable:
+def _kernels(op: str, backend: str, root: int, wire: str = "full") -> Callable:
     """The function of ``backend`` that runs ``op`` on a rank-stacked
-    tensor (the flat part of the JAX ``_kernels`` table)."""
+    tensor (the flat part of the JAX ``_kernels`` table). A compressed
+    ``wire`` pins the quantized ring kernel (``eager.py:489-500``); the
+    vendor path ships every payload verbatim."""
     if backend == "xla":
         table = {
             "allreduce": _xla_allreduce,
@@ -91,7 +121,11 @@ def _kernels(op: str, backend: str, root: int) -> Callable:
         from ..ops import ring_kernels
 
         table = {
-            "allreduce": ring_kernels.ring_allreduce,
+            "allreduce": (
+                ring_kernels.ring_allreduce
+                if wire == "full"
+                else lambda x: ring_kernels.ring_allreduce_quant(x, wire)
+            ),
             "broadcast": lambda x: ring_kernels.ring_broadcast(x, root),
         }
     elif backend == "ring":
@@ -101,10 +135,17 @@ def _kernels(op: str, backend: str, root: int) -> Callable:
     return table[op]
 
 
-def _validate(op: str, x: torch.Tensor, comm: Communicator, root: int) -> None:
+def _validate(op: str, x: torch.Tensor, comm: Communicator, root: int,
+              wire_dtype: Optional[str]) -> None:
     if op not in _OPS:
         raise _not_ported(f"collective {op!r}")
     _check_rank_stacked(x, comm)
+    if wire_dtype not in (None, "full", "bf16", "int8"):
+        # validated on every call: a typo must not pass silently because
+        # this call happened to route to the vendor path
+        raise CollectiveArgumentError(
+            f"unknown wire_dtype {wire_dtype!r}; expected 'full', 'bf16' or 'int8'"
+        )
     if op == "broadcast" and not 0 <= root < comm.size:
         raise CollectiveArgumentError(f"root {root} out of range")
 
@@ -116,11 +157,60 @@ def run(
     backend: str = "xla",
     root: int = 0,
     route_small: bool = True,
+    wire_dtype: Optional[str] = None,
 ) -> torch.Tensor:
     """Synchronous eager collective on a rank-stacked tensor; returns a new
-    rank-stacked tensor (the input is never written)."""
-    _validate(op, x, comm, root)
+    rank-stacked tensor (the input is never written). ``wire_dtype``
+    ('full' | 'bf16' | 'int8'; None = the ``wire_dtype`` constant) picks
+    the wire of the kernel backend's reductions (:func:`resolve_wire_dtype`
+    gives the gates)."""
+    _validate(op, x, comm, root, wire_dtype)
+    nelem = x[0].numel()
     effective = effective_backend(
-        op, x[0].numel(), x.dtype, comm.device.type, backend, route_small
+        op, nelem, x.dtype, comm.device.type, backend, route_small
     )
-    return _kernels(op, effective, root)(x.contiguous())
+    wire = (
+        resolve_wire_dtype(op, nelem, x.dtype, wire_dtype)
+        if effective == "kernel"
+        else "full"
+    )
+    return _kernels(op, effective, root, wire)(x.contiguous())
+
+
+def _async_stream(comm: Communicator) -> torch.cuda.Stream:
+    """The communicator's side stream for async collectives (made at first
+    use, like the reference's per-thread collective streams,
+    ``resources.cpp:1055-1094``)."""
+    stream = getattr(comm, "_async_stream", None)
+    if stream is None:
+        stream = comm._async_stream = torch.cuda.Stream(comm.device)
+    return stream
+
+
+def run_async(op: str, x: torch.Tensor, comm: Communicator, **kw) -> SyncHandle:
+    """Asynchronous variant of :func:`run` (``eager.py:785``); returns a
+    handle at once. On a CUDA communicator the collective runs on the
+    communicator's side stream, after an event recorded on the caller's
+    stream, and ``x`` is kept alive until the side stream has read it; on
+    the CPU it runs now and the handle holds the result. The handle is
+    registered, so ``sync_all()`` and ``stop()`` drain it."""
+    # backpressure: bound the unwaited async collectives
+    # (kNumAsyncCollectivesInFlight, lib/constants.cpp:152-155) by waiting
+    # the oldest first, as the reference's bounded queues block enqueue
+    limit = constants.get("num_async_collectives_in_flight")
+    while handles.outstanding_kind("collective") >= limit:
+        if not handles.wait_oldest("collective"):
+            break
+    if comm.device.type != "cuda":
+        h = SyncHandle(run(op, x, comm, **kw))
+    else:
+        side = _async_stream(comm)
+        side.wait_stream(torch.cuda.current_stream(comm.device))
+        with torch.cuda.stream(side):
+            out = run(op, x, comm, **kw)
+            done = torch.cuda.Event()
+            done.record(side)
+        x.record_stream(side)
+        h = SyncHandle(out, done)
+    handles.register(h, kind="collective")
+    return h

@@ -2,10 +2,11 @@
 
 The port of the part of ``torchmpi_tpu/collectives/fusion.py:FusionBuffer``
 that ``nn.synchronize_gradients(fused=True)`` uses: tensors submitted for
-an allreduce are grouped by ``(op, dtype, backend)``; a group flushes as
-ONE allreduce of a ``[p, total]`` buffer when its pending per-rank payload
-reaches ``fusion_buffer_bytes`` or when a caller waits on it, and each
-handle slices its tensor back out. A flush of fewer than
+an allreduce are grouped by ``(op, dtype, wire, backend)``
+(``fusion.py:126-136``); a group flushes as ONE allreduce of a
+``[p, total]`` buffer when its pending per-rank payload reaches
+``fusion_buffer_bytes`` or when a caller waits on it, and each handle
+slices its tensor back out. A flush of fewer than
 ``fusion_min_tensors`` tensors dispatches them one by one. Routing (the
 small-message cutoff) is decided on the fused total, which is what pushes
 many small gradients onto the kernel path. The JAX version's async
@@ -51,8 +52,8 @@ class _Done:
 
 
 class _PendingGroup:
-    """Tensors awaiting one fused dispatch: same (op, dtype, backend), each
-    flattened to a [p, n] slab."""
+    """Tensors awaiting one fused dispatch: same (op, dtype, wire,
+    backend), each flattened to a [p, n] slab."""
 
     def __init__(self, buffer: "FusionBuffer", key: Tuple):
         self.buffer = buffer
@@ -85,16 +86,20 @@ class FusionBuffer:
         self.comm = comm
         self._groups: Dict[Tuple, _PendingGroup] = {}
 
-    def submit(self, op: str, x: torch.Tensor, backend: Optional[str] = None):
+    def submit(self, op: str, x: torch.Tensor, wire_dtype: Optional[str] = None,
+               backend: Optional[str] = None):
         """Queue one rank-stacked tensor for a fused ``op``; returns a
         handle. Dispatches at once when coalescing cannot engage (disabled,
-        or an op the buffer does not fuse)."""
+        or an op the buffer does not fuse). ``wire_dtype`` is the group's
+        wire (:func:`~torchmpi_tpu_torch.collectives.allreduce_tensor`)."""
         from . import _dispatch
 
         cap = constants.get("fusion_buffer_bytes")
         if cap <= 0 or op not in _FUSABLE or x.ndim < 1:
-            return _Done(_dispatch(op, x, self.comm, backend))
-        key = (op, x.dtype, backend)
+            return _Done(
+                _dispatch(op, x, self.comm, "sync", backend, wire_dtype=wire_dtype)
+            )
+        key = (op, x.dtype, wire_dtype, backend)
         group = self._groups.get(key)
         if group is None:
             group = self._groups[key] = _PendingGroup(self, key)
@@ -114,16 +119,18 @@ class FusionBuffer:
         from . import _dispatch
 
         self._groups.pop(group.key, None)
-        op, _, backend = group.key
+        op, _, wire_dtype, backend = group.key
         flats, group.flats = group.flats, []
         if len(flats) < max(1, constants.get("fusion_min_tensors")):
             # packing one tensor buys nothing: dispatch it as it is
             group.results = [
-                _dispatch(op, f.reshape(s), self.comm, backend)
+                _dispatch(op, f.reshape(s), self.comm, "sync", backend,
+                          wire_dtype=wire_dtype)
                 for f, s in zip(flats, group.shapes)
             ]
             return
-        out = _dispatch(op, torch.cat(flats, dim=1), self.comm, backend)
+        out = _dispatch(op, torch.cat(flats, dim=1), self.comm, "sync", backend,
+                        wire_dtype=wire_dtype)
         results, off = [], 0
         for f, s in zip(flats, group.shapes):
             n = f.shape[1]

@@ -45,7 +45,12 @@ _SLOW = {c: ["xla", "ring"] for c in _COLLECTIVES}
 # cpu row, and its tpu row as the cuda row with 'pallas' named 'kernel'.
 # Single-node sync allreduce and broadcast prefer the custom ring on the
 # card (the reference's cudaIPC ring beat NCCL, README.md:104-106); small
-# sizes are rerouted to 'xla' by eager.op_route either way.
+# sizes are rerouted to 'xla' by eager.op_route either way. Single-node
+# async allreduce prefers it too, as the reference's GPU async allreduce
+# was its p2p ring (torchmpi_async_p2p_allreduce_THCudaTensor,
+# collectives_cuda.cpp:1457-1466): on one card an async collective is the
+# same kernel on a side stream. (The JAX tpu row's async entries are 'xla',
+# because its engine's async buckets are in-graph psums.)
 _CUDA_SINGLENODE_SYNC = {
     "broadcast": ["kernel", "ring", "xla"],
     "reduce": ["ring", "xla"],
@@ -61,7 +66,10 @@ _DEFAULT: Dict[str, Dict[str, Dict[str, Dict[str, List[str]]]]] = {
         "multinode": {"sync": dict(_SLOW), "async": dict(_SLOW)},
     },
     "cuda": {
-        "singlenode": {"sync": dict(_CUDA_SINGLENODE_SYNC), "async": dict(_SLOW)},
+        "singlenode": {
+            "sync": dict(_CUDA_SINGLENODE_SYNC),
+            "async": {**_SLOW, "allreduce": ["kernel", "ring", "xla"]},
+        },
         "multinode": {"sync": dict(_SLOW), "async": dict(_SLOW)},
     },
 }

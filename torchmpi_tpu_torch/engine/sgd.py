@@ -1,25 +1,35 @@
-"""Synchronous data-parallel SGD over virtual ranks.
+"""Data-parallel SGD over virtual ranks, synchronous or asynchronous.
 
-The port of ``torchmpi_tpu/engine/sgd.py:AllReduceSGDEngine`` in
-``mode='sync'`` with replicated parameters (``sgdengine.lua``). The JAX
-engine compiles one SPMD step whose gradient sync is an in-graph ``psum``;
-PyTorch has no such step, so this one does what ``sgdengine.lua`` did
-through ``mpinn.synchronizeGradients`` — an eager allreduce after the
-backward pass, which the selector sends through the ring-allreduce kernel:
+The port of ``torchmpi_tpu/engine/sgd.py:AllReduceSGDEngine`` with
+replicated parameters (``sgdengine.lua``). The JAX engine compiles one
+SPMD step whose gradient sync is in-graph; PyTorch has no such step, so
+this one does what ``sgdengine.lua`` did through
+``mpinn.synchronizeGradients`` — eager allreduces after the backward pass,
+which the selector sends through the ring kernels:
 
 1. per-rank losses and gradients over the rank-stacked batch, each rank
    with its own copy of the parameters (``torch.func.vmap`` of
    ``grad_and_value``);
-2. ``nn.synchronize_gradients``: one fused allreduce of all gradients;
+2. the gradient sync:
+   - ``mode='sync'`` with the 'full' wire: ``nn.synchronize_gradients``,
+     one fused allreduce of all gradients (the ring-allreduce kernel);
+   - ``mode='async'`` (``sgdengine.lua:91-124``): ``GradientBuckets``
+     (``num_buckets``) launches one async allreduce per bucket on a side
+     stream, then waits them in reverse order (``nn.lua:207-212``);
+   - a compressed wire (``wire_dtype='int8'`` or ``'bf16'``) takes the
+     bucketed path in sync mode too, with one bucket (``sgd.py:328-337``);
+     each bucket above the cutoffs goes through the quantized ring kernel;
 3. divide by p (``average_gradients=True``);
 4. a plain SGD step, ``params + (-lr * grads)``, where the add is the
    accumulate kernel (the port's ``optax.apply_updates``).
 
 At construction the parameters are replicated to every rank and, with
 ``broadcast_parameters=True``, equalised from rank 0 by
-``nn.synchronize_parameters`` (the ring-broadcast kernel). Async mode,
-wire formats, fsdp/zero1, accumulation and checkpoints wait for later
-slices (ROADMAP queue A5).
+``nn.synchronize_parameters`` (the ring-broadcast kernel). Under a
+compressed wire each chunk's owner keeps its f32 sum and the other ranks
+its wire decoding, so replicas drift apart by the wire's rounding, as in
+the JAX engine. fsdp/zero1, accumulation, remat and checkpoints wait for
+later slices (ROADMAP queue A5).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from .. import constants
 from .. import nn as mpinn
 from ..ops import accumulate
 from ..runtime.communicator import Communicator
@@ -49,19 +60,37 @@ class AllReduceSGDEngine:
         lr: float = 0.2,
         comm: Optional[Communicator] = None,
         mode: str = "sync",
+        num_buckets: int = 4,
         average_gradients: bool = True,
         broadcast_parameters: bool = True,
         hooks: Optional[Dict[str, Callable]] = None,
+        wire_dtype: Optional[str] = None,
     ):
+        """``mode``: 'sync' (one fused allreduce) or 'async' (bucketed);
+        ``num_buckets``: the buckets of async mode (``BlockSequential``'s
+        N). ``wire_dtype``: the gradient allreduce's wire ('full' |
+        'bf16' | 'int8'; None = the ``wire_dtype`` constant, read once
+        here)."""
         if comm is None:
             from .. import runtime_state
 
             comm = runtime_state.current_communicator()
-        if mode != "sync":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP queue A5); the "
-                "port runs mode='sync'"
+        if mode not in ("sync", "async"):
+            raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
+        if wire_dtype not in (None, "full", "bf16", "int8"):
+            raise ValueError(
+                f"wire_dtype must be None/'full'/'bf16'/'int8', got {wire_dtype!r}"
             )
+        if wire_dtype is None:
+            wire_dtype = constants.get("wire_dtype")
+        self.wire_dtype = wire_dtype
+        # a compressed wire needs the bucketed (flat-buffer) sync even in
+        # sync mode; one bucket keeps sync mode's single collective
+        self.buckets = (
+            mpinn.GradientBuckets(params, num_buckets if mode == "async" else 1)
+            if mode == "async" or wire_dtype in ("bf16", "int8")
+            else None
+        )
         self.comm = comm
         self.loss_fn = loss_fn
         self.lr = lr
@@ -88,9 +117,17 @@ class AllReduceSGDEngine:
         y[p, B])``; updates ``self.params`` and returns the mean of the
         ranks' losses as a device scalar (not synchronised)."""
         grads, losses = self._grad_fn(self.params, batch)
-        grads = mpinn.synchronize_gradients(
-            grads, self.comm, average=self.average_gradients
-        )
+        if self.buckets is None:
+            grads = mpinn.synchronize_gradients(
+                grads, self.comm, average=self.average_gradients
+            )
+        else:
+            handles = self.buckets.allreduce_async(
+                grads, self.comm, wire_dtype=self.wire_dtype
+            )
+            grads = self.buckets.wait_and_unflatten(
+                grads, handles, average=self.average_gradients
+            )
         self.params = {
             k: accumulate(v, (grads[k] * -self.lr).contiguous())
             for k, v in self.params.items()

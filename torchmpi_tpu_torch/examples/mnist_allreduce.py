@@ -1,14 +1,18 @@
-"""MNIST synchronous AllReduce-SGD on the PyTorch/CUDA port.
+"""MNIST AllReduce-SGD, synchronous or asynchronous, on the PyTorch/CUDA port.
 
-The twin of ``examples/mnist_allreduce.py`` (``mnist_allreduce.lua``): lr
-0.2, global batch 336 split over the ranks, ``synthetic_mnist``; the p
-virtual ranks share one CUDA card, the first parameter sync runs the
-ring-broadcast kernel and every step's gradient sync the ring-allreduce
-kernel. Prints the final loss, the test accuracy and samples/sec/chip, and
-checks replica consistency with ``check_with_allreduce``.
+The twin of ``examples/mnist_allreduce.py`` (``mnist_allreduce.lua`` and
+``mnist_allreduce_async.lua``): lr 0.2, global batch 336 split over the
+ranks, ``synthetic_mnist``; the p virtual ranks share one CUDA card, the
+first parameter sync runs the ring-broadcast kernel and every step's
+gradient sync the ring-allreduce kernel. ``--mode async`` syncs the
+gradients in buckets, each an async allreduce on a side stream, waited in
+reverse order. The engine's wire is the ``wire_dtype`` constant ('full'
+unless set), as the JAX example has no wire flag. Prints the final loss,
+the test accuracy and samples/sec/chip, and checks replica consistency
+with ``check_with_allreduce``.
 
 Run:  python -m torchmpi_tpu_torch.examples.mnist_allreduce --model lenet
-      --ranks 8 [--batch 336] [--epochs 5] [--device cuda]
+      --ranks 8 [--mode async] [--batch 336] [--epochs 5] [--device cuda]
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 def main(argv: Optional[Sequence[str]] = None) -> Tuple[float, float]:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="sync", choices=["sync", "async"])
     ap.add_argument("--model", default="logreg", choices=["logreg", "lenet"])
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--epochs", type=int, default=5)
@@ -50,7 +55,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[float, float]:
     try:
         comm = mpi.current_communicator()
         p = comm.size
-        print(f"ranks={p} device={comm.device}")
+        print(f"ranks={p} device={comm.device} mode={args.mode}")
         (xtr, ytr), (xte, yte) = synthetic_mnist(seed=args.seed)
         batch = max(1, args.batch // p) * p  # divisible global batch (336/size)
         model = LeNet() if args.model == "lenet" else LogisticRegression()
@@ -59,6 +64,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[float, float]:
             init_params(model, seed=args.seed),
             lr=args.lr,
             comm=comm,
+            mode=args.mode,
             hooks={
                 "on_end_epoch": lambda s: print(
                     f"epoch {s['epoch']}: loss={s['losses'][-1]:.4f}"

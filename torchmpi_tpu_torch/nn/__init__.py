@@ -8,22 +8,33 @@ the port's counterpart of a rank-stacked pytree.
 - :func:`synchronize_parameters` — one-shot sync before training:
   broadcast from ``root``, or allreduce and divide (``nn.lua:32-46``).
 - :func:`synchronize_gradients` — sum-allreduce every gradient
-  (``nn.lua:49-56``); ``average=True`` divides by the world size.
+  (``nn.lua:49-56``); ``average=True`` divides by the world size, and
+  ``wire_dtype`` picks the wire of the kernel ring.
+- :class:`GradientBuckets` — the leaves cut into buckets of about equal
+  size (``BlockSequential.lua:29-89``), one async allreduce per bucket,
+  waited in reverse order (``nn.lua:207-212``).
 - :func:`check_with_allreduce` — the replica-consistency invariant
   (``init.lua:372-395``).
 
-``GradientBuckets`` and the in-graph variants wait for later slices
-(ROADMAP queue A3).
+Leaves are taken in sorted-name order, the order in which
+``jax.tree_util`` flattens a dict, so the buckets are the JAX package's.
+The in-graph variants have no torch counterpart: the engine runs the
+eager path (ROADMAP, North star). ``GradientBuckets.sync_scheduled``
+waits for the overlap scheduler and the telemetry core (ROADMAP A11).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import functools
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from .. import collectives
+from .. import collectives, constants
+from ..collectives import eager
+from ..ops.ring_kernels import row_scale
 from ..runtime.communicator import Communicator
+from ..runtime.handles import SyncHandle
 
 Tree = Dict[str, torch.Tensor]
 
@@ -80,33 +91,176 @@ def synchronize_gradients(
     comm: Optional[Communicator] = None,
     average: bool = False,
     fused: bool = True,
+    wire_dtype: Optional[str] = None,
 ) -> Tree:
     """Sum-allreduce every gradient (``nn.lua:49-56``); ``average=True``
-    divides by the world size. ``fused=True`` goes through the
-    communicator's :class:`~torchmpi_tpu_torch.collectives.FusionBuffer`
-    (when ``fusion_buffer_bytes`` > 0): one allreduce per dtype group of a
-    flat ``[p, total]`` buffer."""
+    divides by the world size. ``wire_dtype`` ('full' | 'bf16' | 'int8';
+    None = the constant) picks the wire of the kernel ring: int8 ships
+    block-quantized values and sums in f32, only for f32 buffers above the
+    cutoff; integer leaves always travel exactly. ``fused=True`` goes
+    through the communicator's
+    :class:`~torchmpi_tpu_torch.collectives.FusionBuffer` (when
+    ``fusion_buffer_bytes`` > 0): one allreduce per dtype group of a flat
+    ``[p, total]`` buffer."""
     comm = _comm(comm)
     p = comm.size
 
     def finish(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return (buf / p).to(like.dtype) if average else buf
 
-    if fused:
-        from .. import constants
+    def allreduce(buf: torch.Tensor) -> torch.Tensor:
+        return collectives.allreduce_tensor(buf, comm=comm, wire_dtype=wire_dtype)
 
+    if fused:
         if constants.get("fusion_buffer_bytes") > 0:
             fb = collectives.get_fusion_buffer(comm)
-            handles = {k: fb.submit("allreduce", g) for k, g in grads.items()}
+            handles = {
+                k: fb.submit("allreduce", g, wire_dtype=wire_dtype)
+                for k, g in grads.items()
+            }
             fb.flush_for(handles.values())
             return {k: finish(h.wait(), grads[k]) for k, h in handles.items()}
-        return _fused_apply(
-            grads, p, lambda buf: finish(collectives.allreduce_tensor(buf, comm=comm), buf)
-        )
-    return {
-        k: finish(collectives.allreduce_tensor(g, comm=comm), g)
-        for k, g in grads.items()
-    }
+        return _fused_apply(grads, p, lambda buf: finish(allreduce(buf), buf))
+    return {k: finish(allreduce(g), g) for k, g in grads.items()}
+
+
+class GradientBuckets:
+    """The leaves of a parameter dict cut into ``num_buckets`` buckets of
+    about equal element count, in reverse leaf order (``nn/__init__.py:
+    185``): gradients become ready last layer first, so bucket 0's
+    collective can go first (``BlockSequential.lua:114-151``). The JAX
+    package packs each bucket into a persistent donated buffer; here a
+    bucket is packed with one ``torch.cat`` per launch."""
+
+    def __init__(self, params_template: Tree, num_buckets: int):
+        # sorted names: jax.tree_util's leaf order for a dict
+        self.names = sorted(params_template)
+        leaves = [params_template[k] for k in self.names]
+        self.sizes = [v.numel() for v in leaves]
+        self.dtypes = [v.dtype for v in leaves]
+        total = sum(self.sizes)
+        num_buckets = max(1, min(num_buckets, len(leaves)))
+        target = total / num_buckets
+        # greedy contiguous partition over reversed leaf order
+        self.buckets: List[List[int]] = [[]]
+        acc = 0
+        for idx in reversed(range(len(leaves))):
+            if acc >= target and len(self.buckets) < num_buckets and self.buckets[-1]:
+                self.buckets.append([])
+                acc = 0
+            self.buckets[-1].append(idx)
+            acc += self.sizes[idx]
+        self.num_buckets = len(self.buckets)
+        # error-feedback residuals (wire_error_feedback), one per bucket
+        # and wire grid: flush k's quantization error is added back before
+        # flush k+1 is quantized (1-bit SGD / QSGD lineage)
+        self._residuals: Dict[tuple, torch.Tensor] = {}
+        self._launch_comm: Optional[Communicator] = None
+
+    def bucket_leaves(self, tree: Tree, b: int) -> List[torch.Tensor]:
+        return [tree[self.names[i]] for i in self.buckets[b]]
+
+    def bucket_dtype(self, b: int) -> torch.dtype:
+        """The dtype bucket ``b`` ships in: the promotion of its leaves'."""
+        return functools.reduce(torch.promote_types, [self.dtypes[i] for i in self.buckets[b]])
+
+    def pack(self, tree: Tree, b: int, p: int) -> torch.Tensor:
+        """Bucket ``b``'s rank-stacked leaves as one flat ``[p, total]``
+        buffer of :meth:`bucket_dtype`, in bucket order."""
+        dtype = self.bucket_dtype(b)
+        return torch.cat([v.reshape(p, -1).to(dtype) for v in self.bucket_leaves(tree, b)], dim=1)
+
+    def _error_feedback(self, b: int, buf: torch.Tensor,
+                        wire_dtype: Optional[str]) -> torch.Tensor:
+        """Error-feedback encode of one packed bucket (``nn/__init__.py:
+        280``): add the stored residual, quantize and dequantize on the
+        wire's grid (per rank row, ``wire_quant_block_size`` blocks for
+        int8; a bf16 round trip for bf16), store the new residual and ship
+        the quantized values. The wire requantizes them exactly on its
+        first hop, so the residual is the true compression error. A no-op
+        whenever the wire would not engage."""
+        p, n = buf.shape
+        wire = eager.resolve_wire_dtype("allreduce", n, buf.dtype, wire_dtype)
+        if wire not in ("int8", "bf16"):
+            return buf
+        block = constants.get("wire_quant_block_size")
+        key = (b, p, n, wire, block)
+        res = self._residuals.pop(key, None)
+        comp = buf + (torch.zeros_like(buf) if res is None else res)
+        if wire == "bf16":
+            qv = comp.to(torch.bfloat16).to(torch.float32)
+            self._residuals[key] = comp - qv
+            return qv
+        blocks = torch.nn.functional.pad(comp, (0, -n % block)).reshape(p, -1, block)
+        scale = row_scale(blocks)
+        q = torch.round(blocks / scale)
+        # XLA fuses the JAX residual, comp - q * scale, into one FMA; in f64
+        # the product and the difference are exact, so one rounding to f32
+        # gives the same bits
+        res = blocks.double() - q.double() * scale.double()
+        self._residuals[key] = res.float().reshape(p, -1)[:, :n]
+        return (q * scale).reshape(p, -1)[:, :n]
+
+    def allreduce_async(
+        self,
+        grads: Tree,
+        comm: Optional[Communicator] = None,
+        backend: Optional[str] = None,
+        wire_dtype: Optional[str] = None,
+    ) -> List[SyncHandle]:
+        """Launch one async allreduce per bucket; returns the handles in
+        launch order (wait them in reverse, ``nn.lua:207-212``).
+        ``backend`` pins the backend (default: the selector's async
+        choice); ``wire_dtype`` is each bucket's wire
+        (:func:`synchronize_gradients`)."""
+        comm = _comm(comm)
+        handles = []
+        for b in range(self.num_buckets):
+            buf = self.pack(grads, b, comm.size)
+            if constants.get("wire_error_feedback"):
+                buf = self._error_feedback(b, buf, wire_dtype)
+            handles.append(
+                collectives._dispatch(
+                    "allreduce", buf, comm, "async", backend, wire_dtype=wire_dtype
+                )
+            )
+        # the divisor of wait_and_unflatten's average defaults to this size
+        self._launch_comm = comm
+        return handles
+
+    def wait_and_unflatten(
+        self,
+        grads: Tree,
+        handles: Sequence[SyncHandle],
+        average: bool = False,
+        comm: Optional[Communicator] = None,
+    ) -> Tree:
+        """Wait the handles in reverse order and scatter the results back
+        into the tree. ``average`` divides by the size of ``comm``, by
+        default the communicator the matching :meth:`allreduce_async`
+        launched on."""
+        p = _comm(comm if comm is not None else self._launch_comm).size
+        results: List[Optional[torch.Tensor]] = [None] * len(handles)
+        for b in range(len(handles) - 1, -1, -1):
+            results[b] = handles[b].wait()
+        return self.unflatten_results(grads, results, average=average, p=p)
+
+    def unflatten_results(self, grads: Tree, results: Sequence[torch.Tensor],
+                          average: bool = False, p: int = 1) -> Tree:
+        """Scatter per-bucket reduced ``[p, total]`` buffers back into the
+        tree (``average`` divides by ``p``)."""
+        out = dict(grads)
+        for b, buf in enumerate(results):
+            if average:
+                buf = buf / p
+            off = 0
+            for i in self.buckets[b]:
+                name = self.names[i]
+                shape = grads[name].shape  # rank-stacked [p, ...]
+                n = grads[name][0].numel()
+                out[name] = buf[:, off : off + n].reshape(shape)
+                off += n
+        return out
 
 
 def check_with_allreduce(

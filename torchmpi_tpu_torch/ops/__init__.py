@@ -4,6 +4,9 @@
   ``ops/ring_kernels.py:_ring_phases_kernel`` in allreduce mode;
 - ``ring_broadcast`` (``csrc/ring_kernels.cu``) replaces
   ``ops/ring_kernels.py:_ring_broadcast_kernel``;
+- ``ring_allreduce_quant`` and ``ring_reduce_scatter_quant``
+  (``csrc/ring_quant.cu``) replace ``ops/ring_kernels.py:_ring_quant_kernel``
+  in its allreduce and 'rs' modes (int8 or bf16 on every hop);
 - ``accumulate`` (``csrc/reduce_kernel.cu``) replaces
   ``ops/reduce_kernel.py:_accumulate_kernel``.
 
@@ -20,8 +23,12 @@ from .reduce_kernel import accumulate, accumulate_plain
 from .ring_kernels import (
     ring_allreduce,
     ring_allreduce_plain,
+    ring_allreduce_quant,
+    ring_allreduce_quant_plain,
     ring_broadcast,
     ring_broadcast_plain,
+    ring_reduce_scatter_quant,
+    ring_reduce_scatter_quant_plain,
 )
 
 
@@ -42,6 +49,10 @@ __all__ = [
     "reset_launch_counts",
     "ring_allreduce",
     "ring_allreduce_plain",
+    "ring_allreduce_quant",
+    "ring_allreduce_quant_plain",
     "ring_broadcast",
     "ring_broadcast_plain",
+    "ring_reduce_scatter_quant",
+    "ring_reduce_scatter_quant_plain",
 ]

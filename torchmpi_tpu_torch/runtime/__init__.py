@@ -1,4 +1,5 @@
-"""Runtime core of the port: the communicator stack over virtual ranks."""
+"""Runtime core of the port: the communicator stack over virtual ranks and
+the handles of async collectives."""
 
 from .communicator import (
     Communicator,
@@ -7,11 +8,15 @@ from .communicator import (
     KeySpec,
     split_by_keys,
 )
+from .handles import SyncHandle, sync_all, wait
 
 __all__ = [
     "Communicator",
     "CommunicatorError",
     "CommunicatorStack",
     "KeySpec",
+    "SyncHandle",
     "split_by_keys",
+    "sync_all",
+    "wait",
 ]
