@@ -11,33 +11,44 @@ phase fails:
 2. builds every kernel from ``torchmpi_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together);
 3. holds each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and over a sweep of dtypes, wires, modes, ranks
-   and ragged sizes: every comparison must be exact (the plain versions
-   repeat the kernels' arithmetic in the same order and type), and the
-   closed form "rank r contributes r" must sum to p(p-1)/2;
+   the main paths' shapes and over a sweep of dtypes, wires, modes, ranks,
+   roots and ragged sizes: every comparison must be exact (the plain
+   versions repeat the kernels' arithmetic in the same order and type),
+   and the closed form "rank r contributes r" must sum to p(p-1)/2;
 4. checks the trainer on a small input against the same trainer on the
-   CPU (plain versions), then drives the two main paths, MNIST LeNet at
-   p=8 virtual ranks, global batch 336, lr 0.2, two epochs of
+   CPU (plain versions), then drives the two MNIST paths, LeNet at p=8
+   virtual ranks, global batch 336, lr 0.2, two epochs of
    ``synthetic_mnist`` each (the first warms up), with every launch count
    set to 0 just before each path and read just after it:
-   - synchronous AllReduce-SGD (one fused ring allreduce per step);
+   - synchronous AllReduce-SGD (one fused ring allreduce per step; the
+     first weight sync, 3.4 MB per rank, takes the binomial tree);
    - asynchronous AllReduce-SGD with the int8 wire (two gradient buckets
      per step: the first through the quantized ring kernel, the second
      on the vendor path), which prints the replicas' spread;
 5. holds the async buckets against blocking allreduces of the same
    buckets, bit for bit, step by step, for the 'full' and int8 wires, and
    runs one async 'full' epoch through ``check_with_allreduce``;
-6. profiles 5 steps of each main path (``torch.profiler``) and prints one
+6. drives the collectives benchmark (``utils.tester.run_matrix``, the
+   ``bench_collectives`` example's sweep) at p=8: broadcast, reduce,
+   allreduce, allgather and reducescatter over the xla, ring and kernel
+   backends, sync and async, sizes 2^8..2^23 with the reference's jitter,
+   then the kernel backend's allreduce under
+   ``ring_implementation='kernel_bidir'``; every config's closed form must
+   hold, each op's launch counts (0 just before, read just after) must be
+   the calls the sweep routed to each kernel, and each config prints one
+   ``{"bench": ...}`` line;
+7. profiles 5 steps of each MNIST path (``torch.profiler``) and prints one
    ``{"profile": ...}`` line each: device time by kernel and busy share;
-7. times each kernel, its plain version and, where there is one, a PyTorch
+8. times each kernel, its plain version and, where there is one, a PyTorch
    call computing the same function with CUDA events at the main paths'
    shapes, on inputs rotated past the L2, and prints one
    ``{"kernels": [...]}`` line;
-8. prints last ``{"ok": true, "device": {...}}``.
+9. prints last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import statistics
@@ -51,8 +62,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch  # noqa: E402
 
 import torchmpi_tpu_torch as mpi  # noqa: E402
+from torchmpi_tpu_torch import constants  # noqa: E402
 from torchmpi_tpu_torch import nn as mpinn  # noqa: E402
 from torchmpi_tpu_torch import ops  # noqa: E402
+from torchmpi_tpu_torch.collectives import primitives  # noqa: E402
 from torchmpi_tpu_torch.engine import AllReduceSGDEngine  # noqa: E402
 from torchmpi_tpu_torch.models import (  # noqa: E402
     LeNet,
@@ -61,7 +74,9 @@ from torchmpi_tpu_torch.models import (  # noqa: E402
     make_loss_fn,
 )
 from torchmpi_tpu_torch.ops import _build  # noqa: E402
+from torchmpi_tpu_torch.ops.ring_kernels import bidir_chunk_elems  # noqa: E402
 from torchmpi_tpu_torch.utils import DistributedIterator, synthetic_mnist  # noqa: E402
+from torchmpi_tpu_torch.utils.tester import run_matrix, sweep_sizes  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
@@ -73,6 +88,12 @@ LENET_PARAMS = 857738  # LeNet's fused gradient buffer, per rank
 BUCKET0 = 805386  # LeNet's first async gradient bucket, per rank
 LARGEST_LEAF = (256, 7 * 7 * 64)  # LeNet dense0.weight, the largest update
 WIRES = ("int8", "bf16")
+SWEEP = sweep_sizes(8, 23)  # the collectives benchmark's sizes, per rank
+BENCH_OPS = ("broadcast", "reduce", "allreduce", "allgather", "reducescatter")
+# run_one_config's calls in benchmark mode: the checked one, 10 warm-up, one
+# synchronised, 10 timed
+BENCH_CALLS = 22
+N23, N20 = 1 << 23, 1 << 20  # the kernels line's shapes per rank
 
 
 def require(cond: bool, what: str) -> None:
@@ -186,6 +207,84 @@ def check_quant(dev, gen) -> dict:
     return err
 
 
+def check_phases(dev, gen) -> dict:
+    """The reduce-scatter, allgather, reduce and bidirectional kernels
+    against their plain versions: p in {2, 3, 8}, ragged sizes, f32, bf16
+    and i32 (and bool and f64 for the allgather, with -0.0), every root of
+    the reduce, the bidirectional ring at odd n, at p=2 (run by K3) and
+    above one segment of its layout, then the kernels line's shapes and
+    the sweep's largest size at p=8."""
+    err = {}
+
+    def same(k, pl, what):
+        torch.cuda.synchronize()
+        require(k.dtype == pl.dtype and k.shape == pl.shape, f"{what}: shape/dtype")
+        require(torch.equal(bits(k), bits(pl)), f"{what} != plain")
+
+    dtypes = (torch.float32, torch.bfloat16, torch.int32)
+    for p in (2, 3, 8):
+        for n in (1, 1001, 8 * 128 * 8 + 3, 100003):
+            for dtype in dtypes:
+                x = rand((p, p * n), dtype, gen, dev)
+                same(ops.ring_reduce_scatter(x), ops.ring_reduce_scatter_plain(x),
+                     f"ring_reduce_scatter p={p} seg={n} {dtype}")
+                x = rand((p, n), dtype, gen, dev)
+                for root in range(p):
+                    same(ops.ring_reduce(x, root), ops.ring_reduce_plain(x, root),
+                         f"ring_reduce p={p} n={n} root={root} {dtype}")
+                same(ops.ring_allreduce_bidir(x), ops.ring_allreduce_bidir_plain(x),
+                     f"ring_allreduce_bidir p={p} n={n} {dtype}")
+            for dtype in dtypes + (torch.bool, torch.float64):
+                x = rand((p, n), dtype, gen, dev)
+                if dtype.is_floating_point:
+                    x[:, 0] = -0.0
+                k = ops.ring_allgather(x)
+                same(k, ops.ring_allgather_plain(x), f"ring_allgather p={p} n={n} {dtype}")
+                require(torch.equal(bits(k), bits(x.expand((p,) + tuple(x.shape)))),
+                        f"ring_allgather p={p} n={n} {dtype} lost bytes")
+    # the closed form: segment s of the reduce-scatter is p(p-1)/2
+    ranks = torch.arange(P, device=dev, dtype=torch.int32)[:, None].expand(P, P * 1000)
+    require(bool((ops.ring_reduce_scatter(ranks.contiguous()) == P * (P - 1) // 2).all()),
+            "ring_reduce_scatter closed form")
+    # p == 2 runs the unidirectional kernel, as the JAX wrapper delegates
+    before = ops.launch_counts()
+    x = rand((2, 1001), torch.float32, gen, dev)
+    same(ops.ring_allreduce_bidir(x), ops.ring_allreduce_plain(x), "ring_allreduce_bidir p=2")
+    after = ops.launch_counts()
+    require(after["ring_allreduce"] == before["ring_allreduce"] + 1
+            and after["ring_allreduce_bidir"] == before["ring_allreduce_bidir"],
+            "ring_allreduce_bidir p=2 did not run K3")
+    # three segments of the bidirectional layout per half, and odd
+    c = bidir_chunk_elems(3 * P * 57344, P, torch.float32)
+    n = 2 * 3 * P * c - 7
+    require(-(-n // 2) > 2 * P * c, "bidir input below three segments")
+    x = rand((P, n), torch.float32, gen, dev)
+    same(ops.ring_allreduce_bidir(x), ops.ring_allreduce_bidir_plain(x),
+         f"ring_allreduce_bidir p=8 n={n}")
+    # the kernels line's shapes (their max |kernel - plain|) and the
+    # sweep's largest size per rank
+    rs_n = -(-SWEEP[-1] // P) * P
+    for n, rs, ag in ((N23, N23, N20), (SWEEP[-1], rs_n, SWEEP[-1])):
+        x = rand((P, rs), torch.float32, gen, dev)
+        k, pl = ops.ring_reduce_scatter(x), ops.ring_reduce_scatter_plain(x)
+        same(k, pl, f"ring_reduce_scatter [8, {rs}]")
+        err.setdefault("ring_reduce_scatter", float((k - pl).abs().max()))
+        x = rand((P, ag), torch.float32, gen, dev)
+        k, pl = ops.ring_allgather(x), ops.ring_allgather_plain(x)
+        same(k, pl, f"ring_allgather [8, {ag}]")
+        err.setdefault("ring_allgather", float((k - pl).abs().max()))
+        del k, pl
+        x = rand((P, n), torch.float32, gen, dev)
+        for root in (0, 5):
+            k, pl = ops.ring_reduce(x, root), ops.ring_reduce_plain(x, root)
+            same(k, pl, f"ring_reduce [8, {n}] root={root}")
+            err.setdefault("ring_reduce", float((k - pl).abs().max()))
+        k, pl = ops.ring_allreduce_bidir(x), ops.ring_allreduce_bidir_plain(x)
+        same(k, pl, f"ring_allreduce_bidir [8, {n}]")
+        err.setdefault("ring_allreduce_bidir", float((k - pl).abs().max()))
+    return err
+
+
 def phase_kernels(dev) -> dict:
     """Every kernel against its plain version; returns the main-path
     max |kernel - plain| of each."""
@@ -259,6 +358,7 @@ def phase_kernels(dev) -> dict:
     require(torch.equal(bits(k), bits(pl)), "accumulate [8, 256, 3136] != plain")
 
     err.update(check_quant(dev, gen))
+    err.update(check_phases(dev, gen))
     print(f"kernels: all comparisons exact; main-path max|kernel - plain| = {err}")
     return err
 
@@ -293,18 +393,19 @@ def main_path(dev, mode: str, wire: str) -> dict:
     mpi.start(ranks=P)
     try:
         comm = mpi.current_communicator()
-        engine = AllReduceSGDEngine(
-            make_loss_fn(model), init_params(model, seed=0), lr=LR, comm=comm,
-            mode=mode, wire_dtype=wire,
-            hooks={
-                "on_update": lambda s: step_losses.append(s["loss"]),
-                "on_start_epoch": on_start_epoch,
-                "on_end_epoch": on_end_epoch,
-            },
-        )
-        it = DistributedIterator(xtr, ytr, BATCH, P, device=comm.device)
-        state = engine.train(lambda: iter(it), max_epochs=2)
-        torch.cuda.synchronize()
+        with counting(primitives, "tree_broadcast") as tree:
+            engine = AllReduceSGDEngine(
+                make_loss_fn(model), init_params(model, seed=0), lr=LR, comm=comm,
+                mode=mode, wire_dtype=wire,
+                hooks={
+                    "on_update": lambda s: step_losses.append(s["loss"]),
+                    "on_start_epoch": on_start_epoch,
+                    "on_end_epoch": on_end_epoch,
+                },
+            )
+            it = DistributedIterator(xtr, ytr, BATCH, P, device=comm.device)
+            state = engine.train(lambda: iter(it), max_epochs=2)
+            torch.cuda.synchronize()
         counts = ops.launch_counts()
         params = engine.params
         spread = max(float((v - v[0:1]).abs().max()) for v in params.values())
@@ -334,7 +435,26 @@ def main_path(dev, mode: str, wire: str) -> dict:
         f"samples/sec/chip ({mode}, wire {wire}): {steady:.1f} (second epoch; both epochs "
         f"with warm-up: {state['samples'] / state['time']:.1f}; {P} virtual ranks on 1 card)"
     )
-    return {"counts": counts, "steps": steps, "spread": spread, "samples_per_s": steady}
+    return {"counts": counts, "steps": steps, "spread": spread, "samples_per_s": steady,
+            "tree_broadcasts": len(tree)}
+
+
+@contextlib.contextmanager
+def counting(module, name: str):
+    """Count the calls of ``module.name`` inside the block (a list with one
+    entry per call)."""
+    calls = []
+    real = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
 
 
 def phase_trainer(dev) -> dict:
@@ -356,7 +476,11 @@ def phase_trainer(dev) -> dict:
     c, steps = sync["counts"], sync["steps"]
     require(c["ring_allreduce"] == steps,
             f"sync: ring_allreduce launched {c['ring_allreduce']} times in {steps} steps")
-    require(c["ring_broadcast"] >= 1, "sync: ring_broadcast never launched")
+    # the first weight sync, 3.4 MB per rank, is at most
+    # broadcast_size_tree_based_cuda (4 MiB): the binomial tree, not K7
+    require(sync["tree_broadcasts"] >= 1 and c["ring_broadcast"] == 0,
+            f"sync: weight broadcast took {sync['tree_broadcasts']} trees, "
+            f"{c['ring_broadcast']} K7 launches")
     require(c["accumulate"] >= steps, "sync: accumulate not launched every step")
     require(not any(v for k, v in c.items() if "quant" in k), "sync: a quantized ring launched")
     print("sync path: check_with_allreduce passed")
@@ -366,7 +490,9 @@ def phase_trainer(dev) -> dict:
     require(c["ring_allreduce_quant_int8"] == steps,
             f"async int8: quantized ring launched {c['ring_allreduce_quant_int8']} times in {steps} steps")
     require(c["ring_allreduce"] == 0, f"async int8: K3 ring_allreduce launched {c['ring_allreduce']} times")
-    require(c["ring_broadcast"] >= 1, "async int8: ring_broadcast never launched")
+    require(quant["tree_broadcasts"] >= 1 and c["ring_broadcast"] == 0,
+            f"async int8: weight broadcast took {quant['tree_broadcasts']} trees, "
+            f"{c['ring_broadcast']} K7 launches")
     require(c["accumulate"] >= steps, "async int8: accumulate not launched every step")
     require(quant["spread"] > 0, "async int8: replicas identical; the wire did not engage")
     return {"sync": sync, "async_int8": quant}
@@ -405,6 +531,86 @@ def phase_async(dev) -> None:
         finally:
             mpi.stop()
     print("async: every step's buckets equal the blocking allreduce bit for bit ('full', int8)")
+
+
+def bench_expected(op: str) -> dict:
+    """The kernel launches the sweep routes from one op's kernel-backend
+    configs (sync and async, BENCH_CALLS calls each), by the rules of the
+    flat lowering: allreduces above ``small_allreduce_size_cuda`` elements
+    go to K3 (K5 for 'allreduce_bidir'); broadcasts above
+    ``small_broadcast_size_cuda`` elements and ``broadcast_size_tree_based_cuda``
+    bytes to K7, smaller ones to the vendor path or the tree; every
+    reduce, allgather and reducescatter to its kernel."""
+    calls = 2 * BENCH_CALLS
+    if op in ("allreduce", "allreduce_bidir"):
+        big = [n for n in SWEEP if n > constants.get("small_allreduce_size_cuda")]
+        name = "ring_allreduce_bidir" if op == "allreduce_bidir" else "ring_allreduce"
+        return {name: calls * len(big)}
+    if op == "broadcast":
+        big = [n for n in SWEEP if n > constants.get("small_broadcast_size_cuda")
+               and 4 * n > constants.get("broadcast_size_tree_based_cuda")]
+        return {"ring_broadcast": calls * len(big)}
+    kernel = {"reduce": "ring_reduce", "allgather": "ring_allgather",
+              "reducescatter": "ring_reduce_scatter"}[op]
+    return {kernel: calls * len(SWEEP)}
+
+
+def phase_bench() -> dict:
+    """The collectives benchmark at p=8 (``run_matrix``, as
+    ``python -m torchmpi_tpu_torch.examples.bench_collectives`` runs it):
+    each op over the xla, ring and kernel backends, sync and async, every
+    size of the sweep, then the kernel-backend allreduce under
+    'kernel_bidir'. Each op's launch counts are set to 0 just before it
+    and must equal :func:`bench_expected` just after (every other kernel
+    0: a reduce or an allgather launches no K3). Returns the counts."""
+    runs, results = {}, []
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        for op in BENCH_OPS + ("allreduce_bidir",):
+            bidir = op == "allreduce_bidir"
+
+            def report(r, impl="kernel_bidir" if bidir else None):
+                row = {"op": r.op, "backend": r.backend, "mode": r.mode, "nelem": r.nelem,
+                       "us": r.mean_us, "bus_gbps": r.bus_gbps, "correct": r.correct}
+                if impl:
+                    row["ring_implementation"] = impl
+                if r.mode == "async":
+                    row["launch_us"] = r.launch_us
+                print(json.dumps({"bench": row}))
+
+            ops.reset_launch_counts()
+            if bidir:
+                constants.set("ring_implementation", "kernel_bidir")
+            try:
+                out = run_matrix(
+                    comm, ops=("allreduce",) if bidir else (op,),
+                    backends=("kernel",) if bidir else ("xla", "ring", "kernel"),
+                    modes=("sync", "async"), sizes=SWEEP, benchmark=True, report=report,
+                )
+                torch.cuda.synchronize()
+            finally:
+                constants.set("ring_implementation", "kernel")
+            counts = ops.launch_counts()
+            want = {name: 0 for name in counts}
+            want.update(bench_expected(op))
+            require(counts == want, f"bench {op}: launches {counts} != {want}")
+            bad = [(r.backend, r.mode, r.nelem) for r in out if not r.correct]
+            require(not bad, f"bench {op}: incorrect configs {bad}")
+            runs[f"bench_{op}"] = counts
+            results += out
+    finally:
+        mpi.stop()
+    launch = {}
+    for r in results:
+        if r.mode == "async":
+            launch.setdefault(r.backend, []).append(r.launch_us)
+    print(
+        f"bench: {len(results)} configs at p={P}, sizes {SWEEP[0]}..{SWEEP[-1]}, all correct; "
+        "launch counts as routed; median host time to issue an async call (us): "
+        + json.dumps({b: statistics.median(v) for b, v in launch.items()})
+    )
+    return runs
 
 
 def phase_profile(mode: str, wire: str) -> None:
@@ -482,7 +688,8 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
     the same function where there is one, at the main paths' shapes, on
     inputs rotated past the L2 (:func:`rotating`); bound_ms counts each
     input read once and each output written once. ``launches`` is the sum
-    over the two main-path runs, split in ``launches_by_path``."""
+    over the driven paths (``runs``: path -> launch counts), split in
+    ``launches_by_path``."""
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape):
@@ -538,6 +745,46 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
             plain=lambda x, w=wire: ops.ring_reduce_scatter_quant_plain(x, w),
             library=None,
         ))
+    # the collectives benchmark's kernels at the sweep's top size, 2^23 f32
+    # per rank (the allgather at 2^20: its output is p times its input)
+    rows += [
+        dict(
+            name="ring_reduce_scatter", source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:201",
+            shape=[P, N23], make=lambda: (randn(P, N23),), in_bytes=P * N23 * 4,
+            bytes=(P + 1) * N23 * 4, ops=(P - 1) * N23,
+            kernel=ops.ring_reduce_scatter, plain=ops.ring_reduce_scatter_plain,
+            library=lambda x: x.sum(0),
+        ),
+        dict(
+            name="ring_allgather", source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:201",
+            shape=[P, N20], make=lambda: (randn(P, N20),), in_bytes=P * N20 * 4,
+            bytes=(P + P * P) * N20 * 4, ops=0,
+            kernel=ops.ring_allgather, plain=ops.ring_allgather_plain,
+            library=lambda x: x.reshape(1, -1).expand(P, -1).contiguous(),
+        ),
+        dict(
+            # the 'rs' phase and the root gather in one kernel; the
+            # library call computes the root's sum only (the other rows'
+            # copy is not in it)
+            name="ring_reduce", source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:1120",
+            shape=[P, N23], make=lambda: (randn(P, N23),), in_bytes=P * N23 * 4,
+            bytes=2 * P * N23 * 4, ops=(P - 1) * N23,
+            kernel=lambda x: ops.ring_reduce(x, 0), plain=lambda x: ops.ring_reduce_plain(x, 0),
+            library=lambda x: x.sum(0),
+        ),
+        dict(
+            name="ring_allreduce_bidir", source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:897",
+            shape=[P, N23], make=lambda: (randn(P, N23),), in_bytes=P * N23 * 4,
+            bytes=2 * P * N23 * 4, ops=(P - 1) * N23,
+            kernel=ops.ring_allreduce_bidir, plain=ops.ring_allreduce_bidir_plain,
+            library=lambda x: x.sum(0, keepdim=True).expand_as(x).contiguous(),
+            k3=ops.ring_allreduce,
+        ),
+    ]
     out = []
     for r in rows:
 
@@ -546,7 +793,7 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
 
         ms = timed(r["kernel"])
         bound_ms, bound_by = bound(r["bytes"], r["ops"])
-        by_path = {path: run["counts"][r["name"]] for path, run in runs.items()}
+        by_path = {path: counts[r["name"]] for path, counts in runs.items()}
         row = {
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": sum(by_path.values()),
@@ -578,8 +825,9 @@ def main() -> None:
     phase_device()
     phase_build()
     errs = phase_kernels(dev)
-    runs = phase_trainer(dev)
+    runs = {path: run["counts"] for path, run in phase_trainer(dev).items()}
     phase_async(dev)
+    runs.update(phase_bench())
     phase_profile("sync", "full")
     phase_profile("async", "int8")
     phase_timing(dev, runs, errs)

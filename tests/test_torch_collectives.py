@@ -99,7 +99,9 @@ def test_selector_cuda_row():
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     assert selector.select("allreduce", cuda) == "kernel"
     assert selector.select("broadcast", cuda) == "kernel"
-    for op in ("allgather", "reducescatter", "alltoall", "sendreceive", "reduce"):
+    # the ring backend is available, so reduce takes it, as on the JAX tpu row
+    assert selector.select("reduce", cuda) == "ring"
+    for op in ("allgather", "reducescatter", "alltoall", "sendreceive"):
         assert selector.select(op, cuda) == "xla"
     # async allreduce on the card is the same ring on a side stream, as the
     # reference's GPU async allreduce was its p2p ring
@@ -126,18 +128,28 @@ def test_op_route_cutoffs(op, nelem, expect):
     assert eager.op_route(op, nelem, "cuda", "kernel") == "kernel"
 
 
-def test_ring_implementation_ppermute_raises():
-    """On a CUDA communicator the selector picks the custom ring, and the
-    'ppermute' ring it would then run is not ported yet."""
-    comm = Communicator(range(4), torch.device("cuda", 0))
-    constants.set("ring_implementation", "ppermute")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmpi.allreduce_tensor(torch.zeros(4, 100000), comm=comm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmpi.broadcast_tensor(torch.zeros(4, 100000), comm=comm)
+def test_ring_implementation_ppermute_raises(monkeypatch):
+    """Where the selector picks a custom ring, the ring_implementation
+    constant says which runs: 'ppermute' the ring backend, 'kernel' and
+    'kernel_bidir' the kernels (``collectives/__init__.py:50-64``); an
+    unknown name raises. The selector is pinned to its card choice, as the
+    CPU has no kernels."""
     tmpi.start(ranks=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmpi.allreduce_tensor(torch.zeros(4, 70000), backend="ring")
+    seen = []
+    real = eager.run
+    monkeypatch.setattr(selector, "select", lambda *a, **k: "kernel")
+    monkeypatch.setattr(eager, "run", lambda op, x, comm, backend, **kw: seen.append(backend)
+                        or real(op, x, comm, backend=backend, **kw))
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 70000).astype(np.float32))
+    for impl, backend in (("ppermute", "ring"), ("kernel", "kernel"), ("kernel_bidir", "kernel")):
+        constants.set("ring_implementation", impl)
+        out = tmpi.allreduce_tensor(x)
+        assert seen[-1] == backend
+        np.testing.assert_allclose(out.numpy(), np.broadcast_to(x.numpy().sum(0), x.shape),
+                                   rtol=1e-5, atol=1e-5)
+    constants.set("ring_implementation", "pallas")
+    with pytest.raises(CollectiveArgumentError, match="ring_implementation"):
+        tmpi.broadcast_tensor(x)
 
 
 def test_eager_validation():
@@ -148,8 +160,8 @@ def test_eager_validation():
         tmpi.broadcast_tensor(torch.zeros(4, 10), root=4)
     with pytest.raises(CollectiveArgumentError, match="unknown backend"):
         tmpi.allreduce_tensor(torch.zeros(4, 10), backend="nccl")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eager.run("allgather", torch.zeros(4, 10), tmpi.current_communicator())
+    with pytest.raises(CollectiveArgumentError, match="unknown collective"):
+        eager.run("gather", torch.zeros(4, 10), tmpi.current_communicator())
     with pytest.raises(CollectiveArgumentError, match="communicator on"):
         tmpi.allreduce_tensor(torch.zeros(4, 10, device="meta"))
 

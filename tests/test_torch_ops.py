@@ -123,11 +123,12 @@ def test_float64_and_complex_raise():
         with pytest.raises(ValueError, match="not supported"):
             ops.ring_allreduce(torch.zeros(2, 10, dtype=dtype))
     # the eager kernel backend routes such a reduction to the ring backend,
-    # which is not ported yet
+    # which sums f64 in f64, as the JAX package falls back to its ppermute ring
     tmpi.start(ranks=2, device="cpu")
     tmpi.constants.set("small_allreduce_size_cpu", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmpi.allreduce_tensor(torch.zeros(2, 10, dtype=torch.float64), backend="kernel")
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 10))
+    out = tmpi.allreduce_tensor(x, backend="kernel")
+    assert out.dtype == torch.float64 and torch.equal(out, (x[0] + x[1]).expand(2, 10))
 
 
 @pytest.mark.parametrize(
@@ -204,7 +205,9 @@ def test_wrappers_launch_or_raise_off_the_cpu():
         with pytest.raises(ValueError, match="CUDA or the CPU"):
             call()
     counts = ops.launch_counts()
-    assert set(counts) == {"ring_allreduce", "ring_broadcast", "accumulate"} | {
+    assert set(counts) == {"ring_allreduce", "ring_broadcast", "accumulate",
+                           "ring_reduce_scatter", "ring_allgather", "ring_reduce",
+                           "ring_allreduce_bidir"} | {
         f"{op}_{wire}" for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant")
         for wire in ("int8", "bf16")
     }

@@ -18,13 +18,25 @@ asynchronous, with an optional compressed wire::
 
 ``AllReduceSGDEngine(..., mode='async', wire_dtype='int8')`` syncs the
 gradients in buckets, async on a side stream, through the quantized ring
-kernel; ``mpi.collectives.async_`` returns handles to wait on.
+kernel; ``mpi.collectives.async_`` returns handles to wait on. The whole
+collective surface (broadcast, reduce, allreduce, allgather, sendreceive,
+reducescatter, alltoall) runs on the ``xla``, ``ring`` and ``kernel``
+backends; ``python -m torchmpi_tpu_torch.examples.bench_collectives``
+sweeps it.
 
 The package imports ``torch`` and never ``jax`` or ``torchmpi_tpu``.
 """
 
 from . import collectives, constants, nn, ops
-from .collectives import allreduce_tensor, broadcast_tensor
+from .collectives import (
+    allgather_tensor,
+    allreduce_tensor,
+    alltoall_tensor,
+    broadcast_tensor,
+    reduce_tensor,
+    reducescatter_tensor,
+    sendreceive_tensor,
+)
 from .runtime.communicator import Communicator, CommunicatorError
 from .runtime_state import (
     NotStartedError,
@@ -44,7 +56,9 @@ __all__ = [
     "Communicator",
     "CommunicatorError",
     "NotStartedError",
+    "allgather_tensor",
     "allreduce_tensor",
+    "alltoall_tensor",
     "broadcast_tensor",
     "collectives",
     "communicator_names",
@@ -55,6 +69,9 @@ __all__ = [
     "ops",
     "push_communicator",
     "rank",
+    "reduce_tensor",
+    "reducescatter_tensor",
+    "sendreceive_tensor",
     "set_communicator",
     "size",
     "start",

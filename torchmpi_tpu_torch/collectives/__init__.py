@@ -1,12 +1,14 @@
 """Public collectives surface of the port.
 
-As in ``torchmpi_tpu/collectives/__init__.py``: the selector-routed
-synchronous collectives at the top level take rank-stacked ``[p, ...]``
-tensors and return new ones, and ``async_`` holds the variants that return
-a :class:`~torchmpi_tpu_torch.runtime.handles.SyncHandle`. ``backend=``
-pins a backend (``'xla'``, ``'kernel'``), which lets the CPU tests drive
-the kernel path through the plain versions. This slice carries allreduce
-(with its ``wire_dtype``) and broadcast.
+As in ``torchmpi_tpu/collectives/__init__.py`` (``torchmpi/init.lua:145-365``):
+the selector-routed synchronous collectives at the top level take
+rank-stacked ``[p, ...]`` tensors and return new ones; the per-backend
+namespaces ``xla``, ``ring`` and ``kernel`` (the JAX package's ``pallas``)
+pin a backend; ``async_`` holds the variants that return a
+:class:`~torchmpi_tpu_torch.runtime.handles.SyncHandle`, with its own
+``async_.xla``, ``async_.ring`` and ``async_.kernel``. ``backend=`` on the
+top-level functions pins a backend too, which lets the CPU tests drive the
+kernel path through the plain versions.
 """
 
 from __future__ import annotations
@@ -19,9 +21,12 @@ from .. import constants
 from ..runtime.communicator import Communicator
 from ..runtime.handles import SyncHandle, sync_all, wait
 from . import eager, primitives
-from .eager import CollectiveArgumentError
+from .eager import CollectiveArgumentError, free_collective_resources
 from .fusion import FusionBuffer, get_fusion_buffer
 from .selector import backend_availability, selector
+
+# ring_implementation -> the backend that runs the selector's custom ring
+_RING_IMPLEMENTATIONS = {"kernel": "kernel", "kernel_bidir": "kernel", "ppermute": "ring"}
 
 
 def _current_comm(comm: Optional[Communicator]) -> Communicator:
@@ -35,52 +40,126 @@ def _current_comm(comm: Optional[Communicator]) -> Communicator:
 def _dispatch(op: str, x: torch.Tensor, comm: Optional[Communicator] = None,
               mode: str = "sync", backend: Optional[str] = None, **kw):
     """Run ``op`` on ``comm``: ``mode`` 'sync' returns the result, 'async'
-    a handle. ``backend=None`` takes the selector's choice for the mode."""
+    a handle. ``backend=None`` takes the selector's choice for the mode;
+    where that is a custom ring, the ``ring_implementation`` constant
+    (read per call) says which one runs (``collectives/__init__.py:50-64``):
+    'kernel' and 'kernel_bidir' the CUDA kernels, 'ppermute' the ``ring``
+    backend."""
     comm = _current_comm(comm)
     if backend is None:
         backend = selector.select(
             op, comm.device, multinode=comm.num_nodes() > 1, mode=mode
         )
-        if backend == "kernel":
-            # the selector decides vendor-vs-custom ring; which custom ring
-            # runs is the ring_implementation constant, read per call
+        if backend in ("ring", "kernel"):
             impl = constants.get("ring_implementation")
-            if impl == "ppermute":
-                raise eager._not_ported("ring_implementation='ppermute'")
-            if impl != "kernel":
+            if impl not in _RING_IMPLEMENTATIONS:
                 raise CollectiveArgumentError(
-                    f"unknown ring_implementation {impl!r}; expected 'kernel' "
-                    "or 'ppermute'"
+                    f"unknown ring_implementation {impl!r}; expected one of "
+                    f"{sorted(_RING_IMPLEMENTATIONS)}"
                 )
+            chosen = _RING_IMPLEMENTATIONS[impl]
+            if backend_availability(comm.device).get(chosen):
+                backend = chosen
     if mode == "sync":
         return eager.run(op, x, comm, backend=backend, **kw)
     return eager.run_async(op, x, comm, backend=backend, **kw)
 
 
+# --- selector-routed (default) namespace -----------------------------------
 def broadcast_tensor(x: torch.Tensor, root: int = 0, comm=None,
                      backend: Optional[str] = None) -> torch.Tensor:
     return _dispatch("broadcast", x, comm, "sync", backend, root=root)
 
 
+def reduce_tensor(x: torch.Tensor, root: int = 0, comm=None,
+                  backend: Optional[str] = None) -> torch.Tensor:
+    """Sum to ``root``; every other rank keeps its input."""
+    return _dispatch("reduce", x, comm, "sync", backend, root=root)
+
+
 def allreduce_tensor(x: torch.Tensor, comm=None, backend: Optional[str] = None,
                      wire_dtype: Optional[str] = None) -> torch.Tensor:
     """Sum-allreduce over the rank axis. ``wire_dtype`` ('full' | 'bf16' |
-    'int8') overrides the wire of the kernel ring (None = the constant);
+    'int8') overrides the wire of the custom rings (None = the constant);
     it engages only for f32 payloads of at least
     ``wire_quant_min_elements`` per rank."""
     return _dispatch("allreduce", x, comm, "sync", backend, wire_dtype=wire_dtype)
 
 
-class _AsyncNS:
+def allgather_tensor(x: torch.Tensor, comm=None,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """Every rank's block concatenated along the last dim, on every rank."""
+    return _dispatch("allgather", x, comm, "sync", backend)
+
+
+def sendreceive_tensor(x: torch.Tensor, src: int, dst: int, comm=None,
+                       backend: Optional[str] = None) -> torch.Tensor:
+    """``dst`` receives ``src``'s block; every other rank keeps its own."""
+    return _dispatch("sendreceive", x, comm, "sync", backend, src=src, dst=dst)
+
+
+def reducescatter_tensor(x: torch.Tensor, comm=None, backend: Optional[str] = None,
+                         wire_dtype: Optional[str] = None) -> torch.Tensor:
+    """Reduce-scatter over the last dim: rank r's block is slice r of the
+    elementwise sum. ``wire_dtype`` as in :func:`allreduce_tensor`."""
+    return _dispatch("reducescatter", x, comm, "sync", backend, wire_dtype=wire_dtype)
+
+
+def alltoall_tensor(x: torch.Tensor, comm=None,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """Input ``[p, p, ...]`` where block ``[r, s]`` is rank r's payload for
+    rank s; output block ``[r, j]`` is what rank j sent rank r."""
+    return _dispatch("alltoall", x, comm, "sync", backend)
+
+
+class _BackendNS:
+    """``mpi.xla.*`` / ``mpi.ring.*`` / ``mpi.kernel.*``: the collectives
+    pinned to one backend (``backend=None``: the selector's), in one mode
+    (``_BackendNS``, ``collectives/__init__.py:126``)."""
+
+    def __init__(self, backend: Optional[str], mode: str):
+        self._backend = backend
+        self._mode = mode
+
+    def broadcast_tensor(self, x, root: int = 0, comm=None):
+        return _dispatch("broadcast", x, comm, self._mode, self._backend, root=root)
+
+    def reduce_tensor(self, x, root: int = 0, comm=None):
+        return _dispatch("reduce", x, comm, self._mode, self._backend, root=root)
+
+    def allreduce_tensor(self, x, comm=None, wire_dtype: Optional[str] = None):
+        return _dispatch("allreduce", x, comm, self._mode, self._backend,
+                         wire_dtype=wire_dtype)
+
+    def allgather_tensor(self, x, comm=None):
+        return _dispatch("allgather", x, comm, self._mode, self._backend)
+
+    def sendreceive_tensor(self, x, src: int, dst: int, comm=None):
+        return _dispatch("sendreceive", x, comm, self._mode, self._backend,
+                         src=src, dst=dst)
+
+    def reducescatter_tensor(self, x, comm=None, wire_dtype: Optional[str] = None):
+        return _dispatch("reducescatter", x, comm, self._mode, self._backend,
+                         wire_dtype=wire_dtype)
+
+    def alltoall_tensor(self, x, comm=None):
+        return _dispatch("alltoall", x, comm, self._mode, self._backend)
+
+
+class _AsyncNS(_BackendNS):
     """``mpi.async_.*``: collectives that return a handle
     (``torchmpi/init.lua:145-365``'s ``MPI.async`` namespace)."""
 
-    def allreduce_tensor(self, x: torch.Tensor, comm=None,
-                         backend: Optional[str] = None,
-                         wire_dtype: Optional[str] = None) -> SyncHandle:
-        return _dispatch("allreduce", x, comm, "async", backend, wire_dtype=wire_dtype)
+    def __init__(self):
+        super().__init__(None, "async")
+        self.xla = _BackendNS("xla", "async")
+        self.ring = _BackendNS("ring", "async")
+        self.kernel = _BackendNS("kernel", "async")
 
 
+xla = _BackendNS("xla", "sync")
+ring = _BackendNS("ring", "sync")
+kernel = _BackendNS("kernel", "sync")
 async_ = _AsyncNS()
 
 
@@ -88,14 +167,23 @@ __all__ = [
     "CollectiveArgumentError",
     "FusionBuffer",
     "SyncHandle",
+    "allgather_tensor",
     "allreduce_tensor",
+    "alltoall_tensor",
     "async_",
     "backend_availability",
     "broadcast_tensor",
     "eager",
+    "free_collective_resources",
     "get_fusion_buffer",
+    "kernel",
     "primitives",
+    "reduce_tensor",
+    "reducescatter_tensor",
+    "ring",
     "selector",
+    "sendreceive_tensor",
     "sync_all",
     "wait",
+    "xla",
 ]

@@ -8,8 +8,8 @@ the first *available* backend wins. The platforms are the device types
 backends:
 
 - ``xla``    — the vendor path: plain PyTorch over the rank axis;
-- ``ring``   — the JAX package's ``ppermute`` ring, not ported yet
-  (ROADMAP queue A2), so never available;
+- ``ring``   — the JAX package's ``ppermute`` ring, hop by hop on the rank
+  axis (``primitives.ring_*``); always available, as in the JAX package;
 - ``kernel`` — the hand-written CUDA ring kernels (``ops/``), the
   counterpart of ``pallas``; available on a CUDA communicator.
 """
@@ -34,7 +34,7 @@ _COLLECTIVES = (
 def backend_availability(device: Optional[torch.device] = None) -> Dict[str, bool]:
     return {
         "xla": True,
-        "ring": False,
+        "ring": True,
         "kernel": device is not None and torch.device(device).type == "cuda",
     }
 

@@ -81,8 +81,10 @@ class _Constants:
     # --- additions without a reference analog ---
     # Preferred backend order is handled by the selector; this picks the
     # default custom-ring implementation: 'kernel' (the hand-written CUDA
-    # ring kernels, ops/ring_kernels.py) or 'ppermute' (the point-to-point
-    # ring of the JAX package, not yet ported: ROADMAP queue A2).
+    # ring kernels, ops/ring_kernels.py), 'kernel_bidir' (the same, with
+    # the kernel backend's allreduce on the bidirectional ring kernel: the
+    # counterpart of 'pallas_bidir') or 'ppermute' (the point-to-point ring,
+    # the 'ring' backend, collectives/primitives.py).
     ring_implementation: str = "kernel"
     # Bound on cached compiled executables per communicator (LRU evicted).
     # The reference frees per-size IPC descriptors between tester sweeps

@@ -2,6 +2,12 @@
 
 - ``ring_allreduce`` (``csrc/ring_kernels.cu``) replaces the JAX package's
   ``ops/ring_kernels.py:_ring_phases_kernel`` in allreduce mode;
+- ``ring_reduce_scatter`` and ``ring_allgather`` (``csrc/ring_kernels.cu``)
+  replace the same kernel in its 'rs' and 'ag' modes;
+- ``ring_reduce`` (``csrc/ring_kernels.cu``) replaces the 'rs' mode followed
+  by ``ops/ring_kernels.py:_ring_gather_root_kernel``;
+- ``ring_allreduce_bidir`` (``csrc/ring_kernels.cu``) replaces
+  ``ops/ring_kernels.py:_ring_bidir_kernel``;
 - ``ring_broadcast`` (``csrc/ring_kernels.cu``) replaces
   ``ops/ring_kernels.py:_ring_broadcast_kernel``;
 - ``ring_allreduce_quant`` and ``ring_reduce_scatter_quant``
@@ -21,12 +27,20 @@ from typing import Dict
 from . import reduce_kernel, ring_kernels
 from .reduce_kernel import accumulate, accumulate_plain
 from .ring_kernels import (
+    ring_allgather,
+    ring_allgather_plain,
     ring_allreduce,
+    ring_allreduce_bidir,
+    ring_allreduce_bidir_plain,
     ring_allreduce_plain,
     ring_allreduce_quant,
     ring_allreduce_quant_plain,
     ring_broadcast,
     ring_broadcast_plain,
+    ring_reduce,
+    ring_reduce_plain,
+    ring_reduce_scatter,
+    ring_reduce_scatter_plain,
     ring_reduce_scatter_quant,
     ring_reduce_scatter_quant_plain,
 )
@@ -47,12 +61,20 @@ __all__ = [
     "accumulate_plain",
     "launch_counts",
     "reset_launch_counts",
+    "ring_allgather",
+    "ring_allgather_plain",
     "ring_allreduce",
+    "ring_allreduce_bidir",
+    "ring_allreduce_bidir_plain",
     "ring_allreduce_plain",
     "ring_allreduce_quant",
     "ring_allreduce_quant_plain",
     "ring_broadcast",
     "ring_broadcast_plain",
+    "ring_reduce",
+    "ring_reduce_plain",
+    "ring_reduce_scatter",
+    "ring_reduce_scatter_plain",
     "ring_reduce_scatter_quant",
     "ring_reduce_scatter_quant_plain",
 ]

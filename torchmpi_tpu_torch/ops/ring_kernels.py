@@ -1,25 +1,30 @@
-"""Ring allreduce and ring broadcast over virtual ranks on one CUDA card.
+"""The ring kernels over virtual ranks on one CUDA card.
 
-The port of the two ``torchmpi_tpu/ops/ring_kernels.py`` kernels on the
-main path: ``_ring_phases_kernel`` in allreduce mode (via
-``ring_allreduce_pallas``) and ``_ring_broadcast_kernel`` (via
-``ring_broadcast_pallas``). The kernels are hand-written CUDA in
-``csrc/ring_kernels.cu``; each has a plain PyTorch version here that
-repeats its arithmetic. A wrapper takes the plain version only for a
-tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
+The port of the ``torchmpi_tpu/ops/ring_kernels.py`` kernels:
+``_ring_phases_kernel`` in its three modes (allreduce via
+``ring_allreduce_pallas``, 'rs' via ``ring_reduce_scatter_pallas``, 'ag' via
+``ring_allgather_pallas``), 'rs' followed by ``_ring_gather_root_kernel``
+(``ring_reduce_pallas``), ``_ring_bidir_kernel``
+(``ring_allreduce_bidir_pallas``), ``_ring_broadcast_kernel``
+(``ring_broadcast_pallas``) and ``_ring_quant_kernel`` (the int8/bf16 wire).
+The kernels are hand-written CUDA in ``csrc/ring_kernels.cu`` and
+``csrc/ring_quant.cu``; each has a plain PyTorch version here that repeats
+its arithmetic. A wrapper takes the plain version only for a tensor on the
+CPU; for a CUDA tensor it launches the kernel or raises.
 
 Inputs are rank-stacked: ``x[r]`` is rank r's buffer, and the leading axis
 is the ring. Two contracts of the JAX kernels are kept:
 
-- **Chunk layout and order of adds.** :func:`chunk_elems` is the JAX
+- **Chunk layout and order of adds.** :func:`chunk_elems` (and
+  :func:`bidir_chunk_elems`, :func:`quant_chunk_elems`) is the JAX
   wrapper's integer arithmetic (``_tile_rows``, ``_max_rows`` and
   ``_segmented``): it cuts each rank's flat buffer into segments of p ring
   chunks. The chunk that holds an element is the rank its sum starts at,
   and the sum runs round the ring from there. Adds happen in the payload
-  type. So a float allreduce gives the JAX ring's bits.
+  type. So a float reduction gives the JAX ring's bits.
 - **Dtypes.** f32, bf16, f16, i32, i8 and u8 are native; i16, u16 and bool
-  reduce in an i32 carrier; anything else raises. The broadcast moves
-  bytes, so it carries every dtype unchanged.
+  reduce in an i32 carrier; anything else raises. The broadcast and the
+  allgather move bytes, so they carry every dtype but complex unchanged.
 """
 
 from __future__ import annotations
@@ -53,19 +58,28 @@ WIRES = ("int8", "bf16")
 launches = {
     "ring_allreduce": 0,
     "ring_broadcast": 0,
+    "ring_reduce_scatter": 0,
+    "ring_allgather": 0,
+    "ring_reduce": 0,
+    "ring_allreduce_bidir": 0,
     **{f"{op}_{wire}": 0 for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant")
        for wire in WIRES},
 }
 
+_PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "tm_ring_allreduce": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ],
-    "tm_ring_broadcast": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p,
-    ],
+    # x, out, dtype, p, n, chunk_elems, stream
+    "tm_ring_allreduce": [_PTR, _PTR, _INT, _INT, _LONG, _LONG, _PTR],
+    # x, out, p, row_bytes, root, stream
+    "tm_ring_broadcast": [_PTR, _PTR, _INT, _LONG, _INT, _PTR],
+    # x, out, dtype, p, seg_n, stream
+    "tm_ring_reduce_scatter": [_PTR, _PTR, _INT, _INT, _LONG, _PTR],
+    # x, out, p, row_bytes, stream
+    "tm_ring_allgather": [_PTR, _PTR, _INT, _LONG, _PTR],
+    # x, out, dtype, p, n, chunk_elems, root, stream
+    "tm_ring_reduce": [_PTR, _PTR, _INT, _INT, _LONG, _LONG, _INT, _PTR],
+    # x, out, dtype, p, n, half, chunk_elems, stream
+    "tm_ring_allreduce_bidir": [_PTR, _PTR, _INT, _INT, _LONG, _LONG, _LONG, _PTR],
 }
 
 
@@ -135,6 +149,34 @@ def _as_rows(x: torch.Tensor):
     return (rows if carrier == x.dtype else rows.to(carrier)), carrier
 
 
+def _check_cuda(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or the CPU, not {x.device}")
+
+
+def _launch(fn: str, x: torch.Tensor, *args) -> None:
+    """Launch ``fn`` of the ring_kernels library on ``x``'s card and its
+    current stream; raise if the launch reports a CUDA error."""
+    from ._build import check
+
+    with torch.cuda.device(x.device):
+        err = getattr(_lib(), fn)(*args, torch.cuda.current_stream().cuda_stream)
+    check(err, fn)
+
+
+def _ring_sum(rows: torch.Tensor, chunk: int, step: int = 1) -> torch.Tensor:
+    """The ring's sum over the ``[p, n]`` rows: element i's sum starts at
+    the rank of its chunk, ``(i % (p * chunk)) // chunk``, and adds the
+    ranks after it (``step`` 1, rightward) or before it (``step`` -1,
+    leftward) round the ring, in the rows' dtype."""
+    p, n = rows.shape
+    start = (torch.arange(n, device=rows.device) % (p * chunk)) // chunk
+    acc = rows.gather(0, start[None])[0]
+    for k in range(1, p):
+        acc = acc + rows.gather(0, ((start + step * k) % p)[None])[0]
+    return acc
+
+
 def ring_allreduce_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`ring_allreduce`: the same chunk
     layout and the same order of adds, in the same payload type."""
@@ -144,11 +186,7 @@ def ring_allreduce_plain(x: torch.Tensor) -> torch.Tensor:
         return x
     rows, carrier = _as_rows(x)
     n = rows.shape[1]
-    c = chunk_elems(n, p, carrier)
-    start = (torch.arange(n, device=x.device) % (p * c)) // c
-    acc = rows.gather(0, start[None])[0]
-    for k in range(1, p):
-        acc = acc + rows.gather(0, ((start + k) % p)[None])[0]
+    acc = _ring_sum(rows, chunk_elems(n, p, carrier))
     return acc.expand(p, n).contiguous().to(x.dtype).reshape(x.shape)
 
 
@@ -160,8 +198,7 @@ def ring_allreduce(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ring_allreduce_plain(x)
     _check_stacked(x, "ring_allreduce")
-    if x.device.type != "cuda":
-        raise ValueError(f"ring_allreduce runs on CUDA or the CPU, not {x.device}")
+    _check_cuda(x, "ring_allreduce")
     p = x.shape[0]
     if p == 1:
         return x
@@ -169,21 +206,200 @@ def ring_allreduce(x: torch.Tensor) -> torch.Tensor:
     n = rows.shape[1]
     out = torch.empty_like(rows)
     if n:
-        from ._build import check
-
-        with torch.cuda.device(x.device):
-            err = _lib().tm_ring_allreduce(
-                rows.data_ptr(), out.data_ptr(), NATIVE_DTYPES[carrier], p, n,
-                chunk_elems(n, p, carrier), torch.cuda.current_stream().cuda_stream,
-            )
-        check(err, "ring_allreduce")
+        _launch("tm_ring_allreduce", x, rows.data_ptr(), out.data_ptr(),
+                NATIVE_DTYPES[carrier], p, n, chunk_elems(n, p, carrier))
         launches["ring_allreduce"] += 1
     return out.to(x.dtype).reshape(x.shape)
+
+
+def _rs_shape(x: torch.Tensor, what: str):
+    p = x.shape[0]
+    if x.ndim < 2 or x.shape[1] % p:
+        raise ValueError(
+            f"{what} scatters dim 1 of the rank-stacked input, which must "
+            f"divide by p={p}; got shape {tuple(x.shape)}"
+        )
+    return (p, x.shape[1] // p) + tuple(x.shape[2:])
+
+
+def ring_reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_reduce_scatter`: segment s's
+    sum starts at rank s + 1 and walks rightward to its owner, rank s, in
+    the payload type."""
+    _check_stacked(x, "ring_reduce_scatter")
+    out_shape = _rs_shape(x, "ring_reduce_scatter")
+    p = x.shape[0]
+    if p == 1:
+        return x
+    rows, _ = _as_rows(x)
+    segs = rows.reshape(p, p, -1)  # [rank, segment, seg_n]
+    s = torch.arange(p, device=x.device)
+    acc = segs[(s + 1) % p, s]
+    for k in range(2, p + 1):
+        acc = acc + segs[(s + k) % p, s]
+    return acc.to(x.dtype).reshape(out_shape)
+
+
+def ring_reduce_scatter(x: torch.Tensor, wire: str = "full") -> torch.Tensor:
+    """Reduce-scatter the rank-stacked ``x`` (``[p, m, ...]``, ``m``
+    divisible by p) with ``lax.psum_scatter`` tiled semantics on each
+    rank's dim 0: row r of the ``[p, m/p, ...]`` result is the sum of
+    every rank's slice r (``ring_reduce_scatter_pallas``,
+    ``ring_kernels.py:437``: the phases kernel's 'rs' mode after its
+    pre-roll by one). A ``wire`` ('int8' or 'bf16') runs the quantized
+    ring's 'rs' mode, :func:`ring_reduce_scatter_quant`. The CUDA kernel
+    for a CUDA tensor, the plain version for a CPU one."""
+    if wire != "full":
+        return ring_reduce_scatter_quant(x, wire)
+    if x.device.type == "cpu":
+        return ring_reduce_scatter_plain(x)
+    _check_stacked(x, "ring_reduce_scatter")
+    out_shape = _rs_shape(x, "ring_reduce_scatter")
+    _check_cuda(x, "ring_reduce_scatter")
+    p = x.shape[0]
+    if p == 1:
+        return x
+    rows, carrier = _as_rows(x)
+    out = torch.empty((p, rows.shape[1] // p), dtype=carrier, device=x.device)
+    seg_n = out.shape[1]
+    if seg_n:
+        _launch("tm_ring_reduce_scatter", x, rows.data_ptr(), out.data_ptr(),
+                NATIVE_DTYPES[carrier], p, seg_n)
+        launches["ring_reduce_scatter"] += 1
+    return out.to(x.dtype).reshape(out_shape)
+
+
+def _check_movable(x: torch.Tensor, what: str) -> None:
+    _check_stacked(x, what)
+    if x.dtype.is_complex:
+        raise ValueError(f"{what}: complex dtypes are not supported ({x.dtype})")
+
+
+def ring_allgather_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_allgather`: every rank's row
+    of the result is a copy of all of ``x``."""
+    _check_movable(x, "ring_allgather")
+    p = x.shape[0]
+    return x.unsqueeze(0).expand((p,) + tuple(x.shape)).contiguous()
+
+
+def ring_allgather(x: torch.Tensor) -> torch.Tensor:
+    """Allgather the rank-stacked ``x`` (``[p, *s]``) into ``[p, p, *s]``:
+    every rank gets every rank's block, stacked in rank order
+    (``ring_allgather_pallas``, ``ring_kernels.py:831``: the phases
+    kernel's 'ag' mode). Any dtype but complex: the kernel copies bytes,
+    so bool and -0.0 survive. The CUDA kernel for a CUDA tensor, the plain
+    version for a CPU one."""
+    if x.device.type == "cpu":
+        return ring_allgather_plain(x)
+    _check_movable(x, "ring_allgather")
+    _check_cuda(x, "ring_allgather")
+    p = x.shape[0]
+    out = torch.empty((p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    row_bytes = x[0].numel() * x.element_size()
+    if row_bytes:
+        _launch("tm_ring_allgather", x, x.data_ptr(), out.data_ptr(), p, row_bytes)
+        launches["ring_allgather"] += 1
+    return out
 
 
 def _check_root(root: int, p: int) -> None:
     if not 0 <= root < p:
         raise ValueError(f"root {root} out of range for {p} ranks")
+
+
+def ring_reduce_plain(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_reduce`: the root's row is the
+    ring allreduce's row, every other row the input."""
+    _check_stacked(x, "ring_reduce")
+    p = x.shape[0]
+    _check_root(root, p)
+    if p == 1:
+        return x
+    rows, carrier = _as_rows(x)
+    out = rows.clone()
+    out[root] = _ring_sum(rows, chunk_elems(rows.shape[1], p, carrier))
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def ring_reduce(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Sum-reduce the rank-stacked ``x`` to rank ``root``; every other
+    rank keeps its input (``ring_reduce_pallas``, ``ring_kernels.py:1232``:
+    the phases kernel's 'rs' mode in the allreduce's chunk layout, then
+    ``_ring_gather_root_kernel`` bringing the owned sums to the root). On
+    one card the gather moves nothing: the kernel writes the sums straight
+    into the root's row, so that row equals :func:`ring_allreduce`'s bit
+    for bit. The CUDA kernel for a CUDA tensor, the plain version for a
+    CPU one."""
+    if x.device.type == "cpu":
+        return ring_reduce_plain(x, root)
+    _check_stacked(x, "ring_reduce")
+    _check_cuda(x, "ring_reduce")
+    p = x.shape[0]
+    _check_root(root, p)
+    if p == 1:
+        return x
+    rows, carrier = _as_rows(x)
+    n = rows.shape[1]
+    out = torch.empty_like(rows)
+    if n:
+        _launch("tm_ring_reduce", x, rows.data_ptr(), out.data_ptr(),
+                NATIVE_DTYPES[carrier], p, n, chunk_elems(n, p, carrier), root)
+        launches["ring_reduce"] += 1
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def bidir_chunk_elems(half: int, p: int, dtype: torch.dtype) -> int:
+    """Elements per ring chunk of each half of the bidirectional allreduce
+    for ``half`` elements per half, as ``_segmented_pair_ready`` lays them
+    out (``ring_kernels.py:1091-1112``): the tile rows of ``ceil(half /
+    p)``, bounded by half the VMEM budget of :func:`chunk_elems`. Element i
+    of a half lies in chunk ``(i % (p * c)) // c``."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    min_rows = _min_rows(itemsize)
+    rows = _tile_rows(-(-half // p), min_rows)
+    budget = max(min_rows, _max_rows(p, itemsize, min_rows) // 2 // min_rows * min_rows)
+    return min(rows, budget) * _LANES
+
+
+def ring_allreduce_bidir_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_allreduce_bidir`."""
+    _check_stacked(x, "ring_allreduce_bidir")
+    p = x.shape[0]
+    if p <= 2:
+        return ring_allreduce_plain(x)
+    rows, carrier = _as_rows(x)
+    n = rows.shape[1]
+    half = -(-n // 2)
+    c = bidir_chunk_elems(half, p, carrier)
+    acc = torch.cat([_ring_sum(rows[:, :half], c, 1), _ring_sum(rows[:, half:], c, -1)])
+    return acc.expand(p, n).contiguous().to(x.dtype).reshape(x.shape)
+
+
+def ring_allreduce_bidir(x: torch.Tensor) -> torch.Tensor:
+    """Sum-allreduce the rank-stacked ``x`` over two rings at once
+    (``ring_allreduce_bidir_pallas``, ``ring_kernels.py:1005``): the first
+    ``ceil(n/2)`` elements of each rank's flat buffer (half A) are summed
+    rightward from their chunk's rank, the rest (half B) leftward, each
+    half in the :func:`bidir_chunk_elems` layout. ``p <= 2`` runs
+    :func:`ring_allreduce`, as the JAX wrapper delegates at p == 2. The
+    CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
+    if x.device.type == "cpu":
+        return ring_allreduce_bidir_plain(x)
+    _check_stacked(x, "ring_allreduce_bidir")
+    _check_cuda(x, "ring_allreduce_bidir")
+    p = x.shape[0]
+    if p <= 2:
+        return ring_allreduce(x)
+    rows, carrier = _as_rows(x)
+    n = rows.shape[1]
+    out = torch.empty_like(rows)
+    if n:
+        half = -(-n // 2)
+        _launch("tm_ring_allreduce_bidir", x, rows.data_ptr(), out.data_ptr(),
+                NATIVE_DTYPES[carrier], p, n, half, bidir_chunk_elems(half, p, carrier))
+        launches["ring_allreduce_bidir"] += 1
+    return out.to(x.dtype).reshape(x.shape)
 
 
 def ring_broadcast_plain(x: torch.Tensor, root: int = 0) -> torch.Tensor:
@@ -207,8 +423,7 @@ def ring_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
     if x.device.type == "cpu":
         return ring_broadcast_plain(x, root)
     _check_stacked(x, "ring_broadcast")
-    if x.device.type != "cuda":
-        raise ValueError(f"ring_broadcast runs on CUDA or the CPU, not {x.device}")
+    _check_cuda(x, "ring_broadcast")
     p = x.shape[0]
     _check_root(root, p)
     if p == 1:
@@ -216,14 +431,7 @@ def ring_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
     out = torch.empty_like(x)
     row_bytes = x[0].numel() * x.element_size()
     if row_bytes:
-        from ._build import check
-
-        with torch.cuda.device(x.device):
-            err = _lib().tm_ring_broadcast(
-                x.data_ptr(), out.data_ptr(), p, row_bytes, root,
-                torch.cuda.current_stream().cuda_stream,
-            )
-        check(err, "ring_broadcast")
+        _launch("tm_ring_broadcast", x, x.data_ptr(), out.data_ptr(), p, row_bytes, root)
         launches["ring_broadcast"] += 1
     return out
 
@@ -359,16 +567,6 @@ def ring_allreduce_quant_plain(x: torch.Tensor, wire: str) -> torch.Tensor:
     return out.reshape(p, -1)[:, :n].reshape(x.shape)
 
 
-def _rs_shape(x: torch.Tensor, what: str):
-    p = x.shape[0]
-    if x.ndim < 2 or x.shape[1] % p:
-        raise ValueError(
-            f"{what} scatters dim 1 of the rank-stacked input, which must "
-            f"divide by p={p}; got shape {tuple(x.shape)}"
-        )
-    return (p, x.shape[1] // p) + tuple(x.shape[2:])
-
-
 def ring_reduce_scatter_quant_plain(x: torch.Tensor, wire: str) -> torch.Tensor:
     """Plain PyTorch version of :func:`ring_reduce_scatter_quant`."""
     _check_quant(x, wire, "ring_reduce_scatter_quant")
@@ -397,11 +595,6 @@ def _launch_quant(x: torch.Tensor, out: torch.Tensor, wire: str, mode: str,
             x.shape[0], n, chunk, torch.cuda.current_stream().cuda_stream,
         )
     check(err, f"ring quant ({mode}, {wire})")
-
-
-def _check_cuda(x: torch.Tensor, what: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA or the CPU, not {x.device}")
 
 
 def ring_allreduce_quant(x: torch.Tensor, wire: str) -> torch.Tensor:
