@@ -12,9 +12,10 @@ phase fails:
    source, started together);
 3. holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and over a sweep of dtypes, wires, modes, ranks,
-   roots and ragged sizes: every comparison must be exact (the plain
-   versions repeat the kernels' arithmetic in the same order and type),
-   and the closed form "rank r contributes r" must sum to p(p-1)/2;
+   roots and ragged sizes: every comparison of a collective kernel must be
+   exact (the plain versions repeat the kernels' arithmetic in the same
+   order and type), and the closed form "rank r contributes r" must sum to
+   p(p-1)/2;
 4. checks the trainer on a small input against the same trainer on the
    CPU (plain versions), then drives the two MNIST paths, LeNet at p=8
    virtual ranks, global batch 336, lr 0.2, two epochs of
@@ -37,13 +38,27 @@ phase fails:
    hold, each op's launch counts (0 just before, read just after) must be
    the calls the sweep routed to each kernel, and each config prints one
    ``{"bench": ...}`` line;
-7. profiles 5 steps of each MNIST path (``torch.profiler``) and prints one
-   ``{"profile": ...}`` line each: device time by kernel and busy share;
-8. times each kernel, its plain version and, where there is one, a PyTorch
+7. drives the long-context LM path (``examples/long_context.py``): a small
+   LM on the card against the same LM on the CPU (plain versions), then the
+   ``lm`` line's widths (vocab 8192, 8 layers, 8 heads x 64, d_model 512),
+   4096 tokens over sp=4 virtual ranks, batch 4, Adam lr 3e-4, causal, f32:
+   20 steps with ``kernel_full`` (K8 forward, K10 backward, in every layer)
+   with exact launch counts and the loss falling, then 5 steps each with
+   ``kernel_bidir_full`` (K9) and ``xla`` (no kernel) from the same init
+   and batches, whose losses must match the first 5;
+8. profiles 5 steps of each MNIST path and 2 LM steps (``torch.profiler``)
+   and prints one ``{"profile": ...}`` line each: device time by kernel and
+   busy share;
+9. times each kernel, its plain version and, where there is one, a PyTorch
    call computing the same function with CUDA events at the main paths'
    shapes, on inputs rotated past the L2, and prints one
    ``{"kernels": [...]}`` line;
-9. prints last ``{"ok": true, "device": {...}}``.
+10. prints last ``{"ok": true, "device": {...}}``.
+
+Kernels are held to their plain versions bit for bit, but for the ring
+attention kernels (K8, K9, K10), which merge 64-key tiles where the plain
+versions merge whole blocks: those agree within the tolerances of
+``ATTN_TOL`` (f32) and ``BF16_REL`` (bf16).
 """
 
 from __future__ import annotations
@@ -55,6 +70,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -67,15 +83,20 @@ from torchmpi_tpu_torch import nn as mpinn  # noqa: E402
 from torchmpi_tpu_torch import ops  # noqa: E402
 from torchmpi_tpu_torch.collectives import primitives  # noqa: E402
 from torchmpi_tpu_torch.engine import AllReduceSGDEngine  # noqa: E402
+from torchmpi_tpu_torch.examples import long_context  # noqa: E402
 from torchmpi_tpu_torch.models import (  # noqa: E402
     LeNet,
+    LongContextTransformer,
     accuracy,
+    init_lm_params,
     init_params,
     make_loss_fn,
 )
 from torchmpi_tpu_torch.ops import _build  # noqa: E402
 from torchmpi_tpu_torch.ops.ring_kernels import bidir_chunk_elems  # noqa: E402
+from torchmpi_tpu_torch.parallel import ring_self_attention  # noqa: E402
 from torchmpi_tpu_torch.utils import DistributedIterator, synthetic_mnist  # noqa: E402
+from torchmpi_tpu_torch.utils.flops import mfu, train_flops, transformer_forward_flops  # noqa: E402
 from torchmpi_tpu_torch.utils.tester import run_matrix, sweep_sizes  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
@@ -94,6 +115,19 @@ BENCH_OPS = ("broadcast", "reduce", "allreduce", "allgather", "reducescatter")
 # synchronised, 10 timed
 BENCH_CALLS = 22
 N23, N20 = 1 << 23, 1 << 20  # the kernels line's shapes per rank
+# the LM path: the bench's lm line widths, 4096 tokens over sp=4, batch 4
+LM_WIDTHS = dict(vocab_size=8192, num_layers=8, num_heads=8, head_dim=64, d_model=512,
+                 max_len=4096)
+LM_SEQ, LM_SP, LM_BATCH, LM_LR, LM_STEPS, LM_CHECK_STEPS = 4096, 4, 4, 3e-4, 20, 5
+ATTN_MAIN = (LM_SP, LM_BATCH, LM_SEQ // LM_SP, 8, 64)  # its [sp, b, n_local, h, d]
+# kernel against plain, (atol, rtol). f32: as tests/test_ops.py holds the
+# JAX kernels, outputs atol 2e-5, the backward and K9 against K8 2e-4; lse
+# (f32 for every input dtype) 1e-4. bf16: both sides round an f32 result
+# to bf16, so they differ by at most one bf16 ulp (2^-7 of the value) and
+# the f32 sums' rounding: rtol 2^-7, atol 2^-7 of the largest |plain|, a
+# limit that scales with the values compared
+ATTN_TOL = {"o": (2e-5, 0.0), "lse": (1e-4, 0.0), "grad": (2e-4, 2e-4), "k9_vs_k8": (2e-4, 2e-4)}
+BF16_REL = 2.0**-7
 
 
 def require(cond: bool, what: str) -> None:
@@ -285,6 +319,73 @@ def check_phases(dev, gen) -> dict:
     return err
 
 
+def check_attention(dev, gen) -> dict:
+    """K8, K9 and K10 against their plain versions on the card, within
+    :data:`ATTN_TOL` (f32) and :data:`BF16_REL` (bf16) (the kernels merge
+    64-key tiles, the plain versions whole blocks, so they agree to
+    rounding): p in {2, 3, 4, 8},
+    causal and not, f32 and bf16, d in {32, 64}, at a ragged n_local of
+    1000 (b 1, h 2); d in {8, 16, 128} at p=3, n_local 200; then the LM
+    path's shape [4, 4, 1024, 8, 64], f32, causal. Returns the main
+    shape's max |kernel - plain| of each."""
+    err = {}
+
+    def close(got, want, key, what):
+        """``got`` within the limits of ``key`` (:data:`ATTN_TOL`; bf16
+        scaled to ``want``) of ``want``; and a zeroed ``got`` would not be."""
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape/dtype")
+        ref = want.float().abs()
+        atol, rtol = (ATTN_TOL[key] if got.dtype == torch.float32
+                      else (BF16_REL * float(ref.max()), BF16_REL))
+        limit = atol + rtol * ref
+        diff = (got.float() - want.float()).abs()
+        require(bool(torch.isfinite(got.float()).all()) and bool((diff <= limit).all()),
+                f"{what}: max |kernel - plain| {float(diff.max())} beyond atol {atol}, rtol {rtol}")
+        require(bool((ref > limit).any()), f"{what}: the limit would pass zeros")
+        return float(diff.max())
+
+    def run(shape, dtype, causal, what):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
+        o, lse = ops.ring_attention_fwd(q, k, v, causal)
+        o_pl, lse_pl = ops.ring_attention_fwd_plain(q, k, v, causal)
+        e8 = close(o, o_pl, "o", f"K8 o {what}")
+        close(lse, lse_pl, "lse", f"K8 lse {what}")
+        ob, lseb = ops.ring_attention_fwd(q, k, v, causal, bidir=True)
+        ob_pl, lseb_pl = ops.ring_attention_fwd_plain(q, k, v, causal, bidir=True)
+        e9 = close(ob, ob_pl, "o", f"K9 o {what}")
+        close(lseb, lseb_pl, "lse", f"K9 lse {what}")
+        close(ob, o, "k9_vs_k8", f"K9 against K8 {what}")
+        # the backward from the same (o, lse) for both
+        g = ops.ring_attention_bwd(q, k, v, o_pl, lse_pl, do, causal)
+        g_pl = ops.ring_attention_bwd_plain(q, k, v, o_pl, lse_pl, do, causal)
+        e10 = max(close(a, b, "grad", f"K10 d{n} {what}") for a, b, n in zip(g, g_pl, "qkv"))
+        return {"ring_attention_fwd": e8, "ring_attention_fwd_bidir": e9, "ring_attention_bwd": e10}
+
+    for p, causal, dtype, d in itertools.product(
+            (2, 3, 4, 8), (False, True), (torch.float32, torch.bfloat16), (32, 64)):
+        run((p, 1, 1000, 2, d), dtype, causal, f"p={p} causal={causal} {dtype} d={d} n_local=1000")
+    # the other head dims the kernels take, at a small ragged shape
+    for causal, dtype, d in itertools.product(
+            (False, True), (torch.float32, torch.bfloat16), (8, 16, 128)):
+        run((3, 2, 200, 3, d), dtype, causal, f"p=3 causal={causal} {dtype} d={d} n_local=200")
+    err.update(run(ATTN_MAIN, torch.float32, True, f"{list(ATTN_MAIN)} f32 causal"))
+    # what the kernels do not take raises on the card (no plain fallback),
+    # under the 'auto' backend too
+    for x in (torch.zeros(ATTN_MAIN, device=dev, dtype=torch.float16),
+              torch.zeros(ATTN_MAIN[:4] + (24,), device=dev)):
+        for name, call in (("ring_attention_fwd", ops.ring_attention_fwd),
+                           ("auto", partial(ring_self_attention, backend="auto"))):
+            try:
+                call(x, x, x)
+            except ValueError:
+                continue
+            require(False, f"{name} took {x.dtype}, head_dim {x.shape[-1]}")
+    print(f"attention: K8, K9, K10 within (atol, rtol) {ATTN_TOL} (f32) and rtol 2^-7, atol "
+          f"2^-7 max|plain| (bf16) of their plain versions; main-shape max|kernel - plain| = {err}")
+    return err
+
+
 def phase_kernels(dev) -> dict:
     """Every kernel against its plain version; returns the main-path
     max |kernel - plain| of each."""
@@ -359,7 +460,8 @@ def phase_kernels(dev) -> dict:
 
     err.update(check_quant(dev, gen))
     err.update(check_phases(dev, gen))
-    print(f"kernels: all comparisons exact; main-path max|kernel - plain| = {err}")
+    print(f"kernels: all collective comparisons exact; main-path max|kernel - plain| = {err}")
+    err.update(check_attention(dev, gen))
     return err
 
 
@@ -533,6 +635,90 @@ def phase_async(dev) -> None:
     print("async: every step's buckets equal the blocking allreduce bit for bit ('full', int8)")
 
 
+def lm_run(dev, widths: dict, seq: int, batch: int, lr: float, steps: int, backend: str) -> dict:
+    """Train a fresh LM (seed 0) for ``steps`` steps of the example's step
+    over ``LM_SP`` sequence shards: every launch count set to 0 just before
+    and read just after. Tokens/sec/chip over the steps after the first."""
+    model = LongContextTransformer(**widths, sp_backend=backend).to(dev)
+    model.load_state_dict(init_lm_params(model, seed=0))
+    batches = long_context.make_batches(0, steps, batch, seq)
+    marks = []
+
+    def on_step(step, loss):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses = long_context.train(model, batches, lr, 1, LM_SP, dev, on_step)
+    counts = ops.launch_counts()
+    losses = [float(v) for v in losses]
+    require(all(abs(v) < float("inf") for v in losses), f"LM {backend}: non-finite loss {losses}")
+    run = {"losses": losses, "counts": counts,
+           "tokens_per_s": (len(marks) - 1) * batch * seq / (marks[-1] - marks[0]),
+           "step_ms": (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None}
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return run
+
+
+def phase_lm(dev) -> dict:
+    """The long-context LM path: a small LM against the CPU, then the
+    full-width path through ``kernel_full``, ``kernel_bidir_full`` and
+    ``xla`` (see the module docstring). Returns each run's launch counts."""
+    layers = LM_WIDTHS["num_layers"]
+    small = dict(vocab_size=64, num_layers=2, num_heads=2, head_dim=16, d_model=32, max_len=64)
+    card = lm_run(dev, small, 64, 2, 3e-3, 3, "kernel_full")
+    cpu = lm_run(torch.device("cpu"), small, 64, 2, 3e-3, 3, "kernel_full")
+    for a, b in zip(card["losses"], cpu["losses"]):
+        require(abs(a - b) <= 1e-4 * abs(b), f"small LM loss {a} vs CPU {b}")
+    require(card["counts"]["ring_attention_fwd"] == 2 * 3, "small LM: K8 not launched")
+    print(f"lm: 3 small steps on the card match the CPU plain path (losses {card['losses']})")
+
+    def expect(counts, what, **launched):
+        want = {name: 0 for name in counts}
+        want.update(launched)
+        require(counts == want, f"LM {what}: launches {counts} != {want}")
+
+    full = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_STEPS, "kernel_full")
+    losses = full["losses"]
+    expect(full["counts"], "kernel_full", ring_attention_fwd=layers * LM_STEPS,
+           ring_attention_bwd=2 * layers * LM_STEPS)
+    last = sum(losses[-3:]) / 3
+    require(last < losses[0], f"LM: loss did not fall: {losses[0]:.4f} -> {last:.4f}")
+    flops_per_token = train_flops(transformer_forward_flops(
+        LM_SEQ, LM_WIDTHS["d_model"], layers, LM_WIDTHS["num_heads"], LM_WIDTHS["head_dim"],
+        LM_WIDTHS["vocab_size"])) // LM_SEQ
+    achieved, frac = mfu(full["tokens_per_s"], flops_per_token, torch.cuda.get_device_name(0))
+    print(
+        f"lm: {LM_WIDTHS}, seq {LM_SEQ} over sp={LM_SP}, batch {LM_BATCH}, lr {LM_LR}, "
+        f"kernel_full: {LM_STEPS} steps, loss {losses[0]:.4f} -> {last:.4f} (last three; "
+        f"losses {[round(v, 4) for v in losses]}), launches {full['counts']}, "
+        f"peak memory {full['peak_gb']:.2f} GB"
+    )
+    print(f"tokens/sec/chip (LM, kernel_full): {full['tokens_per_s']:.1f} "
+          f"({full['step_ms']:.2f} ms per step after the first; {achieved / 1e12:.3f} TFLOP/s, "
+          f"MFU {frac:.2%} of the f32 peak by the analytic count)")
+    runs = {"lm_kernel_full": full["counts"]}
+    for backend, launched in (
+        ("kernel_bidir_full", dict(ring_attention_fwd_bidir=layers * LM_CHECK_STEPS,
+                                   ring_attention_bwd=2 * layers * LM_CHECK_STEPS)),
+        ("xla", {}),
+    ):
+        run = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_CHECK_STEPS, backend)
+        expect(run["counts"], backend, **launched)
+        for a, b in zip(run["losses"], losses):
+            require(abs(a - b) <= 1e-3 * abs(b), f"LM {backend}: loss {a} vs kernel_full {b}")
+        print(f"lm: {backend} {LM_CHECK_STEPS} steps match kernel_full's (losses {run['losses']}); "
+              f"tokens/sec/chip {run['tokens_per_s']:.1f}, peak memory {run['peak_gb']:.2f} GB")
+        runs[f"lm_{backend}"] = run["counts"]
+    return runs
+
+
 def bench_expected(op: str) -> dict:
     """The kernel launches the sweep routes from one op's kernel-backend
     configs (sync and async, BENCH_CALLS calls each), by the rules of the
@@ -640,6 +826,12 @@ def phase_profile(mode: str, wire: str) -> None:
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
         mpi.stop()
+    print_profile(prof, wall_us, 5, f"{mode}, wire {wire}")
+
+
+def print_profile(prof, wall_us: float, steps: int, path: str) -> None:
+    """One ``{"profile": ...}`` line: device time by kernel per step and the
+    share of the window the device was busy."""
     # device-side events only: a host op's "self" device time repeats the
     # time of the kernels it launched, which are listed on their own
     rows = sorted(
@@ -652,17 +844,43 @@ def phase_profile(mode: str, wire: str) -> None:
     )
     busy_us = sum(r[0] for r in rows)
     print(json.dumps({"profile": {
-        "path": f"{mode}, wire {wire}", "steps": 5, "window_us_per_step": wall_us / 5,
-        "device_busy_us_per_step": busy_us / 5,
+        "path": path, "steps": steps, "window_us_per_step": wall_us / steps,
+        "device_busy_us_per_step": busy_us / steps,
         "device_busy_share": busy_us / wall_us if rows else None,
         "top_kernels_us_per_step": [
-            {"name": k[:80], "us": us / 5, "calls_per_step": n / 5} for us, k, n in rows[:10]
+            {"name": k[:80], "us": us / steps, "calls_per_step": n / steps}
+            for us, k, n in rows[:10]
         ],
         "port_kernels_us_per_step": [
-            {"name": k[:80], "us": us / 5, "calls_per_step": n / 5}
+            {"name": k[:80], "us": us / steps, "calls_per_step": n / steps}
             for us, k, n in rows if "tmpi::" in k
         ],
     }}))
+
+
+def phase_profile_lm(dev) -> None:
+    """Where an LM step's time goes (``kernel_full``, full width): 2 steps
+    profiled after 1 warm-up step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = LongContextTransformer(**LM_WIDTHS, sp_backend="kernel_full").to(dev)
+    model.load_state_dict(init_lm_params(model, seed=0))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    start = []
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        if step == 0:  # the warm-up step is done: profile the next two
+            prof.start()
+            start.append(time.perf_counter())
+
+    long_context.train(model, long_context.make_batches(0, 3, LM_BATCH, LM_SEQ), LM_LR, 1,
+                       LM_SP, dev, on_step)
+    wall_us = (time.perf_counter() - start[0]) * 1e6
+    prof.stop()
+    del model
+    torch.cuda.empty_cache()
+    print_profile(prof, wall_us, 2, "LM kernel_full, full width")
 
 
 def bound(nbytes: int, nops: int) -> tuple:
@@ -785,11 +1003,60 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
             k3=ops.ring_allreduce,
         ),
     ]
+    # ring attention at the LM path's shape, f32, causal; the bound counts
+    # the useful products: the T(T+1)/2 (query, key) pairs the causal mask
+    # keeps over the gathered T = sp*n per cell, 4 d flops each forward and
+    # 10 d backward; the library call is SDPA over the gathered sequence
+    # [b, h, T, d] (and its backward)
+    # (names apart from n above: the earlier rows' lambdas read it late)
+    asp, ab, an, ah, ad = ATTN_MAIN
+    pair_flops = ab * ah * (asp * an) * (asp * an + 1) // 2 * ad
+    qkv_bytes, lse_bytes = asp * ab * an * ah * ad * 4, asp * ab * ah * an * 4
+
+    def qkv():
+        return tuple(randn(*ATTN_MAIN) for _ in range(3))
+
+    def bwd_inputs():
+        q, k, v = qkv()
+        return (q, k, v, *ops.ring_attention_fwd_plain(q, k, v, True), randn(*ATTN_MAIN))
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def gathered():
+        return tuple(t.permute(1, 3, 0, 2, 4).reshape(ab, ah, asp * an, ad) for t in qkv())
+
+    def sdpa_graph():
+        leaves = [t.requires_grad_() for t in gathered()]
+        return sdpa(*leaves, is_causal=True), leaves, randn(ab, ah, asp * an, ad)
+
+    attn = dict(source="torchmpi_tpu_torch/csrc/ring_attention.cu", shape=list(ATTN_MAIN),
+                causal=True)
+    rows += [
+        dict(attn, name="ring_attention_fwd",
+             replaces="torchmpi_tpu/ops/ring_attention_kernel.py:117",
+             make=qkv, in_bytes=3 * qkv_bytes, bytes=4 * qkv_bytes + lse_bytes, ops=4 * pair_flops,
+             kernel=lambda q, k, v: ops.ring_attention_fwd(q, k, v, True),
+             plain=lambda q, k, v: ops.ring_attention_fwd_plain(q, k, v, True),
+             library=lambda q, k, v: sdpa(q, k, v, is_causal=True), library_make=gathered),
+        dict(attn, name="ring_attention_fwd_bidir",
+             replaces="torchmpi_tpu/ops/ring_attention_kernel.py:506",
+             make=qkv, in_bytes=3 * qkv_bytes, bytes=4 * qkv_bytes + lse_bytes, ops=4 * pair_flops,
+             kernel=lambda q, k, v: ops.ring_attention_fwd(q, k, v, True, True),
+             plain=lambda q, k, v: ops.ring_attention_fwd_plain(q, k, v, True, True),
+             library=lambda q, k, v: sdpa(q, k, v, is_causal=True), library_make=gathered),
+        dict(attn, name="ring_attention_bwd",
+             replaces="torchmpi_tpu/ops/ring_attention_kernel.py:852",
+             make=bwd_inputs, in_bytes=5 * qkv_bytes + lse_bytes,
+             bytes=8 * qkv_bytes + lse_bytes, ops=10 * pair_flops,
+             kernel=lambda *a: ops.ring_attention_bwd(*a, True),
+             plain=lambda *a: ops.ring_attention_bwd_plain(*a, True),
+             library=lambda out, leaves, do: torch.autograd.grad(out, leaves, do, retain_graph=True),
+             library_make=sdpa_graph),
+    ]
     out = []
     for r in rows:
-
-        def timed(fn):
-            return time_ms(rotating(fn, r["make"], r["in_bytes"]))
+        def timed(fn, make=r["make"]):
+            return time_ms(rotating(fn, make, r["in_bytes"]))
 
         ms = timed(r["kernel"])
         bound_ms, bound_by = bound(r["bytes"], r["ops"])
@@ -801,10 +1068,13 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
             "max_abs_err": errs[r["name"]], "ms": ms, "kernel_ms": ms,
             "plain_ms": timed(r["plain"]),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # no single PyTorch call computes a requantizing ring
-            "library_ms": timed(r["library"]) if r["library"] else None,
+            # no single PyTorch call computes a requantizing ring; the
+            # attention rows' library calls take the gathered layout
+            "library_ms": r["library"] and timed(r["library"], r.get("library_make", r["make"])),
             "shape": r["shape"], "dtype": "float32",
         }
+        if r.get("causal"):
+            row["causal"] = True
         if "k3" in r:
             row["k3_f32_ms"] = timed(r["k3"])  # K3's f32 ring at the same shape
         out.append(row)
@@ -828,8 +1098,10 @@ def main() -> None:
     runs = {path: run["counts"] for path, run in phase_trainer(dev).items()}
     phase_async(dev)
     runs.update(phase_bench())
+    runs.update(phase_lm(dev))
     phase_profile("sync", "full")
     phase_profile("async", "int8")
+    phase_profile_lm(dev)
     phase_timing(dev, runs, errs)
     print(json.dumps({
         "ok": True,

@@ -198,16 +198,21 @@ def test_wrappers_launch_or_raise_off_the_cpu():
     """A tensor that is on neither the CPU nor a CUDA card gets no quiet
     fallback to a plain version."""
     x = torch.empty(2, 8, device="meta")
+    a = torch.empty(2, 1, 4, 1, 8, device="meta")  # [sp, b, n, h, d]
+    lse = torch.empty(2, 1, 1, 4, device="meta")
     for call in (lambda: ops.ring_allreduce(x), lambda: ops.ring_broadcast(x),
                  lambda: ops.accumulate(x, x),
                  lambda: ops.ring_allreduce_quant(x, "int8"),
-                 lambda: ops.ring_reduce_scatter_quant(x, "bf16")):
+                 lambda: ops.ring_reduce_scatter_quant(x, "bf16"),
+                 lambda: ops.ring_attention_fwd(a, a, a, bidir=True),
+                 lambda: ops.ring_attention_bwd(a, a, a, a, lse, a)):
         with pytest.raises(ValueError, match="CUDA or the CPU"):
             call()
     counts = ops.launch_counts()
     assert set(counts) == {"ring_allreduce", "ring_broadcast", "accumulate",
                            "ring_reduce_scatter", "ring_allgather", "ring_reduce",
-                           "ring_allreduce_bidir"} | {
+                           "ring_allreduce_bidir", "ring_attention_fwd",
+                           "ring_attention_fwd_bidir", "ring_attention_bwd"} | {
         f"{op}_{wire}" for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant")
         for wire in ("int8", "bf16")
     }
@@ -225,7 +230,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 def test_build_is_keyed_on_the_sources():
     names = {_build.target(s).name for s in _build.SOURCES}
-    assert len(names) == len(_build.SOURCES) == 3
+    assert len(names) == len(_build.SOURCES) == 4
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)
     assert _build.target("ring_kernels").parent == _build.BUILD_DIR
 

@@ -1,6 +1,6 @@
-"""Models of the port's main path."""
+"""Models of the port: the MNIST family and the long-context LM."""
 
-from .convert import from_jax_params
+from .convert import from_jax_params, lm_from_jax_params
 from .mnist import (
     LeNet,
     LogisticRegression,
@@ -9,13 +9,24 @@ from .mnist import (
     init_params,
     make_loss_fn,
 )
+from .transformer import (
+    LongContextTransformer,
+    RingAttentionBlock,
+    init_lm_params,
+    make_lm_loss_fn,
+)
 
 __all__ = [
     "LeNet",
     "LogisticRegression",
+    "LongContextTransformer",
+    "RingAttentionBlock",
     "accuracy",
     "cross_entropy_loss",
     "from_jax_params",
+    "init_lm_params",
     "init_params",
+    "lm_from_jax_params",
+    "make_lm_loss_fn",
     "make_loss_fn",
 ]

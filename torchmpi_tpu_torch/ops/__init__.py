@@ -14,7 +14,12 @@
   (``csrc/ring_quant.cu``) replace ``ops/ring_kernels.py:_ring_quant_kernel``
   in its allreduce and 'rs' modes (int8 or bf16 on every hop);
 - ``accumulate`` (``csrc/reduce_kernel.cu``) replaces
-  ``ops/reduce_kernel.py:_accumulate_kernel``.
+  ``ops/reduce_kernel.py:_accumulate_kernel``;
+- ``ring_attention_fwd`` (``csrc/ring_attention.cu``) replaces
+  ``ops/ring_attention_kernel.py:_ring_attn_kernel`` and, with
+  ``bidir=True``, ``_ring_attn_bidir_kernel``; ``ring_attention_bwd``
+  replaces ``_ring_attn_bwd_kernel``; ``RingAttention`` is the autograd
+  function around them.
 
 Every wrapper counts its launches; :func:`launch_counts` reads the counts
 and :func:`reset_launch_counts` sets them to 0.
@@ -24,8 +29,15 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import reduce_kernel, ring_kernels
+from . import reduce_kernel, ring_attention_kernel, ring_kernels
 from .reduce_kernel import accumulate, accumulate_plain
+from .ring_attention_kernel import (
+    RingAttention,
+    ring_attention_bwd,
+    ring_attention_bwd_plain,
+    ring_attention_fwd,
+    ring_attention_fwd_plain,
+)
 from .ring_kernels import (
     ring_allgather,
     ring_allgather_plain,
@@ -47,16 +59,17 @@ from .ring_kernels import (
 
 
 def launch_counts() -> Dict[str, int]:
-    return {**ring_kernels.launches, **reduce_kernel.launches}
+    return {**ring_kernels.launches, **reduce_kernel.launches, **ring_attention_kernel.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (ring_kernels.launches, reduce_kernel.launches):
+    for counts in (ring_kernels.launches, reduce_kernel.launches, ring_attention_kernel.launches):
         for name in counts:
             counts[name] = 0
 
 
 __all__ = [
+    "RingAttention",
     "accumulate",
     "accumulate_plain",
     "launch_counts",
@@ -69,6 +82,10 @@ __all__ = [
     "ring_allreduce_plain",
     "ring_allreduce_quant",
     "ring_allreduce_quant_plain",
+    "ring_attention_bwd",
+    "ring_attention_bwd_plain",
+    "ring_attention_fwd",
+    "ring_attention_fwd_plain",
     "ring_broadcast",
     "ring_broadcast_plain",
     "ring_reduce",

@@ -23,7 +23,7 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("reduce_kernel", "ring_kernels", "ring_quant")
+SOURCES = ("reduce_kernel", "ring_kernels", "ring_quant", "ring_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
