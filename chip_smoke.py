@@ -46,14 +46,25 @@ phase fails:
    with exact launch counts and the loss falling, then 5 steps each with
    ``kernel_bidir_full`` (K9) and ``xla`` (no kernel) from the same init
    and batches, whose losses must match the first 5;
-8. profiles 5 steps of each MNIST path and 2 LM steps (``torch.profiler``)
-   and prints one ``{"profile": ...}`` line each: device time by kernel and
-   busy share;
-9. times each kernel, its plain version and, where there is one, a PyTorch
-   call computing the same function with CUDA events at the main paths'
-   shapes, on inputs rotated past the L2, and prints one
+8. drives the parameter-server path (``examples/mnist_parameterserver.py``'s
+   twin, ``train`` on LeNet): p=8, global batch 336, lr 0.2, ``--tau 5
+   --init-delay 10``, two epochs (48 steps) each of Downpour, EASGD (beta
+   0.9) and DSGD with the full wire, and Downpour with the int8 wire; the
+   loss must fall, and the launch counts (0 just before each run, read just
+   after) must be the K1 and K2 applies the schedule routes
+   (:func:`ps_expected`), every other kernel 0; then a short
+   LogisticRegression run of each on the card against the CPU (plain
+   versions), and ``run_ps_throughput`` at 2^20 elements and at LeNet's
+   size, full and int8 wire (``{"ps": ...}`` lines);
+9. profiles 5 steps of each MNIST path, 2 LM steps and 5 Downpour steps
+   (``torch.profiler``) and prints one ``{"profile": ...}`` line each:
+   device time by kernel and busy share; times Downpour steps with the PS
+   server's 100 us polling cadence and with none (``{"ps_poll": ...}``);
+10. times each kernel, its plain version and, where there is one, a
+   PyTorch call computing the same function with CUDA events at the main
+   paths' shapes, on inputs rotated past the L2, and prints one
    ``{"kernels": [...]}`` line;
-10. prints last ``{"ok": true, "device": {...}}``.
+11. prints last ``{"ok": true, "device": {...}}``.
 
 Kernels are held to their plain versions bit for bit, but for the ring
 attention kernels (K8, K9, K10), which merge 64-key tiles where the plain
@@ -84,8 +95,10 @@ from torchmpi_tpu_torch import ops  # noqa: E402
 from torchmpi_tpu_torch.collectives import primitives  # noqa: E402
 from torchmpi_tpu_torch.engine import AllReduceSGDEngine  # noqa: E402
 from torchmpi_tpu_torch.examples import long_context  # noqa: E402
+from torchmpi_tpu_torch.examples import mnist_parameterserver as ps_example  # noqa: E402
 from torchmpi_tpu_torch.models import (  # noqa: E402
     LeNet,
+    LogisticRegression,
     LongContextTransformer,
     accuracy,
     init_lm_params,
@@ -95,9 +108,10 @@ from torchmpi_tpu_torch.models import (  # noqa: E402
 from torchmpi_tpu_torch.ops import _build  # noqa: E402
 from torchmpi_tpu_torch.ops.ring_kernels import bidir_chunk_elems  # noqa: E402
 from torchmpi_tpu_torch.parallel import ring_self_attention  # noqa: E402
+from torchmpi_tpu_torch.parameterserver import server as ps_server  # noqa: E402
 from torchmpi_tpu_torch.utils import DistributedIterator, synthetic_mnist  # noqa: E402
 from torchmpi_tpu_torch.utils.flops import mfu, train_flops, transformer_forward_flops  # noqa: E402
-from torchmpi_tpu_torch.utils.tester import run_matrix, sweep_sizes  # noqa: E402
+from torchmpi_tpu_torch.utils.tester import run_matrix, run_ps_throughput, sweep_sizes  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
@@ -128,6 +142,20 @@ ATTN_MAIN = (LM_SP, LM_BATCH, LM_SEQ // LM_SP, 8, 64)  # its [sp, b, n_local, h,
 # limit that scales with the values compared
 ATTN_TOL = {"o": (2e-5, 0.0), "lse": (1e-4, 0.0), "grad": (2e-4, 2e-4), "k9_vs_k8": (2e-4, 2e-4)}
 BF16_REL = 2.0**-7
+# the parameter-server path: the JAX example's CLI at LeNet's full width
+PS_ARGS = ["--batch", str(BATCH), "--lr", str(LR), "--epochs", "2", "--train", "8192",
+           "--tau", "5", "--init-delay", "10", "--beta", "0.9", "--seed", "0"]
+PS_TAU, PS_DELAY = 5, 10
+PS_STEPS = 2 * (8192 // P // (BATCH // P))  # two epochs of 24 steps
+PS_VARIANTS = (("downpour", "full"), ("easgd", "full"), ("dsgd", "full"), ("downpour", "int8"))
+LENET_LEAVES = 8
+SHARD = LARGEST_LEAF[0] * LARGEST_LEAF[1] // P  # one server's shard of dense0.weight
+SCALE_ALPHAS = (0.0, 1.0, -1.0, 0.1, -0.2 / 8)
+# the card against the CPU on the PS path: a short LogisticRegression run
+# (lr 0.02, where a rounding difference does not grow chaotically), held
+# as tests/test_torch_ps.py holds the port to the JAX package
+PS_SMALL = ["--train", "1024", "--epochs", "1", "--batch", "32", "--lr", "0.02", "--tau", "5",
+            "--init-delay", "10", "--seed", "0"]
 
 
 def require(cond: bool, what: str) -> None:
@@ -238,6 +266,53 @@ def check_quant(dev, gen) -> dict:
         require(torch.equal(bits(ops.ring_allreduce_quant(z, wire)),
                             bits(ops.ring_allreduce_quant_plain(z, wire))),
                 f"ring_allreduce_quant {wire} on zeros != plain")
+    return err
+
+
+def check_scale(dev, gen) -> dict:
+    """K2 (``scale_accumulate``) and K1's in-place path against their plain
+    versions, bit for bit: f32, f64, bf16 and f16; alpha in
+    :data:`SCALE_ALPHAS`; sizes 1 to 2^23 + 5; both operands aligned, both
+    at element offset 1, and at offsets 3 and 1 (misaligned vectors, as a
+    shard view is); out of place and in place (``out_`` the first input, as
+    the 'add' rule applies); then the main path's largest leaf."""
+    err = {}
+
+    def same(k, pl, what):
+        torch.cuda.synchronize()
+        require(k.dtype == pl.dtype and k.shape == pl.shape, f"{what}: shape/dtype")
+        require(torch.equal(bits(k), bits(pl)), f"{what} != plain")
+
+    for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.float16):
+        for n in (1, 7, 1000, 100003, (1 << 23) + 5):
+            a_base, b_base = rand((n + 3,), dtype, gen, dev), rand((n + 3,), dtype, gen, dev)
+            for oa, ob in ((0, 0), (1, 1), (3, 1)):
+                a, b = a_base[oa:oa + n], b_base[ob:ob + n]
+                what = f"n={n} {dtype} offsets ({oa}, {ob})"
+                for alpha in SCALE_ALPHAS:
+                    pl = ops.scale_accumulate_plain(a, b, alpha)
+                    same(ops.scale_accumulate(a, b, alpha), pl, f"scale_accumulate alpha={alpha} {what}")
+                    dst = a_base.clone()[oa:oa + n]
+                    ops.scale_accumulate(dst, b, alpha, out_=dst)
+                    same(dst, pl, f"scale_accumulate in place alpha={alpha} {what}")
+                if dtype != torch.float64:
+                    dst = a_base.clone()[oa:oa + n]
+                    ops.accumulate(dst, b, out_=dst)
+                    same(dst, ops.accumulate_plain(a, b), f"accumulate in place {what}")
+    a = torch.randn((P,) + LARGEST_LEAF, generator=gen, device=dev)
+    b = torch.randn((P,) + LARGEST_LEAF, generator=gen, device=dev)
+    k, pl = ops.scale_accumulate(a, b, -LR), ops.scale_accumulate_plain(a, b, -LR)
+    same(k, pl, "scale_accumulate [8, 256, 3136]")
+    err["scale_accumulate"] = float((k - pl).abs().max())
+    # what the kernel does not take raises on the card (no plain fallback)
+    try:
+        ops.scale_accumulate(torch.ones(8, device=dev, dtype=torch.int32), torch.ones(8, device=dev), 2.0)
+    except ValueError:
+        pass
+    else:
+        require(False, "scale_accumulate took int32")
+    print("scale_accumulate: bit for bit equal to its plain version over f32, f64, bf16, f16, "
+          f"alpha {SCALE_ALPHAS}, sizes 1..2^23+5, aligned and misaligned views, in place")
     return err
 
 
@@ -458,6 +533,7 @@ def phase_kernels(dev) -> dict:
     err["accumulate"] = float((k - pl).abs().max())
     require(torch.equal(bits(k), bits(pl)), "accumulate [8, 256, 3136] != plain")
 
+    err.update(check_scale(dev, gen))
     err.update(check_quant(dev, gen))
     err.update(check_phases(dev, gen))
     print(f"kernels: all collective comparisons exact; main-path max|kernel - plain| = {err}")
@@ -719,6 +795,172 @@ def phase_lm(dev) -> dict:
     return runs
 
 
+def ps_expected(variant: str, steps: int) -> tuple:
+    """The K1 and K2 launches one PS run of ``steps`` steps routes, by the
+    schedule, with L = 8 LeNet leaves and S = P shards per leaf: every
+    step's local update is one K2 per leaf; an 'add' send of one leaf is
+    one apply per shard, through K1 (no scale travels: Downpour scales on
+    the client); Downpour accumulates the gradients with K1 from the second
+    step on and sends every step from init_delay + 1; EASGD folds (one K2
+    per leaf) and sends its elastic differences at each integration,
+    init_delay + k * tau; DSGD sends every step ('zero' applies launch
+    nothing) and re-applies the averaged gradient with two K2 per leaf.
+    Returns the counts and the formula."""
+    L, S = LENET_LEAVES, P
+    if variant == "downpour":
+        sends = len(range(PS_DELAY + 1, steps))
+        k1 = L * (steps - 1) + L * S * sends
+        k2 = L * steps
+        formula = (f"K1 = L*(steps-1) + L*S*sends = {L}*{steps - 1} + {L}*{S}*{sends} = {k1}; "
+                   f"K2 = L*steps = {k2}")
+    elif variant == "easgd":
+        folds = len(range(PS_DELAY + PS_TAU, steps, PS_TAU))
+        k1 = L * S * folds
+        k2 = L * steps + L * folds
+        formula = (f"K1 = L*S*integrations = {L}*{S}*{folds} = {k1}; "
+                   f"K2 = L*steps + L*integrations = {L}*{steps} + {L}*{folds} = {k2}")
+    else:
+        k1 = L * S * steps
+        k2 = 3 * L * steps
+        formula = f"K1 = L*S*steps = {L}*{S}*{steps} = {k1}; K2 = 3*L*steps = {k2}"
+    return {"accumulate": k1, "scale_accumulate": k2}, formula
+
+
+def ps_run(model, argv, device=None, **kw) -> dict:
+    """One run of the PS example's training loop on ``model`` at p=8, with
+    every launch count set to 0 just before it and read just after."""
+    args = ps_example.parse_args(argv)
+    mpi.start(ranks=P, device=device)
+    try:
+        ops.reset_launch_counts()
+        res = ps_example.train(model, args, **kw)
+        if mpi.current_communicator().device.type == "cuda":
+            torch.cuda.synchronize()
+        res["counts"] = ops.launch_counts()
+    finally:
+        mpi.stop()
+    return res
+
+
+def phase_ps(dev) -> dict:
+    """The parameter-server path at full width (see the module docstring);
+    returns each run's launch counts."""
+    runs = {}
+    for variant, wire in PS_VARIANTS:
+        path = f"ps_{variant}" + ("" if wire == "full" else f"_{wire}")
+        res = ps_run(LeNet(), PS_ARGS + ["--variant", variant, "--wire-dtype", wire])
+        steps, counts, losses = res["steps"], res["counts"], res["step_losses"]
+        require(steps == PS_STEPS, f"{path}: {steps} steps, not {PS_STEPS}")
+        want = {name: 0 for name in counts}
+        launched, formula = ps_expected(variant, steps)
+        want.update(launched)
+        require(counts == want, f"{path}: launches {counts} != {want} ({formula})")
+        require(all(abs(v) < float("inf") for v in losses), f"{path}: non-finite loss")
+        first, last = losses[0], sum(losses[-3:]) / 3
+        require(last < first, f"{path}: loss did not fall: {first:.4f} -> {last:.4f}")
+        params = res["params"]
+        require(all(bool(torch.isfinite(v).all()) for v in params.values()),
+                f"{path}: non-finite parameters")
+        sps = res["samples_per_epoch"] / res["seconds"][1]
+        print(f"ps: {path} LeNet p={P} batch={BATCH} lr={LR} tau={PS_TAU} init_delay={PS_DELAY}: "
+              f"{steps} steps, loss {first:.4f} -> {last:.4f} (epoch ends {res['losses']}), "
+              f"test_acc={res['acc']:.4f}, replica spread {res['spread']!r}; "
+              f"launches {launched} = the schedule's {formula}")
+        print(f"samples/sec/chip (PS {variant}, wire {wire}): {sps:.1f} (second epoch; "
+              f"{res['seconds'][1] / (steps // 2) * 1e3:.3f} ms per step; {P} virtual ranks on 1 card)")
+        runs[path] = counts
+    return runs
+
+
+def phase_ps_vs_cpu(dev) -> None:
+    """Each PS variant on the card against the same run on the CPU (plain
+    versions): a LogisticRegression run of 32 steps (:data:`PS_SMALL`) from
+    the same init and batches, with ps_prefetch off on both (the exact
+    fetch-at-integration semantics), within the CPU tests' tolerances:
+    every step's loss rtol 1e-4 and the parameters atol 1e-5; with the int8
+    wire a gradient's rounding can move a value across a quantization step,
+    so rtol and atol 2e-3."""
+    constants.set("ps_prefetch", False)
+    try:
+        for variant, wire in PS_VARIANTS:
+            argv = PS_SMALL + ["--variant", variant, "--wire-dtype", wire]
+            params0 = init_params(LogisticRegression(), seed=0)
+            card = ps_run(LogisticRegression(), argv, params0=params0)
+            cpu = ps_run(LogisticRegression(), argv, device="cpu", params0=params0)
+            rtol, atol = (1e-4, 1e-5) if wire == "full" else (2e-3, 2e-3)
+            for a, b in zip(card["step_losses"], cpu["step_losses"]):
+                require(abs(a - b) <= rtol * abs(b), f"PS {variant}/{wire}: card loss {a} vs CPU {b}")
+            for k, v in cpu["params"].items():
+                d = float((card["params"][k].cpu() - v).abs().max())
+                require(d <= atol, f"PS {variant}/{wire}: {k} differs from the CPU by {d}")
+            print(f"ps: {variant}/{wire} on the card matches the CPU plain path over "
+                  f"{card['steps']} steps (last loss {card['step_losses'][-1]:.6f})")
+    finally:
+        constants.set("ps_prefetch", True)
+
+
+def phase_ps_throughput() -> None:
+    """Center traffic through the PS, send ('add') and receive MB/s, at
+    2^20 elements and at LeNet's size, with the full and the int8 wire
+    (whose per-shard round trips run on the client and pool threads), one
+    ``{"ps": ...}`` line each."""
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        for wire in ("full", "int8"):
+            constants.set("parameterserver_wire_dtype", wire)
+            for n in (1 << 20, LENET_PARAMS):
+                r = run_ps_throughput(comm, nelem=n)
+                print(json.dumps({"ps": {"nelem": n, "ranks": P, "wire": wire, **r}}))
+    finally:
+        constants.set("parameterserver_wire_dtype", "full")
+        mpi.stop()
+
+
+def phase_profile_ps() -> None:
+    """Where a Downpour step's time goes (LeNet, full width): 5 steps
+    profiled once the PS is engaged (steps 15-19, one integration among
+    them), and the median step time of steps 12-23 with the server's 100 us
+    polling cadence and with none, in turns (100, 0, 0, 100 us): the share
+    of a step the cadence costs (``{"ps_poll": ...}``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    argv = PS_ARGS + ["--epochs", "1", "--variant", "downpour"]  # the last --epochs wins
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(t):
+        torch.cuda.synchronize()
+        marks[t] = time.perf_counter()
+        if t == 14:
+            prof.start()
+        elif t == 19:
+            prof.stop()
+
+    ps_run(LeNet(), argv, on_step=on_step)
+    print_profile(prof, (marks[19] - marks[14]) * 1e6, 5, "PS downpour, LeNet, full width")
+
+    def step_ms(poll_s: float) -> float:
+        ps_server._POLL_INTERVAL_S = poll_s
+        stamps = []
+        try:
+            ps_run(LeNet(), argv, on_step=lambda t: (torch.cuda.synchronize(),
+                                                      stamps.append(time.perf_counter())))
+        finally:
+            ps_server._POLL_INTERVAL_S = 100e-6
+        return statistics.median(b - a for a, b in zip(stamps[11:-1], stamps[12:])) * 1e3
+
+    times = {poll: [] for poll in (100e-6, 0.0)}
+    for poll in (100e-6, 0.0, 0.0, 100e-6):
+        times[poll].append(step_ms(poll))
+    with_poll, without = statistics.mean(times[100e-6]), statistics.mean(times[0.0])
+    print(json.dumps({"ps_poll": {
+        "path": "PS downpour, LeNet", "step_ms_poll_100us": times[100e-6],
+        "step_ms_poll_0": times[0.0],
+        "poll_share": (with_poll - without) / with_poll,
+    }}))
+
+
 def bench_expected(op: str) -> dict:
     """The kernel launches the sweep routes from one op's kernel-backend
     configs (sync and async, BENCH_CALLS calls each), by the rules of the
@@ -940,6 +1182,27 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
             bytes=3 * P * LARGEST_LEAF[0] * LARGEST_LEAF[1] * 4, ops=P * LARGEST_LEAF[0] * LARGEST_LEAF[1],
             kernel=ops.accumulate, plain=ops.accumulate_plain, library=torch.add,
         ),
+        dict(
+            # the local step's update of LeNet's largest leaf, w - lr * g;
+            # then one server's apply to its shard of it, in place at an odd
+            # element offset, as a shard view sits
+            name="scale_accumulate", source="torchmpi_tpu_torch/csrc/reduce_kernel.cu",
+            replaces="torchmpi_tpu/ops/reduce_kernel.py:32",
+            shape=[P, *LARGEST_LEAF], make=lambda: (randn(P, *LARGEST_LEAF), randn(P, *LARGEST_LEAF)),
+            in_bytes=2 * P * LARGEST_LEAF[0] * LARGEST_LEAF[1] * 4,
+            bytes=3 * P * LARGEST_LEAF[0] * LARGEST_LEAF[1] * 4,
+            ops=2 * P * LARGEST_LEAF[0] * LARGEST_LEAF[1],
+            kernel=lambda a, b: ops.scale_accumulate(a, b, -LR),
+            plain=lambda a, b: ops.scale_accumulate_plain(a, b, -LR),
+            library=lambda a, b: torch.add(a, b, alpha=-LR),
+            shard=dict(
+                shape=[SHARD], make=lambda: (randn(SHARD + 1)[1:], randn(SHARD)),
+                in_bytes=2 * SHARD * 4, bytes=3 * SHARD * 4, ops=2 * SHARD,
+                kernel=lambda a, b: ops.scale_accumulate(a, b, -LR, out_=a),
+                plain=lambda a, b: ops.scale_accumulate_plain(a, b, -LR, out_=a),
+                library=lambda a, b: a.add_(b, alpha=-LR),
+            ),
+        ),
     ]
     for wire in WIRES:
         # per element and hop: int8 |v|, max, divide, round, convert, then a
@@ -1075,6 +1338,21 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
         }
         if r.get("causal"):
             row["causal"] = True
+        if "shard" in r:
+            sh = r["shard"]
+
+            def shard_ms(fn):
+                return time_ms(rotating(fn, sh["make"], sh["in_bytes"]))
+
+            row.update({
+                "shard_shape": sh["shape"],
+                "shard_ms": shard_ms(sh["kernel"]),
+                "shard_bound_ms": bound(sh["bytes"], sh["ops"])[0],
+                "shard_plain_ms": shard_ms(sh["plain"]),
+                "shard_library_ms": shard_ms(sh["library"]),
+                "launches_per_ps_step": {path: counts[r["name"]] / PS_STEPS
+                                         for path, counts in runs.items() if path.startswith("ps_")},
+            })
         if "k3" in r:
             row["k3_f32_ms"] = timed(r["k3"])  # K3's f32 ring at the same shape
         out.append(row)
@@ -1099,9 +1377,13 @@ def main() -> None:
     phase_async(dev)
     runs.update(phase_bench())
     runs.update(phase_lm(dev))
+    runs.update(phase_ps(dev))
+    phase_ps_vs_cpu(dev)
+    phase_ps_throughput()
     phase_profile("sync", "full")
     phase_profile("async", "int8")
     phase_profile_lm(dev)
+    phase_profile_ps()
     phase_timing(dev, runs, errs)
     print(json.dumps({
         "ok": True,

@@ -242,6 +242,7 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['torchmpi_tpu'] = None\n"
         "import torchmpi_tpu_torch, torchmpi_tpu_torch.engine, torchmpi_tpu_torch.models\n"
         "import torchmpi_tpu_torch.utils, torchmpi_tpu_torch.examples.mnist_allreduce\n"
+        "import torchmpi_tpu_torch.examples.mnist_parameterserver\n"
         "from torchmpi_tpu_torch.ops import _build\n"
         "assert not _build._loaded\n"
         "print('ok')\n"

@@ -194,6 +194,90 @@ def test_accumulate_casts_input_and_checks_shape():
         ops.accumulate(torch.ones(5), torch.ones(4))
 
 
+@pytest.mark.parametrize("alpha", [-0.25, 0.1, -0.0125, 0.0, 1.0])
+@pytest.mark.parametrize("shape", [(1000,), (3 * 1024 * 128 + 17,)])
+def test_scale_accumulate_bitwise_matches_pallas(shape, alpha):
+    """f32: one rounding, as the interpret-mode kernel (an FMA), bit for bit
+    at test_ops.py's shape and a multiblock ragged one."""
+    rs = np.random.RandomState(1)
+    a = rs.randn(*shape).astype(np.float32)
+    b = rs.randn(*shape).astype(np.float32)
+    ref = np.asarray(jreduce.scale_accumulate(a, b, alpha, interpret=True))
+    out = ops.scale_accumulate(torch.from_numpy(a), torch.from_numpy(b), alpha).numpy()
+    np.testing.assert_array_equal(out.view(np.int32), ref.view(np.int32))
+
+
+def test_scale_accumulate_rounds_once_in_f32():
+    """The one rounding is visible: numpy's a + f32(alpha) * b rounds twice
+    and differs on some elements, so the bitwise test above would catch a
+    two-rounding plain version."""
+    rs = np.random.RandomState(1)
+    a, b = rs.randn(2, 65536).astype(np.float32)
+    out = ops.scale_accumulate(torch.from_numpy(a), torch.from_numpy(b), 0.1).numpy()
+    assert (out != a + np.float32(0.1) * b).any()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("alpha", [-0.25, 0.1, -0.0125, 0.3])
+def test_scale_accumulate_half_types_match_pallas(dtype, alpha):
+    """Pins how the interpret-mode kernel rounds the half types: bf16 after
+    the product and after the sum, f16 once (product and sum in f32)."""
+    import jax.numpy as jnp
+
+    rs = np.random.RandomState(2)
+    a, b = (jnp.asarray(rs.randn(65536).astype(np.float32)).astype(dtype) for _ in range(2))
+    ref = np.asarray(jreduce.scale_accumulate(a, b, alpha, interpret=True).astype(jnp.float32))
+    ta, tb = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(getattr(torch, dtype))
+              for x in (a, b))
+    out = ops.scale_accumulate(ta, tb, alpha)
+    assert out.dtype == ta.dtype
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+    # the other rounding would differ: the test tells the two apart
+    al = float(torch.tensor(alpha, dtype=ta.dtype))
+    other = ((ta.float() + al * tb.float()).to(ta.dtype) if dtype == "bfloat16"
+             else (ta.float() + (al * tb.float()).to(ta.dtype).float()).to(ta.dtype))
+    if alpha != -0.25:  # a power of two: both roundings agree
+        assert (other.float().numpy() != ref).any()
+
+
+def test_scale_accumulate_f64_is_one_rounding():
+    """f64 (the parameter server's f64 shards): the correctly rounded
+    fma(alpha, b, a), held against exact rational arithmetic, cancellation
+    cases included."""
+    from fractions import Fraction
+
+    rs = np.random.RandomState(3)
+    alpha = 1 / 3
+    b = rs.randn(3000) * np.exp2(rs.randint(-30, 30, 3000))
+    a = rs.randn(3000) * np.exp2(rs.randint(-60, 60, 3000))
+    a[:1000] = -(alpha * b[:1000]) * (1 + rs.randint(-3, 4, 1000) * 2.0**-52)
+    out = ops.scale_accumulate(torch.from_numpy(a), torch.from_numpy(b), alpha).numpy()
+    exact = [float(Fraction(x) + Fraction(alpha) * Fraction(y)) for x, y in zip(a, b)]
+    np.testing.assert_array_equal(out, np.array(exact))
+    assert (out != a + alpha * b).any()
+
+
+def test_scale_accumulate_in_place_and_checks():
+    """out_ may be the first input (a rule applied in place); integer
+    dtypes raise, as do mismatched shapes and destinations."""
+    rs = np.random.RandomState(4)
+    base = torch.from_numpy(rs.randn(1001).astype(np.float32))
+    shard = base[3:700]  # a view at an odd element offset
+    inc = torch.from_numpy(rs.randn(697).astype(np.float32))
+    want = ops.scale_accumulate(shard, inc, -0.5)
+    got = ops.scale_accumulate(shard, inc, -0.5, out_=shard)
+    assert got.data_ptr() == shard.data_ptr() and torch.equal(shard, want)
+    acc = base[5:20].clone()
+    ops.accumulate(acc, torch.ones(15), out_=acc)
+    assert torch.equal(acc, base[5:20] + 1)
+    with pytest.raises(ValueError, match="float32, bfloat16"):
+        ops.scale_accumulate(torch.ones(5, dtype=torch.int32), torch.ones(5), 2.0)
+    with pytest.raises(ValueError, match="equal shapes"):
+        ops.scale_accumulate(torch.ones(5), torch.ones(4), 2.0)
+    with pytest.raises(ValueError, match="out_ must match"):
+        ops.scale_accumulate(torch.ones(5), torch.ones(5), 2.0, out_=torch.ones(4))
+
+
 def test_wrappers_launch_or_raise_off_the_cpu():
     """A tensor that is on neither the CPU nor a CUDA card gets no quiet
     fallback to a plain version."""
@@ -202,6 +286,9 @@ def test_wrappers_launch_or_raise_off_the_cpu():
     lse = torch.empty(2, 1, 1, 4, device="meta")
     for call in (lambda: ops.ring_allreduce(x), lambda: ops.ring_broadcast(x),
                  lambda: ops.accumulate(x, x),
+                 lambda: ops.scale_accumulate(x, x, 0.5),
+                 lambda: ops.accumulate(x, x, out_=x),
+                 lambda: ops.scale_accumulate(x, x, 0.5, out_=x),
                  lambda: ops.ring_allreduce_quant(x, "int8"),
                  lambda: ops.ring_reduce_scatter_quant(x, "bf16"),
                  lambda: ops.ring_attention_fwd(a, a, a, bidir=True),
@@ -209,7 +296,7 @@ def test_wrappers_launch_or_raise_off_the_cpu():
         with pytest.raises(ValueError, match="CUDA or the CPU"):
             call()
     counts = ops.launch_counts()
-    assert set(counts) == {"ring_allreduce", "ring_broadcast", "accumulate",
+    assert set(counts) == {"ring_allreduce", "ring_broadcast", "accumulate", "scale_accumulate",
                            "ring_reduce_scatter", "ring_allgather", "ring_reduce",
                            "ring_allreduce_bidir", "ring_attention_fwd",
                            "ring_attention_fwd_bidir", "ring_attention_bwd"} | {

@@ -212,8 +212,8 @@ def test_tester_checks_every_op_on_the_cpu():
         assert (r.launch_us > 0) == (r.mode == "async")
     pinned = tester.run_one_config("allreduce", 300, comm, "kernel", route_override=False)
     assert pinned.correct and pinned.backend == "kernel"
-    with pytest.raises(NotImplementedError, match="A7"):
-        tester.run_ps_throughput(comm)
+    ps = tester.run_ps_throughput(comm, nelem=1000, warmup=1, timed=2)
+    assert ps["nbytes"] == 4000 and ps["send_mbps"] > 0 and ps["recv_mbps"] > 0
 
 
 def test_bench_example_exits_zero():
@@ -223,5 +223,6 @@ def test_bench_example_exits_zero():
     assert bench_collectives.main(["--ranks", "2", "--device", "cpu", "--min-pow", "8",
                                    "--max-pow", "9", "--ops", "reducescatter,alltoall",
                                    "--backends", "kernel", "--modes", "async"]) == 0
-    with pytest.raises(NotImplementedError, match="A7"):
-        bench_collectives.main(["--ps", "--device", "cpu"])
+    assert bench_collectives.main(["--ps", "--ranks", "4", "--device", "cpu",
+                                   "--min-pow", "8", "--max-pow", "9", "--ops", "allreduce",
+                                   "--backends", "xla"]) == 0

@@ -22,12 +22,14 @@ kernel; ``mpi.collectives.async_`` returns handles to wait on. The whole
 collective surface (broadcast, reduce, allreduce, allgather, sendreceive,
 reducescatter, alltoall) runs on the ``xla``, ``ring`` and ``kernel``
 backends; ``python -m torchmpi_tpu_torch.examples.bench_collectives``
-sweeps it.
+sweeps it. ``mpi.parameterserver`` shards tensors over the ranks on the
+same device and runs the Downpour, EASGD and DSGD schedules
+(``python -m torchmpi_tpu_torch.examples.mnist_parameterserver``).
 
 The package imports ``torch`` and never ``jax`` or ``torchmpi_tpu``.
 """
 
-from . import collectives, constants, nn, ops
+from . import collectives, constants, nn, ops, parameterserver
 from .collectives import (
     allgather_tensor,
     allreduce_tensor,
@@ -47,6 +49,7 @@ from .runtime_state import (
     rank,
     set_communicator,
     size,
+    stack,
     start,
     started,
     stop,
@@ -67,6 +70,7 @@ __all__ = [
     "describe",
     "nn",
     "ops",
+    "parameterserver",
     "push_communicator",
     "rank",
     "reduce_tensor",
@@ -74,6 +78,7 @@ __all__ = [
     "sendreceive_tensor",
     "set_communicator",
     "size",
+    "stack",
     "start",
     "started",
     "stop",

@@ -357,3 +357,25 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, **kw) -> SyncHandle:
         h = SyncHandle(out, done)
     handles.register(h, kind="collective")
     return h
+
+
+def run_group_broadcast(x: torch.Tensor, comm: Communicator, root: int = 0) -> torch.Tensor:
+    """Broadcast within each *intra group* of ``comm`` from the member with
+    intra rank ``root`` (``eager.py:1009``): the building block of mixed
+    PS x data-parallel updates (``update.lua:104-112``). Each rank's row
+    becomes its group root's row, one gather over the rank axis, for
+    cartesian and ragged (tree) communicators alike."""
+    _check_rank_stacked(x, comm)
+    groups: dict = {}
+    for r in range(comm.size):
+        m = comm.member(r)
+        groups.setdefault(m.intra_group, {})[m.intra_rank] = r
+    src = []
+    for r in range(comm.size):
+        g = groups[comm.member(r).intra_group]
+        if root not in g:
+            raise CollectiveArgumentError(
+                f"intra root {root} out of range for group of size {len(g)}"
+            )
+        src.append(g[root])
+    return x.index_select(0, torch.tensor(src, device=x.device))

@@ -16,10 +16,14 @@
 namespace tmpi {
 
 // Codes the Python wrappers pass for the native payload types.
-enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2, kI32 = 3, kI8 = 4, kU8 = 5 };
+// kF64 is taken by the scaled accumulate only (the parameter server's f64
+// shards); the ring kernels refuse it.
+enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2, kI32 = 3, kI8 = 4, kU8 = 5, kF64 = 6 };
 
 inline int itemsize_of(int dtype) {
   switch (dtype) {
+    case kF64:
+      return 8;
     case kF32:
     case kI32:
       return 4;

@@ -9,12 +9,13 @@ on the rank axis), ``ring`` (the ppermute ring, hop by hop) and ``kernel``
 (the hand-written CUDA ring kernels); small allreduces and broadcasts go to
 the vendor path by the size cutoffs, as in the JAX package. Async configs
 also print the host time of issuing one call. The exit code is the number
-of incorrect configs.
+of incorrect configs. ``--ps`` also measures the parameter server's center
+traffic (send and receive MB/s at 2^(max-1) elements).
 
 Run:  python -m torchmpi_tpu_torch.examples.bench_collectives --ranks 8
       [--ops broadcast,reduce,allreduce,allgather,reducescatter]
       [--backends xla,ring,kernel] [--modes sync,async]
-      [--min-pow 8] [--max-pow 23] [--device cpu]
+      [--min-pow 8] [--max-pow 23] [--device cpu] [--ps]
 """
 
 from __future__ import annotations
@@ -36,18 +37,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--device", default=None, help="default: cuda:0")
     ap.add_argument("--ps", action="store_true",
-                    help="parameter-server center traffic (not ported yet)")
+                    help="also measure parameter-server center traffic (MB/s, "
+                    "the clientSend/clientReceive hot path)")
     args = ap.parse_args(argv)
-    if args.ps:
-        raise NotImplementedError(
-            "--ps needs the parameter server, which is not ported to PyTorch "
-            "yet (ROADMAP queue A7)"
-        )
 
     import torch
 
     import torchmpi_tpu_torch as mpi
-    from torchmpi_tpu_torch.utils.tester import run_matrix, sweep_sizes
+    from torchmpi_tpu_torch.utils.tester import run_matrix, run_ps_throughput, sweep_sizes
 
     mpi.start(ranks=args.ranks, device=args.device)
     try:
@@ -73,6 +70,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             benchmark=True,
             report=report,
         )
+        if args.ps:
+            r = run_ps_throughput(comm, nelem=1 << (args.max_pow - 1))
+            for what in ("send", "recv"):
+                print(f"{'ps-' + what:<14}{'server':<9}{'':<7}{r['nbytes'] // 4:>10}"
+                      f"{'':>12}{r[what + '_mbps'] / 1e3:>10.2f}{'':>11}  yes")
         bad = [r for r in results if not r.correct]
         print(f"{len(results)} configs, {len(bad)} incorrect")
         return len(bad)

@@ -14,7 +14,8 @@
   (``csrc/ring_quant.cu``) replace ``ops/ring_kernels.py:_ring_quant_kernel``
   in its allreduce and 'rs' modes (int8 or bf16 on every hop);
 - ``accumulate`` (``csrc/reduce_kernel.cu``) replaces
-  ``ops/reduce_kernel.py:_accumulate_kernel``;
+  ``ops/reduce_kernel.py:_accumulate_kernel``, and ``scale_accumulate``
+  (the same file) ``ops/reduce_kernel.py:_scale_add_kernel``;
 - ``ring_attention_fwd`` (``csrc/ring_attention.cu``) replaces
   ``ops/ring_attention_kernel.py:_ring_attn_kernel`` and, with
   ``bidir=True``, ``_ring_attn_bidir_kernel``; ``ring_attention_bwd``
@@ -30,7 +31,12 @@ from __future__ import annotations
 from typing import Dict
 
 from . import reduce_kernel, ring_attention_kernel, ring_kernels
-from .reduce_kernel import accumulate, accumulate_plain
+from .reduce_kernel import (
+    accumulate,
+    accumulate_plain,
+    scale_accumulate,
+    scale_accumulate_plain,
+)
 from .ring_attention_kernel import (
     RingAttention,
     ring_attention_bwd,
@@ -94,4 +100,6 @@ __all__ = [
     "ring_reduce_scatter_plain",
     "ring_reduce_scatter_quant",
     "ring_reduce_scatter_quant_plain",
+    "scale_accumulate",
+    "scale_accumulate_plain",
 ]

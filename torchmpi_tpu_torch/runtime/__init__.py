@@ -1,5 +1,5 @@
-"""Runtime core of the port: the communicator stack over virtual ranks and
-the handles of async collectives."""
+"""Runtime core of the port: the communicator stack over virtual ranks, the
+handles of async work and the offload pools."""
 
 from .communicator import (
     Communicator,
@@ -8,13 +8,14 @@ from .communicator import (
     KeySpec,
     split_by_keys,
 )
-from .handles import SyncHandle, sync_all, wait
+from .handles import StreamResult, SyncHandle, sync_all, wait
 
 __all__ = [
     "Communicator",
     "CommunicatorError",
     "CommunicatorStack",
     "KeySpec",
+    "StreamResult",
     "SyncHandle",
     "split_by_keys",
     "sync_all",

@@ -86,11 +86,17 @@ def start(
 
 def stop() -> None:
     """Teardown (``torchmpi_stop``, ``torch_mpi.cpp:282-306``): waits every
-    outstanding async handle, then drops the communicator stack."""
+    outstanding async handle, frees every parameter server (stopping its
+    polling thread), shuts the offload pools down, then drops the
+    communicator stack."""
     global _stack
+    from .parameterserver import free_all
     from .runtime.handles import sync_all
+    from .runtime.pools import shutdown_all
 
     sync_all()
+    free_all()
+    shutdown_all()
     with _lock:
         _stack = None
 
@@ -103,6 +109,10 @@ def _require_stack() -> CommunicatorStack:
     if _stack is None:
         raise NotStartedError("call torchmpi_tpu_torch.start() first")
     return _stack
+
+
+def stack() -> CommunicatorStack:
+    return _require_stack()
 
 
 def current_communicator() -> Communicator:

@@ -1,7 +1,14 @@
 """Data utilities and the collectives tester of the port."""
 
 from .data import DistributedIterator, synthetic_mnist
-from .tester import BenchResult, bus_bytes, run_matrix, run_one_config, sweep_sizes
+from .tester import (
+    BenchResult,
+    bus_bytes,
+    run_matrix,
+    run_one_config,
+    run_ps_throughput,
+    sweep_sizes,
+)
 
 __all__ = [
     "BenchResult",
@@ -9,6 +16,7 @@ __all__ = [
     "bus_bytes",
     "run_matrix",
     "run_one_config",
+    "run_ps_throughput",
     "sweep_sizes",
     "synthetic_mnist",
 ]

@@ -231,10 +231,38 @@ def run_matrix(
 
 
 def run_ps_throughput(comm: Communicator, nelem: int = 1 << 20, warmup: int = 3,
-                      timed: int = 10):
+                      timed: int = 10) -> dict:
     """Parameter-server center-traffic throughput (``tester.py:213``):
-    needs the parameter server, which is not ported yet (ROADMAP A7)."""
-    raise NotImplementedError(
-        "run_ps_throughput needs the parameter server, which is not ported "
-        "to PyTorch yet (ROADMAP queue A7)"
-    )
+    timed client ``send('add')`` fan-out (each handle waited: every shard
+    applied) and full ``receive`` assembly, in MB/s, the PS analog of the
+    collectives' bus-bandwidth lines (the reference's chunked
+    clientSend/clientReceive, ``lib/parameterserver.cpp:309-400``). The
+    shards live on the communicator's device, so this measures the
+    in-process pipeline: the pool and polling threads, the rules' kernels
+    and the shard copies. Each timed loop ends in a device synchronise.
+    Returns ``send_mbps``, ``recv_mbps`` and ``nbytes``."""
+    from ..parameterserver.server import ParameterServer
+
+    x = torch.ones(nelem, device=comm.device)
+    nbytes = x.numel() * x.element_size()
+    ps = ParameterServer(torch.zeros(nelem), comm=comm)
+    try:
+        def timed_loop(call) -> float:
+            for _ in range(warmup):
+                call().wait()
+            _synchronize(comm.device)
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                call().wait()
+            _synchronize(comm.device)
+            return time.perf_counter() - t0
+
+        send_dt = timed_loop(lambda: ps.send(x, rule="add"))
+        recv_dt = timed_loop(ps.receive)
+    finally:
+        ps.free()
+    return {
+        "send_mbps": nbytes * timed / send_dt / 1e6,
+        "recv_mbps": nbytes * timed / recv_dt / 1e6,
+        "nbytes": nbytes,
+    }
