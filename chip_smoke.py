@@ -58,18 +58,24 @@ phase fails:
    size, full and int8 wire (``{"ps": ...}`` lines);
 9. profiles 5 steps of each MNIST path, 2 LM steps and 5 Downpour steps
    (``torch.profiler``) and prints one ``{"profile": ...}`` line each:
-   device time by kernel and busy share; times Downpour steps with the PS
+   device time by kernel and busy share (the LM's with the step time,
+   tokens/sec/chip and MFU of 7.'s ``kernel_full`` run); times Downpour
+   steps with the PS
    server's 100 us polling cadence and with none (``{"ps_poll": ...}``);
 10. times each kernel, its plain version and, where there is one, a
    PyTorch call computing the same function with CUDA events at the main
    paths' shapes, on inputs rotated past the L2, and prints one
-   ``{"kernels": [...]}`` line;
+   ``{"kernels": [...]}`` line: each row's bound is the larger of its bytes
+   over 3.35 TB/s and its operations over 67 TFLOP/s (f32), or for the
+   attention rows over 165 TFLOP/s (f32 as 3xTF32 on the tensor cores,
+   with the f32 bound beside it), and no kernel may read under its bound;
 11. prints last ``{"ok": true, "device": {...}}``.
 
 Kernels are held to their plain versions bit for bit, but for the ring
 attention kernels (K8, K9, K10), which merge 64-key tiles where the plain
-versions merge whole blocks: those agree within the tolerances of
-``ATTN_TOL`` (f32) and ``BF16_REL`` (bf16).
+versions merge whole blocks (and K10 multiplies on the tensor cores, as
+3xTF32 for f32 inputs): those agree within the tolerances of ``ATTN_TOL``
+(f32) and ``BF16_REL`` (bf16).
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -115,6 +122,9 @@ from torchmpi_tpu_torch.utils.tester import run_matrix, run_ps_throughput, sweep
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
+# the f32 rate on the tensor cores as 3xTF32: three TF32 MMAs (495 TFLOP/s
+# dense, data sheet) per f32 product
+F32_3XTF32_OPS_PER_S = 495e12 / 3
 L2_BYTES = 50 * 2**20  # H100 L2 cache
 P = 8  # virtual ranks on the main path
 BATCH = 336
@@ -221,10 +231,37 @@ def phase_device() -> None:
     )
 
 
+def ptxas_report(log: str, part: str) -> dict:
+    """Registers and spill bytes of each kernel whose name holds ``part``,
+    from ``nvcc -Xptxas -v`` output, by ``name<D, dtype>``."""
+    report, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"attn\d+(\w+_kernel)ILi(\d+)E(\w)", entry.group(1))
+            name = (f"{m.group(1)}<{m.group(2)}, {'float' if m.group(3) == 'f' else 'bf16'}>"
+                    if m and part in m.group(1) else None)
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            report.setdefault(name, {}).update(spill_stores=int(spill.group(1)),
+                                               spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            report.setdefault(name, {})["registers"] = int(regs.group(1))
+    return report
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     paths = _build.build_all()
     print(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
+    # K10's registers and spills at every head dim and dtype (sm_90a)
+    log = _build.build_log("ring_attention")
+    if log.exists():
+        print(json.dumps({"ptxas": ptxas_report(log.read_text(), "_mma_kernel")}))
 
 
 def check_quant(dev, gen) -> dict:
@@ -742,10 +779,11 @@ def lm_run(dev, widths: dict, seq: int, batch: int, lr: float, steps: int, backe
     return run
 
 
-def phase_lm(dev) -> dict:
+def phase_lm(dev) -> tuple:
     """The long-context LM path: a small LM against the CPU, then the
     full-width path through ``kernel_full``, ``kernel_bidir_full`` and
-    ``xla`` (see the module docstring). Returns each run's launch counts."""
+    ``xla`` (see the module docstring). Returns each run's launch counts,
+    and the ``kernel_full`` run's step time, tokens/sec/chip and MFU."""
     layers = LM_WIDTHS["num_layers"]
     small = dict(vocab_size=64, num_layers=2, num_heads=2, head_dim=16, d_model=32, max_len=64)
     card = lm_run(dev, small, 64, 2, 3e-3, 3, "kernel_full")
@@ -780,6 +818,8 @@ def phase_lm(dev) -> dict:
           f"({full['step_ms']:.2f} ms per step after the first; {achieved / 1e12:.3f} TFLOP/s, "
           f"MFU {frac:.2%} of the f32 peak by the analytic count)")
     runs = {"lm_kernel_full": full["counts"]}
+    stats = {"step_ms": full["step_ms"], "tokens_per_s_per_chip": full["tokens_per_s"],
+             "tflops": achieved / 1e12, "mfu_f32": frac}
     for backend, launched in (
         ("kernel_bidir_full", dict(ring_attention_fwd_bidir=layers * LM_CHECK_STEPS,
                                    ring_attention_bwd=2 * layers * LM_CHECK_STEPS)),
@@ -792,7 +832,7 @@ def phase_lm(dev) -> dict:
         print(f"lm: {backend} {LM_CHECK_STEPS} steps match kernel_full's (losses {run['losses']}); "
               f"tokens/sec/chip {run['tokens_per_s']:.1f}, peak memory {run['peak_gb']:.2f} GB")
         runs[f"lm_{backend}"] = run["counts"]
-    return runs
+    return runs, stats
 
 
 def ps_expected(variant: str, steps: int) -> tuple:
@@ -1071,9 +1111,9 @@ def phase_profile(mode: str, wire: str) -> None:
     print_profile(prof, wall_us, 5, f"{mode}, wire {wire}")
 
 
-def print_profile(prof, wall_us: float, steps: int, path: str) -> None:
+def print_profile(prof, wall_us: float, steps: int, path: str, **fields) -> None:
     """One ``{"profile": ...}`` line: device time by kernel per step and the
-    share of the window the device was busy."""
+    share of the window the device was busy, and ``fields`` as they are."""
     # device-side events only: a host op's "self" device time repeats the
     # time of the kernels it launched, which are listed on their own
     rows = sorted(
@@ -1097,12 +1137,15 @@ def print_profile(prof, wall_us: float, steps: int, path: str) -> None:
             {"name": k[:80], "us": us / steps, "calls_per_step": n / steps}
             for us, k, n in rows if "tmpi::" in k
         ],
+        **fields,
     }}))
 
 
-def phase_profile_lm(dev) -> None:
+def phase_profile_lm(dev, lm: dict) -> None:
     """Where an LM step's time goes (``kernel_full``, full width): 2 steps
-    profiled after 1 warm-up step."""
+    profiled after 1 warm-up step (K10's two launches are
+    ``bwd_dq_mma_kernel`` and ``bwd_dkv_mma_kernel``), with the unprofiled
+    run's step time, tokens/sec/chip and MFU (``lm``)."""
     from torch.profiler import ProfilerActivity, profile
 
     model = LongContextTransformer(**LM_WIDTHS, sp_backend="kernel_full").to(dev)
@@ -1122,15 +1165,19 @@ def phase_profile_lm(dev) -> None:
     prof.stop()
     del model
     torch.cuda.empty_cache()
-    print_profile(prof, wall_us, 2, "LM kernel_full, full width")
+    print_profile(prof, wall_us, 2, "LM kernel_full, full width", lm_run_unprofiled=lm)
 
 
-def bound(nbytes: int, nops: int) -> tuple:
+def bound(nbytes: int, nops: int, tensor_cores: bool = False) -> tuple:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the f32 rate."""
+    the memory rate and the operations over the f32 rate, on the CUDA
+    cores or, for work the tensor cores can do, as 3xTF32."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nops / F32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    if tensor_cores:
+        by_ops, ops_name = nops / F32_3XTF32_OPS_PER_S * 1e3, "operations (3xTF32)"
+    else:
+        by_ops, ops_name = nops / F32_OPS_PER_S * 1e3, "operations"
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, ops_name)
 
 
 def rotating(fn, make, in_bytes: int):
@@ -1269,8 +1316,10 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
     # ring attention at the LM path's shape, f32, causal; the bound counts
     # the useful products: the T(T+1)/2 (query, key) pairs the causal mask
     # keeps over the gathered T = sp*n per cell, 4 d flops each forward and
-    # 10 d backward; the library call is SDPA over the gathered sequence
-    # [b, h, T, d] (and its backward)
+    # 10 d backward, at the 3xTF32 rate (the tensor cores could do the work
+    # at f32 accuracy), with the CUDA cores' f32 bound beside it; the
+    # library call is SDPA over the gathered sequence [b, h, T, d] (and its
+    # backward)
     # (names apart from n above: the earlier rows' lambdas read it late)
     asp, ab, an, ah, ad = ATTN_MAIN
     pair_flops = ab * ah * (asp * an) * (asp * an + 1) // 2 * ad
@@ -1293,7 +1342,7 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
         return sdpa(*leaves, is_causal=True), leaves, randn(ab, ah, asp * an, ad)
 
     attn = dict(source="torchmpi_tpu_torch/csrc/ring_attention.cu", shape=list(ATTN_MAIN),
-                causal=True)
+                causal=True, tensor_cores=True)
     rows += [
         dict(attn, name="ring_attention_fwd",
              replaces="torchmpi_tpu/ops/ring_attention_kernel.py:117",
@@ -1322,7 +1371,8 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
             return time_ms(rotating(fn, make, r["in_bytes"]))
 
         ms = timed(r["kernel"])
-        bound_ms, bound_by = bound(r["bytes"], r["ops"])
+        bound_ms, bound_by = bound(r["bytes"], r["ops"], r.get("tensor_cores", False))
+        require(bound_ms <= ms, f"{r['name']}: {ms} ms is under its bound {bound_ms} ms")
         by_path = {path: counts[r["name"]] for path, counts in runs.items()}
         row = {
             "name": r["name"], "route": "cuda", "source": r["source"],
@@ -1338,6 +1388,8 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
         }
         if r.get("causal"):
             row["causal"] = True
+        if r.get("tensor_cores"):
+            row["bound_f32_ms"] = bound(r["bytes"], r["ops"])[0]
         if "shard" in r:
             sh = r["shard"]
 
@@ -1376,13 +1428,14 @@ def main() -> None:
     runs = {path: run["counts"] for path, run in phase_trainer(dev).items()}
     phase_async(dev)
     runs.update(phase_bench())
-    runs.update(phase_lm(dev))
+    lm_runs, lm_stats = phase_lm(dev)
+    runs.update(lm_runs)
     runs.update(phase_ps(dev))
     phase_ps_vs_cpu(dev)
     phase_ps_throughput()
     phase_profile("sync", "full")
     phase_profile("async", "int8")
-    phase_profile_lm(dev)
+    phase_profile_lm(dev, lm_stats)
     phase_profile_ps()
     phase_timing(dev, runs, errs)
     print(json.dumps({

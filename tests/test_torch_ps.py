@@ -30,6 +30,8 @@ Tolerances:
   rtol 2e-3, parameters and spread atol 2e-3.
 """
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +47,7 @@ from torchmpi_tpu.parameterserver import ParameterServer as JPS
 from torchmpi_tpu.parameterserver import free_all as jfree_all
 from torchmpi_tpu.parameterserver import shard_range as jshard_range
 from torchmpi_tpu.parameterserver import synchronize_gradients_with_parameterserver as jsync
+from torchmpi_tpu.parameterserver import server as jserver
 from torchmpi_tpu.parameterserver import wire as jwire
 from torchmpi_tpu_torch import parameterserver as tps
 from torchmpi_tpu_torch.parameterserver import server as tserver
@@ -56,6 +59,11 @@ P = 8
 
 @pytest.fixture(autouse=True)
 def _runtimes():
+    # both packages rotate a server's remainder shards by its instance id:
+    # number this test's instances from 0 on both sides, whatever other
+    # tests in the process created before
+    jserver._server._ids = itertools.count()
+    tserver._server._ids = itertools.count()
     jmpi.start()
     tmpi.start(ranks=P, device="cpu")
     for c in (jconstants, tmpi.constants):

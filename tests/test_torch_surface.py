@@ -226,3 +226,61 @@ def test_bench_example_exits_zero():
     assert bench_collectives.main(["--ps", "--ranks", "4", "--device", "cpu",
                                    "--min-pow", "8", "--max-pow", "9", "--ops", "allreduce",
                                    "--backends", "xla"]) == 0
+
+
+@pytest.mark.parametrize("cartesian", [False, True])
+def test_failed_start_restores_the_cartesian_constant(cartesian):
+    """A ``start()`` whose ``custom_communicator_init`` raises leaves
+    ``use_cartesian_communicator`` as it was, as the reference's rollback
+    does (``torchmpi_tpu/runtime_state.py`` ``start``), and a retry starts."""
+    constants.set("use_cartesian_communicator", not cartesian)
+
+    def boom():
+        raise RuntimeError("init failed")
+
+    with pytest.raises(RuntimeError, match="init failed"):
+        tmpi.start(ranks=2, device="cpu", with_cartesian_communicator=cartesian,
+                   custom_communicator_init=boom)
+    assert not tmpi.started()
+    assert constants.get("use_cartesian_communicator") is (not cartesian)
+    tmpi.start(ranks=2, device="cpu", with_cartesian_communicator=cartesian)
+    assert tmpi.started() and tmpi.size() == 2
+    assert constants.get("use_cartesian_communicator") is cartesian
+
+
+# the reference's top-level names the port re-exports; the reference's
+# ``pallas`` backend is the port's ``kernel``
+REEXPORTS = ["async_", "xla", "ring", "kernel", "wait", "sync_all", "SyncHandle",
+             "split_by_keys", "engine", "parallel", "utils"]
+
+
+@pytest.mark.parametrize("name", REEXPORTS)
+def test_reference_names_are_exported(name):
+    assert hasattr(jmpi, "pallas" if name == "kernel" else name)
+    assert hasattr(tmpi, name) and name in tmpi.__all__
+    assert getattr(tmpi, name) is not None
+
+
+@pytest.mark.parametrize("backend", [None, "xla", "ring", "kernel"])
+def test_async_allreduce_then_wait_matches_jax(backend, monkeypatch):
+    """The reference's own usage, ``h = mpi.async_.allreduce_tensor(x)``
+    then ``mpi.wait(h)``, on the CPU virtual ranks, against the JAX
+    package's result for the same numpy input (its ``pallas`` backend in
+    Pallas interpret mode; f32 sums in another order on the ``xla`` and
+    selector paths: rtol 1e-6)."""
+    p = P_RANKS
+    monkeypatch.setattr(jring, "_FORCE_INTERPRET", True)
+    _no_cutoffs()
+    x = np.random.RandomState(11).randn(p, 3, 50).astype(np.float32)
+    jmpi.start(devices=jax.devices()[:p])
+    jns = jmpi.async_ if backend is None else getattr(
+        jmpi.async_, "pallas" if backend == "kernel" else backend)
+    ref = np.asarray(jmpi.wait(jns.allreduce_tensor(x)))
+    tmpi.start(ranks=p, device="cpu")
+    ns = tmpi.async_ if backend is None else getattr(tmpi.async_, backend)
+    h = ns.allreduce_tensor(torch.from_numpy(x))
+    assert isinstance(h, tmpi.SyncHandle)
+    out = tmpi.wait(h).numpy()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+    tmpi.sync_all()

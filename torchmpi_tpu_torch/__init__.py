@@ -18,7 +18,7 @@ asynchronous, with an optional compressed wire::
 
 ``AllReduceSGDEngine(..., mode='async', wire_dtype='int8')`` syncs the
 gradients in buckets, async on a side stream, through the quantized ring
-kernel; ``mpi.collectives.async_`` returns handles to wait on. The whole
+kernel; ``mpi.async_`` returns handles to wait on (``mpi.wait(h)``). The whole
 collective surface (broadcast, reduce, allreduce, allgather, sendreceive,
 reducescatter, alltoall) runs on the ``xla``, ``ring`` and ``kernel``
 backends; ``python -m torchmpi_tpu_torch.examples.bench_collectives``
@@ -34,12 +34,17 @@ from .collectives import (
     allgather_tensor,
     allreduce_tensor,
     alltoall_tensor,
+    async_,
     broadcast_tensor,
+    kernel,
     reduce_tensor,
     reducescatter_tensor,
+    ring,
     sendreceive_tensor,
+    xla,
 )
-from .runtime.communicator import Communicator, CommunicatorError
+from .runtime.communicator import Communicator, CommunicatorError, split_by_keys
+from .runtime.handles import SyncHandle, sync_all, wait
 from .runtime_state import (
     NotStartedError,
     communicator_names,
@@ -55,31 +60,46 @@ from .runtime_state import (
     stop,
 )
 
+# subpackages as attributes, as the reference's ``mpi.engine`` etc.; last,
+# since each imports from the modules above
+from . import engine, parallel, utils  # noqa: E402
+
 __all__ = [
     "Communicator",
     "CommunicatorError",
     "NotStartedError",
+    "SyncHandle",
     "allgather_tensor",
     "allreduce_tensor",
     "alltoall_tensor",
+    "async_",
     "broadcast_tensor",
     "collectives",
     "communicator_names",
     "constants",
     "current_communicator",
     "describe",
+    "engine",
+    "kernel",
     "nn",
     "ops",
+    "parallel",
     "parameterserver",
     "push_communicator",
     "rank",
     "reduce_tensor",
     "reducescatter_tensor",
+    "ring",
     "sendreceive_tensor",
     "set_communicator",
     "size",
+    "split_by_keys",
     "stack",
     "start",
     "started",
     "stop",
+    "sync_all",
+    "utils",
+    "wait",
+    "xla",
 ]

@@ -27,6 +27,8 @@ SOURCES = ("reduce_kernel", "ring_kernels", "ring_quant", "ring_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # ptxas reports each kernel's registers and spills into the build log
+    "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -66,10 +68,17 @@ def target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest()}.so"
 
 
+def build_log(name: str) -> Path:
+    """The compiler's output for the library of ``csrc/<name>.cu``, kept
+    beside it when it was built."""
+    return target(name).with_suffix(".log")
+
+
 def build_all(names=SOURCES) -> List[Path]:
     """Compile every library of ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together. Raises
-    :class:`KernelBuildError` with the compiler's output on failure."""
+    ``nvcc`` process per source, all started together, keeping each
+    compiler output (:func:`build_log`). Raises :class:`KernelBuildError`
+    with the compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     jobs = []
@@ -93,6 +102,7 @@ def build_all(names=SOURCES) -> List[Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            build_log(name).write_text(log)
     if failures:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failures))
     return [target(name) for name in names]

@@ -8,7 +8,8 @@ The port of ``torchmpi_tpu/ops/ring_attention_kernel.py``:
   ``bidir=True``, ``_ring_attn_bidir_kernel`` (K9), and returns ``(o, lse)``
   as ``ring_attention_pallas(..., return_lse=True)`` does;
 - :func:`ring_attention_bwd` runs ``_ring_attn_bwd_kernel`` (K10), as
-  ``ring_attention_bwd_pallas``;
+  ``ring_attention_bwd_pallas``, on the tensor cores (``mma.sync`` with
+  TF32 operands, f32 operands split as 3xTF32);
 - :class:`RingAttention` is the ``jax.custom_vjp`` ``ring_attention``: the
   forward saves ``(q, k, v, o, lse)``, the backward is K10 when
   ``bwd_kernel`` is set, else the plain analytic ring backward (the JAX
@@ -27,7 +28,9 @@ The plain versions follow the JAX arithmetic block by block: per visiting
 block the block max, ``exp``, the row sums and the alpha/beta merge of
 ``_flash_merge_cells`` in the ring order, and for the backward
 ``_ring_attention_bwd_xla``. The kernels merge 64-key tiles instead of
-whole blocks, so the two agree to rounding, not bit for bit.
+whole blocks, and K10 sums its products on the tensor cores, so the two
+agree to rounding, not bit for bit (``tests/test_torch_tf32.py`` checks
+K10's 3xTF32 arithmetic against f64 on the CPU).
 """
 
 from __future__ import annotations

@@ -66,6 +66,7 @@ def start(
     if ranks < 1:
         raise ValueError(f"start() needs at least one rank, got {ranks}")
     dev = resolve_device(device)
+    prev_cartesian = constants.get("use_cartesian_communicator")
     with _lock:
         if _stack is not None:
             raise RuntimeError("torchmpi_tpu_torch.start() called twice")
@@ -78,9 +79,12 @@ def start(
         try:
             custom_communicator_init()
         except BaseException:
-            # roll back so a corrected retry of start() works
+            # roll back so a corrected retry of start() works, the cartesian
+            # constant set above included
             with _lock:
                 _stack = None
+                if not constants.constants_frozen():
+                    constants.set("use_cartesian_communicator", prev_cartesian)
             raise
 
 
