@@ -9,7 +9,8 @@ phase fails:
 1. prints the card (``nvidia-smi`` name and power limit) and the
    toolchain;
 2. builds every kernel from ``torchmpi_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together);
+   source, started together) and prints the registers and spills of the
+   tensor-core attention kernels;
 3. holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and over a sweep of dtypes, wires, modes, ranks,
    roots and ragged sizes: every comparison of a collective kernel must be
@@ -73,9 +74,9 @@ phase fails:
 
 Kernels are held to their plain versions bit for bit, but for the ring
 attention kernels (K8, K9, K10), which merge 64-key tiles where the plain
-versions merge whole blocks (and K10 multiplies on the tensor cores, as
-3xTF32 for f32 inputs): those agree within the tolerances of ``ATTN_TOL``
-(f32) and ``BF16_REL`` (bf16).
+versions merge whole blocks and multiply on the tensor cores (as 3xTF32
+for f32 inputs): those agree within the tolerances of ``ATTN_TOL`` (f32)
+and ``BF16_REL`` (bf16).
 """
 
 from __future__ import annotations
@@ -152,6 +153,9 @@ ATTN_MAIN = (LM_SP, LM_BATCH, LM_SEQ // LM_SP, 8, 64)  # its [sp, b, n_local, h,
 # limit that scales with the values compared
 ATTN_TOL = {"o": (2e-5, 0.0), "lse": (1e-4, 0.0), "grad": (2e-4, 2e-4), "k9_vs_k8": (2e-4, 2e-4)}
 BF16_REL = 2.0**-7
+# the forward attention kernel's block layout (csrc/ring_attention.cu,
+# FwdBlock): the faster at the LM shape of the two that were tried
+FWD_LAYOUT = "B (8 warps, 128 query rows; A, 4 warps over 64 rows, was slower)"
 # the parameter-server path: the JAX example's CLI at LeNet's full width
 PS_ARGS = ["--batch", str(BATCH), "--lr", str(LR), "--epochs", "2", "--train", "8192",
            "--tau", "5", "--init-delay", "10", "--beta", "0.9", "--seed", "0"]
@@ -233,13 +237,15 @@ def phase_device() -> None:
 
 def ptxas_report(log: str, part: str) -> dict:
     """Registers and spill bytes of each kernel whose name holds ``part``,
-    from ``nvcc -Xptxas -v`` output, by ``name<D, dtype>``."""
+    from ``nvcc -Xptxas -v`` output, by ``name<D, dtype>`` (``name<D,
+    dtype, bidir>`` for the forward's K9 order)."""
     report, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"attn\d+(\w+_kernel)ILi(\d+)E(\w)", entry.group(1))
-            name = (f"{m.group(1)}<{m.group(2)}, {'float' if m.group(3) == 'f' else 'bf16'}>"
+            m = re.search(r"attn\d+(\w+_kernel)ILi(\d+)E(\w)(Lb1)?", entry.group(1))
+            name = (f"{m.group(1)}<{m.group(2)}, {'float' if m.group(3) == 'f' else 'bf16'}"
+                    f"{', bidir' if m.group(4) else ''}>"
                     if m and part in m.group(1) else None)
             continue
         if name is None:
@@ -258,10 +264,15 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     paths = _build.build_all()
     print(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
-    # K10's registers and spills at every head dim and dtype (sm_90a)
+    print(f"forward attention layout: {FWD_LAYOUT}")
+    # registers and spills (sm_90a) of every tensor-core attention kernel
+    # (filter "_mma_kernel"): K8/K9's fwd_mma_kernel and K10's
+    # bwd_dq_mma_kernel and bwd_dkv_mma_kernel, at every head dim and dtype
     log = _build.build_log("ring_attention")
     if log.exists():
         print(json.dumps({"ptxas": ptxas_report(log.read_text(), "_mma_kernel")}))
+    else:
+        print(f"no ptxas report: {log} is missing")
 
 
 def check_quant(dev, gen) -> dict:
@@ -437,9 +448,10 @@ def check_attention(dev, gen) -> dict:
     64-key tiles, the plain versions whole blocks, so they agree to
     rounding): p in {2, 3, 4, 8},
     causal and not, f32 and bf16, d in {32, 64}, at a ragged n_local of
-    1000 (b 1, h 2); d in {8, 16, 128} at p=3, n_local 200; then the LM
-    path's shape [4, 4, 1024, 8, 64], f32, causal. Returns the main
-    shape's max |kernel - plain| of each."""
+    1000 (b 1, h 2); d in {8, 16, 128} at p=3, n_local 200; d 64 at p=5,
+    n_local 24 (under one key tile); then the LM path's shape
+    [4, 4, 1024, 8, 64], f32, causal. Returns the main shape's max
+    |kernel - plain| of each."""
     err = {}
 
     def close(got, want, key, what):
@@ -481,6 +493,9 @@ def check_attention(dev, gen) -> dict:
     for causal, dtype, d in itertools.product(
             (False, True), (torch.float32, torch.bfloat16), (8, 16, 128)):
         run((3, 2, 200, 3, d), dtype, causal, f"p=3 causal={causal} {dtype} d={d} n_local=200")
+    # fewer keys a block than one key tile
+    for causal, dtype in itertools.product((False, True), (torch.float32, torch.bfloat16)):
+        run((5, 1, 24, 2, 64), dtype, causal, f"p=5 causal={causal} {dtype} d=64 n_local=24")
     err.update(run(ATTN_MAIN, torch.float32, True, f"{list(ATTN_MAIN)} f32 causal"))
     # what the kernels do not take raises on the card (no plain fallback),
     # under the 'auto' backend too
@@ -1143,9 +1158,9 @@ def print_profile(prof, wall_us: float, steps: int, path: str, **fields) -> None
 
 def phase_profile_lm(dev, lm: dict) -> None:
     """Where an LM step's time goes (``kernel_full``, full width): 2 steps
-    profiled after 1 warm-up step (K10's two launches are
-    ``bwd_dq_mma_kernel`` and ``bwd_dkv_mma_kernel``), with the unprofiled
-    run's step time, tokens/sec/chip and MFU (``lm``)."""
+    profiled after 1 warm-up step (K8 is ``fwd_mma_kernel``, K10's two
+    launches are ``bwd_dq_mma_kernel`` and ``bwd_dkv_mma_kernel``), with the
+    unprofiled run's step time, tokens/sec/chip and MFU (``lm``)."""
     from torch.profiler import ProfilerActivity, profile
 
     model = LongContextTransformer(**LM_WIDTHS, sp_backend="kernel_full").to(dev)

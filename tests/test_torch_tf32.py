@@ -1,4 +1,5 @@
-"""The numeric design of K10's tensor-core backward, checked on the CPU.
+"""The numeric design of the tensor-core ring attention kernels, K8/K9
+(forward) and K10 (backward), checked on the CPU.
 
 K10 (``torchmpi_tpu_torch/csrc/ring_attention.cu``) runs the five products
 of the ring attention backward (S = Q K^T, dP = dO V^T, dV += P^T dO,
@@ -26,6 +27,17 @@ Plain 1xTF32 (``a_big b_big`` only), printed by
 64] causal its largest errors against the f64 backward are 1.07e-3,
 1.48e-3 and 1.88e-3 (dq, dk, dv), each past the 2e-4 limits, where
 3xTF32 gives 6.9e-7, 1.9e-6 and 3.6e-6; that is why K10 does not use it.
+
+The forward (``fwd_mma_kernel``) takes S = Q K^T and P V by the same rule
+(3xTF32 for f32 inputs; for bf16 S one term and P V two) and merges 64-key
+tiles with an online softmax in the log2 domain, each tile's P V summed
+fresh and added in f32. ``ring_fwd`` repeats that walk, in K8's and in
+K9's visiting order, and must stay within ``ATTN_TOL["o"]`` (atol 2e-5)
+and ``["lse"]`` (1e-4) of ``forward64`` at the same shapes. Plain 1xTF32,
+printed by ``test_1xtf32_forward_is_worse_than_3xtf32`` and not asserted:
+at [4, 1, 1024, 2, 64] causal its largest errors against the f64 forward
+are 9.6e-4 (o) and 3.8e-4 (lse), each past its limit, where 3xTF32 gives
+4.9e-7 and 1.1e-6.
 """
 
 import functools
@@ -38,6 +50,8 @@ import torch
 from test_torch_attention import SWEEP
 
 GRAD_TOL = (2e-4, 2e-4)  # chip_smoke.ATTN_TOL["grad"]: atol, rtol
+O_TOL, LSE_TOL = 2e-5, 1e-4  # chip_smoke.ATTN_TOL["o"], ["lse"]: atol
+TILE = 64  # keys per key tile of the forward kernel
 BIG = (4, 1, 1024, 2, 64)  # [p, b, n_local, h, d]
 
 
@@ -146,6 +160,49 @@ def forward64(q, k, v, causal: bool):
             lse.reshape(b, h, p, n).permute(2, 0, 1, 3))
 
 
+def visits(p: int, bidir: bool):
+    """The shifts s of the blocks a rank visits, in order: rank r merges
+    the block of rank (r - s) mod p (the kernel's ``visit_src``)."""
+    if not bidir:
+        return list(range(p))
+    # the local block, then for t = 1, 2, .. the R chain's (r - t) and the
+    # L chain's (r + t)
+    return [0] + [(i + 1) // 2 if i % 2 else -((i + 1) // 2) for i in range(1, p)]
+
+
+def ring_fwd(q, k, v, causal: bool, bidir: bool, mm):
+    """``fwd_mma_kernel``'s arithmetic: every rank's queries walk the visited
+    blocks in ``TILE``-key tiles with the online softmax in f32, in the log2
+    domain (x = s scale log2 e, m the running max of x, P = 2^(x - m)), each
+    tile's P V a fresh sum added to the rescaled accumulator; every product
+    through ``mm``. Masked scores are -1e30, so their P is 0, and a tile all
+    masked for a row leaves it as it was (the kernel skips such tiles)."""
+    p, b, n, h, d = q.shape
+    c = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) * math.log2(math.e)
+    pos = torch.arange(p * n).reshape(p, n)
+    ranks = torch.arange(p)
+    m = torch.full((p, b, h, n), -1e30)
+    l = torch.zeros((p, b, h, n))
+    acc = torch.zeros_like(q)
+    for shift in visits(p, bidir):
+        kb, vb = torch.roll(k, shift, 0), torch.roll(v, shift, 0)
+        kpos = pos[(ranks - shift) % p]
+        for k0 in range(0, n, TILE):
+            kt, vt = kb[:, :, k0:k0 + TILE], vb[:, :, k0:k0 + TILE]
+            s = mm("rbqhd,rbkhd->rbhqk", q, kt, True)
+            if causal:
+                mask = pos[:, :, None] >= kpos[:, None, k0:k0 + TILE]
+                s = torch.where(mask[:, None, None], s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1) * c)
+            alpha = torch.exp2(m - m_new)
+            pt = torch.exp2(s * c - m_new[..., None])
+            l = l * alpha + pt.sum(-1)
+            acc = acc * alpha.transpose(2, 3)[..., None] + mm("rbhqk,rbkhd->rbqhd", pt, vt, False)
+            m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return acc / l.transpose(2, 3)[..., None], m * math.log(2.0) + torch.log(l)
+
+
 @functools.lru_cache(maxsize=None)
 def case(shape, causal: bool, bf16: bool, seed: int):
     """Inputs (bf16 values when ``bf16``), the f64 (o, lse) and the f64
@@ -158,13 +215,27 @@ def case(shape, causal: bool, bf16: bool, seed: int):
     o, lse = forward64(q.double(), k.double(), v.double(), causal)
     want = ring_bwd(q.double(), k.double(), v.double(), o, lse, do.double(), causal,
                     product("f64"))
-    return (q, k, v, o.float(), lse.float(), do), want
+    return (q, k, v, o.float(), lse.float(), do), (o, lse), want
+
+
+def fwd_err(rule: str, shape, causal: bool, bidir: bool, bf16: bool, seed: int):
+    """o and lse of the ``rule`` forward against f64: whether each is
+    within its limit, and its max |error|."""
+    (q, k, v, *_), want, _ = case(shape, causal, bf16, seed)
+    got = ring_fwd(q, k, v, causal, bidir, product(rule))
+    ok, err = [], []
+    for g, w, tol in zip(got, want, (O_TOL, LSE_TOL)):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        diff = (g.double() - w).abs()
+        ok.append(bool((diff <= tol).all()))
+        err.append(float(diff.max()))
+    return ok, err
 
 
 def max_err(rule: str, shape, causal: bool, bf16: bool, seed: int):
     """Each gradient of the ``rule`` backward against f64: whether it is
     within GRAD_TOL, and its max |error|."""
-    inputs, want = case(shape, causal, bf16, seed)
+    inputs, _, want = case(shape, causal, bf16, seed)
     got = ring_bwd(*inputs, causal, product(rule))
     atol, rtol = GRAD_TOL
     ok, err = [], []
@@ -196,5 +267,28 @@ def test_1xtf32_is_worse_than_3xtf32(capsys):
     _, err1 = max_err("1xtf32", BIG, True, False, seed)
     with capsys.disabled():
         print(f"\n{list(BIG)} causal, max |err| against f64 (dq, dk, dv): "
+              f"1xTF32 {err1}, 3xTF32 {err3}")
+    assert all(e1 > 10 * e3 for e1, e3 in zip(err1, err3))
+
+
+@pytest.mark.parametrize("shape,causal", SHAPES)
+@pytest.mark.parametrize("bidir", [False, True], ids=["k8", "k9"])
+@pytest.mark.parametrize("rule", ["f32", "bf16"])
+def test_tensor_core_forward_holds_the_f32_limits(rule, bidir, shape, causal):
+    """The forward's 64-key tiles, online softmax, 3xTF32 (f32 inputs) and
+    bf16 rule, in K8's and K9's visiting order, within atol 2e-5 (o) and
+    1e-4 (lse) of the f64 forward."""
+    ok, err = fwd_err(rule, shape, causal, bidir, rule == "bf16", seed=sum(shape) + causal)
+    assert all(ok), f"{rule} bidir={bidir} {shape} causal={causal}: max |err| (o, lse) {err}"
+
+
+def test_1xtf32_forward_is_worse_than_3xtf32(capsys):
+    """Plain TF32 forward at the large shape: printed (the docstring
+    records it), and worse than 3xTF32 on o and lse."""
+    seed = sum(BIG) + 1
+    _, err3 = fwd_err("f32", BIG, True, False, False, seed)
+    _, err1 = fwd_err("1xtf32", BIG, True, False, False, seed)
+    with capsys.disabled():
+        print(f"\n{list(BIG)} causal, max |err| against the f64 forward (o, lse): "
               f"1xTF32 {err1}, 3xTF32 {err3}")
     assert all(e1 > 10 * e3 for e1, e3 in zip(err1, err3))

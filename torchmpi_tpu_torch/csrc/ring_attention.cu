@@ -36,15 +36,33 @@
 // first key tile of the local block holds key r*n, which every query of
 // rank r sees, so no row is ever empty when it is merged.
 //
-// Forward (K8, K9). A block of 256 threads owns one 64-row query tile of
-// one cell of one rank and walks the visiting blocks in 64-key tiles,
-// staged through shared memory as f32. Each thread holds a 4 x 4 tile of
-// the 64 x 64 score block and a 4 x D/16 tile of the output rows; the
-// products are plain f32 FMAs on the CUDA cores. A key tile is merged with
-// the online softmax; the JAX kernel merges a whole block at once, so
-// results agree to rounding, not bit for bit. Bound: operations, 4 d flops
-// per (query, key) pair the mask keeps (69 GFLOP at the LM path's
-// [4, 4, 1024, 8, 64] f32 causal).
+// Forward (K8, K9), on the tensor cores: fwd_mma_kernel. A block of 8
+// warps owns 128 query rows of one cell of one rank (layout A, 4 warps
+// over 64 rows, was 12% slower at the LM shape on an H100), and walks the
+// visiting blocks in 64-key tiles. Each warp holds 16 query rows against
+// all 64 columns of a key tile, so the online softmax's row max and row
+// sum stay in the lane quad that holds a row: two shuffles for the max,
+// and each lane keeps its own share of the sum until the end. S = Q K^T (mma_abt,
+// Q's fragments read again from shared memory each tile) and O += P V
+// (mma_pb, P fed from S's accumulator registers) run as mma.sync m16n8k8
+// with TF32 operands by the precision rule below; each tile's P V is
+// summed fresh and added in f32. The softmax runs in the log2 domain
+// (x = s scale log2 e, P = 2^(x - m) by ex2.approx) with a mask-free path
+// for tiles inside the causal and ragged edges; on the diagonal a warp
+// skips a key tile past its last query. K and V are staged by 16-byte
+// cp.async copies into a second buffer while the current tile computes,
+// and the heaviest query tiles (later ranks, later rows) launch first. A
+// key tile is merged with the online softmax; the JAX kernel merges a
+// whole block at once, so results agree to rounding, not bit for bit.
+// Bound: operations, 4 d flops per (query, key) pair the mask keeps (68.7
+// GFLOP at the LM path's [4, 4, 1024, 8, 64] f32 causal): 0.42 ms at
+// 495 / 3 = 165 TFLOP/s under 3xTF32, against 1.03 ms at the 67 TFLOP/s of
+// f32 FMAs. The design spends its instructions on the MMAs and on
+// splitting operands, and keeps two blocks (16 warps) an SM up to D = 64,
+// which caps the registers at 128 a thread: at D = 64 ptxas (chip_smoke.py
+// prints its report) finds 136 bytes of spill stores for f32 (32 for
+// bf16). Capping at one block an SM (no spill) or halving mma_pb's fresh
+// accumulator (more spill) was slower on an H100.
 //
 // Backward (K10), on the tensor cores. Each 64 x 64 (query, key) tile
 // takes five products: S = Q K^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q,
@@ -75,14 +93,16 @@
 //
 // Why 3xTF32 and not TF32. TF32 keeps 10 mantissa bits; a gradient summed
 // over a 4096-token causal row from such products misses the f32 limits
-// (atol and rtol 2e-4) that hold K10 to its plain version. So each f32
-// operand x is split when its fragment is loaded into big = tf32_rna(x) and
-// small = tf32_rna(x - big), and a product takes three MMAs,
-// a_big b_small + a_small b_big first, then a_big b_big: the arithmetic of
-// CUTLASS's OpMultiplyAddFastF32, about f32 accuracy. bf16 inputs are exact
-// in TF32, so S and dP (both operands bf16) take one MMA, and the three
-// products with P or dS (f32) two: P_big b + P_small b. One template
-// serves both dtypes; the number of terms is fixed at compile time.
+// (atol and rtol 2e-4) that hold K10 to its plain version, and the
+// forward's o and lse miss theirs (atol 2e-5 and 1e-4) as well
+// (tests/test_torch_tf32.py). So each f32 operand x is split when its
+// fragment is loaded into big = tf32_rna(x) and small = tf32_rna(x - big),
+// and a product takes three MMAs, a_big b_small + a_small b_big first, then
+// a_big b_big: the arithmetic of CUTLASS's OpMultiplyAddFastF32, about f32
+// accuracy. bf16 inputs are exact in TF32, so S and dP (both operands
+// bf16) take one MMA, and the products with P or dS (f32) two:
+// P_big b + P_small b. One template serves both dtypes; the number of
+// terms is fixed at compile time.
 //
 // Why two launches. dK/dV of block j sum over every visiting rank's
 // queries and dQ of rank r over every visited block's keys; one launch
@@ -118,10 +138,7 @@ namespace tmpi {
 namespace attn {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;  // the forward's block
-constexpr int kTile = 64;  // queries per query tile, keys per key tile
-constexpr int kPad = 4;    // keeps the forward's f32 rows 16-byte aligned
-constexpr int kLdT = kTile + kPad;  // row length of a transposed tile [D][kTile]
+constexpr int kTile = 64;  // keys per key tile; queries per query tile of the backward
 
 struct Geometry {
   int p, B, n, H;
@@ -148,90 +165,6 @@ template <> __device__ __forceinline__ unsigned short from_f32<unsigned short>(f
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-// Output columns each thread holds: 16 threads span D (for D = 8, half of
-// them hold none).
-template <int D> struct Cols {
-  static constexpr int kOC = D >= 16 ? D / 16 : 1;
-  static constexpr int kLdN = D + kPad;  // row length of a natural tile [kTile][D]
-};
-
-// Rows [row0, row0 + kTile) of (r, cell) as f32 into shared memory: the
-// transposed tile t[d * kLdT + i] and/or the natural tile nat[i * kLdN + d].
-// Rows past n read as 0.
-template <int D, typename S>
-__device__ void load_tile(float* t, float* nat, const S* src, const Geometry& g,
-                          int r, int cell, int row0) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int i = e / D, d = e % D;
-    const int row = row0 + i;
-    const float x = row < g.n ? to_f32(src[g.row(r, cell, row, D) + d]) : 0.f;
-    if (t) t[d * kLdT + i] = x;
-    if (nat) nat[i * Cols<D>::kLdN + d] = x;
-  }
-}
-
-// c[ii][jj] += sum_k at[k][ty*4 + ii] * bt[k][tx*4 + jj]: both operands
-// transposed ([L][kLdT]).
-template <int L>
-__device__ __forceinline__ void mma_tt(float (&c)[4][4], const float* at, const float* bt,
-                                       int ty, int tx) {
-#pragma unroll 8
-  for (int k = 0; k < L; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(at + k * kLdT + ty * 4);
-    const float4 b = *reinterpret_cast<const float4*>(bt + k * kLdT + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) c[ii][jj] = fmaf(av[ii], bv[jj], c[ii][jj]);
-  }
-}
-
-// c[ii][cc] += sum_k at[k][ty*4 + ii] * bn[k][tx*OC + cc] over k < kTile:
-// at transposed ([kTile][kLdT]), bn natural ([kTile][kLdN]).
-template <int D>
-__device__ __forceinline__ void mma_tn(float (&c)[4][Cols<D>::kOC], const float* at,
-                                       const float* bn, int ty, int tx) {
-  constexpr int OC = Cols<D>::kOC, LDN = Cols<D>::kLdN;
-  if (tx * OC >= D) return;
-#pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(at + k * kLdT + ty * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float* brow = bn + k * LDN + tx * OC;
-    float bv[OC];
-    if constexpr (OC % 4 == 0) {
-#pragma unroll
-      for (int q = 0; q < OC / 4; ++q) {
-        const float4 t = *reinterpret_cast<const float4*>(brow + 4 * q);
-        bv[4 * q] = t.x; bv[4 * q + 1] = t.y; bv[4 * q + 2] = t.z; bv[4 * q + 3] = t.w;
-      }
-    } else if constexpr (OC == 2) {
-      const float2 t = *reinterpret_cast<const float2*>(brow);
-      bv[0] = t.x; bv[1] = t.y;
-    } else {
-      bv[0] = brow[0];
-    }
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int cc = 0; cc < OC; ++cc) c[ii][cc] = fmaf(av[ii], bv[cc], c[ii][cc]);
-  }
-}
-
-// max and sum over the 16 threads of a half-warp (one row group)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // The rank whose K/V block rank r merges at visit i (0 <= i < p).
 __device__ __forceinline__ int visit_src(int r, int i, int p, bool bidir) {
   if (!bidir || i == 0) return (r - i + p) % p;
@@ -239,100 +172,18 @@ __device__ __forceinline__ int visit_src(int r, int i, int p, bool bidir) {
   return (i & 1) ? (r - t + p) % p : (r + t) % p;
 }
 
-// Key tiles of block src that queries tile `qtile` of rank r needs: all of
-// them, none (causal, src > r), or those up to the diagonal (src == r).
-__device__ __forceinline__ int key_tiles(const Geometry& g, int r, int src, int qtile) {
+// Key tiles of block src that the queries of rank r before q_end (a query
+// tile's end) need: all of them, none (causal, src > r), or those up to the
+// diagonal (src == r).
+__device__ __forceinline__ int key_tiles(const Geometry& g, int r, int src, int q_end) {
   const int all = (g.n + kTile - 1) / kTile;
   if (!g.causal || src < r) return all;
   if (src > r) return 0;
-  return qtile + 1 < all ? qtile + 1 : all;
+  const int need = (q_end + kTile - 1) / kTile;
+  return need < all ? need : all;
 }
 
-// ---------------------------------------------------------------- forward
-
-template <int D, typename S, bool kBidir>
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const S* __restrict__ q, const S* __restrict__ k, const S* __restrict__ v,
-               S* __restrict__ o, float* __restrict__ lse, Geometry g) {
-  constexpr int OC = Cols<D>::kOC, LDN = Cols<D>::kLdN;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [D][kLdT]
-  float* kt = qt + D * kLdT;                     // [D][kLdT]
-  float* vn = kt + D * kLdT;                     // [kTile][LDN]
-  float* pt = vn + kTile * LDN;                  // [kTile keys][kLdT queries]
-
-  const int qtile = blockIdx.x, cell = blockIdx.y, r = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = qtile * kTile;
-  load_tile<D>(qt, nullptr, q, g, r, cell, q0);
-
-  float acc[4][OC], m[4], l[4];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    m[ii] = kNegInf;
-    l[ii] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < OC; ++cc) acc[ii][cc] = 0.f;
-  }
-
-  for (int i = 0; i < g.p; ++i) {
-    const int src = visit_src(r, i, g.p, kBidir);
-    const int ntiles = key_tiles(g, r, src, qtile);
-    const bool diag = g.causal && src == r;
-    for (int ktile = 0; ktile < ntiles; ++ktile) {
-      const int k0 = ktile * kTile;
-      __syncthreads();  // the previous tile's kt, vn and pt are consumed
-      load_tile<D>(kt, nullptr, k, g, src, cell, k0);
-      load_tile<D>(nullptr, vn, v, g, src, cell, k0);
-      __syncthreads();
-      float s[4][4] = {};
-      mma_tt<D>(s, qt, kt, ty, tx);
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int qi = q0 + ty * 4 + ii;
-        bool ok[4];
-        float mt = kNegInf;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int kj = k0 + tx * 4 + jj;
-          ok[jj] = kj < g.n && (!diag || kj <= qi);
-          s[ii][jj] = ok[jj] ? s[ii][jj] * g.scale : kNegInf;
-          mt = fmaxf(mt, s[ii][jj]);
-        }
-        const float m_new = fmaxf(m[ii], row_max(mt));
-        const float alpha = expf(m[ii] - m_new);
-        float lt = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float pv = ok[jj] ? expf(s[ii][jj] - m_new) : 0.f;
-          lt += pv;
-          pt[(tx * 4 + jj) * kLdT + ty * 4 + ii] = pv;
-        }
-        l[ii] = l[ii] * alpha + row_sum(lt);
-        m[ii] = m_new;
-#pragma unroll
-        for (int cc = 0; cc < OC; ++cc) acc[ii][cc] *= alpha;
-      }
-      __syncthreads();
-      mma_tn<D>(acc, pt, vn, ty, tx);
-    }
-  }
-
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int qi = q0 + ty * 4 + ii;
-    if (qi >= g.n) continue;
-    const float li = fmaxf(l[ii], 1e-30f);
-    if (tx * OC < D) {
-      S* orow = o + g.row(r, cell, qi, D) + tx * OC;
-#pragma unroll
-      for (int cc = 0; cc < OC; ++cc) orow[cc] = from_f32<S>(acc[ii][cc] / li);
-    }
-    if (tx == 0) lse[g.stat(r, cell, qi)] = m[ii] + logf(li);
-  }
-}
-
-// ------------------------------------------- backward: tensor-core pieces
+// ------------------------------------------------------ tensor-core pieces
 
 // A block of the backward: 8 warps over kTile rows; warp w owns the 16 rows
 // 16 (w % 4) .. of the tile and the half w / 4 of each visited tile's
@@ -343,18 +194,19 @@ constexpr int kCols = kTile / kColSplit;
 constexpr int kBwdWarps = 4 * kColSplit;
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// A backward tile in shared memory: kTile rows of D elements of S in their
-// natural layout, each row padded by 16 bytes (which keeps the rows 16-byte
+// A tile in shared memory: kTile rows of D elements of S in their natural
+// layout, each row padded by 16 bytes (which keeps the rows 16-byte
 // aligned for cp.async and the fragment reads free of bank conflicts).
-template <int D, typename S> struct BwdTile {
+template <int D, typename S> struct SmemTile {
   static constexpr int kLd = D + 16 / (int)sizeof(S);
   static constexpr int kElems = kTile * kLd;
   static constexpr int kChunks = D * (int)sizeof(S) / 16;  // 16-byte copies a row
   static constexpr bool kF32 = std::is_same<S, float>::value;
-  // blocks an SM should hold: two up to D = 64 (16 warps; the registers are
-  // then capped at 128 a thread), one at D = 128, whose dK and dV
-  // accumulators alone take 128
+  // backward blocks an SM should hold: two up to D = 64 (16 warps; the
+  // registers are then capped at 128 a thread), one at D = 128, whose dK
+  // and dV accumulators alone take 128
   static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
 };
 
@@ -397,11 +249,16 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
                : "memory");
 }
 
-// P = exp(s * scale - lse), by the hardware's 2^x
-__device__ __forceinline__ float prob(float s, float scale, float lse) {
+// 2^x by the hardware's approximation (2^-1e29 is 0)
+__device__ __forceinline__ float ex2(float x) {
   float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"((s * scale - lse) * kLog2e));
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// P = exp(s * scale - lse)
+__device__ __forceinline__ float prob(float s, float scale, float lse) {
+  return ex2((s * scale - lse) * kLog2e);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -427,17 +284,18 @@ __device__ __forceinline__ void mma_terms(float (&c)[4], const Frag<4>& a, const
 }
 
 // c[j] += (A B^T)[rows, 8j .. 8j + 7] over k < D, for a warp's 16 rows and
-// kCols columns: a is the warp's 16 rows and b the kCols column rows, both
-// natural tiles. Lane (g, t) = (lane / 4, lane % 4) holds A's rows g and
+// 8 kSteps columns: a is the warp's 16 rows and b the 8 kSteps column rows,
+// both natural tiles. Lane (g, t) = (lane / 4, lane % 4) holds A's rows g and
 // g + 8, columns t and t + 4 of each k step, and B's row (= product
 // column) g, columns t and t + 4; c[j] holds rows g, g + 8, columns 2t,
 // 2t + 1 of step j. f32 tiles are read by ldmatrix, four sub-tiles at a
 // time; bf16 ones element by element (ldmatrix would hand out pairs).
-template <int D, typename S>
-__device__ __forceinline__ void mma_abt(float (&c)[kCols / 8][4], const S* a, const S* b,
+template <int D, typename S, int kSteps>
+__device__ __forceinline__ void mma_abt(float (&c)[kSteps][4], const S* a, const S* b,
                                         int lane) {
-  constexpr int LD = BwdTile<D, S>::kLd;
-  if constexpr (BwdTile<D, S>::kF32) {
+  static_assert(kSteps % 2 == 0, "ldmatrix reads two column steps of B at a time");
+  constexpr int LD = SmemTile<D, S>::kLd;
+  if constexpr (SmemTile<D, S>::kF32) {
     // sub-tiles: A rows 0-7 / 8-15 x words 0-3 / 4-7 of the step; B rows
     // of two column steps x words 0-3 / 4-7
     const int m = lane >> 3, i = lane & 7;
@@ -451,7 +309,7 @@ __device__ __forceinline__ void mma_abt(float (&c)[kCols / 8][4], const S* a, co
 #pragma unroll
       for (int e = 0; e < 4; ++e) set_terms<true>(fa, e, __uint_as_float(ra[e]));
 #pragma unroll
-      for (int j = 0; j < kCols / 8; j += 2) {
+      for (int j = 0; j < kSteps; j += 2) {
         uint32_t rb[4];
         ldsm4(rb, pb + j * 8 * LD + k);
         Frag<2> f0, f1;
@@ -474,7 +332,7 @@ __device__ __forceinline__ void mma_abt(float (&c)[kCols / 8][4], const S* a, co
       set_terms<false>(fa, 2, load_f32(arow + k + 4));
       set_terms<false>(fa, 3, load_f32(arow + 8 * LD + k + 4));
 #pragma unroll
-      for (int j = 0; j < kCols / 8; ++j) {
+      for (int j = 0; j < kSteps; ++j) {
         Frag<2> fb;
         set_terms<false>(fb, 0, load_f32(brow + j * 8 * LD + k));
         set_terms<false>(fb, 1, load_f32(brow + j * 8 * LD + k + 4));
@@ -484,25 +342,25 @@ __device__ __forceinline__ void mma_abt(float (&c)[kCols / 8][4], const S* a, co
   }
 }
 
-// c[j] += (P B)[rows, 8j .. 8j + 7] over the kCols columns of P, for a
+// c[j] += (P B)[rows, 8j .. 8j + 7] over the 8 kSteps columns of P, for a
 // warp's 16 rows and D output columns. p holds P (or dS) as mma_abt left
 // it: rows g, g + 8, columns 2t, 2t + 1 of each 8-column step. It is fed as
 // A with the step's k permuted, slot t taking column 2t and slot t + 4
 // column 2t + 1 (A's registers are then p's, reordered), so B's fragment
-// reads rows 2t and 2t + 1 of the step, column g. b: kCols natural rows of
+// reads rows 2t and 2t + 1 of the step, column g. b: 8 kSteps natural rows of
 // B. P is f32 and always split; B is split when it is f32. The tile's sum
 // is taken in a fresh accumulator and added to c with an f32 add: the
 // tensor cores truncate as they accumulate, and a sum carried through them
 // over a whole ring drifts (the note at the top).
-template <int D, typename S>
-__device__ __forceinline__ void mma_pb(float (&c)[D / 8][4], const float (&p)[kCols / 8][4],
+template <int D, typename S, int kSteps>
+__device__ __forceinline__ void mma_pb(float (&c)[D / 8][4], const float (&p)[kSteps][4],
                                        const S* b, int lane) {
-  constexpr int LD = BwdTile<D, S>::kLd;
-  constexpr bool kSplitB = BwdTile<D, S>::kF32;
+  constexpr int LD = SmemTile<D, S>::kLd;
+  constexpr bool kSplitB = SmemTile<D, S>::kF32;
   const S* bcol = b + 2 * (lane & 3) * LD + (lane >> 2);
   float tile[D / 8][4] = {};
 #pragma unroll
-  for (int kk = 0; kk < kCols / 8; ++kk) {
+  for (int kk = 0; kk < kSteps; ++kk) {
     Frag<4> fa;
     set_terms<true>(fa, 0, p[kk][0]);
     set_terms<true>(fa, 1, p[kk][2]);
@@ -542,16 +400,17 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
-// Rows [row0, row0 + kTile) of (r, cell) into the natural tile t by 16-byte
-// cp.async copies; rows past n are zero-filled.
-template <int D, typename S>
+// Rows [row0, row0 + kRows) of (r, cell) into the natural tile t by 16-byte
+// cp.async copies from the block's kThreads threads; rows past n are
+// zero-filled.
+template <int D, typename S, int kThreads = kBwdThreads, int kRows = kTile>
 __device__ __forceinline__ void stage_tile(S* t, const S* src, const Geometry& g, int r,
                                            int cell, int row0) {
-  using T = BwdTile<D, S>;
+  using T = SmemTile<D, S>;
   constexpr int kPer = 16 / (int)sizeof(S);
   const S* base = src + g.row(r, cell, 0, D);
   const size_t stride = (size_t)g.H * D;
-  for (int e = threadIdx.x; e < kTile * T::kChunks; e += kBwdThreads) {
+  for (int e = threadIdx.x; e < kRows * T::kChunks; e += kThreads) {
     const int i = e / T::kChunks, c = e % T::kChunks;
     const bool valid = row0 + i < g.n;
     cp_async16(t + i * T::kLd + c * kPer, valid ? base + (row0 + i) * stride + c * kPer : src,
@@ -636,22 +495,158 @@ __device__ __forceinline__ void store2(unsigned short* p, float a, float b) {
                                     ((uint32_t)from_f32<unsigned short>(b) << 16);
 }
 
+// ------------------------------------------------------------- forward
+
+// The forward's block: 8 warps over 128 query rows; each warp owns 16 rows
+// against all kTile columns of every key tile, so a row's running max and
+// sum stay in the four lanes that hold it.
+template <int D, typename S> struct FwdBlock {
+  static constexpr int kWarps = 8, kRows = 16 * kWarps, kThreads = 32 * kWarps;
+  // q, two k and two v tiles
+  static constexpr size_t kSmem = (kRows + 4 * kTile) * SmemTile<D, S>::kLd * sizeof(S);
+  // up to D = 64 two blocks fit an SM's shared memory; at 8 warps that caps
+  // the registers at 128 a thread
+  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
+};
+
+template <int D, typename S, bool kBidir>
+__global__ void __launch_bounds__(FwdBlock<D, S>::kThreads, FwdBlock<D, S>::kMinBlocks)
+    fwd_mma_kernel(const S* __restrict__ q, const S* __restrict__ k, const S* __restrict__ v,
+                   S* __restrict__ o, float* __restrict__ lse, Geometry g) {
+  using T = SmemTile<D, S>;
+  using F = FwdBlock<D, S>;
+  constexpr int LD = T::kLd;
+  extern __shared__ float4 smem4[];
+  S* qs = reinterpret_cast<S*>(smem4);  // [kRows][LD]
+  S* ks = qs + F::kRows * LD;            // [2][kTile][LD]
+  S* vs = ks + 2 * T::kElems;            // [2][kTile][LD]
+
+  // the heaviest blocks first: a later rank's later query tile sees more keys
+  const int qtile = gridDim.x - 1 - blockIdx.x, cell = blockIdx.y;
+  const int r = gridDim.z - 1 - blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = qtile * F::kRows;
+  const int w0 = q0 + 16 * warp;  // the warp's first query; the lane's are
+  const int row = w0 + (lane >> 2);  // row and row + 8
+  const S* qw = qs + 16 * warp * LD;
+  const auto range = [&](int s, int& lo, int& hi) {
+    lo = 0;
+    hi = key_tiles(g, r, visit_src(r, s, g.p, kBidir), q0 + F::kRows);
+  };
+  int s, t = 0;
+  first_tile(s, t, g.p, range);
+  stage_tile<D, S, F::kThreads, F::kRows>(qs, q, g, r, cell, q0);
+  if (s < g.p) {
+    const int src = visit_src(r, s, g.p, kBidir);
+    stage_tile<D, S, F::kThreads>(ks, k, g, src, cell, t * kTile);
+    stage_tile<D, S, F::kThreads>(vs, v, g, src, cell, t * kTile);
+  }
+  cp_async_commit();
+
+  // The online softmax in the log2 domain: x = s scale log2(e), m the
+  // running max of x, P = 2^(x - m). Each lane keeps its own share of a
+  // row's sum l (the quad's four are added at the end) and of its output
+  // columns in acc.
+  const float c = g.scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4] = {};
+  for (int it = 0; s < g.p; ++it) {
+    const int buf = it & 1;
+    int s2 = s, t2 = t;
+    next_tile(s2, t2, g.p, range);
+    if (s2 < g.p) {  // stage the next tile while this one computes
+      const int src2 = visit_src(r, s2, g.p, kBidir);
+      stage_tile<D, S, F::kThreads>(ks + (buf ^ 1) * T::kElems, k, g, src2, cell, t2 * kTile);
+      stage_tile<D, S, F::kThreads>(vs + (buf ^ 1) * T::kElems, v, g, src2, cell, t2 * kTile);
+    }
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    const bool diag = g.causal && visit_src(r, s, g.p, kBidir) == r;
+    const int k0 = t * kTile;
+    // on the diagonal a key tile past the warp's last query is all masked:
+    // merging it would change nothing (alpha 1, P 0)
+    if (!diag || k0 <= w0 + 15) {
+      float sc[kTile / 8][4] = {};
+      mma_abt<D>(sc, qw, ks + buf * T::kElems, lane);
+      // a tile inside the causal and ragged edges keeps every pair; a
+      // masked score is kNegInf, whose P is 0
+      const bool inner = k0 + kTile <= g.n && (!diag || k0 + kTile - 1 <= w0);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!inner) {
+            const int kj = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+            if (kj >= g.n || (diag && kj > row + 8 * (e >> 1))) sc[j][e] = kNegInf;
+          }
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h] * c);  // c > 0: max(s) c = max(s c)
+        alpha[h] = ex2(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = ex2(fmaf(sc[j][e], c, -m[e >> 1]));  // P
+          l[e >> 1] += sc[j][e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+      mma_pb<D>(acc, sc, vs + buf * T::kElems, lane);
+    }
+    __syncthreads();  // buf is read before the next iteration but one refills it
+    s = s2;
+    t = t2;
+  }
+
+  // the epilogue: l = max(l, 1e-30), o = acc / l, lse = m + log(l)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row + 8 * h;
+    if (qi >= g.n) continue;
+    const float li = fmaxf(l[h], 1e-30f);
+    S* out = o + g.row(r, cell, qi, D) + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) store2(out + 8 * j, acc[j][2 * h] / li, acc[j][2 * h + 1] / li);
+    if ((lane & 3) == 0) lse[g.stat(r, cell, qi)] = m[h] * kLn2 + logf(li);
+  }
+}
+
 // --------------------------------------------------------- backward: dQ
 
 template <int D, typename S> constexpr size_t dq_mma_smem() {
-  return 6 * BwdTile<D, S>::kElems * sizeof(S);  // q, dO, two k and two v tiles
+  return 6 * SmemTile<D, S>::kElems * sizeof(S);  // q, dO, two k and two v tiles
 }
 template <int D, typename S> constexpr size_t dkv_mma_smem() {
   return dq_mma_smem<D, S>() + 4 * kTile * sizeof(float);  // and two lse/D stages
 }
 
 template <int D, typename S>
-__global__ void __launch_bounds__(kBwdThreads, BwdTile<D, S>::kMinBlocks)
+__global__ void __launch_bounds__(kBwdThreads, SmemTile<D, S>::kMinBlocks)
     bwd_dq_mma_kernel(const S* __restrict__ q, const S* __restrict__ k, const S* __restrict__ v,
                       const S* __restrict__ o, const S* __restrict__ dout,
                       const float* __restrict__ lse, float* __restrict__ delta,
                       S* __restrict__ dq, Geometry g) {
-  using T = BwdTile<D, S>;
+  using T = SmemTile<D, S>;
   constexpr int LD = T::kLd;
   extern __shared__ float4 smem4[];
   S* qs = reinterpret_cast<S*>(smem4);  // [kTile][LD]
@@ -670,7 +665,7 @@ __global__ void __launch_bounds__(kBwdThreads, BwdTile<D, S>::kMinBlocks)
   const S* dow = dos + (warp % 4) * 16 * LD;
   const auto range = [&](int s, int& lo, int& hi) {
     lo = 0;
-    hi = key_tiles(g, r, (r - s + g.p) % g.p, qtile);
+    hi = key_tiles(g, r, (r - s + g.p) % g.p, q0 + kTile);
   };
   int s, t = 0;
   first_tile(s, t, g.p, range);
@@ -758,12 +753,12 @@ __global__ void __launch_bounds__(kBwdThreads, BwdTile<D, S>::kMinBlocks)
 // ------------------------------------------------------ backward: dK, dV
 
 template <int D, typename S>
-__global__ void __launch_bounds__(kBwdThreads, BwdTile<D, S>::kMinBlocks)
+__global__ void __launch_bounds__(kBwdThreads, SmemTile<D, S>::kMinBlocks)
     bwd_dkv_mma_kernel(const S* __restrict__ q, const S* __restrict__ k, const S* __restrict__ v,
                        const S* __restrict__ dout, const float* __restrict__ lse,
                        const float* __restrict__ delta, S* __restrict__ dk, S* __restrict__ dv,
                        Geometry g) {
-  using T = BwdTile<D, S>;
+  using T = SmemTile<D, S>;
   constexpr int LD = T::kLd;
   extern __shared__ float4 smem4[];
   S* ks = reinterpret_cast<S*>(smem4);  // [kTile][LD]: this block's keys
@@ -866,23 +861,20 @@ __global__ void __launch_bounds__(kBwdThreads, BwdTile<D, S>::kMinBlocks)
 
 // ------------------------------------------------------------ launchers
 
-template <int D> constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * D * kLdT + kTile * Cols<D>::kLdN + kTile * kLdT);
-}
-
-inline dim3 grid_of(const Geometry& g) {
-  return dim3((unsigned)((g.n + kTile - 1) / kTile), (unsigned)(g.B * g.H), (unsigned)g.p);
+// (query tile, cell, rank) blocks of `rows` queries each
+inline dim3 grid_of(const Geometry& g, int rows) {
+  return dim3((unsigned)((g.n + rows - 1) / rows), (unsigned)(g.B * g.H), (unsigned)g.p);
 }
 
 template <int D, typename S>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                        const Geometry& g, bool bidir, cudaStream_t stream) {
-  constexpr size_t bytes = fwd_smem<D>();
-  auto kernel = bidir ? fwd_kernel<D, S, true> : fwd_kernel<D, S, false>;
+  using F = FwdBlock<D, S>;
+  auto kernel = bidir ? fwd_mma_kernel<D, S, true> : fwd_mma_kernel<D, S, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+                                         (int)F::kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid_of(g), kThreads, bytes, stream>>>(
+  kernel<<<grid_of(g, F::kRows), F::kThreads, F::kSmem, stream>>>(
       static_cast<const S*>(q), static_cast<const S*>(k), static_cast<const S*>(v),
       static_cast<S*>(o), lse, g);
   return cudaGetLastError();
@@ -903,11 +895,11 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   const S* ks = static_cast<const S*>(k);
   const S* vs = static_cast<const S*>(v);
   const S* dos = static_cast<const S*>(dout);
-  bwd_dq_mma_kernel<D, S><<<grid_of(g), kBwdThreads, dq_bytes, stream>>>(
+  bwd_dq_mma_kernel<D, S><<<grid_of(g, kTile), kBwdThreads, dq_bytes, stream>>>(
       qs, ks, vs, static_cast<const S*>(o), dos, lse, delta, static_cast<S*>(dq), g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dkv_mma_kernel<D, S><<<grid_of(g), kBwdThreads, dkv_bytes, stream>>>(
+  bwd_dkv_mma_kernel<D, S><<<grid_of(g, kTile), kBwdThreads, dkv_bytes, stream>>>(
       qs, ks, vs, dos, lse, delta, static_cast<S*>(dk), static_cast<S*>(dv), g);
   return cudaGetLastError();
 }
