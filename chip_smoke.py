@@ -10,13 +10,16 @@ phase fails:
    toolchain;
 2. builds every kernel from ``torchmpi_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together) and prints the registers and spills of the
-   tensor-core attention kernels;
+   tensor-core attention kernels and of K4 (``ring_quant_kernel``), and
+   K4's SASS opcode counts (``{"ptxas": ...}``, ``{"sass": ...}``);
 3. holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and over a sweep of dtypes, wires, modes, ranks,
    roots and ragged sizes: every comparison of a collective kernel must be
    exact (the plain versions repeat the kernels' arithmetic in the same
    order and type), and the closed form "rank r contributes r" must sum to
-   p(p-1)/2;
+   p(p-1)/2; K4's sweep adds p > 8, rows around the int8 scale's floor,
+   quotients at half-integers and the rows on which rounding the int8
+   decode-and-add twice would differ from rounding it once;
 4. checks the trainer on a small input against the same trainer on the
    CPU (plain versions), then drives the two MNIST paths, LeNet at p=8
    virtual ranks, global batch 336, lr 0.2, two epochs of
@@ -38,7 +41,8 @@ phase fails:
    ``ring_implementation='kernel_bidir'``; every config's closed form must
    hold, each op's launch counts (0 just before, read just after) must be
    the calls the sweep routed to each kernel, and each config prints one
-   ``{"bench": ...}`` line;
+   ``{"bench": ...}`` line; then the host time to issue an async allreduce
+   at 2^8 elements and its parts (``{"async_issue": ...}``);
 7. drives the long-context LM path (``examples/long_context.py``): a small
    LM on the card against the same LM on the CPU (plain versions), then the
    ``lm`` line's widths (vocab 8192, 8 layers, 8 heads x 64, d_model 512),
@@ -70,7 +74,14 @@ phase fails:
    over 3.35 TB/s and its operations over 67 TFLOP/s (f32), or for the
    attention rows over 165 TFLOP/s (f32 as 3xTF32 on the tensor cores,
    with the f32 bound beside it), and no kernel may read under its bound;
+   K2's row carries the floor of one launch (an empty kernel, same timing)
+   beside its shard;
 11. prints last ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --quant check`` builds K4 alone, prints its
+registers and SASS counts, holds it against its plain version and times its
+rows (``{"quant_kernels": ...}``); ``--quant time`` only times them. Neither
+prints the result line.
 
 Kernels are held to their plain versions bit for bit, but for the ring
 attention kernels (K8, K9, K10), which merge 64-key tiles where the plain
@@ -94,6 +105,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import torchmpi_tpu_torch as mpi  # noqa: E402
@@ -119,7 +131,12 @@ from torchmpi_tpu_torch.parallel import ring_self_attention  # noqa: E402
 from torchmpi_tpu_torch.parameterserver import server as ps_server  # noqa: E402
 from torchmpi_tpu_torch.utils import DistributedIterator, synthetic_mnist  # noqa: E402
 from torchmpi_tpu_torch.utils.flops import mfu, train_flops, transformer_forward_flops  # noqa: E402
-from torchmpi_tpu_torch.utils.tester import run_matrix, run_ps_throughput, sweep_sizes  # noqa: E402
+from torchmpi_tpu_torch.utils.tester import (  # noqa: E402
+    run_matrix,
+    run_ps_throughput,
+    sweep_sizes,
+    wire_midpoint_rows,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
@@ -235,18 +252,34 @@ def phase_device() -> None:
     )
 
 
-def ptxas_report(log: str, part: str) -> dict:
-    """Registers and spill bytes of each kernel whose name holds ``part``,
-    from ``nvcc -Xptxas -v`` output, by ``name<D, dtype>`` (``name<D,
-    dtype, bidir>`` for the forward's K9 order)."""
+def attention_kernel(mangled: str):
+    """``name<D, dtype>`` (``name<D, dtype, bidir>`` for the forward's K9
+    order) of a tensor-core attention kernel's mangled name, else None."""
+    m = re.search(r"attn\d+(\w+_mma_kernel)ILi(\d+)E(\w)(Lb1)?", mangled)
+    if not m:
+        return None
+    return (f"{m.group(1)}<{m.group(2)}, {'float' if m.group(3) == 'f' else 'bf16'}"
+            f"{', bidir' if m.group(4) else ''}>")
+
+
+def quant_kernel(mangled: str):
+    """``ring_quant_kernel<wire, mode, maxp, vec>`` of a mangled name (maxp
+    0 is the p > 8 path; vec the floats a lane moves at once), else None."""
+    m = re.search(r"ring_quant_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)E", mangled)
+    if not m:
+        return None
+    wire, mode = WIRES[int(m.group(1))], ("allreduce", "rs")[int(m.group(2))]
+    return f"ring_quant_kernel<{wire}, {mode}, {m.group(3)}, {m.group(4)}>"
+
+
+def ptxas_report(log: str, name_of) -> dict:
+    """Registers and spill bytes of each kernel that ``name_of`` names
+    (mangled name -> name or None), from ``nvcc -Xptxas -v`` output."""
     report, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"attn\d+(\w+_kernel)ILi(\d+)E(\w)(Lb1)?", entry.group(1))
-            name = (f"{m.group(1)}<{m.group(2)}, {'float' if m.group(3) == 'f' else 'bf16'}"
-                    f"{', bidir' if m.group(4) else ''}>"
-                    if m and part in m.group(1) else None)
+            name = name_of(entry.group(1))
             continue
         if name is None:
             continue
@@ -260,33 +293,87 @@ def ptxas_report(log: str, part: str) -> dict:
     return report
 
 
-def phase_build() -> None:
+# SASS opcodes counted in K4's code: the division's reciprocal and range
+# check, the conversions and f64 work the C4 repair removed, the warp max's
+# shuffles, the FMAs, the global loads and stores
+SASS_OPS = ("MUFU", "FCHK", "F2I", "I2F", "F2F", "DMUL", "DADD", "DFMA", "SHFL", "REDUX", "FFMA",
+            "LDG", "STG")
+
+
+def sass_counts(lib: Path, name_of) -> dict:
+    """Static counts of :data:`SASS_OPS` in each kernel of ``lib`` that
+    ``name_of`` names, from ``cuobjdump -sass`` (instructions in the code,
+    the unrolled hops and the division's slow path included; not counts of
+    executed instructions)."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = name_of(fn.group(1))
+            if name:
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+        if name and op and op.group(1) in counts[name]:
+            counts[name][op.group(1)] += 1
+    return counts
+
+
+def phase_build(names=_build.SOURCES) -> None:
     t0 = time.perf_counter()
-    paths = _build.build_all()
+    paths = _build.build_all(names)
     print(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
-    print(f"forward attention layout: {FWD_LAYOUT}")
     # registers and spills (sm_90a) of every tensor-core attention kernel
-    # (filter "_mma_kernel"): K8/K9's fwd_mma_kernel and K10's
-    # bwd_dq_mma_kernel and bwd_dkv_mma_kernel, at every head dim and dtype
-    log = _build.build_log("ring_attention")
-    if log.exists():
-        print(json.dumps({"ptxas": ptxas_report(log.read_text(), "_mma_kernel")}))
-    else:
-        print(f"no ptxas report: {log} is missing")
+    # (K8/K9's fwd_mma_kernel and K10's bwd_dq_mma_kernel and
+    # bwd_dkv_mma_kernel, at every head dim and dtype) and of K4, and K4's
+    # SASS opcode counts
+    for source, name_of in (("ring_attention", attention_kernel), ("ring_quant", quant_kernel)):
+        if source not in names:
+            continue
+        if source == "ring_attention":
+            print(f"forward attention layout: {FWD_LAYOUT}")
+        log = _build.build_log(source)
+        if log.exists():
+            print(json.dumps({"ptxas": ptxas_report(log.read_text(), name_of)}))
+        else:
+            print(f"no ptxas report: {log} is missing")
+    if "ring_quant" in names:
+        print(json.dumps({"sass": sass_counts(_build.target("ring_quant"), quant_kernel)}))
 
 
 def check_quant(dev, gen) -> dict:
-    """The quantized ring against its plain version: both wires, both
-    modes, p in {2, 3, 8}, ragged sizes, a second segment above
-    8 x 896 x 128 elements, and the main paths' shapes (the async bucket
-    [8, 805386] and the sync-wire buffer [8, 857738])."""
+    """The quantized ring against its plain version, bit for bit: both
+    wires, both modes, p in {2, 3, 8} and the p > 8 path (9, 16), ragged
+    sizes, rows of 16-, 8- and 4-byte accesses (n a multiple of 4, of 2,
+    odd, and a misaligned view), a second segment above 8 x 896 x 128
+    elements, the main paths' shapes (the async bucket [8, 805386] and the
+    sync-wire buffer [8, 857738]), zeros, rows under and around the int8
+    scale's floor, rows whose quotients lie on or next to half-integers
+    (:func:`halfway_rows`, where the kernel's encode divides), and rows on
+    whose last reduce-scatter hop rounding the int8 decode-and-add twice
+    would differ from rounding it once (``tester.wire_midpoint_rows``)."""
     err = {}
+
+    def same(k, pl, what):
+        torch.cuda.synchronize()
+        require(torch.equal(bits(k), bits(pl)), f"{what} != plain")
+
+    def both(x, wire, what):
+        same(ops.ring_allreduce_quant(x, wire), ops.ring_allreduce_quant_plain(x, wire),
+             f"ring_allreduce_quant {wire} {what}")
+
+    def both_rs(x, wire, what):
+        same(ops.ring_reduce_scatter_quant(x, wire), ops.ring_reduce_scatter_quant_plain(x, wire),
+             f"ring_reduce_scatter_quant {wire} {what}")
+
     for wire in WIRES:
         for n in (BUCKET0, LENET_PARAMS):
             x = torch.randn((P, n), generator=gen, device=dev)
             k, pl = ops.ring_allreduce_quant(x, wire), ops.ring_allreduce_quant_plain(x, wire)
-            torch.cuda.synchronize()
-            require(torch.equal(bits(k), bits(pl)), f"ring_allreduce_quant {wire} [8, {n}] != plain")
+            same(k, pl, f"ring_allreduce_quant {wire} [8, {n}]")
             if n == BUCKET0:
                 err[f"ring_allreduce_quant_{wire}"] = float((k - pl).abs().max())
             exact = x.double().sum(0)
@@ -294,27 +381,60 @@ def check_quant(dev, gen) -> dict:
             require(rel < 2e-2, f"ring_allreduce_quant {wire} [8, {n}] off the sum by {rel}")
         x = torch.randn((P, P * 100674), generator=gen, device=dev)
         k, pl = ops.ring_reduce_scatter_quant(x, wire), ops.ring_reduce_scatter_quant_plain(x, wire)
-        torch.cuda.synchronize()
-        require(torch.equal(bits(k), bits(pl)), f"ring_reduce_scatter_quant {wire} [8, 805392] != plain")
+        same(k, pl, f"ring_reduce_scatter_quant {wire} [8, 805392]")
         err[f"ring_reduce_scatter_quant_{wire}"] = float((k - pl).abs().max())
-        for p in (2, 3, 8):
-            for n in (1, 1000, 5000, 100003, 8 * 896 * 128 + 4099):
-                x = torch.randn((p, n), generator=gen, device=dev)
-                require(torch.equal(bits(ops.ring_allreduce_quant(x, wire)),
-                                    bits(ops.ring_allreduce_quant_plain(x, wire))),
-                        f"ring_allreduce_quant {wire} p={p} n={n} != plain")
-                x = torch.randn((p, p, n), generator=gen, device=dev)
-                require(torch.equal(bits(ops.ring_reduce_scatter_quant(x, wire)),
-                                    bits(ops.ring_reduce_scatter_quant_plain(x, wire))),
-                        f"ring_reduce_scatter_quant {wire} p={p} seg={n} != plain")
+        for p in (2, 3, 8, 9, 16):
+            for n in (1, 1000, 1002, 5000, 100003, 8 * 896 * 128 + 4099):
+                if p > 8 and n > 100003:
+                    continue
+                both(torch.randn((p, n), generator=gen, device=dev), wire, f"p={p} n={n}")
+                both_rs(torch.randn((p, p, n), generator=gen, device=dev), wire, f"p={p} seg={n}")
+            # a view one float past an aligned start: 4-byte accesses
+            view = torch.randn(p * 4096 + 1, generator=gen, device=dev)[1:].view(p, 4096)
+            both(view, wire, f"p={p} misaligned view")
+        # the C4 rows: the main paths' shapes, then small and p > 8
+        for p, n in ((P, BUCKET0), (2, 5000), (3, 1002), (9, 5000)):
+            mid = torch.from_numpy(wire_midpoint_rows(p, n, "allreduce", seed=p)).to(dev)
+            both(mid, wire, f"midpoint rows p={p} n={n}")
+        for p, seg in ((P, 100674), (2, 600), (3, 1001), (9, 600)):
+            mid = torch.from_numpy(wire_midpoint_rows(p, seg, "rs", seed=p)).to(dev)
+            both_rs(mid.view(p, p, seg), wire, f"midpoint rows p={p} seg={seg}")
+        for p in (2, 3, 8, 9):
+            both(halfway_rows(p, 5000, seed=p).to(dev), wire, f"halfway rows p={p}")
+            both_rs(halfway_rows(p, p * 1024, seed=p).to(dev).view(p, p, 1024), wire,
+                    f"halfway rows p={p}")
+            for scale in (1e-31, 3e-30):
+                tiny = torch.randn((p, 5000), generator=gen, device=dev) * scale
+                both(tiny, wire, f"rows of size {scale} p={p}")
+                both_rs(tiny[:, :p * 500].contiguous().view(p, p, 500), wire,
+                        f"rows of size {scale} p={p}")
     # zeros and constant rows: the scale floor and exact codes
     z = torch.zeros((3, 5000), device=dev)
     z[1, 128:256] = 2.5
+    zs = torch.zeros((3, 3, 1000), device=dev)
+    zs[1, 2, 128:256] = 2.5
     for wire in WIRES:
-        require(torch.equal(bits(ops.ring_allreduce_quant(z, wire)),
-                            bits(ops.ring_allreduce_quant_plain(z, wire))),
-                f"ring_allreduce_quant {wire} on zeros != plain")
+        both(z, wire, "on zeros")
+        both_rs(zs, wire, "on zeros")
     return err
+
+
+def halfway_rows(p: int, n: int, seed: int) -> torch.Tensor:
+    """``[p, n]`` f32 rows (made with numpy from ``seed``) whose int8
+    quotients v / scale lie on or within two ulps of half-integers, where
+    K4's encode takes the IEEE division: each 128-lane row holds its max m
+    in its first lane and RN((k + 1/2) s) for random codes k, nudged by 0,
+    1 or 2 ulps either way, in the others (s = RN(m RN(1/127)))."""
+    rng = np.random.RandomState(seed)
+    rows = -(-n // 128)
+    m = np.exp(rng.uniform(-3.0, 3.0, (p, rows, 1))).astype(np.float32)
+    s = (m * (np.float32(1) / np.float32(127))).astype(np.float64)
+    v = ((rng.randint(-126, 126, (p, rows, 128)) + 0.5) * s).astype(np.float32)
+    for _ in range(2):
+        step = rng.choice([-np.inf, 0.0, np.inf], v.shape).astype(np.float32)
+        v = np.where(step == 0, v, np.nextafter(v, step))
+    v[:, :, 0] = m[:, :, 0]
+    return torch.from_numpy(np.ascontiguousarray(v.reshape(p, -1)[:, :n]))
 
 
 def check_scale(dev, gen) -> dict:
@@ -1096,6 +1216,53 @@ def phase_bench() -> dict:
     return runs
 
 
+def phase_async_issue(dev) -> None:
+    """The host time to issue an async allreduce at 2^8 elements a rank
+    (p=8), and its parts: the selector-routed call (its choice memoized on
+    the communicator), the same with the backend pinned (no selector), the
+    selector's ``select`` alone, the collective's own synchronous issue
+    (``eager.run``), and the side stream's wait, event and
+    ``record_stream``. Each the median of 1,000 calls on the host clock,
+    after 50 warm-up calls, with every handle waited outside the timed
+    window; one ``{"async_issue": ...}`` line of microseconds."""
+    from torchmpi_tpu_torch.collectives import eager, selector
+
+    n = 1 << 8
+
+    def median_us(issue, finish=lambda h: None, reps=1000, warmup=50):
+        times = []
+        for i in range(warmup + reps):
+            t0 = time.perf_counter_ns()
+            h = issue()
+            t1 = time.perf_counter_ns()
+            finish(h)
+            if i >= warmup:
+                times.append(t1 - t0)
+        torch.cuda.synchronize()
+        return statistics.median(times) / 1e3
+
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        x = torch.randn((P, n), device=dev)
+        side = torch.cuda.Stream(dev)
+        row = {
+            "async_allreduce_tensor": median_us(lambda: mpi.async_.allreduce_tensor(x), mpi.wait),
+            "async_kernel_pinned": median_us(lambda: mpi.async_.kernel.allreduce_tensor(x),
+                                             mpi.wait),
+            "selector_select": median_us(lambda: selector.select("allreduce", dev, False,
+                                                                 "async")),
+            "eager_run_sync": median_us(lambda: eager.run("allreduce", x, comm, backend="kernel")),
+            "wait_stream": median_us(lambda: side.wait_stream(torch.cuda.current_stream(dev))),
+            "event_record": median_us(lambda: torch.cuda.Event().record(side)),
+            "record_stream": median_us(lambda: x.record_stream(side)),
+        }
+    finally:
+        mpi.stop()
+    print(json.dumps({"async_issue": {"us": row, "nelem": n, "p": P, "reps": 1000,
+                                      "reference_contract_us": 50}}))
+
+
 def phase_profile(mode: str, wire: str) -> None:
     """Where a main-path step's time goes: ``torch.profiler`` over 5 steps
     after 3 warm-up steps, device time by kernel and the share of the
@@ -1205,18 +1372,10 @@ def rotating(fn, make, in_bytes: int):
     return lambda: fn(*next(sets))
 
 
-def phase_timing(dev, runs: dict, errs: dict) -> None:
-    """Time each kernel, its plain version and one PyTorch call computing
-    the same function where there is one, at the main paths' shapes, on
-    inputs rotated past the L2 (:func:`rotating`); bound_ms counts each
-    input read once and each output written once. ``launches`` is the sum
-    over the driven paths (``runs``: path -> launch counts), split in
-    ``launches_by_path``."""
-    gen = torch.Generator(device=dev).manual_seed(1)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
+def timing_rows(randn) -> list:
+    """The kernels line's rows: each kernel at its main path's shape, with
+    its plain version, its library call (or None), the bytes and operations
+    of its bound and the inputs ``make`` draws with ``randn``."""
     n, hops, seg = LENET_PARAMS, 2 * (P - 1), 100674  # seg: bucket 0's slice per rank
     rows = [
         dict(
@@ -1267,8 +1426,9 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
         ),
     ]
     for wire in WIRES:
-        # per element and hop: int8 |v|, max, divide, round, convert, then a
-        # multiply and an add (f64 in the reduce-scatter); bf16 a cast and an add
+        # per element and hop: int8 |v|, max, divide, two adds that round,
+        # then a multiply and an add (one FMA in the reduce-scatter); bf16 a
+        # cast and an add
         per_hop = 7 if wire == "int8" else 2
         rows.append(dict(
             name=f"ring_allreduce_quant_{wire}", source="torchmpi_tpu_torch/csrc/ring_quant.cu",
@@ -1380,6 +1540,15 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
              library=lambda out, leaves, do: torch.autograd.grad(out, leaves, do, retain_graph=True),
              library_make=sdpa_graph),
     ]
+    return rows
+
+
+def time_rows(rows: list, runs: dict, errs: dict, launch_floor_ms: float) -> list:
+    """Time each row's kernel, plain version and library call on inputs
+    rotated past the L2 (:func:`rotating`); bound_ms counts each input read
+    once and each output written once. ``launches`` is the sum over the
+    driven paths (``runs``: path -> launch counts), split in
+    ``launches_by_path``."""
     out = []
     for r in rows:
         def timed(fn, make=r["make"]):
@@ -1393,7 +1562,7 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": errs[r["name"]], "ms": ms, "kernel_ms": ms,
+            "max_abs_err": errs.get(r["name"]), "ms": ms, "kernel_ms": ms,
             "plain_ms": timed(r["plain"]),
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes a requantizing ring; the
@@ -1417,16 +1586,54 @@ def phase_timing(dev, runs: dict, errs: dict) -> None:
                 "shard_bound_ms": bound(sh["bytes"], sh["ops"])[0],
                 "shard_plain_ms": shard_ms(sh["plain"]),
                 "shard_library_ms": shard_ms(sh["library"]),
+                # one launch of a kernel that does nothing, by the same
+                # time_ms: the floor under any one-launch apply
+                "launch_floor_ms": launch_floor_ms,
                 "launches_per_ps_step": {path: counts[r["name"]] / PS_STEPS
                                          for path, counts in runs.items() if path.startswith("ps_")},
             })
         if "k3" in r:
             row["k3_f32_ms"] = timed(r["k3"])  # K3's f32 ring at the same shape
         out.append(row)
-    print(json.dumps({"kernels": out}))
+    return out
 
 
-def main() -> None:
+def launch_floor_ms() -> float:
+    """The device time of one launch of a kernel that does no work
+    (PyTorch's spin kernel told to spin 0 cycles), by :func:`time_ms`."""
+    return time_ms(lambda: torch.cuda._sleep(0))
+
+
+def phase_timing(dev, runs: dict, errs: dict) -> None:
+    """Time every kernel (:func:`timing_rows`, :func:`time_rows`) and print
+    the ``{"kernels": [...]}`` line."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = timing_rows(lambda *shape: torch.randn(shape, generator=gen, device=dev))
+    print(json.dumps({"kernels": time_rows(rows, runs, errs, launch_floor_ms())}))
+
+
+def quant_only(dev, check: bool) -> None:
+    """``--quant``: build K4 alone, print its registers, spills and SASS
+    counts, hold it against its plain version (``check``), and time its
+    rows (``{"quant_kernels": [...]}``, no launches: no path is driven)."""
+    phase_build(("ring_quant",))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = check_quant(dev, gen) if check else {}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = [r for r in timing_rows(lambda *shape: torch.randn(shape, generator=gen, device=dev))
+            if "quant" in r["name"]]
+    print(json.dumps({"quant_kernels": time_rows(rows, {}, errs, launch_floor_ms())}))
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--quant", choices=("check", "time"),
+        help="only K4: build, registers and SASS, then 'check' (against the plain "
+             "version) and time, or 'time' alone; prints no result line")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one card")
     torch.backends.cudnn.allow_tf32 = False
@@ -1438,11 +1645,15 @@ def main() -> None:
     torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda", 0)
     phase_device()
+    if args.quant:
+        quant_only(dev, args.quant == "check")
+        return
     phase_build()
     errs = phase_kernels(dev)
     runs = {path: run["counts"] for path, run in phase_trainer(dev).items()}
     phase_async(dev)
     runs.update(phase_bench())
+    phase_async_issue(dev)
     lm_runs, lm_stats = phase_lm(dev)
     runs.update(lm_runs)
     runs.update(phase_ps(dev))

@@ -284,3 +284,244 @@ def test_async_allreduce_then_wait_matches_jax(backend, monkeypatch):
     assert out.shape == ref.shape and out.dtype == ref.dtype
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
     tmpi.sync_all()
+
+
+# the top-level names of the reference's ``__all__`` that the port's surface
+# adds on top of REEXPORTS; ``telemetry`` waits for its port and ``pallas``
+# is the port's ``kernel``
+A1_NAMES = ["barrier", "allgatherv_tensor", "broadcast_scalar", "allreduce_scalar",
+            "reduce_scalar", "sendreceive_scalar", "collective_availability",
+            "collective_selector", "free_collective_resources", "num_processes",
+            "set_collective_span", "num_nodes_in_communicator", "__version__"]
+
+
+@pytest.mark.parametrize("name", A1_NAMES)
+def test_runtime_and_scalar_names_are_exported(name):
+    assert name in jmpi.__all__
+    assert hasattr(tmpi, name) and name in tmpi.__all__
+
+
+def test_every_reference_name_is_exported():
+    missing = {n for n in jmpi.__all__ if n not in tmpi.__all__ or not hasattr(tmpi, n)}
+    assert missing == {"telemetry", "pallas"}
+    assert tmpi.__version__ == jmpi.__version__
+    assert tmpi.collective_selector is selector
+
+
+def test_scalar_collectives_and_barrier_match_jax():
+    """As ``tests/test_collectives.py:323-329``: in one process each scalar
+    collective returns its input, and a barrier runs."""
+    jmpi.start(devices=jax.devices()[:P_RANKS])
+    tmpi.start(ranks=P_RANKS, device="cpu")
+    for value in (42, 3.5, -7):
+        assert tmpi.broadcast_scalar(value, root=0) == jmpi.broadcast_scalar(value, root=0)
+        assert tmpi.allreduce_scalar(value) == jmpi.allreduce_scalar(value)
+        assert tmpi.reduce_scalar(value, root=1) == jmpi.reduce_scalar(value, root=1)
+        assert tmpi.sendreceive_scalar(value, 0, 2) == jmpi.sendreceive_scalar(value, 0, 2)
+    tmpi.barrier()
+    jmpi.barrier()
+    assert tmpi.num_processes() == jmpi.num_processes() == 1
+    assert tmpi.local_ranks() == list(range(P_RANKS))
+
+
+def test_barrier_needs_a_started_runtime():
+    with pytest.raises(tmpi.NotStartedError):
+        tmpi.barrier()
+
+
+def test_collective_availability_string():
+    tmpi.start(ranks=2, device="cpu")
+    s = tmpi.collective_availability()
+    assert "xla=yes" in s and "allreduce" in s and "kernel=no" in s
+    assert "cuda.singlenode.sync.allreduce: kernel > ring > xla -> kernel" in s
+    assert "cpu.singlenode.sync.allreduce: xla > ring -> xla" in s
+    assert "wire.allreduce: -> full" in s
+    assert "kernel=yes" in tmpi.collective_availability(torch.device("cuda"))
+
+
+@pytest.mark.parametrize("backend", ["xla", "ring"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_allgatherv_matches_jax(backend, dtype):
+    """Ragged last-dim blocks, concatenated in rank order on every rank,
+    against the JAX ``eager.run_allgatherv`` on the same numpy blocks
+    (exact: the blocks are only moved)."""
+    p = P_RANKS
+    rng = np.random.RandomState(1)
+    sizes = [(r % 3) + 1 + 4 * r for r in range(p)]
+    blocks = [(rng.randn(2, s) * 100).astype(dtype) for s in sizes]
+    jmpi.start(devices=jax.devices()[:p])
+    ref = np.asarray(jeager.run_allgatherv(blocks, jmpi.current_communicator(), backend=backend))
+    tmpi.start(ranks=p, device="cpu")
+    out = tmpi.allgatherv_tensor([torch.from_numpy(b) for b in blocks], backend=backend)
+    assert tuple(out.shape) == ref.shape == (p, 2, sum(sizes))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    # numpy blocks are taken as they are, 1-D ones too
+    ints = [np.arange(r + 1, dtype=np.int32) + 10 * r for r in range(p)]
+    got = tmpi.allgatherv_tensor(ints, backend=backend).numpy()
+    np.testing.assert_array_equal(got, np.broadcast_to(np.concatenate(ints), got.shape))
+
+
+def test_allgatherv_argument_errors():
+    p = P_RANKS
+    tmpi.start(ranks=p, device="cpu")
+    err = tmpi.collectives.CollectiveArgumentError
+    with pytest.raises(err, match="blocks"):
+        tmpi.allgatherv_tensor([np.zeros(3)] * (p + 1))
+    with pytest.raises(err, match="leading"):
+        tmpi.allgatherv_tensor([np.zeros((2, 3), np.float32)] * (p - 1)
+                               + [np.zeros((3, 3), np.float32)])
+    with pytest.raises(err, match="dtype"):
+        tmpi.allgatherv_tensor([np.zeros(3, np.float32)] * (p - 1) + [np.zeros(3, np.int32)])
+    with pytest.raises(err, match="backend"):
+        tmpi.allgatherv_tensor([np.zeros(3, np.float32)] * p, backend="kernel")
+
+
+def test_runtime_queries_match_jax():
+    """As ``tests/test_communicator.py``: one node, the collective span set
+    and checked as the JAX stack sets it."""
+    jmpi.start(devices=jax.devices()[:8])
+    tmpi.start(ranks=8, device="cpu")
+    assert tmpi.num_nodes_in_communicator() == jmpi.num_nodes_in_communicator() == 1
+    for pkg in (jmpi, tmpi):
+        l1 = pkg.push_communicator(lambda r: str(r // 4))
+        l2 = pkg.push_communicator(lambda r: str(r // 2))
+        assert pkg.stack().span == (l2, l2)
+        pkg.set_collective_span(l1, l2)
+        assert pkg.stack().span == (l1, l2)
+        assert pkg.num_nodes_in_communicator(0) == 1
+        with pytest.raises(Exception, match="span"):
+            pkg.set_collective_span(0, 5)
+        pkg.set_communicator(0)
+        assert pkg.current_communicator().name == "global"
+    assert tmpi.describe().splitlines()[0] == jmpi.describe().splitlines()[0]
+
+
+def test_start_takes_a_collective_span():
+    def split():
+        tmpi.push_communicator(lambda r: str(r // 2))
+
+    tmpi.start(ranks=4, device="cpu", custom_communicator_init=split,
+               collective_communicator=(0, 1))
+    assert tmpi.stack().span == (0, 1) and tmpi.current_communicator().num_intra_groups == 2
+    tmpi.stop()
+    with pytest.raises(Exception, match="span"):
+        tmpi.start(ranks=4, device="cpu", collective_communicator=(0, 3))
+    assert not tmpi.started()
+
+
+def test_start_constant_overrides():
+    """As ``tests/test_constants.py``: ``start(**overrides)`` sets knobs by
+    name; an unknown name raises ``KeyError`` before any state changes, and
+    a corrected retry starts."""
+    with pytest.raises(KeyError):
+        tmpi.start(ranks=2, device="cpu", not_a_knob=1)
+    assert not tmpi.started()
+    tmpi.start(ranks=2, device="cpu", wire_dtype="int8", ps_replication=2)
+    assert constants.get("wire_dtype") == "int8" and constants.get("ps_replication") == 2
+
+
+def test_env_constants_match_jax(monkeypatch):
+    """``TORCHMPI_TPU_CONSTANTS`` reaches both packages' knobs with the same
+    coercion, and an explicit ``start()`` override beats it."""
+    monkeypatch.setenv("TORCHMPI_TPU_CONSTANTS",
+                       "ps_replication=2;ps_prefetch=false;wire_dtype=bf16;"
+                       "small_allreduce_size_cpu=7")
+    jmpi.start(devices=jax.devices()[:2], wire_dtype="int8")
+    tmpi.start(ranks=2, device="cpu", wire_dtype="int8")
+    for name in ("ps_replication", "ps_prefetch", "wire_dtype", "small_allreduce_size_cpu"):
+        assert constants.get(name) == jconstants.get(name), name
+    assert constants.get("ps_prefetch") is False and constants.get("wire_dtype") == "int8"
+    assert constants.get("small_allreduce_size_cpu") == 7
+
+
+@pytest.mark.parametrize("spec,error", [("not_a_knob=1", KeyError),
+                                        ("ps_prefetch=ture", ValueError)])
+def test_env_constants_reject_bad_entries(spec, error, monkeypatch):
+    monkeypatch.setenv("TORCHMPI_TPU_CONSTANTS", spec)
+    with pytest.raises(error):
+        tmpi.start(ranks=2, device="cpu")
+    assert not tmpi.started()
+    monkeypatch.setenv("TORCHMPI_TPU_CONSTANTS", "ps_prefetch=off")
+    tmpi.start(ranks=2, device="cpu")
+    assert constants.get("ps_prefetch") is False
+
+
+def _count_selects(monkeypatch):
+    calls = []
+    real = selector.select
+
+    def counted(op, device, multinode=False, mode="sync"):
+        calls.append((op, mode))
+        return real(op, device, multinode=multinode, mode=mode)
+
+    monkeypatch.setattr(selector, "select", counted)
+    return calls
+
+
+def test_selector_runs_once_per_op_and_mode(monkeypatch):
+    """The selector's choice is memoized on the communicator per ``(op,
+    mode)``, as the JAX ``_dispatch`` memoizes it: repeated calls select
+    once; a pinned backend never selects; another communicator selects
+    anew; ``free_collective_resources`` drops the memo, as the JAX one
+    drops ``_selector_cache``."""
+    p = P_RANKS
+    calls = _count_selects(monkeypatch)
+    tmpi.start(ranks=p, device="cpu")
+    x = torch.from_numpy(np.random.RandomState(3).randn(p, 300).astype(np.float32))
+    for _ in range(3):
+        tmpi.allreduce_tensor(x)
+        tmpi.broadcast_tensor(x, root=1)
+        tmpi.wait(tmpi.async_.allreduce_tensor(x))
+        tmpi.allreduce_tensor(x, backend="ring")
+    assert sorted(calls) == [("allreduce", "async"), ("allreduce", "sync"),
+                             ("broadcast", "sync")]
+    comm = tmpi.current_communicator()
+    assert comm._selector_cache == {("allreduce", "sync"): "xla", ("broadcast", "sync"): "xla",
+                                    ("allreduce", "async"): "xla"}
+    tmpi.push_communicator(lambda r: str(r % 2))
+    tmpi.allreduce_tensor(x)
+    assert calls.count(("allreduce", "sync")) == 2
+    tmpi.set_communicator(0)
+    tmpi.allreduce_tensor(x)
+    assert calls.count(("allreduce", "sync")) == 2
+    tmpi.free_collective_resources(comm)
+    assert not hasattr(comm, "_selector_cache")
+    tmpi.allreduce_tensor(x)
+    assert calls.count(("allreduce", "sync")) == 3
+
+
+def test_memoized_selector_still_reads_ring_implementation(monkeypatch):
+    """With the selector's custom-ring choice memoized, a changed
+    ``ring_implementation`` still takes effect on the next call (it is
+    read per call, as in the JAX ``_dispatch``)."""
+    p = P_RANKS
+    calls = _count_selects(monkeypatch)
+    tmpi.start(ranks=p, device="cpu")
+    comm = tmpi.current_communicator()
+    comm._selector_cache = {("allreduce", "sync"): "kernel"}  # the card's choice
+    seen = []
+    real = eager.run
+    monkeypatch.setattr(eager, "run", lambda op, x, comm, backend, **kw: seen.append(backend)
+                        or real(op, x, comm, backend=backend, **kw))
+    x = torch.from_numpy(np.random.RandomState(4).randn(p, 70000).astype(np.float32))
+    for impl, backend in (("kernel", "kernel"), ("ppermute", "ring"), ("kernel", "kernel")):
+        constants.set("ring_implementation", impl)
+        tmpi.allreduce_tensor(x)
+        assert seen[-1] == backend
+    assert calls == []
+
+
+def test_free_collective_resources_flushes_the_fusion_buffer():
+    """Pending fused submissions are dispatched before the buffer goes, so
+    no handle is orphaned (``eager.py:246``)."""
+    p = P_RANKS
+    tmpi.start(ranks=p, device="cpu")
+    constants.set("fusion_buffer_bytes", 1 << 20)
+    comm = tmpi.current_communicator()
+    fb = tmpi.collectives.get_fusion_buffer(comm)
+    xs = [torch.full((p, 10), float(i)) for i in range(3)]
+    handles = [fb.submit("allreduce", x) for x in xs]
+    tmpi.free_collective_resources(comm)
+    assert not hasattr(comm, "_fusion_buffer")
+    for i, h in enumerate(handles):
+        assert torch.equal(h.wait(), torch.full((p, 10), float(i * p)))

@@ -10,11 +10,14 @@ made with numpy from a seed and handed to both.
 Tolerance: none. The plain version keeps the JAX wrapper's 128-row chunk
 layout, the hop order and the rounding XLA's CPU backend gives the JAX
 kernel (a product with the f32 reciprocal of 127 for the scale; the
-decode-and-add in f64, against XLA's single f32 FMA, which it equals but
-for a double-rounding case that none of these inputs hits), so every rank's
-result must be bitwise equal. The codec and the routing decisions are
-checked as values (exact).
+decode-and-add rounded once, as XLA's single f32 FMA), so every rank's
+result must be bitwise equal, on random payloads and on rows built so that
+rounding the decode-and-add twice would differ
+(``utils.tester.wire_midpoint_rows``). The codec and the routing decisions
+are checked as values (exact).
 """
+
+from fractions import Fraction
 
 import jax
 import numpy as np
@@ -30,6 +33,7 @@ from torchmpi_tpu.ops import ring_kernels as jring
 from torchmpi_tpu_torch import constants, ops
 from torchmpi_tpu_torch.collectives import CollectiveArgumentError, eager, primitives
 from torchmpi_tpu_torch.ops import ring_kernels as tring
+from torchmpi_tpu_torch.utils import tester
 
 
 @pytest.fixture(autouse=True)
@@ -91,6 +95,96 @@ def test_quant_reduce_scatter_bitwise_matches_pallas(p, wire):
     out = ops.ring_reduce_scatter_quant(torch.from_numpy(x.reshape(p, p, seg)), wire)
     assert tuple(out.shape) == (p, 1, seg)
     np.testing.assert_array_equal(_bits(out.numpy().reshape(p, seg)), _bits(ref.reshape(p, seg)))
+
+
+def _pallas_quant(x: np.ndarray, p: int, mode: str, wire: str) -> np.ndarray:
+    """The interpret-mode Pallas kernel on the rank-stacked ``x``: the
+    allreduce of ``[p, n]``, or the reduce-scatter of ``[p, p*seg]`` as
+    ``[p, seg]``."""
+    if mode == "allreduce":
+        return np.asarray(_shard_map(
+            lambda b: jring.ring_allreduce_pallas(
+                b, "mpi", axis_size=p, interpret=True, wire_dtype=wire), p)(x))
+    seg = x.shape[1] // p
+    return np.asarray(_shard_map(
+        lambda b: jring.ring_reduce_scatter_pallas(
+            b[0].reshape(p, seg), "mpi", axis_size=p, interpret=True,
+            wire_dtype=wire)[None], p)(x.reshape(p, 1, p * seg))).reshape(p, seg)
+
+
+def _port_quant(x: np.ndarray, p: int, mode: str, wire: str) -> np.ndarray:
+    if mode == "allreduce":
+        return ops.ring_allreduce_quant(torch.from_numpy(x), wire).numpy()
+    out = ops.ring_reduce_scatter_quant(torch.from_numpy(x.reshape(p, p, -1)), wire)
+    return out.numpy().reshape(p, -1)
+
+
+@pytest.mark.parametrize("p", [2, 3])
+@pytest.mark.parametrize("wire", ["int8", "bf16"])
+@pytest.mark.parametrize("mode,n", [("allreduce", 4096), ("allreduce", 5000), ("rs", 600)])
+def test_quant_rounds_once_like_pallas(p, wire, mode, n):
+    """On rows whose last reduce-scatter hop puts a code's exact product on
+    an f32 midpoint and a tiny local value beside it, the plain version
+    rounds the decode-and-add once, as the interpret-mode kernel's f32 FMA
+    does: every rank's result bitwise equal (the bf16 wire takes the same
+    rows as an ordinary input)."""
+    _engage_all()
+    x = tester.wire_midpoint_rows(p, n, mode, seed=p)
+    ref = _pallas_quant(x, p, mode, wire)
+    out = _port_quant(x, p, mode, wire)
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+
+
+def test_quant_rounds_once_on_the_reported_row():
+    """The input that showed the double rounding: rank 0's row sets the
+    scale s = 0.012620185 and holds RN(5 s), whose exact 5 s lies halfway
+    between two f32 values; rank 1 adds 2^-60 there. The FMA rounds the sum
+    up to bits 1031879439 at rank 1 (the owner); the old f64 sum fell back
+    on the midpoint and rounded to even, 1031879438."""
+    _engage_all()
+    x = np.full((2, 256), 0.5, np.float32)
+    x[0, 0] = np.float32(1.6027634)
+    s = np.float32(x[0, 0]) * (np.float32(1) / np.float32(127))
+    assert s == np.float32(0.012620185)
+    x[0, 1] = np.float32(5 * s)
+    x[1, :] = 0.25
+    x[1, 1] = 2.0**-60
+    ref = _pallas_quant(x, 2, "allreduce", "int8")
+    out = _port_quant(x, 2, "allreduce", "int8")
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+    assert _bits(out)[1, 1] == 1031879439
+
+
+def _round_f32(r: Fraction) -> np.float32:
+    """The exact rational ``r`` rounded to the nearest f32, ties to even."""
+    c = np.float32(float(r))
+    cands = [np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf))]
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - r), int(_bits(np.array([v]))[0]) & 1))
+
+
+def test_decode_add_rounds_once():
+    """``_decode_add`` on int8 codes is ``local + code*scale`` rounded once
+    to f32: against the exact rational sum rounded to the nearest f32 (ties
+    to even), over 2,000 seeded midpoint triples, on which rounding in f64
+    first gives the other neighbour, and 2,000 random ones (scales over 60
+    binades, locals from far smaller to far larger than the product)."""
+    rng = np.random.RandomState(8)
+    _, s1, q1, l1 = tester.wire_midpoint_triples(2000, rng)
+    s2 = np.exp(rng.uniform(-30, 30, 2000)).astype(np.float32)
+    q2 = rng.randint(-127, 128, 2000)
+    l2 = (rng.randn(2000) * s2 * np.exp(rng.uniform(-40, 10, 2000))).astype(np.float32)
+    scale = np.concatenate([s1, s2])
+    codes = np.concatenate([q1, q2]).astype(np.float32)
+    local = np.concatenate([l1, l2])
+    got = tring._decode_add(torch.from_numpy(codes), torch.from_numpy(scale),
+                            torch.from_numpy(local)).numpy()
+    want = np.array([_round_f32(Fraction(float(q)) * Fraction(float(s)) + Fraction(float(v)))
+                     for q, s, v in zip(codes, scale, local)], np.float32)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    # the midpoint triples are the ones two roundings get wrong
+    twice = (codes[:2000].astype(np.float64) * scale[:2000] + local[:2000]).astype(np.float32)
+    assert (_bits(twice) != _bits(want[:2000])).all()
 
 
 def test_quant_reduce_scatter_owner_keeps_f32_sum():

@@ -32,14 +32,23 @@ The package imports ``torch`` and never ``jax`` or ``torchmpi_tpu``.
 from . import collectives, constants, nn, ops, parameterserver
 from .collectives import (
     allgather_tensor,
+    allgatherv_tensor,
+    allreduce_scalar,
     allreduce_tensor,
     alltoall_tensor,
     async_,
+    barrier,
+    broadcast_scalar,
     broadcast_tensor,
+    collective_availability,
+    free_collective_resources,
     kernel,
+    reduce_scalar,
     reduce_tensor,
     reducescatter_tensor,
     ring,
+    selector as collective_selector,
+    sendreceive_scalar,
     sendreceive_tensor,
     xla,
 )
@@ -50,8 +59,12 @@ from .runtime_state import (
     communicator_names,
     current_communicator,
     describe,
+    local_ranks,
+    num_nodes_in_communicator,
+    num_processes,
     push_communicator,
     rank,
+    set_collective_span,
     set_communicator,
     size,
     stack,
@@ -64,33 +77,49 @@ from .runtime_state import (
 # since each imports from the modules above
 from . import engine, parallel, utils  # noqa: E402
 
+__version__ = "0.5.0"
+
 __all__ = [
+    "__version__",
     "Communicator",
     "CommunicatorError",
     "NotStartedError",
     "SyncHandle",
     "allgather_tensor",
+    "allgatherv_tensor",
+    "allreduce_scalar",
     "allreduce_tensor",
     "alltoall_tensor",
     "async_",
+    "barrier",
+    "broadcast_scalar",
     "broadcast_tensor",
+    "collective_availability",
+    "collective_selector",
     "collectives",
     "communicator_names",
     "constants",
     "current_communicator",
     "describe",
     "engine",
+    "free_collective_resources",
     "kernel",
+    "local_ranks",
     "nn",
+    "num_nodes_in_communicator",
+    "num_processes",
     "ops",
     "parallel",
     "parameterserver",
     "push_communicator",
     "rank",
+    "reduce_scalar",
     "reduce_tensor",
     "reducescatter_tensor",
     "ring",
+    "sendreceive_scalar",
     "sendreceive_tensor",
+    "set_collective_span",
     "set_communicator",
     "size",
     "split_by_keys",

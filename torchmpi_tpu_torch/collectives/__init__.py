@@ -8,7 +8,9 @@ pin a backend; ``async_`` holds the variants that return a
 :class:`~torchmpi_tpu_torch.runtime.handles.SyncHandle`, with its own
 ``async_.xla``, ``async_.ring`` and ``async_.kernel``. ``backend=`` on the
 top-level functions pins a backend too, which lets the CPU tests drive the
-kernel path through the plain versions.
+kernel path through the plain versions. The scalar collectives cross
+processes and are the identity in one process, which holds every virtual
+rank.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..runtime.handles import SyncHandle, sync_all, wait
 from . import eager, primitives
 from .eager import CollectiveArgumentError, free_collective_resources
 from .fusion import FusionBuffer, get_fusion_buffer
-from .selector import backend_availability, selector
+from .selector import backend_availability, collective_availability, selector
 
 # ring_implementation -> the backend that runs the selector's custom ring
 _RING_IMPLEMENTATIONS = {"kernel": "kernel", "kernel_bidir": "kernel", "ppermute": "ring"}
@@ -40,16 +42,21 @@ def _current_comm(comm: Optional[Communicator]) -> Communicator:
 def _dispatch(op: str, x: torch.Tensor, comm: Optional[Communicator] = None,
               mode: str = "sync", backend: Optional[str] = None, **kw):
     """Run ``op`` on ``comm``: ``mode`` 'sync' returns the result, 'async'
-    a handle. ``backend=None`` takes the selector's choice for the mode;
-    where that is a custom ring, the ``ring_implementation`` constant
-    (read per call) says which one runs (``collectives/__init__.py:50-64``):
-    'kernel' and 'kernel_bidir' the CUDA kernels, 'ppermute' the ``ring``
-    backend."""
+    a handle. ``backend=None`` takes the selector's choice for the mode,
+    memoized on the communicator per ``(op, mode)`` as the JAX
+    ``_dispatch`` does (``collectives/__init__.py:37-52``; it lives until
+    the communicator's resources are freed); where that is a custom ring,
+    the ``ring_implementation`` constant (read per call) says which one
+    runs: 'kernel' and 'kernel_bidir' the CUDA kernels, 'ppermute' the
+    ``ring`` backend."""
     comm = _current_comm(comm)
     if backend is None:
-        backend = selector.select(
-            op, comm.device, multinode=comm.num_nodes() > 1, mode=mode
-        )
+        cache = comm.__dict__.setdefault("_selector_cache", {})
+        backend = cache.get((op, mode))
+        if backend is None:
+            backend = cache[(op, mode)] = selector.select(
+                op, comm.device, multinode=comm.num_nodes() > 1, mode=mode
+            )
         if backend in ("ring", "kernel"):
             impl = constants.get("ring_implementation")
             if impl not in _RING_IMPLEMENTATIONS:
@@ -112,6 +119,13 @@ def alltoall_tensor(x: torch.Tensor, comm=None,
     return _dispatch("alltoall", x, comm, "sync", backend)
 
 
+def allgatherv_tensor(blocks, comm=None, backend: str = "xla") -> torch.Tensor:
+    """Variable-size allgather of one block per rank, ragged in the last
+    dim (:func:`~.eager.run_allgatherv`; the reference's ``Allgatherv``,
+    ``lib/collectives.cpp:245-290``)."""
+    return eager.run_allgatherv(blocks, _current_comm(comm), backend=backend)
+
+
 class _BackendNS:
     """``mpi.xla.*`` / ``mpi.ring.*`` / ``mpi.kernel.*``: the collectives
     pinned to one backend (``backend=None``: the selector's), in one mode
@@ -163,25 +177,62 @@ kernel = _BackendNS("kernel", "sync")
 async_ = _AsyncNS()
 
 
+# --- scalar collectives (init.lua:125-134) ---------------------------------
+# They cross processes; one process holds every virtual rank (multi-process
+# ranks are ROADMAP A13), so each returns its input, as the JAX package's do
+# in one process (collectives/__init__.py:178-237).
+def broadcast_scalar(value, root: int = 0):
+    """``root``'s host scalar on every process."""
+    return value
+
+
+def allreduce_scalar(value):
+    """The sum of every process's host scalar."""
+    return value
+
+
+def reduce_scalar(value, root: int = 0):
+    """The sum at process ``root``; every other process keeps its input."""
+    return value
+
+
+def sendreceive_scalar(value, src: int, dst: int):
+    """Process ``dst`` gets ``src``'s host scalar; the others keep theirs."""
+    return value
+
+
+def barrier(comm=None) -> None:
+    """Wait until every rank of ``comm`` (the current communicator by
+    default) has finished its queued work (:func:`~.eager.barrier`)."""
+    eager.barrier(_current_comm(comm))
+
+
 __all__ = [
     "CollectiveArgumentError",
     "FusionBuffer",
     "SyncHandle",
     "allgather_tensor",
+    "allgatherv_tensor",
+    "allreduce_scalar",
     "allreduce_tensor",
     "alltoall_tensor",
     "async_",
     "backend_availability",
+    "barrier",
+    "broadcast_scalar",
     "broadcast_tensor",
+    "collective_availability",
     "eager",
     "free_collective_resources",
     "get_fusion_buffer",
     "kernel",
     "primitives",
+    "reduce_scalar",
     "reduce_tensor",
     "reducescatter_tensor",
     "ring",
     "selector",
+    "sendreceive_scalar",
     "sendreceive_tensor",
     "sync_all",
     "wait",

@@ -65,10 +65,26 @@ def _check_rank_stacked(x: torch.Tensor, comm: Communicator) -> None:
 
 def free_collective_resources(comm: Communicator) -> None:
     """The analog of the reference's ``freeCollectiveResources``
-    (``torchmpi/cache.lua:19-61``), which the tester calls between sizes.
-    The JAX package drops the communicator's compiled executables here; the
-    port compiles nothing per size and holds no per-size resource, so there
-    is nothing to free."""
+    (``torchmpi/cache.lua:19-61``), which the tester calls between sizes
+    and :func:`~torchmpi_tpu_torch.runtime_state.stop` calls for every stack
+    level (``eager.py:246``): dispatch the fusion buffer's pending groups,
+    then drop the communicator's memoized selector choices and its fusion
+    buffer. The port compiles nothing per size, so there is no executable
+    to free."""
+    fb = getattr(comm, "_fusion_buffer", None)
+    if fb is not None:
+        fb.flush_all()
+    for attr in ("_selector_cache", "_fusion_buffer"):
+        comm.__dict__.pop(attr, None)
+
+
+def barrier(comm: Communicator) -> None:
+    """Device barrier over the communicator (``torch_mpi.cpp:270-280``,
+    ``eager.py:1052``): returns once every rank's queued work is done. The
+    virtual ranks share one device, so that is the device's work, the
+    async side stream's included."""
+    if comm.device.type == "cuda":
+        torch.cuda.synchronize(comm.device)
 
 
 def op_route(op: str, nelem: int, platform: str, requested: str = "ring") -> str:
@@ -318,6 +334,45 @@ def run(
     )
     fn = _kernels(op, effective, nelem, x.dtype, platform, root, src, dst, wire)
     return fn(x.contiguous())
+
+
+def run_allgatherv(blocks, comm: Communicator, backend: str = "xla") -> torch.Tensor:
+    """Variable-size allgather (``eager.py:698``, the reference's size
+    exchange and ``MPI_Allgatherv``, ``lib/collectives.cpp:245-290``):
+    ``blocks`` holds one tensor (or array) per rank, agreeing on every dim
+    but the last; every rank gets them concatenated along the last dim in
+    rank order. The blocks travel padded to the largest size through the
+    ``xla`` or ``ring`` allgather, and each rank keeps the valid prefixes.
+    Returns ``[p, ..., sum(sizes)]`` on the communicator's device."""
+    if len(blocks) != comm.size:
+        raise CollectiveArgumentError(
+            f"allgatherv expects {comm.size} blocks (one per rank), got {len(blocks)}"
+        )
+    blocks = [torch.as_tensor(b, device=comm.device) for b in blocks]
+    base, dtype = blocks[0].shape[:-1], blocks[0].dtype
+    for i, b in enumerate(blocks):
+        if b.ndim == 0 or b.shape[:-1] != base:
+            raise CollectiveArgumentError(
+                f"block {i} shape {tuple(b.shape)} does not match leading dims "
+                f"{tuple(base)} (only the LAST dim may vary, like the reference's "
+                "last-dim realloc)"
+            )
+        if b.dtype != dtype:
+            raise CollectiveArgumentError(f"block {i} dtype {b.dtype} != {dtype}")
+    if backend == "xla":
+        gather = prim.allgather
+    elif backend == "ring":
+        gather = prim.ring_allgather
+    else:
+        raise CollectiveArgumentError(
+            f"allgatherv backend must be 'xla' or 'ring', got {backend!r}"
+        )
+    sizes = [b.shape[-1] for b in blocks]
+    nmax = max(sizes)
+    padded = torch.stack([torch.nn.functional.pad(b, (0, nmax - s)) if s < nmax else b
+                          for b, s in zip(blocks, sizes)])
+    g = gather(padded.unsqueeze(1), dim=0)  # [rank, source, ..., nmax]
+    return torch.cat([g[:, r, ..., :s] for r, s in enumerate(sizes)], dim=-1)
 
 
 def _async_stream(comm: Communicator) -> torch.cuda.Stream:

@@ -115,6 +115,11 @@ class FusionBuffer:
             if group is not None and group.results is None:
                 self._flush_group(group)
 
+    def flush_all(self) -> None:
+        """Dispatch every pending group."""
+        for group in list(self._groups.values()):
+            self._flush_group(group)
+
     def _flush_group(self, group: _PendingGroup) -> None:
         from . import _dispatch
 

@@ -96,5 +96,47 @@ class CollectiveSelector:
                 return b
         return "xla"
 
+    def describe(self, device: torch.device) -> str:
+        """The backends available on ``device``, the wire a large f32
+        payload of each wire collective would ship, and each row of the
+        table with its preferences and choice (``selector.py:158``)."""
+        from .. import constants
+        from .eager import _WIRE_OPS, resolve_wire_dtype
+
+        avail = backend_availability(device)
+        lines = ["Backend availability: " + ", ".join(
+            f"{k}={'yes' if v else 'no'}" for k, v in avail.items()
+        )]
+        custom = avail["ring"] or avail["kernel"]
+        formats = {"full": True, "bf16": custom, "int8": custom}
+        lines.append(
+            f"Wire formats (fp32 {'/'.join(_WIRE_OPS)} >= wire_quant_min_elements): "
+            + ", ".join(f"{k}={'yes' if v else 'no'}" for k, v in formats.items())
+            + f" -> default {constants.get('wire_dtype')}"
+        )
+        large = constants.get("wire_quant_min_elements")
+        for op in _WIRE_OPS:
+            lines.append(f"wire.{op}: -> {resolve_wire_dtype(op, large, torch.float32)}")
+        for platform, nodes_tbl in self.table.items():
+            for nodes, mode_tbl in nodes_tbl.items():
+                for mode, coll_tbl in mode_tbl.items():
+                    for coll, prefs in coll_tbl.items():
+                        chosen = self.select(coll, torch.device(platform),
+                                             nodes == "multinode", mode)
+                        lines.append(f"{platform}.{nodes}.{mode}.{coll}: "
+                                     f"{' > '.join(prefs)} -> {chosen}")
+        return "\n".join(lines)
+
 
 selector = CollectiveSelector()
+
+
+def collective_availability(device: Optional[torch.device] = None) -> str:
+    """:meth:`CollectiveSelector.describe` for ``device``: the current
+    communicator's when the runtime is started, else the card's."""
+    if device is None:
+        from .. import runtime_state
+
+        device = (runtime_state.current_communicator().device
+                  if runtime_state.started() else torch.device("cuda"))
+    return selector.describe(device)

@@ -518,13 +518,21 @@ def _decode(codes: torch.Tensor, scale) -> torch.Tensor:
 
 def _decode_add(codes: torch.Tensor, scale, local: torch.Tensor) -> torch.Tensor:
     """A reduce-scatter hop's receive, ``local + decode(codes)``. For int8
-    the product is exact in f64 and the sum rounds there, then to f32: XLA
-    fuses the JAX kernel's decode-and-add into one f32 FMA, which this
-    equals but for double rounding when ``local`` is some 2^29 times
-    smaller than the product."""
+    it is rounded once, as the single f32 FMA that XLA makes of the JAX
+    kernel's decode-and-add (and ``__fmaf_rn`` in the kernel): the product
+    of a code (an integer of at most 127) and a scale (24 bits) is
+    exact in f64, the f64
+    sum is rounded to odd and then to f32, the f32 branch of
+    :func:`~.reduce_kernel.scale_accumulate_plain`."""
     if scale is None:
         return local + codes
-    return (codes.double() * scale.double() + local.double()).float()
+    from .reduce_kernel import _round_to_odd, _two_sum
+
+    s, rest = _two_sum(local.double(), codes.double() * scale.double())
+    # the error-free sum needs finite operands; an inf or nan takes the
+    # IEEE result of the plain form, which the FMA gives too
+    return torch.where(torch.isfinite(s), _round_to_odd(s, rest).float(),
+                       local + codes * scale)
 
 
 def _hop_chain(ranks: torch.Tensor, starts: torch.Tensor, wire: str, allreduce: bool):

@@ -167,6 +167,16 @@ class CommunicatorStack:
                 raise CommunicatorError(f"no communicator at level {level}")
             self._span = (level, level)
 
+    def set_span(self, begin: int, end: int) -> None:
+        """The hierarchical collective span (``torch_mpi.cpp:84-103``):
+        levels ``begin`` to ``end``, the current communicator at ``end``."""
+        with self._lock:
+            if not (0 <= begin <= end < len(self._stack)):
+                raise CommunicatorError(
+                    f"invalid span ({begin}, {end}) for stack depth {len(self._stack)}"
+                )
+            self._span = (begin, end)
+
     @property
     def span(self) -> Tuple[int, int]:
         return self._span

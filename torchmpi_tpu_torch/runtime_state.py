@@ -9,8 +9,9 @@ mesh's ``--cpu-mesh p`` virtual devices, all held on one CUDA card.
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Callable, List, Optional, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
@@ -28,6 +29,44 @@ _stack: Optional[CommunicatorStack] = None
 
 class NotStartedError(RuntimeError):
     pass
+
+
+def _apply_env_constants() -> None:
+    """Apply the ``TORCHMPI_TPU_CONSTANTS`` knob overrides
+    (``name=value;name=value``, as ``launch --set-constant`` sets them for
+    the JAX package). Values are coerced to the knob's current type (a
+    bool takes 1/0/true/false/yes/no/on/off); an unknown name or a value
+    that does not coerce raises."""
+    spec = os.environ.get("TORCHMPI_TPU_CONSTANTS", "")
+    if not spec:
+        return
+    snap = constants.snapshot()
+    for item in spec.split(";"):
+        if not item.strip():
+            continue
+        name, _, raw = item.partition("=")
+        name, raw = name.strip(), raw.strip()
+        if name not in snap:
+            raise KeyError(
+                f"TORCHMPI_TPU_CONSTANTS names unknown knob {name!r} "
+                "(see constants.snapshot() for valid knobs)"
+            )
+        current = snap[name]
+        if isinstance(current, bool):
+            low = raw.lower()
+            if low not in ("1", "true", "yes", "on", "0", "false", "no", "off"):
+                raise ValueError(
+                    f"TORCHMPI_TPU_CONSTANTS: bool knob {name!r} got {raw!r} "
+                    "(expected 1/0/true/false/yes/no/on/off)"
+                )
+            value: object = low in ("1", "true", "yes", "on")
+        elif isinstance(current, int):
+            value = int(raw)
+        elif isinstance(current, float):
+            value = float(raw)
+        else:
+            value = raw
+        constants.set(name, value)
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -51,6 +90,8 @@ def start(
     device: Union[None, str, torch.device] = None,
     with_cartesian_communicator: Optional[bool] = None,
     custom_communicator_init: Optional[Callable[[], None]] = None,
+    collective_communicator: Optional[Tuple[int, int]] = None,
+    **constant_overrides,
 ) -> None:
     """Initialise the runtime (``MPI.start``, ``torchmpi/init.lua:31-100``).
 
@@ -61,45 +102,67 @@ def start(
       *before* building communicators (``init.lua:61-65``).
     - ``custom_communicator_init`` — callback run right after start, in
       which user code may :func:`push_communicator` (``init.lua:84-91``).
+    - ``collective_communicator`` — an explicit ``(begin, end)`` span.
+    - ``**constant_overrides`` — any :mod:`~torchmpi_tpu_torch.constants`
+      knob by name (``start(wire_dtype="int8")``), set after the
+      ``TORCHMPI_TPU_CONSTANTS`` overrides, so an explicit one wins. An
+      unknown name raises ``KeyError`` before any state changes; the
+      overrides outlive a failed or stopped runtime, as any
+      ``constants.set`` does.
     """
     global _stack
+    for name in constant_overrides:
+        if name not in constants.snapshot():
+            raise KeyError(
+                f"start() got unknown constants override {name!r} "
+                "(see constants.snapshot() for valid knobs)"
+            )
     if ranks < 1:
         raise ValueError(f"start() needs at least one rank, got {ranks}")
     dev = resolve_device(device)
-    prev_cartesian = constants.get("use_cartesian_communicator")
     with _lock:
         if _stack is not None:
             raise RuntimeError("torchmpi_tpu_torch.start() called twice")
+        _apply_env_constants()
+        for name, value in constant_overrides.items():
+            constants.set(name, value)
+        prev_cartesian = constants.get("use_cartesian_communicator")
         if with_cartesian_communicator is not None:
             constants.set(
                 "use_cartesian_communicator", bool(with_cartesian_communicator)
             )
         _stack = CommunicatorStack(Communicator(range(ranks), dev, name="global"))
-    if custom_communicator_init is not None:
-        try:
+    try:
+        if custom_communicator_init is not None:
             custom_communicator_init()
-        except BaseException:
-            # roll back so a corrected retry of start() works, the cartesian
-            # constant set above included
-            with _lock:
-                _stack = None
-                if not constants.constants_frozen():
-                    constants.set("use_cartesian_communicator", prev_cartesian)
-            raise
+        if collective_communicator is not None:
+            _stack.set_span(*collective_communicator)
+    except BaseException:
+        # roll back so a corrected retry of start() works, the cartesian
+        # constant set above included
+        with _lock:
+            _stack = None
+            if not constants.constants_frozen():
+                constants.set("use_cartesian_communicator", prev_cartesian)
+        raise
 
 
 def stop() -> None:
     """Teardown (``torchmpi_stop``, ``torch_mpi.cpp:282-306``): waits every
     outstanding async handle, frees every parameter server (stopping its
-    polling thread), shuts the offload pools down, then drops the
-    communicator stack."""
+    polling thread), frees every stack level's collective resources,
+    shuts the offload pools down, then drops the communicator stack."""
     global _stack
+    from .collectives.eager import free_collective_resources
     from .parameterserver import free_all
     from .runtime.handles import sync_all
     from .runtime.pools import shutdown_all
 
     sync_all()
     free_all()
+    if _stack is not None:
+        for level in range(_stack.depth):
+            free_collective_resources(_stack.at(level))
     shutdown_all()
     with _lock:
         _stack = None
@@ -131,9 +194,20 @@ def rank() -> int:
     return 0
 
 
+def local_ranks() -> List[int]:
+    """The ranks of the current communicator this process owns: every
+    one, since one process holds all the virtual ranks."""
+    return list(range(current_communicator().size))
+
+
 def size() -> int:
     """Number of (virtual) ranks in the current communicator."""
     return current_communicator().size
+
+
+def num_processes() -> int:
+    """Processes in the job: one (multi-process ranks are ROADMAP A13)."""
+    return 1
 
 
 def push_communicator(keys: KeySpec, name: Optional[str] = None) -> int:
@@ -145,6 +219,10 @@ def push_communicator(keys: KeySpec, name: Optional[str] = None) -> int:
 
 def set_communicator(level: int) -> None:
     _require_stack().set_current(level)
+
+
+def set_collective_span(begin: int, end: int) -> None:
+    _require_stack().set_span(begin, end)
 
 
 def communicator_names() -> List[str]:
@@ -165,6 +243,14 @@ def describe() -> str:
         desc = st.at(level).describe().replace("\n", "\n      ")
         lines.append(f" {marker}[{level}] {desc}")
     return "\n".join(lines)
+
+
+def num_nodes_in_communicator(level: Optional[int] = None) -> int:
+    """Nodes the communicator at ``level`` (the current one for None)
+    spans."""
+    st = _require_stack()
+    comm = st.current if level is None else st.at(level)
+    return comm.num_nodes()
 
 
 def _reset_for_tests() -> None:

@@ -19,6 +19,10 @@ bus GB/s is the reference's yardstick applied to this run, not a link
 speed. An async call's result is waited inside the loop; the host time of
 issuing it is reported beside, as ``launch_us`` (the reference asserts an
 async launch under 50 µs, ``collectives_all.lua:192-199``).
+
+:func:`wire_midpoint_rows` makes inputs of the quantized ring on which
+rounding the int8 wire's decode-and-add twice gives other bits than
+rounding it once, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -266,3 +270,106 @@ def run_ps_throughput(comm: Communicator, nelem: int = 1 << 20, warmup: int = 3,
         "recv_mbps": nbytes * timed / recv_dt / 1e6,
         "nbytes": nbytes,
     }
+
+
+# ---------------------------------------------------------------------------
+# inputs on which the int8 wire's decode-and-add shows how often it rounds
+# ---------------------------------------------------------------------------
+
+_INV_127 = np.float32(1) / np.float32(127)  # the int8 scale's RN(1/127)
+
+
+def _f32_neighbours(v: np.ndarray):
+    """The two f32 values next to each f64 of ``v``: ``lo <= v <= hi``."""
+    c = v.astype(np.float32)
+    lo = np.where(c <= v, c, np.nextafter(c, np.float32(-np.inf)))
+    hi = np.where(c >= v, c, np.nextafter(c, np.float32(np.inf)))
+    return lo, hi
+
+
+def _is_f32_midpoint(v: np.ndarray) -> np.ndarray:
+    lo, hi = _f32_neighbours(v)
+    return (lo != hi) & ((lo.astype(np.float64) + hi.astype(np.float64)) / 2 == v)
+
+
+def wire_midpoint_triples(count: int, rng: np.random.RandomState):
+    """``count`` int8 decode-and-add operands that tell one rounding from
+    two: the row maximum ``m`` (f32) that sets the scale ``s = RN(m *
+    RN(1/127))``, a code ``q`` (|q| <= 126) whose exact product ``q*s`` lies
+    halfway between two f32 values, and a ``local`` 2^-60 times the product,
+    on the side of the odd neighbour. ``local + q*s`` rounded once is that
+    odd neighbour; rounded first in f64 (the sum falls back on the
+    midpoint) and then to f32 it is the even one. Returns (m, s, q, local),
+    f32 arrays but for ``q`` (int64)."""
+    codes = np.arange(1, 127, dtype=np.float64)
+    m = np.empty(count, np.float32)
+    mids = np.zeros((count, codes.size), bool)
+    todo = np.arange(count)
+    while todo.size:
+        cand = np.exp(rng.uniform(-4.0, 4.0, todo.size)).astype(np.float32)
+        found = _is_f32_midpoint((cand * _INV_127).astype(np.float64)[:, None] * codes)
+        ok = found.any(1)
+        m[todo[ok]], mids[todo[ok]] = cand[ok], found[ok]
+        todo = todo[~ok]
+    s = m * _INV_127
+    # a random code among each row's midpoints, with a random sign
+    pick = np.argmax(rng.uniform(size=mids.shape) * mids, axis=1)
+    q = (pick + 1) * np.where(rng.uniform(size=count) < 0.5, -1, 1)
+    prod = q * s.astype(np.float64)
+    lo, hi = _f32_neighbours(prod)
+    toward_hi = (hi.view(np.int32) & 1) == 1
+    local = (np.abs(prod) * 2.0**-60).astype(np.float32) * np.where(toward_hi, 1, -1)
+    return m, s, q, local.astype(np.float32)
+
+
+def wire_midpoint_rows(p: int, n: int, mode: str = "allreduce", seed: int = 0) -> np.ndarray:
+    """Rank-stacked f32 inputs of the quantized ring (``ops.ring_allreduce_quant``
+    for ``mode`` 'allreduce': ``[p, n]``; ``ops.ring_reduce_scatter_quant``
+    for 'rs': ``[p, p*n]``, p segments of ``n``) on whose last
+    reduce-scatter hop 8 lanes of every 128-lane row take the operands of
+    :func:`wire_midpoint_triples`. In each row the ranks the
+    sum visits before its last two hold zeros (so the running sum reaches
+    the second-to-last rank unchanged), that rank holds the row maximum
+    and the codes' values ``RN(q*s)`` among smaller random values, and the
+    owner holds the ``local`` values among random ones. Made with numpy
+    from ``seed``."""
+    from ..ops.ring_kernels import quant_chunk_elems
+
+    if p < 2 or mode not in ("allreduce", "rs"):
+        raise ValueError(f"wire_midpoint_rows needs p >= 2 and mode 'allreduce' or 'rs', "
+                         f"got p={p}, mode={mode!r}")
+    rng = np.random.RandomState(seed)
+    rps = -(-n // 128)  # 128-lane rows of each rank's buffer or segment
+    if mode == "allreduce":
+        nrows, valid_n = rps, np.full(rps, n)
+        c = quant_chunk_elems(n, p, "int8")
+        starts = (np.arange(rps) * 128 % (p * c)) // c
+        tails = np.arange(rps)
+    else:
+        # segment s's sum starts at rank s + 1 and ends at its owner, rank s
+        nrows, valid_n = p * rps, np.full(p * rps, n)
+        starts = (np.arange(nrows) // rps + 1) % p
+        tails = np.arange(nrows) % rps
+    valid = np.minimum(128, valid_n - 128 * tails)
+    m, s, q, local = wire_midpoint_triples(nrows, rng)
+    # per row a random order of its valid lanes: the first holds the
+    # maximum, the next 8 the midpoint operands
+    keys = rng.uniform(size=(nrows, 128))
+    keys[np.arange(128)[None, :] >= valid[:, None]] = np.inf
+    order = np.argsort(keys, axis=1)
+    row = np.arange(nrows)[:, None]
+    enc = (rng.uniform(-0.99, 0.99, (nrows, 128)) * m[:, None]).astype(np.float32)
+    enc[row[:, 0], order[:, 0]] = m
+    own = rng.randn(nrows, 128).astype(np.float32)
+    adv = order[:, 1:9]
+    use = np.arange(1, 9)[None, :] < valid[:, None]
+    vals = (q * s.astype(np.float64)).astype(np.float32)
+    enc[row, adv] = np.where(use, vals[:, None], enc[row, adv])
+    own[row, adv] = np.where(use, local[:, None], own[row, adv])
+    data = np.zeros((p, nrows, 128), np.float32)
+    data[(starts + p - 2) % p, row[:, 0]] = enc
+    data[(starts + p - 1) % p, row[:, 0]] = own
+    if mode == "allreduce":
+        return np.ascontiguousarray(data.reshape(p, rps * 128)[:, :n])
+    segs = data.reshape(p, p, rps * 128)[:, :, :n]
+    return np.ascontiguousarray(segs.reshape(p, p * n))
