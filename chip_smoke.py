@@ -51,7 +51,22 @@ phase fails:
    with exact launch counts and the loss falling, then 5 steps each with
    ``kernel_bidir_full`` (K9) and ``xla`` (no kernel) from the same init
    and batches, whose losses must match the first 5;
-8. drives the parameter-server path (``examples/mnist_parameterserver.py``'s
+8. drives the ResNet path (``examples/resnet_allreduce.py``, BASELINE
+   config 4): a narrow ResNet (stages [1, 1], 8 filters, 32 px, p=4) on
+   the card against the CPU (plain versions), sync and async; the step
+   time of both per-rank gradient forms (``rank_map`` 'vmap' and 'loop')
+   on ResNet-50 at full width and on the MNIST path's LeNet; then
+   ResNet-50 at full width (1000 classes, 224 px), p=8, per-rank batch
+   32, momentum 0.9, lr 0.1, three epochs of
+   ``synthetic_imagenet(2048)``, in sync and in async mode (4 buckets):
+   exact launch counts (:func:`resnet_expected`), finite losses, the last
+   epoch's below the first's, ``check_with_allreduce`` on the parameters
+   and the batch statistics, the test accuracy, one async step's buckets
+   against blocking allreduces bit for bit, a 3-step profile and one
+   ``{"resnet": ...}`` line (img/s/chip, step time, MFU, the device's busy
+   share and time by kernel class); then the sequential MNIST twin on the
+   card (K1 only) beside the p=8 sync MNIST run;
+9. drives the parameter-server path (``examples/mnist_parameterserver.py``'s
    twin, ``train`` on LeNet): p=8, global batch 336, lr 0.2, ``--tau 5
    --init-delay 10``, two epochs (48 steps) each of Downpour, EASGD (beta
    0.9) and DSGD with the full wire, and Downpour with the int8 wire; the
@@ -61,13 +76,13 @@ phase fails:
    LogisticRegression run of each on the card against the CPU (plain
    versions), and ``run_ps_throughput`` at 2^20 elements and at LeNet's
    size, full and int8 wire (``{"ps": ...}`` lines);
-9. profiles 5 steps of each MNIST path, 2 LM steps and 5 Downpour steps
+10. profiles 5 steps of each MNIST path, 2 LM steps and 5 Downpour steps
    (``torch.profiler``) and prints one ``{"profile": ...}`` line each:
    device time by kernel and busy share (the LM's with the step time,
    tokens/sec/chip and MFU of 7.'s ``kernel_full`` run); times Downpour
    steps with the PS
    server's 100 us polling cadence and with none (``{"ps_poll": ...}``);
-10. times each kernel, its plain version and, where there is one, a
+11. times each kernel, its plain version and, where there is one, a
    PyTorch call computing the same function with CUDA events at the main
    paths' shapes, on inputs rotated past the L2, and prints one
    ``{"kernels": [...]}`` line: each row's bound is the larger of its bytes
@@ -75,13 +90,16 @@ phase fails:
    attention rows over 165 TFLOP/s (f32 as 3xTF32 on the tensor cores,
    with the f32 bound beside it), and no kernel may read under its bound;
    K2's row carries the floor of one launch (an empty kernel, same timing)
-   beside its shard;
-11. prints last ``{"ok": true, "device": {...}}``.
+   beside its shard; rows marked ``at`` time K3, K1, K2 and K7 at the
+   ResNet path's shapes (its largest fused flush, its largest leaf, its
+   first parameter sync) with their launches per ResNet step;
+12. prints last ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --quant check`` builds K4 alone, prints its
-registers and SASS counts, holds it against its plain version and times its
-rows (``{"quant_kernels": ...}``); ``--quant time`` only times them. Neither
-prints the result line.
+``python3 chip_smoke.py --resnet`` runs the build, the sync MNIST path and
+step 8 alone. ``python3 chip_smoke.py --quant check`` builds K4 alone,
+prints its registers and SASS counts, holds it against its plain version
+and times its rows (``{"quant_kernels": ...}``); ``--quant time`` only
+times them. None of the three prints the result line.
 
 Kernels are held to their plain versions bit for bit, but for the ring
 attention kernels (K8, K9, K10), which merge 64-key tiles where the plain
@@ -95,6 +113,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -113,24 +132,40 @@ from torchmpi_tpu_torch import constants  # noqa: E402
 from torchmpi_tpu_torch import nn as mpinn  # noqa: E402
 from torchmpi_tpu_torch import ops  # noqa: E402
 from torchmpi_tpu_torch.collectives import primitives  # noqa: E402
-from torchmpi_tpu_torch.engine import AllReduceSGDEngine  # noqa: E402
+from torchmpi_tpu_torch.engine import SGD, AllReduceSGDEngine  # noqa: E402
 from torchmpi_tpu_torch.examples import long_context  # noqa: E402
+from torchmpi_tpu_torch.examples import mnist_sequential  # noqa: E402
 from torchmpi_tpu_torch.examples import mnist_parameterserver as ps_example  # noqa: E402
 from torchmpi_tpu_torch.models import (  # noqa: E402
+    BottleneckBlock,
     LeNet,
     LogisticRegression,
     LongContextTransformer,
+    ResNet,
+    ResNet50,
     accuracy,
     init_lm_params,
     init_params,
+    init_resnet,
+    make_eval_fn,
     make_loss_fn,
+    make_stateful_loss_fn,
 )
 from torchmpi_tpu_torch.ops import _build  # noqa: E402
 from torchmpi_tpu_torch.ops.ring_kernels import bidir_chunk_elems  # noqa: E402
 from torchmpi_tpu_torch.parallel import ring_self_attention  # noqa: E402
 from torchmpi_tpu_torch.parameterserver import server as ps_server  # noqa: E402
-from torchmpi_tpu_torch.utils import DistributedIterator, synthetic_mnist  # noqa: E402
-from torchmpi_tpu_torch.utils.flops import mfu, train_flops, transformer_forward_flops  # noqa: E402
+from torchmpi_tpu_torch.utils import (  # noqa: E402
+    DistributedIterator,
+    synthetic_imagenet,
+    synthetic_mnist,
+)
+from torchmpi_tpu_torch.utils.flops import (  # noqa: E402
+    mfu,
+    resnet_forward_flops,
+    train_flops,
+    transformer_forward_flops,
+)
 from torchmpi_tpu_torch.utils.tester import (  # noqa: E402
     run_matrix,
     run_ps_throughput,
@@ -187,6 +222,20 @@ SCALE_ALPHAS = (0.0, 1.0, -1.0, 0.1, -0.2 / 8)
 # as tests/test_torch_ps.py holds the port to the JAX package
 PS_SMALL = ["--train", "1024", "--epochs", "1", "--batch", "32", "--lr", "0.02", "--tau", "5",
             "--init-delay", "10", "--seed", "0"]
+# the ResNet path (examples/resnet_allreduce.py, BASELINE config 4): ResNet-50
+# at full width, p=8, per-rank batch 32, momentum SGD, three epochs of
+# synthetic_imagenet(2048) (8 steps each; the first warms up)
+RESNET = dict(classes=1000, image=224, per_rank=32, lr=0.1, momentum=0.9, train=2048, test=128,
+              epochs=3, buckets=4)
+RESNET_LEAVES, RESNET_PARAMS, RESNET_STATS = 161, 25557032, 53120
+RESNET_LARGEST_LEAF = (512, 512, 3, 3)  # the last stage's 3x3 conv, 2,359,296 a rank
+RESNET_FLUSH = 2360320  # its largest fused flush per rank (the 3x3 conv and two BNs)
+RESNET_BUCKET = 8534784  # its largest async bucket per rank
+RESNET_STEPS = RESNET["epochs"] * (RESNET["train"] // P // RESNET["per_rank"])  # 24
+RESNET_TIMED_STEPS = 3  # per rank map, after one warm-up step
+# the card against the CPU: a narrow ResNet at 32 px, p=4, three steps;
+# losses within rtol 1e-4, parameters, traces and statistics within atol 1e-4
+RESNET_SMALL = dict(stage_sizes=[1, 1], block=BottleneckBlock, num_filters=8, num_classes=10)
 
 
 def require(cond: bool, what: str) -> None:
@@ -705,11 +754,40 @@ def phase_kernels(dev) -> dict:
     err["accumulate"] = float((k - pl).abs().max())
     require(torch.equal(bits(k), bits(pl)), "accumulate [8, 256, 3136] != plain")
 
+    err.update(check_resnet_shapes(dev, gen))
     err.update(check_scale(dev, gen))
     err.update(check_quant(dev, gen))
     err.update(check_phases(dev, gen))
     print(f"kernels: all collective comparisons exact; main-path max|kernel - plain| = {err}")
     err.update(check_attention(dev, gen))
+    return err
+
+
+def check_resnet_shapes(dev, gen) -> dict:
+    """K3, K1, K2 and K7 against their plain versions, bit for bit, at the
+    ResNet path's shapes: its largest fused flush and largest async bucket
+    (K3), its largest leaf's update and momentum trace (K1, K2 with alpha
+    0.9), and its first parameter sync, every parameter in one broadcast
+    (K7). Returns max |kernel - plain| of each, keyed ``name@resnet``."""
+    err = {}
+    for what, n in (("", RESNET_FLUSH), ("_bucket", RESNET_BUCKET)):
+        x = torch.randn((P, n), generator=gen, device=dev)
+        k, pl = ops.ring_allreduce(x), ops.ring_allreduce_plain(x)
+        require(torch.equal(bits(k), bits(pl)), f"ring_allreduce f32 [{P}, {n}] != plain")
+        err[f"ring_allreduce@resnet{what}"] = float((k - pl).abs().max())
+    a = torch.randn((P,) + RESNET_LARGEST_LEAF, generator=gen, device=dev)
+    b = torch.randn((P,) + RESNET_LARGEST_LEAF, generator=gen, device=dev)
+    for name, k, pl in (
+        ("accumulate", ops.accumulate(a, b), ops.accumulate_plain(a, b)),
+        ("scale_accumulate", ops.scale_accumulate(a, b, RESNET["momentum"]),
+         ops.scale_accumulate_plain(a, b, RESNET["momentum"])),
+    ):
+        require(torch.equal(bits(k), bits(pl)), f"{name} [{P}, 512, 512, 3, 3] != plain")
+        err[f"{name}@resnet"] = float((k - pl).abs().max())
+    x = torch.randn((P, RESNET_PARAMS), generator=gen, device=dev)
+    k, pl = ops.ring_broadcast(x, 0), ops.ring_broadcast_plain(x, 0)
+    require(torch.equal(bits(k), bits(pl)), f"ring_broadcast [{P}, {RESNET_PARAMS}] != plain")
+    err["ring_broadcast@resnet"] = float((k - pl).abs().max())
     return err
 
 
@@ -786,7 +864,7 @@ def main_path(dev, mode: str, wire: str) -> dict:
         f"with warm-up: {state['samples'] / state['time']:.1f}; {P} virtual ranks on 1 card)"
     )
     return {"counts": counts, "steps": steps, "spread": spread, "samples_per_s": steady,
-            "tree_broadcasts": len(tree)}
+            "tree_broadcasts": len(tree), "final_loss": state["losses"][-1], "test_acc": acc}
 
 
 @contextlib.contextmanager
@@ -968,6 +1046,288 @@ def phase_lm(dev) -> tuple:
               f"tokens/sec/chip {run['tokens_per_s']:.1f}, peak memory {run['peak_gb']:.2f} GB")
         runs[f"lm_{backend}"] = run["counts"]
     return runs, stats
+
+
+def resnet_expected(engine, steps: int) -> dict:
+    """The kernel launches one ResNet run of ``steps`` steps routes, from the
+    parameters' sizes (in the order the gradients are submitted) and the
+    routing constants: the first parameter sync, one fused broadcast, runs
+    K7 above the tree cutoff; every step runs one K2 (the momentum trace)
+    and one K1 (the update) per leaf, and K3 once per gradient collective
+    above ``small_allreduce_size_cuda``: in sync mode each flush of the
+    fusion buffer (it flushes once ``fusion_buffer_bytes`` are pending, and
+    the rest when waited), in async mode each bucket. The statistics'
+    average (one fused allreduce of 53,120 floats a rank) and any smaller
+    flush take the vendor path. Every other kernel: 0."""
+    cutoff = constants.get("small_allreduce_size_cuda")
+    sizes = [v[0].numel() for v in engine.params.values()]
+    if engine.mode == "sync":
+        cap = constants.get("fusion_buffer_bytes") // 4
+        flushes, pending = [], 0
+        for n in sizes:
+            pending += n
+            if pending >= cap:
+                flushes, pending = flushes + [pending], 0
+        flushes += [pending] if pending else []
+    else:
+        flushes = [sum(engine.buckets.sizes[i] for i in b) for b in engine.buckets.buckets]
+    stats = sum(v[0].numel() for v in engine.model_state.values())
+    k3 = sum(n > cutoff for n in flushes) + (stats > cutoff)
+    total = sum(sizes)
+    k7 = int(total > constants.get("small_broadcast_size_cuda")
+             and total * 4 > constants.get("broadcast_size_tree_based_cuda"))
+    want = {name: 0 for name in ops.launch_counts()}
+    want.update(ring_allreduce=k3 * steps, ring_broadcast=k7, accumulate=len(sizes) * steps,
+                scale_accumulate=len(sizes) * steps)
+    return {"counts": want, "k3_per_step": k3, "flushes": flushes}
+
+
+def resnet_engine(model, comm, mode: str, rank_map: str = "loop"):
+    """The example's engine: momentum SGD, the batch statistics as model
+    state, four buckets in async mode; parameters from seed 0."""
+    params, stats = init_resnet(model, RESNET["image"], seed=0)
+    return AllReduceSGDEngine(
+        make_stateful_loss_fn(model), params, comm=comm, mode=mode, num_buckets=RESNET["buckets"],
+        optimizer=SGD(RESNET["lr"], momentum=RESNET["momentum"]), model_state=stats,
+        rank_map=rank_map)
+
+
+def resnet_batch(data, p: int, per_rank: int, dev):
+    """The first ``p * per_rank`` training images as one rank-stacked batch."""
+    (x, y), _ = data
+    n = p * per_rank
+    return (torch.as_tensor(x[:n]).to(dev).reshape((p, per_rank) + x.shape[1:]),
+            torch.as_tensor(y[:n]).to(dev, torch.int64).reshape(p, per_rank))
+
+
+def resnet_small(dev, mode: str) -> tuple:
+    """Three steps of a narrow ResNet at 32 px, p=4, from one init: the
+    losses, then the parameters, traces and statistics of rank 0."""
+    mpi.start(ranks=4, device=dev)
+    try:
+        comm = mpi.current_communicator()
+        engine = resnet_engine(ResNet(**RESNET_SMALL), comm, mode)
+        (x, y), _ = synthetic_imagenet(num_train=3 * 4 * 8, num_test=1, num_classes=10,
+                                       image_size=32)
+        x = torch.as_tensor(x).reshape(3, 4, 8, 32, 32, 3)
+        y = torch.as_tensor(y).long().reshape(3, 4, 8)
+        losses = [float(engine.step((x[i].to(dev), y[i].to(dev)))) for i in range(3)]
+        trees = {"params": engine.params, "trace": engine.opt_state, "stats": engine.model_state}
+        return losses, {f"{t}.{k}": v[0].cpu() for t, tree in trees.items() for k, v in tree.items()}
+    finally:
+        mpi.stop()
+
+
+def rank_map_step_ms(make_engine, batches: list, warmup: int) -> dict:
+    """Each per-rank gradient form's (``rank_map`` 'vmap' and 'loop') mean
+    step time over ``batches[warmup:]`` after ``batches[:warmup]``, and its
+    peak memory; ``make_engine(comm, rank_map)`` builds the engine."""
+    out = {}
+    for rank_map in ("vmap", "loop"):
+        mpi.start(ranks=P)
+        try:
+            engine = make_engine(mpi.current_communicator(), rank_map)
+            torch.cuda.reset_peak_memory_stats()
+            for b in batches[:warmup]:
+                engine.step(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches[warmup:]:
+                engine.step(b)
+            torch.cuda.synchronize()
+            out[rank_map] = {"step_ms": (time.perf_counter() - t0) / (len(batches) - warmup) * 1e3,
+                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del engine
+        finally:
+            mpi.stop()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_maps(dev, data) -> dict:
+    """Both per-rank gradient forms on ResNet-50 at full width (sync,
+    ``RESNET_TIMED_STEPS`` steps after one) and on the MNIST path's LeNet
+    (p=8, batch 336, 20 steps after 4)."""
+    batch = resnet_batch(data, P, RESNET["per_rank"], dev)
+    resnet = rank_map_step_ms(
+        lambda comm, rank_map: resnet_engine(ResNet50(num_classes=RESNET["classes"], device=dev),
+                                             comm, "sync", rank_map),
+        [batch] * (1 + RESNET_TIMED_STEPS), 1)
+    (xtr, ytr), _ = synthetic_mnist()
+    it = DistributedIterator(xtr, ytr, BATCH, P, device=dev)
+    lenet = rank_map_step_ms(
+        lambda comm, rank_map: AllReduceSGDEngine(make_loss_fn(LeNet()), init_params(LeNet(), seed=0),
+                                                  lr=LR, comm=comm, rank_map=rank_map),
+        [b for _, b in zip(range(24), iter(it))], 4)
+    print(f"rank_map: ResNet-50 at full width (sync) {resnet}; MNIST LeNet (sync) {lenet}")
+    return {"resnet50": resnet, "mnist_lenet": lenet}
+
+
+def kernel_class(name: str) -> str:
+    """The class of a device kernel by its name, for the ResNet split."""
+    if "ring_allreduce_kernel" in name:
+        return "K3 ring_allreduce"
+    if "tmpi::elementwise_kernel" in name:
+        return "K2 scale_accumulate" if "Scale" in name else "K1 accumulate"
+    if "tmpi::" in name:
+        return "other port kernels"
+    low = name.lower()
+    if any(t in low for t in ("conv", "cudnn", "xmma", "dgrad", "wgrad", "winograd", "gemm",
+                              "cutlass")):
+        return "cuDNN conv and cuBLAS"
+    return "other"
+
+
+def resnet_path(dev, data, mode: str, profile_steps: int = 0) -> dict:
+    """Drive the ResNet path at full width: ``train_resident`` for
+    ``RESNET['epochs']`` epochs, every launch count set to 0 just before the
+    engine is built (its parameter sync is on the path) and read just after
+    training; then, outside the counted run, the replica checks, the test
+    accuracy, the async buckets against blocking allreduces (async), and a
+    ``profile_steps``-step profile (if asked)."""
+    (xtr, ytr), (xte, yte) = data
+    model = ResNet50(num_classes=RESNET["classes"], device=dev)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        engine = resnet_engine(model, comm, mode)
+        state = engine.train_resident(xtr, ytr, RESNET["per_rank"], max_epochs=RESNET["epochs"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        expected = resnet_expected(engine, state["t"])
+        require(counts == expected["counts"],
+                f"ResNet {mode}: launches {counts} != {expected['counts']}")
+        require(sum(v.numel() for v in engine.params.values()) == P * RESNET_PARAMS
+                and len(engine.params) == RESNET_LEAVES
+                and sum(v.numel() for v in engine.model_state.values()) == P * RESNET_STATS,
+                f"ResNet {mode}: not ResNet-50's widths")
+        losses = state["losses"]
+        require(all(np.isfinite(losses)) and np.isfinite(state["loss"]),
+                f"ResNet {mode}: non-finite loss {losses}")
+        require(losses[-1] < losses[0], f"ResNet {mode}: loss did not fall: epochs {losses}")
+        mpinn.check_with_allreduce(engine.params, comm)
+        mpinn.check_with_allreduce(engine.model_state, comm)
+        acc = engine.evaluate(make_eval_fn(model), xte, yte, accuracy)
+        require(0.0 <= acc <= 1.0, f"ResNet {mode}: test accuracy {acc}")
+        if mode == "async":
+            resnet_async_buckets(engine, comm, resnet_batch(data, P, RESNET["per_rank"], dev))
+        if profile_steps:
+            out["profile"] = resnet_profile(engine, resnet_batch(data, P, RESNET["per_rank"], dev),
+                                            profile_steps)
+        steps_per_epoch = state["t"] // RESNET["epochs"]
+        # the epochs after the first, which warms up (cuDNN's choices)
+        steady_s = sum(state["epoch_times"][1:])
+        steady = (RESNET["epochs"] - 1) * steps_per_epoch * P * RESNET["per_rank"] / steady_s
+        out.update(counts=counts, k3_per_step=expected["k3_per_step"], epoch_losses=losses,
+                   test_acc=acc, img_per_s=steady,
+                   step_ms=steady_s / ((RESNET["epochs"] - 1) * steps_per_epoch) * 1e3,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, steps=state["t"])
+        del engine
+    finally:
+        mpi.stop()
+    torch.cuda.empty_cache()
+    print(f"resnet: ResNet-50 {mode}, p={P}, per-rank batch {RESNET['per_rank']}, "
+          f"{RESNET['image']} px, {RESNET['classes']} classes, lr {RESNET['lr']}, momentum "
+          f"{RESNET['momentum']}: {out['steps']} steps, epoch losses {losses}, test_acc {acc:.4f}, "
+          f"launches {counts} (K3 {expected['k3_per_step']} a step; flushes per rank "
+          f"{expected['flushes']}), check_with_allreduce on parameters and statistics passed")
+    return out
+
+
+def resnet_async_buckets(engine, comm, batch) -> None:
+    """One step's async buckets against blocking allreduces of the same
+    packed buckets, bit for bit."""
+    buckets = engine.buckets
+    grads, _ = engine._grad_fn(engine.params, engine.model_state, batch)
+    handles = buckets.allreduce_async(grads, comm)
+    got = [None] * len(handles)
+    for b in reversed(range(len(handles))):
+        got[b] = handles[b].wait()
+    for b in range(buckets.num_buckets):
+        want = mpi.allreduce_tensor(buckets.pack(grads, b, P), comm=comm)
+        require(torch.equal(bits(got[b]), bits(want)),
+                f"ResNet async: bucket {b} differs from the blocking allreduce")
+    print(f"resnet: async, one step's {buckets.num_buckets} buckets equal the blocking "
+          "allreduce bit for bit")
+
+
+def resnet_profile(engine, batch, steps: int) -> dict:
+    """``steps`` profiled steps (after the run): the ``{"profile"}`` line,
+    and device time per step by kernel class (:func:`kernel_class`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    row = print_profile(prof, wall_us, steps, f"ResNet-50 {engine.mode}, p={P}")
+    split: dict = {}
+    for us, name, _ in device_rows(prof):
+        split[kernel_class(name)] = split.get(kernel_class(name), 0.0) + us / steps
+    row["split_us_per_step"] = split
+    return row
+
+
+def phase_resnet(dev, mnist_sync: dict) -> dict:
+    """The ResNet path (see the module docstring): the card against the CPU
+    on a narrow ResNet, the per-rank gradient forms timed, ResNet-50 at full
+    width sync (profiled) and async, then the sequential MNIST twin on the
+    card beside the p=8 sync MNIST run. Returns each run's launch counts."""
+    for mode in ("sync", "async"):
+        cl, cp = resnet_small(dev, mode)
+        hl, hp = resnet_small(torch.device("cpu"), mode)
+        for a, b in zip(cl, hl):
+            require(abs(a - b) <= 1e-4 * abs(b), f"small ResNet {mode}: loss {a} vs CPU {b}")
+        worst = max((float((cp[k] - hp[k]).abs().max()), k) for k in hp)
+        require(worst[0] <= 1e-4, f"small ResNet {mode}: {worst[1]} differs from the CPU by {worst[0]}")
+        print(f"resnet: 3 small steps ({mode}) on the card match the CPU plain path (losses {cl}, "
+              f"max |card - CPU| {worst[0]:.3e} at {worst[1]})")
+
+    data = synthetic_imagenet(num_train=RESNET["train"], num_test=RESNET["test"],
+                              num_classes=RESNET["classes"], image_size=RESNET["image"])
+    forms = rank_maps(dev, data)
+    sync = resnet_path(dev, data, "sync", profile_steps=3)
+    asyn = resnet_path(dev, data, "async")
+    fwd = resnet_forward_flops(RESNET["image"], num_classes=RESNET["classes"])
+    achieved, frac = mfu(sync["img_per_s"], train_flops(fwd), torch.cuda.get_device_name(0))
+    prof = sync["profile"]
+    print(json.dumps({"resnet": {
+        "model": "resnet50", "p": P, "per_rank_batch": RESNET["per_rank"],
+        "image": RESNET["image"], "classes": RESNET["classes"],
+        "img_per_s_per_chip": sync["img_per_s"], "step_ms": sync["step_ms"],
+        "tflops": achieved / 1e12, "mfu_f32": frac,
+        "device_busy_share": prof["device_busy_share"],
+        "device_us_per_step_by_class": prof["split_us_per_step"],
+        "k3_per_step": sync["k3_per_step"], "k1_k2_per_step": RESNET_LEAVES,
+        "epoch_losses": sync["epoch_losses"], "test_acc": sync["test_acc"],
+        "peak_gb": sync["peak_gb"], "rank_map": forms,
+        "async": {"img_per_s_per_chip": asyn["img_per_s"], "step_ms": asyn["step_ms"],
+                  "k3_per_step": asyn["k3_per_step"], "epoch_losses": asyn["epoch_losses"],
+                  "test_acc": asyn["test_acc"]},
+        "card": card(),
+    }}))
+
+    # the convergence oracle: one process, plain SGD, the MNIST run's widths
+    ops.reset_launch_counts()
+    losses, acc = mnist_sequential.main(["--model", "lenet", "--epochs", "2", "--batch",
+                                         str(BATCH), "--lr", str(LR), "--seed", "0"])
+    counts = ops.launch_counts()
+    steps = 2 * (8192 // BATCH)
+    want = {name: 0 for name in counts}
+    want["accumulate"] = LENET_LEAVES * steps
+    require(counts == want, f"sequential MNIST: launches {counts} != {want}")
+    require(all(np.isfinite(losses)), f"sequential MNIST: non-finite loss {losses}")
+    print(f"sequential MNIST (LeNet, batch {BATCH}, lr {LR}, 2 epochs): final loss "
+          f"{losses[-1]:.4f}, test_acc {acc:.4f}; p={P} sync AllReduce-SGD: final loss "
+          f"{mnist_sync['final_loss']:.4f}, test_acc {mnist_sync['test_acc']:.4f}; launches {counts}")
+    return {"resnet_sync": sync["counts"], "resnet_async": asyn["counts"],
+            "mnist_sequential": counts}
 
 
 def ps_expected(variant: str, steps: int) -> tuple:
@@ -1221,11 +1581,15 @@ def phase_async_issue(dev) -> None:
     (p=8), and its parts: the selector-routed call (its choice memoized on
     the communicator), the same with the backend pinned (no selector), the
     selector's ``select`` alone, the collective's own synchronous issue
-    (``eager.run``), and the side stream's wait, event and
-    ``record_stream``. Each the median of 1,000 calls on the host clock,
+    (``eager.run``), the side stream's ``wait_stream``, event and
+    ``record_stream``, and ``run_async``'s own parts: the switch to the side
+    stream and back, a stream context entered and left (the switch it
+    replaces), the reused ordering event, and a handle made and
+    registered. Each the median of 1,000 calls on the host clock,
     after 50 warm-up calls, with every handle waited outside the timed
     window; one ``{"async_issue": ...}`` line of microseconds."""
     from torchmpi_tpu_torch.collectives import eager, selector
+    from torchmpi_tpu_torch.runtime.handles import SyncHandle, handles
 
     n = 1 << 8
 
@@ -1246,6 +1610,7 @@ def phase_async_issue(dev) -> None:
         comm = mpi.current_communicator()
         x = torch.randn((P, n), device=dev)
         side = torch.cuda.Stream(dev)
+        main, ctx, order = torch.cuda.current_stream(dev), torch.cuda.stream(side), torch.cuda.Event()
         row = {
             "async_allreduce_tensor": median_us(lambda: mpi.async_.allreduce_tensor(x), mpi.wait),
             "async_kernel_pinned": median_us(lambda: mpi.async_.kernel.allreduce_tensor(x),
@@ -1256,6 +1621,17 @@ def phase_async_issue(dev) -> None:
             "wait_stream": median_us(lambda: side.wait_stream(torch.cuda.current_stream(dev))),
             "event_record": median_us(lambda: torch.cuda.Event().record(side)),
             "record_stream": median_us(lambda: x.record_stream(side)),
+            # run_async's own parts: the switch to the side stream and back
+            # (set_stream twice), beside a cached stream context entered and
+            # left (the switch it replaced), the reused ordering event
+            # recorded and waited (in place of wait_stream), and a handle
+            # made and registered
+            "stream_switch": median_us(
+                lambda: (torch.cuda.set_stream(side), torch.cuda.set_stream(main))),
+            "stream_context": median_us(lambda: ctx.__exit__(None, None, ctx.__enter__())),
+            "order_event": median_us(lambda: (order.record(main), side.wait_event(order))),
+            "handle_register": median_us(
+                lambda: handles.register(SyncHandle(x), kind="collective"), handles.wait_index),
         }
     finally:
         mpi.stop()
@@ -1293,12 +1669,12 @@ def phase_profile(mode: str, wire: str) -> None:
     print_profile(prof, wall_us, 5, f"{mode}, wire {wire}")
 
 
-def print_profile(prof, wall_us: float, steps: int, path: str, **fields) -> None:
-    """One ``{"profile": ...}`` line: device time by kernel per step and the
-    share of the window the device was busy, and ``fields`` as they are."""
-    # device-side events only: a host op's "self" device time repeats the
-    # time of the kernels it launched, which are listed on their own
-    rows = sorted(
+def device_rows(prof) -> list:
+    """``(device us, kernel name, calls)`` of every device kernel in a
+    profile, largest first. Device-side events only: a host op's "self"
+    device time repeats the time of the kernels it launched, which are
+    listed on their own."""
+    return sorted(
         (
             (e.self_device_time_total, e.key, e.count)
             for e in prof.key_averages()
@@ -1306,8 +1682,15 @@ def print_profile(prof, wall_us: float, steps: int, path: str, **fields) -> None
         ),
         reverse=True,
     )
+
+
+def print_profile(prof, wall_us: float, steps: int, path: str, **fields) -> dict:
+    """One ``{"profile": ...}`` line: device time by kernel per step and the
+    share of the window the device was busy, and ``fields`` as they are.
+    Returns the line's object."""
+    rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
-    print(json.dumps({"profile": {
+    row = {
         "path": path, "steps": steps, "window_us_per_step": wall_us / steps,
         "device_busy_us_per_step": busy_us / steps,
         "device_busy_share": busy_us / wall_us if rows else None,
@@ -1320,7 +1703,9 @@ def print_profile(prof, wall_us: float, steps: int, path: str, **fields) -> None
             for us, k, n in rows if "tmpi::" in k
         ],
         **fields,
-    }}))
+    }
+    print(json.dumps({"profile": row}))
+    return row
 
 
 def phase_profile_lm(dev, lm: dict) -> None:
@@ -1423,6 +1808,55 @@ def timing_rows(randn) -> list:
                 plain=lambda a, b: ops.scale_accumulate_plain(a, b, -LR, out_=a),
                 library=lambda a, b: a.add_(b, alpha=-LR),
             ),
+        ),
+    ]
+    # the ResNet path's shapes: K3 at its largest fused flush, K1 and K2 at
+    # its largest leaf (K2 as the momentum trace, g + 0.9 m), K7 at the
+    # first parameter sync (every parameter, one fused broadcast)
+    flush, leaf, whole = RESNET_FLUSH, list(RESNET_LARGEST_LEAF), RESNET_PARAMS
+    leaf_n = math.prod(leaf)
+    momentum = RESNET["momentum"]
+    rows += [
+        dict(
+            name="ring_allreduce", at="ResNet-50 sync, its largest fused gradient flush",
+            err="ring_allreduce@resnet",
+            source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:201",
+            shape=[P, flush], make=lambda: (randn(P, flush),), in_bytes=P * flush * 4,
+            bytes=2 * P * flush * 4, ops=(P - 1) * flush,
+            kernel=ops.ring_allreduce, plain=ops.ring_allreduce_plain,
+            library=lambda x: x.sum(0, keepdim=True).expand_as(x).contiguous(),
+        ),
+        dict(
+            name="accumulate", at="ResNet-50, the update of its largest leaf",
+            err="accumulate@resnet",
+            source="torchmpi_tpu_torch/csrc/reduce_kernel.cu",
+            replaces="torchmpi_tpu/ops/reduce_kernel.py:28",
+            shape=[P, *leaf], make=lambda: (randn(P, *leaf), randn(P, *leaf)),
+            in_bytes=2 * P * leaf_n * 4, bytes=3 * P * leaf_n * 4, ops=P * leaf_n,
+            kernel=ops.accumulate, plain=ops.accumulate_plain, library=torch.add,
+        ),
+        dict(
+            name="scale_accumulate", at="ResNet-50, the momentum trace of its largest leaf",
+            err="scale_accumulate@resnet",
+            source="torchmpi_tpu_torch/csrc/reduce_kernel.cu",
+            replaces="torchmpi_tpu/ops/reduce_kernel.py:32",
+            shape=[P, *leaf], make=lambda: (randn(P, *leaf), randn(P, *leaf)),
+            in_bytes=2 * P * leaf_n * 4, bytes=3 * P * leaf_n * 4, ops=2 * P * leaf_n,
+            kernel=lambda a, b: ops.scale_accumulate(a, b, momentum),
+            plain=lambda a, b: ops.scale_accumulate_plain(a, b, momentum),
+            library=lambda a, b: torch.add(a, b, alpha=momentum),
+        ),
+        dict(
+            name="ring_broadcast", at="ResNet-50, the first parameter sync",
+            err="ring_broadcast@resnet",
+            source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:1282",
+            shape=[P, whole], make=lambda: (randn(P, whole),), in_bytes=P * whole * 4,
+            bytes=(1 + P) * whole * 4, ops=0,
+            kernel=lambda x: ops.ring_broadcast(x, 0),
+            plain=lambda x: ops.ring_broadcast_plain(x, 0),
+            library=lambda x: x[0:1].expand_as(x).clone(),
         ),
     ]
     for wire in WIRES:
@@ -1562,7 +1996,7 @@ def time_rows(rows: list, runs: dict, errs: dict, launch_floor_ms: float) -> lis
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": errs.get(r["name"]), "ms": ms, "kernel_ms": ms,
+            "max_abs_err": errs.get(r.get("err", r["name"])), "ms": ms, "kernel_ms": ms,
             "plain_ms": timed(r["plain"]),
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes a requantizing ring; the
@@ -1570,6 +2004,11 @@ def time_rows(rows: list, runs: dict, errs: dict, launch_floor_ms: float) -> lis
             "library_ms": r["library"] and timed(r["library"], r.get("library_make", r["make"])),
             "shape": r["shape"], "dtype": "float32",
         }
+        if "at" in r:
+            row["at"] = r["at"]
+            row["launches_per_resnet_step"] = {
+                path: counts[r["name"]] / RESNET_STEPS for path, counts in runs.items()
+                if path.startswith("resnet_")}
         if r.get("causal"):
             row["causal"] = True
         if r.get("tensor_cores"):
@@ -1633,6 +2072,10 @@ def main(argv=None) -> None:
         "--quant", choices=("check", "time"),
         help="only K4: build, registers and SASS, then 'check' (against the plain "
              "version) and time, or 'time' alone; prints no result line")
+    parser.add_argument(
+        "--resnet", action="store_true",
+        help="only the ResNet phase (after the build and the sync MNIST path it prints "
+             "beside the sequential twin); prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one card")
@@ -1649,13 +2092,18 @@ def main(argv=None) -> None:
         quant_only(dev, args.quant == "check")
         return
     phase_build()
+    if args.resnet:
+        phase_resnet(dev, main_path(dev, "sync", "full"))
+        return
     errs = phase_kernels(dev)
-    runs = {path: run["counts"] for path, run in phase_trainer(dev).items()}
+    trainer = phase_trainer(dev)
+    runs = {path: run["counts"] for path, run in trainer.items()}
     phase_async(dev)
     runs.update(phase_bench())
     phase_async_issue(dev)
     lm_runs, lm_stats = phase_lm(dev)
     runs.update(lm_runs)
+    runs.update(phase_resnet(dev, trainer["sync"]))
     runs.update(phase_ps(dev))
     phase_ps_vs_cpu(dev)
     phase_ps_throughput()

@@ -243,6 +243,9 @@ def test_port_imports_without_jax():
         "import torchmpi_tpu_torch, torchmpi_tpu_torch.engine, torchmpi_tpu_torch.models\n"
         "import torchmpi_tpu_torch.utils, torchmpi_tpu_torch.examples.mnist_allreduce\n"
         "import torchmpi_tpu_torch.examples.mnist_parameterserver\n"
+        "import torchmpi_tpu_torch.examples.resnet_allreduce\n"
+        "import torchmpi_tpu_torch.examples.mnist_sequential\n"
+        "import torchmpi_tpu_torch.models.resnet, torchmpi_tpu_torch.engine.optim\n"
         "from torchmpi_tpu_torch.ops import _build\n"
         "assert not _build._loaded\n"
         "print('ok')\n"

@@ -286,6 +286,41 @@ def test_async_allreduce_then_wait_matches_jax(backend, monkeypatch):
     tmpi.sync_all()
 
 
+def test_in_flight_limit_blocks_and_the_registry_drains():
+    """The async issue path's bookkeeping: the per-kind count that the
+    backpressure check reads follows every registration and every way a
+    handle is waited; once ``num_async_collectives_in_flight`` handles are
+    out, a new issue waits the oldest first; ``sync_all()`` and ``stop()``
+    drain the table."""
+    from torchmpi_tpu_torch.runtime.handles import SyncHandle, handles
+
+    p = 2
+    tmpi.start(ranks=p, device="cpu")
+    constants.set("num_async_collectives_in_flight", 3)
+    x = torch.arange(2 * 16, dtype=torch.float32).reshape(p, 16)
+    issued = []
+    for i in range(7):
+        issued.append(tmpi.async_.allreduce_tensor(x))
+        assert handles.outstanding_kind("collective") == min(i + 1, 3)
+        # the ones beyond the limit were waited oldest first
+        assert [h._done for h in issued] == [j < i + 1 - 3 for j in range(i + 1)]
+    other = SyncHandle(x)
+    idx = handles.register(other, kind="ps")
+    assert handles.outstanding == 4 and handles.outstanding_kind("ps") == 1
+    issued[-1].wait()  # a handle's own wait leaves the count
+    assert handles.outstanding_kind("collective") == 2
+    assert tmpi.wait(idx) is x and handles.outstanding_kind("ps") == 0
+    assert handles.wait_oldest("collective") and handles.outstanding_kind("collective") == 1
+    tmpi.sync_all()
+    assert handles.outstanding == 0 and handles.outstanding_kind("collective") == 0
+    assert all(h._done for h in issued)
+    assert not handles.wait_oldest("collective")
+    tmpi.async_.allreduce_tensor(x)
+    assert handles.outstanding_kind("collective") == 1
+    tmpi.stop()
+    assert handles.outstanding == 0 and handles.outstanding_kind("collective") == 0
+
+
 # the top-level names of the reference's ``__all__`` that the port's surface
 # adds on top of REEXPORTS; ``telemetry`` waits for its port and ``pallas``
 # is the port's ``kernel``

@@ -65,7 +65,10 @@ def _dispatch(op: str, x: torch.Tensor, comm: Optional[Communicator] = None,
                     f"{sorted(_RING_IMPLEMENTATIONS)}"
                 )
             chosen = _RING_IMPLEMENTATIONS[impl]
-            if backend_availability(comm.device).get(chosen):
+            avail = comm.__dict__.get("_availability")
+            if avail is None:
+                avail = comm.__dict__["_availability"] = backend_availability(comm.device)
+            if avail.get(chosen):
                 backend = chosen
     if mode == "sync":
         return eager.run(op, x, comm, backend=backend, **kw)

@@ -1,5 +1,6 @@
-"""Training engines of the port."""
+"""Training engines of the port and their optimizer."""
 
+from .optim import SGD
 from .sgd import AllReduceSGDEngine
 
-__all__ = ["AllReduceSGDEngine"]
+__all__ = ["AllReduceSGDEngine", "SGD"]

@@ -1,6 +1,7 @@
-"""Models of the port: the MNIST family and the long-context LM."""
+"""Models of the port: the MNIST family, the ResNet family and the
+long-context LM."""
 
-from .convert import from_jax_params, lm_from_jax_params
+from .convert import from_jax_params, lm_from_jax_params, resnet_from_jax_params
 from .mnist import (
     LeNet,
     LogisticRegression,
@@ -8,6 +9,16 @@ from .mnist import (
     cross_entropy_loss,
     init_params,
     make_loss_fn,
+)
+from .resnet import (
+    BasicBlock,
+    BottleneckBlock,
+    ResNet,
+    ResNet18,
+    ResNet50,
+    init_resnet,
+    make_eval_fn,
+    make_stateful_loss_fn,
 )
 from .transformer import (
     LongContextTransformer,
@@ -17,16 +28,25 @@ from .transformer import (
 )
 
 __all__ = [
+    "BasicBlock",
+    "BottleneckBlock",
     "LeNet",
     "LogisticRegression",
     "LongContextTransformer",
+    "ResNet",
+    "ResNet18",
+    "ResNet50",
     "RingAttentionBlock",
     "accuracy",
     "cross_entropy_loss",
     "from_jax_params",
     "init_lm_params",
     "init_params",
+    "init_resnet",
     "lm_from_jax_params",
+    "make_eval_fn",
     "make_lm_loss_fn",
     "make_loss_fn",
+    "make_stateful_loss_fn",
+    "resnet_from_jax_params",
 ]

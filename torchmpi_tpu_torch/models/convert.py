@@ -14,12 +14,22 @@ as it is), ``RingAttentionBlock_i/{LayerNorm_0, Dense_0..3, LayerNorm_1}``
 become ``blocks.i.{layernorm0, dense0..3, layernorm1}``, and the top-level
 ``LayerNorm_0`` and ``Dense_0`` become ``layernorm0`` and ``dense0``; a
 LayerNorm ``scale`` becomes ``weight``.
+
+``resnet_from_jax_params`` takes a flax ``ResNet``'s ``params`` and
+``batch_stats`` and gives the port's parameter and statistics dicts:
+``conv_init`` / ``bn_init`` keep their names, ``BottleneckBlock_k`` or
+``BasicBlock_k`` becomes ``blocks.k`` with its ``Conv_j`` / ``BatchNorm_j``
+as ``conv{j}`` / ``bn{j}`` (``proj`` and ``proj_bn`` as they are), and
+``Dense_0`` becomes ``dense``; conv kernels HWIO become OIHW, the dense
+kernel ``[in, out]`` becomes ``[out, in]``, and a BN's ``scale`` becomes
+``weight`` while its ``bias``, ``mean`` and ``var`` keep their names and
+values.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -70,3 +80,48 @@ def lm_from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
             out.update(_leaf_modules(f"blocks.{m.group(1)}.", leaves))
     out.update(_leaf_modules("", top))
     return out
+
+
+def _resnet_module_name(module: str) -> str:
+    m = re.fullmatch(r"(?:BottleneckBlock|BasicBlock)_(\d+)", module)
+    if m is not None:
+        return f"blocks.{m.group(1)}"
+    m = re.fullmatch(r"(Conv|BatchNorm)_(\d+)", module)
+    if m is not None:
+        return ("conv" if m.group(1) == "Conv" else "bn") + m.group(2)
+    if module == "Dense_0":
+        return "dense"
+    if module in ("conv_init", "bn_init", "proj", "proj_bn"):
+        return module
+    raise ValueError(f"no port counterpart for flax module {module!r}")
+
+
+def _resnet_leaves(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Flatten a flax ResNet tree to the port's dotted names."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out.update(_resnet_leaves(value, prefix + _resnet_module_name(key) + "."))
+            continue
+        value = np.asarray(value)
+        if key == "kernel":
+            # conv HWIO -> OIHW; dense [in, out] -> [out, in]
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+            key = "weight"
+        elif key == "scale":
+            key = "weight"
+        elif key not in ("bias", "mean", "var"):
+            raise ValueError(f"no port counterpart for flax leaf {prefix}{key!r}")
+        out[prefix + key] = value
+    return out
+
+
+def resnet_from_jax_params(params: Mapping, batch_stats: Mapping
+                           ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """A flax ``ResNet``'s ``(params, batch_stats)`` -> the port's
+    ``(params, batch_stats)`` dicts (CPU tensors)."""
+    def tensors(tree):
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+                for k, v in _resnet_leaves(tree).items()}
+
+    return tensors(params), tensors(batch_stats)

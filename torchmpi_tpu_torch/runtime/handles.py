@@ -56,7 +56,7 @@ class SyncHandle:
     ``result`` (with the CUDA ``event`` of its side stream) or a
     ``future``, exactly one of the two."""
 
-    __slots__ = ("_result", "_event", "_future", "_done", "_table_index")
+    __slots__ = ("_result", "_event", "_future", "_done", "_table_index", "_kind")
 
     def __init__(self, result: Any = None, event: Optional[torch.cuda.Event] = None,
                  *, future: Optional[Future] = None):
@@ -67,6 +67,7 @@ class SyncHandle:
         self._future = future
         self._done = False
         self._table_index: Optional[int] = None
+        self._kind = ""
 
     def wait(self) -> Any:
         """The result, ordered before the caller's later work on its
@@ -106,51 +107,57 @@ class SyncHandle:
 
 class _HandleTable:
     """Index-addressed handle registry (reference ``resources.cpp:545-578``
-    and the future queues at ``:399-461``)."""
+    and the future queues at ``:399-461``). A count of the outstanding
+    handles of each kind is kept beside the table, so the backpressure
+    check of an async issue reads one number instead of scanning it."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        # insertion-ordered: the first handle of a kind is its oldest
         self._handles: Dict[int, SyncHandle] = {}
-        self._kinds: Dict[int, str] = {}
+        self._counts: Dict[str, int] = {}
         self._next = 0
 
     def register(self, handle: SyncHandle, kind: str = "") -> int:
         with self._lock:
             idx = self._next
-            self._next += 1
+            self._next = idx + 1
             self._handles[idx] = handle
-            if kind:
-                self._kinds[idx] = kind
             handle._table_index = idx
+            handle._kind = kind
+            self._counts[kind] = self._counts.get(kind, 0) + 1
             return idx
+
+    def _pop(self, idx: int) -> Optional[SyncHandle]:
+        # the caller holds the lock
+        handle = self._handles.pop(idx, None)
+        if handle is not None:
+            self._counts[handle._kind] -= 1
+        return handle
 
     def outstanding_kind(self, kind: str) -> int:
         """Unwaited handles registered under ``kind`` (the backpressure
         count for ``num_async_*_in_flight``)."""
-        with self._lock:
-            return sum(1 for i in self._handles if self._kinds.get(i) == kind)
+        return self._counts.get(kind, 0)
 
     def wait_oldest(self, kind: str) -> bool:
         """Wait the oldest outstanding handle of ``kind``; False if none."""
         with self._lock:
-            idxs = sorted(i for i in self._handles if self._kinds.get(i) == kind)
-            if not idxs:
+            idx = next((i for i, h in self._handles.items() if h._kind == kind), None)
+            if idx is None:
                 return False
-            handle = self._handles.pop(idxs[0])
-            self._kinds.pop(idxs[0], None)
+            handle = self._pop(idx)
         handle.wait()
         return True
 
     def _discard(self, idx: int) -> None:
         """Drop a handle that completed through its own wait()."""
         with self._lock:
-            self._handles.pop(idx, None)
-            self._kinds.pop(idx, None)
+            self._pop(idx)
 
     def wait_index(self, idx: int) -> Any:
         with self._lock:
-            handle = self._handles.pop(idx, None)
-            self._kinds.pop(idx, None)
+            handle = self._pop(idx)
         if handle is None:
             return None  # already waited: a no-op, as in the reference
         return handle.wait()
@@ -160,14 +167,13 @@ class _HandleTable:
         with self._lock:
             pending = list(self._handles.values())
             self._handles.clear()
-            self._kinds.clear()
+            self._counts.clear()
         for h in pending:
             h.wait()
 
     @property
     def outstanding(self) -> int:
-        with self._lock:
-            return len(self._handles)
+        return len(self._handles)
 
 
 handles = _HandleTable()

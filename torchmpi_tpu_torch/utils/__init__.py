@@ -1,6 +1,6 @@
 """Data utilities and the collectives tester of the port."""
 
-from .data import DistributedIterator, synthetic_mnist
+from .data import DistributedIterator, synthetic_imagenet, synthetic_mnist
 from .tester import (
     BenchResult,
     bus_bytes,
@@ -18,5 +18,6 @@ __all__ = [
     "run_one_config",
     "run_ps_throughput",
     "sweep_sizes",
+    "synthetic_imagenet",
     "synthetic_mnist",
 ]

@@ -1,7 +1,8 @@
 """Dataset and rank-partitioned batches for the port.
 
-Copies of ``torchmpi_tpu/utils/data.py``'s ``synthetic_mnist`` (numpy
-only, same arrays for the same seed) and ``DistributedIterator``
+Copies of ``torchmpi_tpu/utils/data.py``'s ``synthetic_mnist`` and
+``synthetic_imagenet`` (numpy only, same arrays for the same arguments)
+and ``DistributedIterator``
 (``examples/mnist/makeiterator.lua``: the global batch is split evenly over
 the ranks, each rank drawing from its own contiguous shard). The iterator
 puts the dataset on the device once and yields rank-stacked device
@@ -49,6 +50,41 @@ def synthetic_mnist(
         x = protos[labels] + 0.9 * rs.randn(n, h * w).astype(np.float32)
         x = np.clip(0.5 + 0.5 * x, 0.0, 1.0).astype(np.float32)
         return x.reshape(n, h, w), labels
+
+    train = make(num_train, np.random.RandomState(seed + 1))
+    test = make(num_test, np.random.RandomState(seed + 2))
+    return train, test
+
+
+def synthetic_imagenet(
+    num_train: int = 1024,
+    num_test: int = 256,
+    num_classes: int = 1000,
+    image_size: int = 224,
+    seed: int = 4321,
+):
+    """Deterministic ImageNet-shaped dataset (NHWC float32 in [0, 1]):
+    class prototypes are smooth low-frequency color fields (8x8 upsampled);
+    samples add gaussian noise. Returns ``((x_train, y_train), (x_test,
+    y_test))`` as numpy, labels int32."""
+    rng = np.random.RandomState(seed)
+    h = w = image_size
+    lo = 8
+    protos_lo = rng.randn(num_classes, lo, lo, 3).astype(np.float32)
+    reps = -(-h // lo)
+
+    def upsample(p):
+        big = np.repeat(np.repeat(p, reps, axis=0), reps, axis=1)
+        return big[:h, :w]
+
+    def make(n, rs):
+        labels = rs.randint(0, num_classes, size=n).astype(np.int32)
+        x = np.empty((n, h, w, 3), np.float32)
+        for i in range(n):
+            base = upsample(protos_lo[labels[i]])
+            x[i] = base + 0.5 * rs.randn(h, w, 3).astype(np.float32)
+        x = np.clip(0.5 + 0.25 * x, 0.0, 1.0)
+        return x, labels
 
     train = make(num_train, np.random.RandomState(seed + 1))
     test = make(num_test, np.random.RandomState(seed + 2))
