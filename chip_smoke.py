@@ -19,7 +19,10 @@ phase fails:
    order and type), and the closed form "rank r contributes r" must sum to
    p(p-1)/2; K4's sweep adds p > 8, rows around the int8 scale's floor,
    quotients at half-integers and the rows on which rounding the int8
-   decode-and-add twice would differ from rounding it once;
+   decode-and-add twice would differ from rounding it once; K1 and K2's
+   list forms over ResNet-50's 161 leaves, mixed lists and the PS shard at
+   an odd offset, with the launches each call counts (``{"many_table"}``
+   names the table the build takes and the host time of one list call);
 4. checks the trainer on a small input against the same trainer on the
    CPU (plain versions), then drives the two MNIST paths, LeNet at p=8
    virtual ranks, global batch 336, lr 0.2, two epochs of
@@ -59,7 +62,8 @@ phase fails:
    ResNet-50 at full width (1000 classes, 224 px), p=8, per-rank batch
    32, momentum 0.9, lr 0.1, three epochs of
    ``synthetic_imagenet(2048)``, in sync and in async mode (4 buckets):
-   exact launch counts (:func:`resnet_expected`), finite losses, the last
+   exact launch counts (:func:`resnet_expected`: the momentum trace and
+   the update one list call each a step), finite losses, the last
    epoch's below the first's, ``check_with_allreduce`` on the parameters
    and the batch statistics, the test accuracy, one async step's buckets
    against blocking allreduces bit for bit, a 3-step profile and one
@@ -82,7 +86,9 @@ phase fails:
    tokens/sec/chip and MFU of 7.'s ``kernel_full`` run); times Downpour
    steps with the PS
    server's 100 us polling cadence and with none (``{"ps_poll": ...}``);
-11. times each kernel, its plain version and, where there is one, a
+11. times K3 'rs' against ``x.sum(0)`` in turns (``{"rs_retime": ...}``);
+   then times each kernel, its plain version and,
+   where there is one, a
    PyTorch call computing the same function with CUDA events at the main
    paths' shapes, on inputs rotated past the L2, and prints one
    ``{"kernels": [...]}`` line: each row's bound is the larger of its bytes
@@ -91,15 +97,18 @@ phase fails:
    with the f32 bound beside it), and no kernel may read under its bound;
    K2's row carries the floor of one launch (an empty kernel, same timing)
    beside its shard; rows marked ``at`` time K3, K1, K2 and K7 at the
-   ResNet path's shapes (its largest fused flush, its largest leaf, its
-   first parameter sync) with their launches per ResNet step;
+   ResNet path's shapes (its largest fused flush, its largest leaf, the
+   update and the momentum trace of a whole step, its first parameter
+   sync) with their launches per ResNet step;
 12. prints last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --resnet`` runs the build, the sync MNIST path and
-step 8 alone. ``python3 chip_smoke.py --quant check`` builds K4 alone,
-prints its registers and SASS counts, holds it against its plain version
-and times its rows (``{"quant_kernels": ...}``); ``--quant time`` only
-times them. None of the three prints the result line.
+step 8 alone. ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
+holds their list forms against the plain versions (``{"many_table"}``).
+``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
+SASS counts, holds it against its plain version and times its rows
+(``{"quant_kernels": ...}``); ``--quant time`` only times them. None of
+these prints the result line.
 
 Kernels are held to their plain versions bit for bit, but for the ring
 attention kernels (K8, K9, K10), which merge 64-key tiles where the plain
@@ -236,6 +245,13 @@ RESNET_TIMED_STEPS = 3  # per rank map, after one warm-up step
 # the card against the CPU: a narrow ResNet at 32 px, p=4, three steps;
 # losses within rtol 1e-4, parameters, traces and statistics within atol 1e-4
 RESNET_SMALL = dict(stage_sizes=[1, 1], block=BottleneckBlock, num_filters=8, num_classes=10)
+# K1 and K2's bound over a whole ResNet-50 step: every leaf's two inputs read
+# and its result written once, f32, p=8
+RESNET_STEP_BYTES = 3 * 4 * P * RESNET_PARAMS
+# time_ms's settings for a call over ResNet-50's 161 leaves: its host side
+# takes milliseconds, so 5 calls a timing behind a sleep of about 60 ms
+# keep the card fed while the host enqueues them
+LIST_TIMING = dict(per=5, sleep=100_000_000)
 
 
 def require(cond: bool, what: str) -> None:
@@ -260,10 +276,11 @@ def rand(shape, dtype, gen, dev):
     return torch.randint(lo, hi + 1, shape, generator=gen, device=dev, dtype=torch.int64).to(dtype)
 
 
-def time_ms(fn, reps: int = 5, per: int = 20) -> float:
+def time_ms(fn, reps: int = 5, per: int = 20, sleep: int = 20_000_000) -> float:
     """Median over ``reps`` of the mean time of ``per`` back-to-back calls,
-    with CUDA events. A sleep kernel queued first keeps the card busy while
-    the host enqueues, so host launch overhead does not pad the timing."""
+    with CUDA events. A sleep kernel of ``sleep`` cycles queued first keeps
+    the card busy while the host enqueues, so host launch overhead does not
+    pad the timing."""
     for _ in range(3):
         fn()
     times = []
@@ -271,7 +288,7 @@ def time_ms(fn, reps: int = 5, per: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(sleep)
         start.record()
         for _ in range(per):
             fn()
@@ -755,6 +772,7 @@ def phase_kernels(dev) -> dict:
     require(torch.equal(bits(k), bits(pl)), "accumulate [8, 256, 3136] != plain")
 
     err.update(check_resnet_shapes(dev, gen))
+    err.update(check_many(dev, gen))
     err.update(check_scale(dev, gen))
     err.update(check_quant(dev, gen))
     err.update(check_phases(dev, gen))
@@ -788,6 +806,105 @@ def check_resnet_shapes(dev, gen) -> dict:
     k, pl = ops.ring_broadcast(x, 0), ops.ring_broadcast_plain(x, 0)
     require(torch.equal(bits(k), bits(pl)), f"ring_broadcast [{P}, {RESNET_PARAMS}] != plain")
     err["ring_broadcast@resnet"] = float((k - pl).abs().max())
+    return err
+
+
+def resnet_leaf_shapes() -> list:
+    """ResNet-50's 161 parameter shapes, rank-stacked at p=8, in the order
+    the engine holds them."""
+    model = ResNet50(num_classes=RESNET["classes"], device="meta")
+    return [(P,) + tuple(v.shape) for v in model.parameters()]
+
+
+def list_launches(leaves: int) -> int:
+    """The launches of one list-form call over ``leaves`` leaves of one
+    dtype: ceil(leaves / leaves_per_launch)."""
+    return -(-leaves // ops.reduce_kernel.leaves_per_launch())
+
+
+def check_many(dev, gen) -> dict:
+    """K1 and K2's list forms (``accumulate_many``, ``scale_accumulate_many``)
+    against their plain versions, bit for bit: over ResNet-50's 161 leaves
+    at p=8 (K1 out of place as the engine's update, K2 as its momentum
+    trace, and K2 in place), with the launches each call counts; over a
+    mixed list of 205 leaves (every dtype each kernel takes, one element,
+    odd lengths, views at odd element offsets, empty leaves); and over the
+    PS shard at an odd offset in place. Prints the table the build takes
+    and the host time of one list call (``{"many_table"}``); returns max
+    |kernel - plain| over the ResNet leaves."""
+    rk = ops.reduce_kernel
+    err = {}
+
+    def same(k, pl, what):
+        require(len(k) == len(pl), f"{what}: {len(k)} results, {len(pl)} plain")
+        for i, (a, b) in enumerate(zip(k, pl)):
+            require(a.dtype == b.dtype and a.shape == b.shape, f"{what}: leaf {i} shape/dtype")
+            require(torch.equal(bits(a), bits(b)), f"{what}: leaf {i} != plain")
+
+    def counted(fn, name, want, what):
+        before = ops.launch_counts()[name]
+        out = fn()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()[name] - before
+        require(got == want, f"{what}: {got} launches, want {want}")
+        return out
+
+    shapes = resnet_leaf_shapes()
+    outs = [torch.randn(sh, generator=gen, device=dev) for sh in shapes]
+    inps = [torch.randn(sh, generator=gen, device=dev) for sh in shapes]
+    momentum = RESNET["momentum"]
+    k = counted(lambda: ops.accumulate_many(outs, inps), "accumulate",
+                list_launches(len(shapes)), "accumulate_many ResNet-50")
+    plain = ops.accumulate_many_plain(outs, inps)
+    same(k, plain, "accumulate_many ResNet-50")
+    err["accumulate_many@resnet"] = max(float((a - b).abs().max()) for a, b in zip(k, plain))
+    del k, plain
+    k = counted(lambda: ops.scale_accumulate_many(inps, outs, momentum), "scale_accumulate",
+                list_launches(len(shapes)), "scale_accumulate_many ResNet-50")
+    plain = ops.scale_accumulate_many_plain(inps, outs, momentum)
+    same(k, plain, "scale_accumulate_many ResNet-50")
+    err["scale_accumulate_many@resnet"] = max(float((a - b).abs().max()) for a, b in zip(k, plain))
+    del k
+    ops.scale_accumulate_many(inps, outs, momentum, out_=inps)
+    same(inps, plain, "scale_accumulate_many ResNet-50 in place")
+    del plain
+    # the mixed lists: K1's and K2's dtypes, ragged and misaligned leaves
+    for dtypes, name in (((torch.float32, torch.bfloat16, torch.float16, torch.int32,
+                           torch.int8, torch.uint8), "accumulate"),
+                         ((torch.float32, torch.float64, torch.bfloat16, torch.float16),
+                          "scale_accumulate")):
+        a_list, b_list = [], []
+        for i in range(205):
+            dtype, n, off = dtypes[i % len(dtypes)], (1, 7, 0, 1000, 100003, 64)[i % 6], i % 3
+            base_a, base_b = rand((n + 3,), dtype, gen, dev), rand((n + 3,), dtype, gen, dev)
+            a_list.append(base_a[off:off + n])
+            b_list.append(base_b[(i % 5) % 3:(i % 5) % 3 + n])
+        if name == "accumulate":
+            want = ops.accumulate_many_plain(a_list, b_list)
+            same(ops.accumulate_many(a_list, b_list), want, "accumulate_many mixed")
+            dst = [x.clone() for x in a_list]
+            ops.accumulate_many(dst, b_list, out_=dst)
+            same(dst, want, "accumulate_many mixed in place")
+        else:
+            for alpha in SCALE_ALPHAS:
+                same(ops.scale_accumulate_many(a_list, b_list, alpha),
+                     ops.scale_accumulate_many_plain(a_list, b_list, alpha),
+                     f"scale_accumulate_many mixed alpha={alpha}")
+    shard = torch.randn(SHARD + 1, generator=gen, device=dev)[1:]
+    shard_in = torch.randn(SHARD, generator=gen, device=dev)
+    want = ops.scale_accumulate_plain(shard, shard_in, -LR)
+    counted(lambda: ops.scale_accumulate(shard, shard_in, -LR, out_=shard),
+            "scale_accumulate", 1, "scale_accumulate PS shard")
+    same([shard], [want], "scale_accumulate PS shard at offset 1")
+    # the host's side of one list call over the 161 leaves (checks, outputs,
+    # table, launch) beside _foreach_add's: medians of 100 calls
+    host = {"accumulate_many_us": host_us(lambda: ops.accumulate_many(outs, inps)),
+            "foreach_add_us": host_us(lambda: torch._foreach_add(outs, inps))}
+    print(json.dumps({"many_table": {
+        "leaves_per_launch": rk.leaves_per_launch(), "table_bytes": rk.table_bytes(),
+        "resnet_launches": list_launches(len(shapes)), "host": host}}))
+    print(f"accumulate_many / scale_accumulate_many: bit for bit equal to their plain versions "
+          f"over ResNet-50's {len(shapes)} leaves, mixed lists of 205 leaves and the PS shard")
     return err
 
 
@@ -909,7 +1026,10 @@ def phase_trainer(dev) -> dict:
     require(sync["tree_broadcasts"] >= 1 and c["ring_broadcast"] == 0,
             f"sync: weight broadcast took {sync['tree_broadcasts']} trees, "
             f"{c['ring_broadcast']} K7 launches")
-    require(c["accumulate"] >= steps, "sync: accumulate not launched every step")
+    require(c["accumulate"] == steps * list_launches(LENET_LEAVES),
+            f"sync: accumulate launched {c['accumulate']} times in {steps} steps, want "
+            f"{list_launches(LENET_LEAVES)} a step")
+    require(c["scale_accumulate"] == 0, "sync: scale_accumulate launched without a momentum")
     require(not any(v for k, v in c.items() if "quant" in k), "sync: a quantized ring launched")
     print("sync path: check_with_allreduce passed")
 
@@ -921,7 +1041,9 @@ def phase_trainer(dev) -> dict:
     require(quant["tree_broadcasts"] >= 1 and c["ring_broadcast"] == 0,
             f"async int8: weight broadcast took {quant['tree_broadcasts']} trees, "
             f"{c['ring_broadcast']} K7 launches")
-    require(c["accumulate"] >= steps, "async int8: accumulate not launched every step")
+    require(c["accumulate"] == steps * list_launches(LENET_LEAVES),
+            f"async int8: accumulate launched {c['accumulate']} times in {steps} steps, want "
+            f"{list_launches(LENET_LEAVES)} a step")
     require(quant["spread"] > 0, "async int8: replicas identical; the wire did not engage")
     return {"sync": sync, "async_int8": quant}
 
@@ -1052,8 +1174,9 @@ def resnet_expected(engine, steps: int) -> dict:
     """The kernel launches one ResNet run of ``steps`` steps routes, from the
     parameters' sizes (in the order the gradients are submitted) and the
     routing constants: the first parameter sync, one fused broadcast, runs
-    K7 above the tree cutoff; every step runs one K2 (the momentum trace)
-    and one K1 (the update) per leaf, and K3 once per gradient collective
+    K7 above the tree cutoff; every step runs the momentum trace (K2) and
+    the update (K1) as one list call each over the leaves,
+    :func:`list_launches` launches each, and K3 once per gradient collective
     above ``small_allreduce_size_cuda``: in sync mode each flush of the
     fusion buffer (it flushes once ``fusion_buffer_bytes`` are pending, and
     the rest when waited), in async mode each bucket. The statistics'
@@ -1077,8 +1200,9 @@ def resnet_expected(engine, steps: int) -> dict:
     k7 = int(total > constants.get("small_broadcast_size_cuda")
              and total * 4 > constants.get("broadcast_size_tree_based_cuda"))
     want = {name: 0 for name in ops.launch_counts()}
-    want.update(ring_allreduce=k3 * steps, ring_broadcast=k7, accumulate=len(sizes) * steps,
-                scale_accumulate=len(sizes) * steps)
+    k12 = list_launches(len(sizes))
+    want.update(ring_allreduce=k3 * steps, ring_broadcast=k7, accumulate=k12 * steps,
+                scale_accumulate=k12 * steps)
     return {"counts": want, "k3_per_step": k3, "flushes": flushes}
 
 
@@ -1167,7 +1291,7 @@ def kernel_class(name: str) -> str:
     """The class of a device kernel by its name, for the ResNet split."""
     if "ring_allreduce_kernel" in name:
         return "K3 ring_allreduce"
-    if "tmpi::elementwise_kernel" in name:
+    if "tmpi::many_" in name:
         return "K2 scale_accumulate" if "Scale" in name else "K1 accumulate"
     if "tmpi::" in name:
         return "other port kernels"
@@ -1304,7 +1428,7 @@ def phase_resnet(dev, mnist_sync: dict) -> dict:
         "tflops": achieved / 1e12, "mfu_f32": frac,
         "device_busy_share": prof["device_busy_share"],
         "device_us_per_step_by_class": prof["split_us_per_step"],
-        "k3_per_step": sync["k3_per_step"], "k1_k2_per_step": RESNET_LEAVES,
+        "k3_per_step": sync["k3_per_step"], "k1_k2_per_step": list_launches(RESNET_LEAVES),
         "epoch_losses": sync["epoch_losses"], "test_acc": sync["test_acc"],
         "peak_gb": sync["peak_gb"], "rank_map": forms,
         "async": {"img_per_s_per_chip": asyn["img_per_s"], "step_ms": asyn["step_ms"],
@@ -1320,7 +1444,7 @@ def phase_resnet(dev, mnist_sync: dict) -> dict:
     counts = ops.launch_counts()
     steps = 2 * (8192 // BATCH)
     want = {name: 0 for name in counts}
-    want["accumulate"] = LENET_LEAVES * steps
+    want["accumulate"] = list_launches(LENET_LEAVES) * steps
     require(counts == want, f"sequential MNIST: launches {counts} != {want}")
     require(all(np.isfinite(losses)), f"sequential MNIST: non-finite loss {losses}")
     print(f"sequential MNIST (LeNet, batch {BATCH}, lr {LR}, 2 epochs): final loss "
@@ -1581,13 +1705,15 @@ def phase_async_issue(dev) -> None:
     (p=8), and its parts: the selector-routed call (its choice memoized on
     the communicator), the same with the backend pinned (no selector), the
     selector's ``select`` alone, the collective's own synchronous issue
-    (``eager.run``), the side stream's ``wait_stream``, event and
-    ``record_stream``, and ``run_async``'s own parts: the switch to the side
-    stream and back, a stream context entered and left (the switch it
-    replaces), the reused ordering event, and a handle made and
-    registered. Each the median of 1,000 calls on the host clock,
-    after 50 warm-up calls, with every handle waited outside the timed
-    window; one ``{"async_issue": ...}`` line of microseconds."""
+    (``eager.run``, its route memoized and re-derived), K3's wrapper at
+    2^8 on the current stream and with the stream passed, the device guard
+    and current-stream lookup it skips, the side stream's ``wait_stream``,
+    event and ``record_stream``, and ``run_async``'s own parts: the switch
+    to the side stream and back, a stream context entered and left (the
+    switch it replaces), the reused ordering event, and a handle made and
+    registered. Each the median of 1,000 calls on the host clock, after 50
+    warm-up calls, with every handle waited outside the timed window; one
+    ``{"async_issue": ...}`` line of microseconds."""
     from torchmpi_tpu_torch.collectives import eager, selector
     from torchmpi_tpu_torch.runtime.handles import SyncHandle, handles
 
@@ -1618,6 +1744,18 @@ def phase_async_issue(dev) -> None:
             "selector_select": median_us(lambda: selector.select("allreduce", dev, False,
                                                                  "async")),
             "eager_run_sync": median_us(lambda: eager.run("allreduce", x, comm, backend="kernel")),
+            # the route memoized (above) and re-derived on every call
+            "eager_run_route_miss": median_us(
+                lambda: (comm.__dict__.pop("_routes", None),
+                         eager.run("allreduce", x, comm, backend="kernel"))),
+            # K3's wrapper at 2^8 (a launch): on the current stream, and
+            # with the stream passed, as run_async passes its side stream
+            "k3_wrapper": median_us(lambda: ops.ring_allreduce(x)),
+            "k3_wrapper_stream_passed": median_us(lambda: ops.ring_allreduce(x, stream=main)),
+            # what the wrappers no longer do on the current device
+            "device_guard": median_us(lambda: torch.cuda.device(dev).__exit__(
+                None, None, torch.cuda.device(dev).__enter__())),
+            "current_stream_lookup": median_us(lambda: torch.cuda.current_stream().cuda_stream),
             "wait_stream": median_us(lambda: side.wait_stream(torch.cuda.current_stream(dev))),
             "event_record": median_us(lambda: torch.cuda.Event().record(side)),
             "record_stream": median_us(lambda: x.record_stream(side)),
@@ -1847,6 +1985,30 @@ def timing_rows(randn) -> list:
             plain=lambda a, b: ops.scale_accumulate_plain(a, b, momentum),
             library=lambda a, b: torch.add(a, b, alpha=momentum),
         ),
+        # the engine's whole update and momentum trace of a ResNet-50 step:
+        # one list call over its 161 leaves (list_launches launches each)
+        dict(
+            name="accumulate", at="ResNet-50 step, the update of all 161 leaves in one call",
+            err="accumulate_many@resnet",
+            source="torchmpi_tpu_torch/csrc/reduce_kernel.cu",
+            replaces="torchmpi_tpu/ops/reduce_kernel.py:28",
+            shape=[P, RESNET_PARAMS], make=lambda: step_leaves(randn),
+            in_bytes=2 * P * RESNET_PARAMS * 4, bytes=RESNET_STEP_BYTES, ops=P * RESNET_PARAMS,
+            kernel=ops.accumulate_many, plain=ops.accumulate_many_plain,
+            library=torch._foreach_add, timing=LIST_TIMING,
+        ),
+        dict(
+            name="scale_accumulate",
+            at="ResNet-50 step, the momentum trace of all 161 leaves in one call",
+            err="scale_accumulate_many@resnet",
+            source="torchmpi_tpu_torch/csrc/reduce_kernel.cu",
+            replaces="torchmpi_tpu/ops/reduce_kernel.py:32",
+            shape=[P, RESNET_PARAMS], make=lambda: step_leaves(randn),
+            in_bytes=2 * P * RESNET_PARAMS * 4, bytes=RESNET_STEP_BYTES, ops=2 * P * RESNET_PARAMS,
+            kernel=lambda a, b: ops.scale_accumulate_many(a, b, momentum),
+            plain=lambda a, b: ops.scale_accumulate_many_plain(a, b, momentum),
+            library=lambda a, b: torch._foreach_add(a, b, alpha=momentum), timing=LIST_TIMING,
+        ),
         dict(
             name="ring_broadcast", at="ResNet-50, the first parameter sync",
             err="ring_broadcast@resnet",
@@ -1910,6 +2072,8 @@ def timing_rows(randn) -> list:
             shape=[P, N23], make=lambda: (randn(P, N23),), in_bytes=P * N23 * 4,
             bytes=2 * P * N23 * 4, ops=(P - 1) * N23,
             kernel=lambda x: ops.ring_reduce(x, 0), plain=lambda x: ops.ring_reduce_plain(x, 0),
+            # not K6's function: the sum of the root's row alone, where the
+            # kernel also writes the other p-1 rows
             library=lambda x: x.sum(0),
         ),
         dict(
@@ -1977,6 +2141,13 @@ def timing_rows(randn) -> list:
     return rows
 
 
+def step_leaves(randn) -> tuple:
+    """Two lists of ResNet-50's 161 rank-stacked leaves: a step's parameters
+    and updates (or gradients and traces)."""
+    shapes = resnet_leaf_shapes()
+    return [randn(*sh) for sh in shapes], [randn(*sh) for sh in shapes]
+
+
 def time_rows(rows: list, runs: dict, errs: dict, launch_floor_ms: float) -> list:
     """Time each row's kernel, plain version and library call on inputs
     rotated past the L2 (:func:`rotating`); bound_ms counts each input read
@@ -1986,7 +2157,7 @@ def time_rows(rows: list, runs: dict, errs: dict, launch_floor_ms: float) -> lis
     out = []
     for r in rows:
         def timed(fn, make=r["make"]):
-            return time_ms(rotating(fn, make, r["in_bytes"]))
+            return time_ms(rotating(fn, make, r["in_bytes"]), **r.get("timing", {}))
 
         ms = timed(r["kernel"])
         bound_ms, bound_by = bound(r["bytes"], r["ops"], r.get("tensor_cores", False))
@@ -2037,6 +2208,41 @@ def time_rows(rows: list, runs: dict, errs: dict, launch_floor_ms: float) -> lis
     return out
 
 
+def host_us(fn, reps: int = 100) -> float:
+    """The median host time of ``fn`` in microseconds, after 10 warm-up
+    calls, the device drained every 10 calls (outside the timed calls)."""
+    times = []
+    for i in range(10 + reps):
+        if i % 10 == 0:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if i >= 10:
+            times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def phase_rs_retime(dev) -> None:
+    """K3 'rs' (``ring_reduce_scatter``) against ``x.sum(0)`` at [8, 2^23],
+    the kernels line's shapes and calls, timed in turns (kernel, sum, sum,
+    kernel, twice over) by :func:`time_ms` on inputs rotated past the L2:
+    four readings each, one ``{"rs_retime": ...}`` line of ms."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def make():
+        return (torch.randn((P, N23), generator=gen, device=dev),)
+
+    fns = {"kernel_ms": rotating(ops.ring_reduce_scatter, make, P * N23 * 4),
+           "x_sum0_ms": rotating(lambda x: x.sum(0), make, P * N23 * 4)}
+    readings: dict = {name: [] for name in fns}
+    for name in ["kernel_ms", "x_sum0_ms", "x_sum0_ms", "kernel_ms"] * 2:
+        readings[name].append(time_ms(fns[name]))
+    print(json.dumps({"rs_retime": {**readings, "shape": [P, N23],
+                                    "bound_ms": (P + 1) * N23 * 4 / HBM_BYTES_PER_S * 1e3,
+                                    "card": card()}}))
+
+
 def launch_floor_ms() -> float:
     """The device time of one launch of a kernel that does no work
     (PyTorch's spin kernel told to spin 0 cycles), by :func:`time_ms`."""
@@ -2073,6 +2279,10 @@ def main(argv=None) -> None:
         help="only K4: build, registers and SASS, then 'check' (against the plain "
              "version) and time, or 'time' alone; prints no result line")
     parser.add_argument(
+        "--many", action="store_true",
+        help="only K1 and K2's list kernels: build, check them against the plain versions "
+             "(check_many); prints no result line")
+    parser.add_argument(
         "--resnet", action="store_true",
         help="only the ResNet phase (after the build and the sync MNIST path it prints "
              "beside the sequential twin); prints no result line")
@@ -2090,6 +2300,10 @@ def main(argv=None) -> None:
     phase_device()
     if args.quant:
         quant_only(dev, args.quant == "check")
+        return
+    if args.many:
+        phase_build(("reduce_kernel",))
+        check_many(dev, torch.Generator(device=dev).manual_seed(0))
         return
     phase_build()
     if args.resnet:
@@ -2111,6 +2325,7 @@ def main(argv=None) -> None:
     phase_profile("async", "int8")
     phase_profile_lm(dev, lm_stats)
     phase_profile_ps()
+    phase_rs_retime(dev)
     phase_timing(dev, runs, errs)
     print(json.dumps({
         "ok": True,

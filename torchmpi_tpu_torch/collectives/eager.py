@@ -47,6 +47,9 @@ _OPS = (
 # reductions; data movers are lossless by contract and stay verbatim)
 _WIRE_OPS = ("allreduce", "reducescatter")
 _REDUCTIONS = ("allreduce", "reduce", "reducescatter")
+# routes eager.run memoizes per communicator before it starts afresh (a
+# sweep over sizes adds one per size)
+_MAX_ROUTES = 256
 
 
 class CollectiveArgumentError(ValueError):
@@ -71,12 +74,12 @@ def free_collective_resources(comm: Communicator) -> None:
     and :func:`~torchmpi_tpu_torch.runtime_state.stop` calls for every stack
     level (``eager.py:246``): dispatch the fusion buffer's pending groups,
     then drop the communicator's memoized selector choices (and backend
-    availability) and its fusion buffer. The port compiles nothing per
-    size, so there is no executable to free."""
+    availability), its memoized routes and its fusion buffer. The port
+    compiles nothing per size, so there is no executable to free."""
     fb = getattr(comm, "_fusion_buffer", None)
     if fb is not None:
         fb.flush_all()
-    for attr in ("_selector_cache", "_availability", "_fusion_buffer"):
+    for attr in ("_selector_cache", "_availability", "_fusion_buffer", "_routes"):
         comm.__dict__.pop(attr, None)
 
 
@@ -178,21 +181,21 @@ def broadcast_plan(nelem: int, dtype: torch.dtype, platform: str) -> Tuple[bool,
     return False, int(k)
 
 
-def _reduce_scatter_lastdim(x: torch.Tensor, wire: str) -> torch.Tensor:
+def _reduce_scatter_lastdim(x: torch.Tensor, wire: str, **kw) -> torch.Tensor:
     """The eager reduce-scatter over each rank's last dim through the
     kernel, which scatters each rank's dim 0 (``eager.py:371``)."""
     from ..ops import ring_kernels
 
-    out = ring_kernels.ring_reduce_scatter(x.movedim(-1, 1).contiguous(), wire)
+    out = ring_kernels.ring_reduce_scatter(x.movedim(-1, 1).contiguous(), wire, **kw)
     return out.movedim(1, -1)
 
 
-def _allgather_lastdim(x: torch.Tensor) -> torch.Tensor:
+def _allgather_lastdim(x: torch.Tensor, **kw) -> torch.Tensor:
     """The eager allgather, every rank's blocks concatenated along the last
     dim, through the kernel, which stacks them (``eager.py:384``)."""
     from ..ops import ring_kernels
 
-    stacked = ring_kernels.ring_allgather(x)  # [rank, source, ..., d]
+    stacked = ring_kernels.ring_allgather(x, **kw)  # [rank, source, ..., d]
     moved = stacked.movedim(1, -2)  # [rank, ..., source, d]
     return moved.reshape(x.shape[:-1] + (x.shape[0] * x.shape[-1],))
 
@@ -204,7 +207,8 @@ def _kernels(op: str, backend: str, nelem: int, dtype: torch.dtype,
     tensor (the flat part of the JAX ``_kernels`` table, with the flat
     lowering's decisions). A compressed ``wire`` pins the quantized rings
     (``eager.py:489-500``); the vendor path ships every payload
-    verbatim."""
+    verbatim. The kernel backend's functions pass ``stream=`` (the CUDA
+    stream to launch on) to the kernels."""
     wire_arg = None if wire == "full" else wire
     if backend == "xla":
         table = {
@@ -244,7 +248,7 @@ def _kernels(op: str, backend: str, nelem: int, dtype: torch.dtype,
 
         if op == "allreduce":  # the async issue path: no table to build
             if wire_arg is not None:
-                return lambda x: ring_kernels.ring_allreduce_quant(x, wire_arg)
+                return lambda x, **kw: ring_kernels.ring_allreduce_quant(x, wire_arg, **kw)
             if constants.get("ring_implementation") == "kernel_bidir":
                 # the bidirectional ring has no quant path (schedule/lower.py:63-71)
                 return ring_kernels.ring_allreduce_bidir
@@ -254,16 +258,16 @@ def _kernels(op: str, backend: str, nelem: int, dtype: torch.dtype,
             # at or below the tree cutoff the binomial tree, as the JAX
             # flat lowering routes its pallas broadcast (eager.py:430-441)
             "broadcast": (
-                (lambda x: prim.tree_broadcast(x, root)) if tree
-                else (lambda x: ring_kernels.ring_broadcast(x, root))
+                (lambda x, **kw: prim.tree_broadcast(x, root)) if tree
+                else (lambda x, **kw: ring_kernels.ring_broadcast(x, root, **kw))
             ),
-            "reduce": lambda x: ring_kernels.ring_reduce(x, root),
+            "reduce": lambda x, **kw: ring_kernels.ring_reduce(x, root, **kw),
             "allgather": _allgather_lastdim,
-            "reducescatter": lambda x: _reduce_scatter_lastdim(x, wire),
+            "reducescatter": lambda x, **kw: _reduce_scatter_lastdim(x, wire, **kw),
             # one point-to-point hop or one fused all-to-all: the vendor
             # path, as in the JAX pallas table
-            "sendreceive": lambda x: prim.sendreceive(x, src, dst),
-            "alltoall": prim.alltoall,
+            "sendreceive": lambda x, **kw: prim.sendreceive(x, src, dst),
+            "alltoall": lambda x, **kw: prim.alltoall(x),
         }
     else:
         raise CollectiveArgumentError(f"unknown backend {backend!r}")
@@ -318,22 +322,39 @@ def run(
     dst: int = 0,
     route_small: bool = True,
     wire_dtype: Optional[str] = None,
+    stream: Optional[torch.cuda.Stream] = None,
 ) -> torch.Tensor:
     """Synchronous eager collective on a rank-stacked tensor; returns a new
     rank-stacked tensor (the input is never written). ``wire_dtype``
     ('full' | 'bf16' | 'int8'; None = the ``wire_dtype`` constant) picks
     the wire of the ring and kernel backends' allreduce and reduce-scatter
-    (:func:`resolve_wire_dtype` gives the gates)."""
+    (:func:`resolve_wire_dtype` gives the gates). ``stream``: the CUDA
+    stream a kernel launches on (default: the current one).
+
+    The route (the effective backend, the wire and the function) is
+    memoized on the communicator per call shape until a constant changes
+    or its resources are freed; the argument checks run on every call."""
     x = _validate(op, x, comm, root, src, dst, wire_dtype)
     nelem = x.numel() // x.shape[0]  # per rank; x[0] would build a view
-    platform = comm.device.type
-    effective = effective_backend(op, nelem, x.dtype, platform, backend, route_small)
-    wire = (
-        resolve_wire_dtype(op, nelem, x.dtype, wire_dtype)
-        if effective in ("ring", "kernel")
-        else "full"
-    )
-    fn = _kernels(op, effective, nelem, x.dtype, platform, root, src, dst, wire)
+    version = constants.version()
+    memo = comm.__dict__.get("_routes")
+    if memo is None or memo[0] != version or len(memo[1]) >= _MAX_ROUTES:
+        memo = comm.__dict__["_routes"] = (version, {})
+    key = (op, backend, nelem, x.dtype, route_small, wire_dtype, root, src, dst)
+    route = memo[1].get(key)
+    if route is None:
+        platform = comm.device.type
+        effective = effective_backend(op, nelem, x.dtype, platform, backend, route_small)
+        wire = (
+            resolve_wire_dtype(op, nelem, x.dtype, wire_dtype)
+            if effective in ("ring", "kernel")
+            else "full"
+        )
+        fn = _kernels(op, effective, nelem, x.dtype, platform, root, src, dst, wire)
+        route = memo[1][key] = (fn, effective == "kernel")
+    fn, takes_stream = route
+    if stream is not None and takes_stream:
+        return fn(x.contiguous(), stream=stream)
     return fn(x.contiguous())
 
 
@@ -424,7 +445,7 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, **kw) -> SyncHandle:
         with contextlib.nullcontext() if same else torch.cuda.device(comm.device):
             torch.cuda.set_stream(side.stream)
             try:
-                out = run(op, x, comm, **kw)
+                out = run(op, x, comm, stream=side.stream, **kw)
                 done = torch.cuda.Event()
                 done.record(side.stream)
             finally:

@@ -474,6 +474,9 @@ class _Constants:
 _frozen = False
 _lock = threading.Lock()
 _values = _Constants()
+# bumped by every set and reset, so memos of what the constants decide
+# (eager.run's routes) know when to drop
+_version = 0
 
 _FIELD_NAMES = {f.name for f in fields(_Constants)}
 
@@ -492,6 +495,7 @@ def get(name: str) -> Any:
 
 
 def set(name: str, value: Any) -> None:  # noqa: A001 - parity with C setters
+    global _version
     if name not in _FIELD_NAMES:
         raise KeyError(f"unknown constant: {name}")
     with _lock:
@@ -511,6 +515,7 @@ def set(name: str, value: Any) -> None:  # noqa: A001 - parity with C setters
                 f"got {type(value).__name__}"
             )
         setattr(_values, name, value)
+        _version += 1
 
 
 def freeze_constants() -> None:
@@ -529,12 +534,18 @@ def snapshot() -> Dict[str, Any]:
     return {f.name: getattr(_values, f.name) for f in fields(_Constants)}
 
 
+def version() -> int:
+    """A number that changes whenever a constant may have changed."""
+    return _version
+
+
 def _reset_for_tests() -> None:
     """Unfreeze and restore defaults. Test-only."""
-    global _frozen, _values
+    global _frozen, _values, _version
     with _lock:
         _frozen = False
         _values = _Constants()
+        _version += 1
 
 
 def __getattr__(name: str):

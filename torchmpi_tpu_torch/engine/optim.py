@@ -5,9 +5,10 @@ Nesterov): ``trace`` then ``scale(-learning_rate)``. With a momentum the
 state holds one trace per parameter, ``m = g + momentum * m`` (zeros at
 the start), and the update is ``-learning_rate * m``; without one there is
 no state and the update is ``-learning_rate * g``, plain SGD. The trace
-step is K2's function, ``out + alpha * in`` rounded once
-(:func:`~torchmpi_tpu_torch.ops.scale_accumulate`); the engine adds the
-update to the parameters with K1 (:func:`~torchmpi_tpu_torch.ops.accumulate`,
+step is K2's function, ``out + alpha * in`` rounded once, over every leaf
+in one call (:func:`~torchmpi_tpu_torch.ops.scale_accumulate_many`); the
+engine adds the update to the parameters with K1 the same way
+(:func:`~torchmpi_tpu_torch.ops.accumulate_many`,
 ``optax.apply_updates``). Trees are dicts of rank-stacked tensors.
 """
 
@@ -17,7 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..ops import scale_accumulate
+from ..ops import scale_accumulate_many
 
 Tree = Dict[str, torch.Tensor]
 
@@ -40,6 +41,7 @@ class SGD:
         """``(updates, new_state)`` for the gradients ``grads``."""
         if self.momentum is None:
             return {k: (g * -self.learning_rate).contiguous() for k, g in grads.items()}, None
-        trace = {k: scale_accumulate(g.contiguous(), state[k], self.momentum)
-                 for k, g in grads.items()}
+        keys = list(grads)
+        trace = dict(zip(keys, scale_accumulate_many(
+            [grads[k].contiguous() for k in keys], [state[k] for k in keys], self.momentum)))
         return {k: m * -self.learning_rate for k, m in trace.items()}, trace

@@ -30,8 +30,9 @@ which the selector sends through the ring kernels:
 4. divide by p (``average_gradients=True``);
 5. the optimizer's update (:class:`~torchmpi_tpu_torch.engine.optim.SGD`:
    plain SGD with ``lr``, or with a momentum whose trace step is the
-   scale-accumulate kernel), added to the parameters by the accumulate
-   kernel (the port's ``optax.apply_updates``).
+   scale-accumulate kernel over every leaf at once), added to the
+   parameters by the accumulate kernel over every leaf at once (the port's
+   ``optax.apply_updates``).
 
 At construction the parameters are replicated to every rank and, with
 ``broadcast_parameters=True``, equalised from rank 0 by
@@ -59,7 +60,7 @@ from torch.utils import _pytree as pytree
 
 from .. import constants
 from .. import nn as mpinn
-from ..ops import accumulate
+from ..ops import accumulate_many
 from ..runtime.communicator import Communicator
 from .optim import SGD
 
@@ -189,7 +190,9 @@ class AllReduceSGDEngine:
                 grads, handles, average=self.average_gradients
             )
         updates, self.opt_state = self.optimizer.update(grads, self.opt_state)
-        self.params = {k: accumulate(v, updates[k]) for k, v in self.params.items()}
+        keys = list(self.params)
+        self.params = dict(zip(keys, accumulate_many(
+            [self.params[k] for k in keys], [updates[k] for k in keys])))
         return losses.mean()
 
     def _hook(self, name: str, state: Dict[str, Any]) -> None:

@@ -3,7 +3,8 @@
 The twin of ``examples/mnist_sequential.py`` (``mnist_sequential.lua``),
 the sequential run whose loss the data-parallel recipes must match
 (``mnist_allreduce.lua:87-113``): one process, no communicator, plain SGD
-(the accumulate kernel adds each update on the card), ``synthetic_mnist``
+(the accumulate kernel adds each step's update to every leaf in one
+launch on the card), ``synthetic_mnist``
 walked in ``np.random.RandomState(seed)``'s order, one permutation per
 epoch, tail batches dropped. Prints each epoch's last loss, then the final
 loss and the test accuracy.
@@ -44,7 +45,7 @@ def main(argv: Optional[Sequence[str]] = None,
         init_params,
         make_loss_fn,
     )
-    from torchmpi_tpu_torch.ops import accumulate
+    from torchmpi_tpu_torch.ops import accumulate_many
     from torchmpi_tpu_torch.utils import synthetic_mnist
 
     device = torch.device(args.device or "cuda")
@@ -74,7 +75,8 @@ def main(argv: Optional[Sequence[str]] = None,
             idx = order[i:i + args.batch]
             grads, loss = grad_fn(params, (x_all[idx], y_all[idx]))
             updates, _ = opt.update(grads, None)
-            params = {k: accumulate(v, updates[k]) for k, v in params.items()}
+            params = dict(zip(params, accumulate_many(list(params.values()),
+                                                      [updates[k] for k in params])))
         losses.append(float(loss))
         print(f"[seq] epoch {epoch}: loss {losses[-1]:.4f}")
 

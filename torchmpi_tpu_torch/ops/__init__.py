@@ -16,6 +16,8 @@
 - ``accumulate`` (``csrc/reduce_kernel.cu``) replaces
   ``ops/reduce_kernel.py:_accumulate_kernel``, and ``scale_accumulate``
   (the same file) ``ops/reduce_kernel.py:_scale_add_kernel``;
+  ``accumulate_many`` and ``scale_accumulate_many`` run the same kernels
+  over a list of leaves in one launch;
 - ``ring_attention_fwd`` (``csrc/ring_attention.cu``) replaces
   ``ops/ring_attention_kernel.py:_ring_attn_kernel`` and, with
   ``bidir=True``, ``_ring_attn_bidir_kernel``; ``ring_attention_bwd``
@@ -33,8 +35,12 @@ from typing import Dict
 from . import reduce_kernel, ring_attention_kernel, ring_kernels
 from .reduce_kernel import (
     accumulate,
+    accumulate_many,
+    accumulate_many_plain,
     accumulate_plain,
     scale_accumulate,
+    scale_accumulate_many,
+    scale_accumulate_many_plain,
     scale_accumulate_plain,
 )
 from .ring_attention_kernel import (
@@ -77,6 +83,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "RingAttention",
     "accumulate",
+    "accumulate_many",
+    "accumulate_many_plain",
     "accumulate_plain",
     "launch_counts",
     "reset_launch_counts",
@@ -101,5 +109,7 @@ __all__ = [
     "ring_reduce_scatter_quant",
     "ring_reduce_scatter_quant_plain",
     "scale_accumulate",
+    "scale_accumulate_many",
+    "scale_accumulate_many_plain",
     "scale_accumulate_plain",
 ]

@@ -124,6 +124,20 @@ def library(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
         return lib
 
 
+def launch(device, call, stream=None):
+    """``call(handle)``, ``handle`` the CUDA stream to launch on: ``stream``
+    (a ``torch.cuda.Stream``) when given, else the current stream of
+    ``device``. A device guard is entered only when ``device`` is not the
+    current device: the guard and the current-stream lookup cost more host
+    time than a launch's own call."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return call((stream if stream is not None else torch.cuda.current_stream()).cuda_stream)
+    with torch.cuda.device(device):
+        return call((stream if stream is not None else torch.cuda.current_stream()).cuda_stream)
+
+
 def check(err: int, what: str) -> None:
     """Raise when a kernel's C entry point reports a CUDA error."""
     if err != 0:

@@ -182,10 +182,11 @@ def ring_attention_fwd_plain(q, k, v, causal: bool = False, bidir: bool = False)
     return out, m + torch.log(l)
 
 
-def ring_attention_fwd(q, k, v, causal: bool = False, bidir: bool = False):
+def ring_attention_fwd(q, k, v, causal: bool = False, bidir: bool = False, stream=None):
     """Ring attention forward over the leading (ring) axis: ``(o, lse)``,
     ``o`` like ``q`` and ``lse`` ``[sp, b, h, n]`` f32. K8, or K9 with
-    ``bidir=True``, for CUDA tensors; the plain version for CPU ones."""
+    ``bidir=True``, for CUDA tensors (on ``stream``, default the current
+    one); the plain version for CPU ones."""
     _check("ring_attention_fwd", q, k, v)
     if q.shape[0] == 1:
         return _full_fwd(q, k, v, causal)
@@ -195,14 +196,12 @@ def ring_attention_fwd(q, k, v, causal: bool = False, bidir: bool = False):
     p, b, n, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((p, b, h, n), dtype=torch.float32, device=q.device)
-    from ._build import check
+    from ._build import check, launch
 
-    with torch.cuda.device(q.device):
-        err = _lib().tm_ring_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            DTYPES[q.dtype], p, b, n, h, d, int(causal), int(bidir),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    call = _lib().tm_ring_attention_fwd
+    err = launch(q.device, lambda s: call(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        DTYPES[q.dtype], p, b, n, h, d, int(causal), int(bidir), s), stream)
     check(err, "ring_attention_fwd")
     launches["ring_attention_fwd_bidir" if bidir else "ring_attention_fwd"] += 1
     return o, lse
@@ -247,10 +246,11 @@ def ring_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def ring_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
+def ring_attention_bwd(q, k, v, o, lse, do, causal: bool = False, stream=None):
     """Analytic ring attention backward from the forward's ``(o, lse)``:
-    ``(dq, dk, dv)``. K10 (two launches: dQ, then dK/dV) for CUDA tensors;
-    the plain version for CPU ones."""
+    ``(dq, dk, dv)``. K10 (two launches: dQ, then dK/dV) for CUDA tensors
+    (on ``stream``, default the current one); the plain version for CPU
+    ones."""
     _check("ring_attention_bwd", q, k, v, o, do)
     if q.shape[0] == 1:
         raise ValueError("p == 1 has no ring; differentiate full attention")
@@ -262,15 +262,13 @@ def ring_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
         raise ValueError(f"ring_attention_bwd expects lse as contiguous f32 {(p, b, h, n)}")
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    from ._build import check
+    from ._build import check, launch
 
-    with torch.cuda.device(q.device):
-        err = _lib().tm_ring_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            DTYPES[q.dtype], p, b, n, h, d, int(causal),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    call = _lib().tm_ring_attention_bwd
+    err = launch(q.device, lambda s: call(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        DTYPES[q.dtype], p, b, n, h, d, int(causal), s), stream)
     check(err, "ring_attention_bwd")
     launches["ring_attention_bwd"] += 2
     return dq, dk, dv

@@ -154,14 +154,14 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} runs on CUDA or the CPU, not {x.device}")
 
 
-def _launch(fn: str, x: torch.Tensor, *args) -> None:
-    """Launch ``fn`` of the ring_kernels library on ``x``'s card and its
-    current stream; raise if the launch reports a CUDA error."""
-    from ._build import check
+def _launch(fn: str, x: torch.Tensor, *args, stream=None) -> None:
+    """Launch ``fn`` of the ring_kernels library on ``x``'s card, on
+    ``stream`` (default: the current stream); raise if the launch reports a
+    CUDA error."""
+    from ._build import check, launch
 
-    with torch.cuda.device(x.device):
-        err = getattr(_lib(), fn)(*args, torch.cuda.current_stream().cuda_stream)
-    check(err, fn)
+    call = getattr(_lib(), fn)
+    check(launch(x.device, lambda s: call(*args, s), stream), fn)
 
 
 def _ring_sum(rows: torch.Tensor, chunk: int, step: int = 1) -> torch.Tensor:
@@ -190,7 +190,7 @@ def ring_allreduce_plain(x: torch.Tensor) -> torch.Tensor:
     return acc.expand(p, n).contiguous().to(x.dtype).reshape(x.shape)
 
 
-def ring_allreduce(x: torch.Tensor) -> torch.Tensor:
+def ring_allreduce(x: torch.Tensor, stream=None) -> torch.Tensor:
     """Sum-allreduce the rank-stacked ``x`` (``[p, ...]``) round the ring;
     every rank's row of the result holds the same sum. ``p == 1`` returns
     ``x``. The CUDA kernel for a CUDA tensor, the plain version for a CPU
@@ -207,7 +207,7 @@ def ring_allreduce(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(rows)
     if n:
         _launch("tm_ring_allreduce", x, rows.data_ptr(), out.data_ptr(),
-                NATIVE_DTYPES[carrier], p, n, chunk_elems(n, p, carrier))
+                NATIVE_DTYPES[carrier], p, n, chunk_elems(n, p, carrier), stream=stream)
         launches["ring_allreduce"] += 1
     return out.to(x.dtype).reshape(x.shape)
 
@@ -240,7 +240,7 @@ def ring_reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype).reshape(out_shape)
 
 
-def ring_reduce_scatter(x: torch.Tensor, wire: str = "full") -> torch.Tensor:
+def ring_reduce_scatter(x: torch.Tensor, wire: str = "full", stream=None) -> torch.Tensor:
     """Reduce-scatter the rank-stacked ``x`` (``[p, m, ...]``, ``m``
     divisible by p) with ``lax.psum_scatter`` tiled semantics on each
     rank's dim 0: row r of the ``[p, m/p, ...]`` result is the sum of
@@ -250,7 +250,7 @@ def ring_reduce_scatter(x: torch.Tensor, wire: str = "full") -> torch.Tensor:
     ring's 'rs' mode, :func:`ring_reduce_scatter_quant`. The CUDA kernel
     for a CUDA tensor, the plain version for a CPU one."""
     if wire != "full":
-        return ring_reduce_scatter_quant(x, wire)
+        return ring_reduce_scatter_quant(x, wire, stream=stream)
     if x.device.type == "cpu":
         return ring_reduce_scatter_plain(x)
     _check_stacked(x, "ring_reduce_scatter")
@@ -264,7 +264,7 @@ def ring_reduce_scatter(x: torch.Tensor, wire: str = "full") -> torch.Tensor:
     seg_n = out.shape[1]
     if seg_n:
         _launch("tm_ring_reduce_scatter", x, rows.data_ptr(), out.data_ptr(),
-                NATIVE_DTYPES[carrier], p, seg_n)
+                NATIVE_DTYPES[carrier], p, seg_n, stream=stream)
         launches["ring_reduce_scatter"] += 1
     return out.to(x.dtype).reshape(out_shape)
 
@@ -283,7 +283,7 @@ def ring_allgather_plain(x: torch.Tensor) -> torch.Tensor:
     return x.unsqueeze(0).expand((p,) + tuple(x.shape)).contiguous()
 
 
-def ring_allgather(x: torch.Tensor) -> torch.Tensor:
+def ring_allgather(x: torch.Tensor, stream=None) -> torch.Tensor:
     """Allgather the rank-stacked ``x`` (``[p, *s]``) into ``[p, p, *s]``:
     every rank gets every rank's block, stacked in rank order
     (``ring_allgather_pallas``, ``ring_kernels.py:831``: the phases
@@ -298,7 +298,8 @@ def ring_allgather(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     row_bytes = x[0].numel() * x.element_size()
     if row_bytes:
-        _launch("tm_ring_allgather", x, x.data_ptr(), out.data_ptr(), p, row_bytes)
+        _launch("tm_ring_allgather", x, x.data_ptr(), out.data_ptr(), p, row_bytes,
+                stream=stream)
         launches["ring_allgather"] += 1
     return out
 
@@ -322,7 +323,7 @@ def ring_reduce_plain(x: torch.Tensor, root: int = 0) -> torch.Tensor:
     return out.to(x.dtype).reshape(x.shape)
 
 
-def ring_reduce(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+def ring_reduce(x: torch.Tensor, root: int = 0, stream=None) -> torch.Tensor:
     """Sum-reduce the rank-stacked ``x`` to rank ``root``; every other
     rank keeps its input (``ring_reduce_pallas``, ``ring_kernels.py:1232``:
     the phases kernel's 'rs' mode in the allreduce's chunk layout, then
@@ -344,7 +345,7 @@ def ring_reduce(x: torch.Tensor, root: int = 0) -> torch.Tensor:
     out = torch.empty_like(rows)
     if n:
         _launch("tm_ring_reduce", x, rows.data_ptr(), out.data_ptr(),
-                NATIVE_DTYPES[carrier], p, n, chunk_elems(n, p, carrier), root)
+                NATIVE_DTYPES[carrier], p, n, chunk_elems(n, p, carrier), root, stream=stream)
         launches["ring_reduce"] += 1
     return out.to(x.dtype).reshape(x.shape)
 
@@ -376,7 +377,7 @@ def ring_allreduce_bidir_plain(x: torch.Tensor) -> torch.Tensor:
     return acc.expand(p, n).contiguous().to(x.dtype).reshape(x.shape)
 
 
-def ring_allreduce_bidir(x: torch.Tensor) -> torch.Tensor:
+def ring_allreduce_bidir(x: torch.Tensor, stream=None) -> torch.Tensor:
     """Sum-allreduce the rank-stacked ``x`` over two rings at once
     (``ring_allreduce_bidir_pallas``, ``ring_kernels.py:1005``): the first
     ``ceil(n/2)`` elements of each rank's flat buffer (half A) are summed
@@ -390,14 +391,15 @@ def ring_allreduce_bidir(x: torch.Tensor) -> torch.Tensor:
     _check_cuda(x, "ring_allreduce_bidir")
     p = x.shape[0]
     if p <= 2:
-        return ring_allreduce(x)
+        return ring_allreduce(x, stream=stream)
     rows, carrier = _as_rows(x)
     n = rows.shape[1]
     out = torch.empty_like(rows)
     if n:
         half = -(-n // 2)
         _launch("tm_ring_allreduce_bidir", x, rows.data_ptr(), out.data_ptr(),
-                NATIVE_DTYPES[carrier], p, n, half, bidir_chunk_elems(half, p, carrier))
+                NATIVE_DTYPES[carrier], p, n, half, bidir_chunk_elems(half, p, carrier),
+                stream=stream)
         launches["ring_allreduce_bidir"] += 1
     return out.to(x.dtype).reshape(x.shape)
 
@@ -414,7 +416,7 @@ def ring_broadcast_plain(x: torch.Tensor, root: int = 0) -> torch.Tensor:
     return src.expand(p, src.shape[0]).contiguous().reshape(x.shape)
 
 
-def ring_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+def ring_broadcast(x: torch.Tensor, root: int = 0, stream=None) -> torch.Tensor:
     """Broadcast rank ``root``'s buffer to every rank of the rank-stacked
     ``x``; non-root inputs are ignored and ``p == 1`` returns ``x``. Any
     dtype: the kernel copies bytes. The CUDA kernel for a CUDA tensor, the
@@ -431,7 +433,8 @@ def ring_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
     out = torch.empty_like(x)
     row_bytes = x[0].numel() * x.element_size()
     if row_bytes:
-        _launch("tm_ring_broadcast", x, x.data_ptr(), out.data_ptr(), p, row_bytes, root)
+        _launch("tm_ring_broadcast", x, x.data_ptr(), out.data_ptr(), p, row_bytes, root,
+                stream=stream)
         launches["ring_broadcast"] += 1
     return out
 
@@ -594,18 +597,17 @@ def ring_reduce_scatter_quant_plain(x: torch.Tensor, wire: str) -> torch.Tensor:
 
 
 def _launch_quant(x: torch.Tensor, out: torch.Tensor, wire: str, mode: str,
-                  n: int, chunk: int) -> None:
-    from ._build import check, library
+                  n: int, chunk: int, stream=None) -> None:
+    from ._build import check, launch, library
 
-    with torch.cuda.device(x.device):
-        err = library("ring_quant", _QUANT_SIGNATURES).tm_ring_quant(
-            x.data_ptr(), out.data_ptr(), _WIRE_CODES[wire], _MODE_CODES[mode],
-            x.shape[0], n, chunk, torch.cuda.current_stream().cuda_stream,
-        )
+    call = library("ring_quant", _QUANT_SIGNATURES).tm_ring_quant
+    err = launch(x.device, lambda s: call(
+        x.data_ptr(), out.data_ptr(), _WIRE_CODES[wire], _MODE_CODES[mode],
+        x.shape[0], n, chunk, s), stream)
     check(err, f"ring quant ({mode}, {wire})")
 
 
-def ring_allreduce_quant(x: torch.Tensor, wire: str) -> torch.Tensor:
+def ring_allreduce_quant(x: torch.Tensor, wire: str, stream=None) -> torch.Tensor:
     """Sum-allreduce the rank-stacked f32 ``x`` (``[p, ...]``) round the
     ring with ``wire`` ('int8' or 'bf16') on every hop and f32 sums
     (``ring_allreduce_quant_pallas``, ``ring_kernels.py:746``). Each
@@ -623,12 +625,12 @@ def ring_allreduce_quant(x: torch.Tensor, wire: str) -> torch.Tensor:
     n = flat.shape[1]
     out = torch.empty_like(flat)
     if n:
-        _launch_quant(flat, out, wire, "allreduce", n, quant_chunk_elems(n, p, wire))
+        _launch_quant(flat, out, wire, "allreduce", n, quant_chunk_elems(n, p, wire), stream)
         launches[f"ring_allreduce_quant_{wire}"] += 1
     return out.reshape(x.shape)
 
 
-def ring_reduce_scatter_quant(x: torch.Tensor, wire: str) -> torch.Tensor:
+def ring_reduce_scatter_quant(x: torch.Tensor, wire: str, stream=None) -> torch.Tensor:
     """Reduce-scatter the rank-stacked f32 ``x`` (``[p, d, ...]``, ``d``
     divisible by p) with ``wire`` on every hop: row r of the ``[p, d/p,
     ...]`` result is the f32 sum of every rank's slice r of dim 1
@@ -646,6 +648,6 @@ def ring_reduce_scatter_quant(x: torch.Tensor, wire: str) -> torch.Tensor:
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     seg_n = out[0].numel()
     if seg_n:
-        _launch_quant(x, out, wire, "rs", seg_n, 0)
+        _launch_quant(x, out, wire, "rs", seg_n, 0, stream)
         launches[f"ring_reduce_scatter_quant_{wire}"] += 1
     return out
