@@ -69,7 +69,19 @@ phase fails:
    against blocking allreduces bit for bit, a 3-step profile and one
    ``{"resnet": ...}`` line (img/s/chip, step time, MFU, the device's busy
    share and time by kernel class); then the sequential MNIST twin on the
-   card (K1 only) beside the p=8 sync MNIST run;
+   card (K1 only) beside the p=8 sync MNIST run; then the sharded
+   path (``--fsdp`` and ``--accum-steps`` of the same example, and
+   ``param_sharding='zero1'``): ResNet-18 (8 classes, 16 px, 4 a rank) and
+   LeNet (the MNIST path's widths) at p=8 on the card against the CPU
+   under fsdp, zero1, fsdp with two microbatches and fsdp with remat, 3
+   steps each; then ResNet-50 at the same full width under fsdp, zero1 and
+   fsdp with 4 microbatches, two epochs of 8 steps each: exact launch
+   counts (:func:`sharded_expected`: K3 'rs' per packed flush, one K3
+   'ag', one K2 and one K1 list call a step, and k more K1 calls with k
+   microbatches), the last epoch's loss below the first's,
+   ``check_with_allreduce`` on the gathered parameters and the statistics,
+   and one ``{"sharded": ...}`` line (step time, img/s/chip, MFU, peak
+   memory, losses, launches a step, the card);
 9. drives the parameter-server path (``examples/mnist_parameterserver.py``'s
    twin, ``train`` on LeNet): p=8, global batch 336, lr 0.2, ``--tau 5
    --init-delay 10``, two epochs (48 steps) each of Downpour, EASGD (beta
@@ -86,7 +98,9 @@ phase fails:
    tokens/sec/chip and MFU of 7.'s ``kernel_full`` run); times Downpour
    steps with the PS
    server's 100 us polling cadence and with none (``{"ps_poll": ...}``);
-11. times K3 'rs' against ``x.sum(0)`` in turns (``{"rs_retime": ...}``);
+11. times K3 'rs' against ``x.sum(0)`` in turns at [8, 2^23] and at the
+   sharded path's largest packed flush, and K3 'ag' against expand-copy at
+   its packed parameter gather (``{"rs_retime": ...}``);
    then times each kernel, its plain version and,
    where there is one, a
    PyTorch call computing the same function with CUDA events at the main
@@ -99,11 +113,13 @@ phase fails:
    beside its shard; rows marked ``at`` time K3, K1, K2 and K7 at the
    ResNet path's shapes (its largest fused flush, its largest leaf, the
    update and the momentum trace of a whole step, its first parameter
-   sync) with their launches per ResNet step;
+   sync) with their launches per ResNet step, and K3 'rs' and 'ag' at the
+   sharded path's shapes with their launches per sharded step;
 12. prints last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --resnet`` runs the build, the sync MNIST path and
-step 8 alone. ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
+step 8's ResNet phase alone; ``--sharded`` the build, step 8's sharded
+path and step 11's retime. ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
 SASS counts, holds it against its plain version and times its rows
@@ -151,6 +167,7 @@ from torchmpi_tpu_torch.models import (  # noqa: E402
     LogisticRegression,
     LongContextTransformer,
     ResNet,
+    ResNet18,
     ResNet50,
     accuracy,
     init_lm_params,
@@ -245,6 +262,17 @@ RESNET_TIMED_STEPS = 3  # per rank map, after one warm-up step
 # the card against the CPU: a narrow ResNet at 32 px, p=4, three steps;
 # losses within rtol 1e-4, parameters, traces and statistics within atol 1e-4
 RESNET_SMALL = dict(stage_sizes=[1, 1], block=BottleneckBlock, num_filters=8, num_classes=10)
+# the sharded path (examples/resnet_allreduce.py --fsdp [--accum-steps 4], and
+# param_sharding='zero1'): ResNet-50 at the ResNet path's widths, two epochs
+# of 8 steps (the first warms up) of each (mode, accum_steps)
+SHARDED_RUNS = (("fsdp", 1), ("zero1", 1), ("fsdp", 4))
+SHARDED_EPOCHS = 2
+SHARDED_STEPS = SHARDED_EPOCHS * (RESNET["train"] // P // RESNET["per_rank"])  # 16
+RESNET_GATHER = RESNET_PARAMS // P  # fsdp's packed parameter shards per rank, one K3 'ag'
+# the card against the CPU: ResNet-18 (8 classes, 16 px, 4 images a rank) and
+# LeNet at the MNIST path's widths, p=8, three steps of each (mode,
+# accum_steps, remat); losses within rtol 1e-4, parameters within atol 1e-4
+SHARDED_SMALL = (("fsdp", 1, False), ("zero1", 1, False), ("fsdp", 2, False), ("fsdp", 1, True))
 # K1 and K2's bound over a whole ResNet-50 step: every leaf's two inputs read
 # and its result written once, f32, p=8
 RESNET_STEP_BYTES = 3 * 4 * P * RESNET_PARAMS
@@ -786,7 +814,9 @@ def check_resnet_shapes(dev, gen) -> dict:
     ResNet path's shapes: its largest fused flush and largest async bucket
     (K3), its largest leaf's update and momentum trace (K1, K2 with alpha
     0.9), and its first parameter sync, every parameter in one broadcast
-    (K7). Returns max |kernel - plain| of each, keyed ``name@resnet``."""
+    (K7); and K3 'rs' and 'ag' at the sharded path's largest packed
+    reduce-scatter flush and its packed parameter gather. Returns max
+    |kernel - plain| of each, keyed ``name@resnet`` or ``name@fsdp``."""
     err = {}
     for what, n in (("", RESNET_FLUSH), ("_bucket", RESNET_BUCKET)):
         x = torch.randn((P, n), generator=gen, device=dev)
@@ -806,6 +836,17 @@ def check_resnet_shapes(dev, gen) -> dict:
     k, pl = ops.ring_broadcast(x, 0), ops.ring_broadcast_plain(x, 0)
     require(torch.equal(bits(k), bits(pl)), f"ring_broadcast [{P}, {RESNET_PARAMS}] != plain")
     err["ring_broadcast@resnet"] = float((k - pl).abs().max())
+    # the sharded path: K3 'rs' at its largest packed flush, 'ag' at its
+    # packed parameter shards
+    for name, kernel, plain, n in (
+        ("ring_reduce_scatter", ops.ring_reduce_scatter, ops.ring_reduce_scatter_plain, RESNET_FLUSH),
+        ("ring_allgather", ops.ring_allgather, ops.ring_allgather_plain, RESNET_GATHER),
+    ):
+        x = torch.randn((P, n), generator=gen, device=dev)
+        k, pl = kernel(x), plain(x)
+        require(torch.equal(bits(k), bits(pl)), f"{name} [{P}, {n}] != plain")
+        err[f"{name}@fsdp"] = float((k - pl).abs().max())
+        del k, pl
     return err
 
 
@@ -1291,6 +1332,10 @@ def kernel_class(name: str) -> str:
     """The class of a device kernel by its name, for the ResNet split."""
     if "ring_allreduce_kernel" in name:
         return "K3 ring_allreduce"
+    if "ring_reduce_scatter_kernel" in name:
+        return "K3 ring_reduce_scatter"
+    if "ring_broadcast_kernel" in name:
+        return "K3 ring_allgather or K7 (the byte-copy ring)"
     if "tmpi::many_" in name:
         return "K2 scale_accumulate" if "Scale" in name else "K1 accumulate"
     if "tmpi::" in name:
@@ -1378,7 +1423,7 @@ def resnet_async_buckets(engine, comm, batch) -> None:
           "allreduce bit for bit")
 
 
-def resnet_profile(engine, batch, steps: int) -> dict:
+def resnet_profile(engine, batch, steps: int, path: str = "") -> dict:
     """``steps`` profiled steps (after the run): the ``{"profile"}`` line,
     and device time per step by kernel class (:func:`kernel_class`)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1390,7 +1435,7 @@ def resnet_profile(engine, batch, steps: int) -> dict:
             engine.step(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    row = print_profile(prof, wall_us, steps, f"ResNet-50 {engine.mode}, p={P}")
+    row = print_profile(prof, wall_us, steps, path or f"ResNet-50 {engine.mode}, p={P}")
     split: dict = {}
     for us, name, _ in device_rows(prof):
         split[kernel_class(name)] = split.get(kernel_class(name), 0.0) + us / steps
@@ -1452,6 +1497,184 @@ def phase_resnet(dev, mnist_sync: dict) -> dict:
           f"{mnist_sync['final_loss']:.4f}, test_acc {mnist_sync['test_acc']:.4f}; launches {counts}")
     return {"resnet_sync": sync["counts"], "resnet_async": asyn["counts"],
             "mnist_sequential": counts}
+
+
+def fusion_flushes(sizes: list) -> list:
+    """The flushes of one fusion-buffer group fed tensors of ``sizes``
+    elements a rank in turn: it flushes once ``fusion_buffer_bytes`` (f32)
+    are pending, and the rest when waited. Each flush is (elements a rank,
+    tensors)."""
+    cap = constants.get("fusion_buffer_bytes") // 4
+    flushes, pending, count = [], 0, 0
+    for n in sizes:
+        pending, count = pending + n, count + 1
+        if pending >= cap:
+            flushes, pending, count = flushes + [(pending, count)], 0, 0
+    return flushes + ([(pending, count)] if count else [])
+
+
+def sharded_expected(engine, steps: int) -> dict:
+    """The kernel launches one sharded ResNet run of ``steps`` steps routes,
+    from the parameters' sizes in the order the engine submits them and the
+    routing constants. Per step: K3 'rs' once per flush of the fusion
+    buffer's reduce-scatter group (a flush of fewer than
+    ``fusion_min_tensors`` tensors once per tensor); K3 'ag' once per dtype
+    of the sharded leaves (fsdp: the parameters before the forward; zero1:
+    the updates); K3 once per allreduce flush of the replicated leaves above
+    ``small_allreduce_size_cuda``; the momentum trace (K2) one list call;
+    the update (K1) one list call and, with ``accum_steps`` k > 1, k more
+    summing the microbatches' gradients. No K7: the sharded modes broadcast
+    nothing. Every other kernel: 0."""
+    sizes = {k: math.prod(shape[1:]) for k, shape in engine._shapes.items()}
+    sharded = set(engine._sharded)
+    least = max(1, constants.get("fusion_min_tensors"))
+    rs = fusion_flushes([n for k, n in sizes.items() if k in sharded])
+    ar = fusion_flushes([n for k, n in sizes.items() if k not in sharded])
+    cutoff = constants.get("small_allreduce_size_cuda")
+    leaves, k = list_launches(len(sizes)), engine.accum_steps
+    per_step = {
+        "ring_reduce_scatter": sum(1 if c >= least else c for _, c in rs),
+        "ring_allgather": len({engine.params[name].dtype for name in sharded}),
+        "ring_allreduce": sum(n > cutoff for n, _ in ar),
+        "scale_accumulate": leaves,
+        "accumulate": leaves * (1 + (k if k > 1 else 0)),
+    }
+    want = {name: 0 for name in ops.launch_counts()}
+    want.update({name: n * steps for name, n in per_step.items()})
+    return {"counts": want, "per_step": per_step, "rs_flushes": [n for n, _ in rs]}
+
+
+def sharded_small(dev, model_name: str, mode: str, accum: int, remat: bool) -> tuple:
+    """Three steps of ResNet-18 (8 classes, 16 px, 4 images a rank) or of
+    LeNet (the MNIST path's batch and lr), p=8, in one sharded mode, from
+    one init: the losses, then rank 0's gathered parameters."""
+    mpi.start(ranks=P, device=dev)
+    try:
+        comm = mpi.current_communicator()
+        kw = dict(comm=comm, param_sharding=mode, accum_steps=accum, remat=remat)
+        if model_name == "resnet18":
+            model = ResNet18(num_classes=8)
+            params, stats = init_resnet(model, 16, seed=0)
+            engine = AllReduceSGDEngine(make_stateful_loss_fn(model), params, model_state=stats,
+                                        optimizer=SGD(RESNET["lr"], momentum=RESNET["momentum"]),
+                                        **kw)
+            (x, y), _ = synthetic_imagenet(num_train=3 * P * 4, num_test=1, num_classes=8,
+                                           image_size=16)
+            x, y = x.reshape(3, P, 4, 16, 16, 3), y.reshape(3, P, 4)
+        else:
+            engine = AllReduceSGDEngine(make_loss_fn(LeNet()), init_params(LeNet(), seed=0), lr=LR,
+                                        **kw)
+            (x, y), _ = synthetic_mnist(num_train=3 * BATCH, num_test=1)
+            x, y = x.reshape(3, P, BATCH // P, 28, 28), y.reshape(3, P, BATCH // P)
+        x, y = torch.as_tensor(x), torch.as_tensor(y).long()
+        losses = [float(engine.step((x[i].to(dev), y[i].to(dev)))) for i in range(3)]
+        return losses, {k: v[0].cpu() for k, v in engine.gathered_params().items()}
+    finally:
+        mpi.stop()
+
+
+def sharded_path(dev, data, mode: str, accum: int, profile_steps: int = 0) -> dict:
+    """Drive the sharded path at full width: ``train_resident`` for
+    ``SHARDED_EPOCHS`` epochs of ResNet-50 with ``param_sharding=mode`` and
+    ``accum_steps=accum``, every launch count set to 0 just before the
+    engine is built and read just after training (:func:`sharded_expected`);
+    then, outside the counted run, the replica checks on the gathered
+    parameters and the statistics, the test accuracy and a
+    ``profile_steps``-step profile (if asked)."""
+    (xtr, ytr), (xte, yte) = data
+    model = ResNet50(num_classes=RESNET["classes"], device=dev)
+    params, stats = init_resnet(model, RESNET["image"], seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        engine = AllReduceSGDEngine(
+            make_stateful_loss_fn(model), params, comm=comm, model_state=stats,
+            optimizer=SGD(RESNET["lr"], momentum=RESNET["momentum"]), param_sharding=mode,
+            accum_steps=accum)
+        state = engine.train_resident(xtr, ytr, RESNET["per_rank"], max_epochs=SHARDED_EPOCHS)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        expected = sharded_expected(engine, state["t"])
+        name = f"{mode}" + (f" accum_steps={accum}" if accum > 1 else "")
+        require(counts == expected["counts"],
+                f"sharded {name}: launches {counts} != {expected['counts']}")
+        require(len(engine.params) == RESNET_LEAVES and len(engine._sharded) == RESNET_LEAVES
+                and sum(v.numel() for v in engine.params.values())
+                == (RESNET_PARAMS if mode == "fsdp" else P * RESNET_PARAMS),
+                f"sharded {name}: not ResNet-50's widths, or a leaf not sharded")
+        require(max(expected["rs_flushes"]) == RESNET_FLUSH,
+                f"sharded {name}: largest flush {max(expected['rs_flushes'])} != {RESNET_FLUSH}")
+        losses = state["losses"]
+        require(all(np.isfinite(losses)) and np.isfinite(state["loss"]),
+                f"sharded {name}: non-finite loss {losses}")
+        require(losses[-1] < losses[0], f"sharded {name}: loss did not fall: epochs {losses}")
+        mpinn.check_with_allreduce(engine.gathered_params(), comm)
+        mpinn.check_with_allreduce(engine.model_state, comm)
+        acc = engine.evaluate(make_eval_fn(model), xte, yte, accuracy)
+        require(0.0 <= acc <= 1.0, f"sharded {name}: test accuracy {acc}")
+        profile = None
+        if profile_steps:
+            row = resnet_profile(engine, resnet_batch(data, P, RESNET["per_rank"], dev),
+                                 profile_steps, f"ResNet-50 {name}, p={P}")
+            profile = {k: row[k] for k in ("window_us_per_step", "device_busy_share",
+                                           "split_us_per_step")}
+        steps_per_epoch = state["t"] // SHARDED_EPOCHS
+        steady_s = sum(state["epoch_times"][1:])
+        steady_steps = (SHARDED_EPOCHS - 1) * steps_per_epoch
+        img_per_s = steady_steps * P * RESNET["per_rank"] / steady_s
+        fwd = resnet_forward_flops(RESNET["image"], num_classes=RESNET["classes"])
+        achieved, frac = mfu(img_per_s, train_flops(fwd), torch.cuda.get_device_name(0))
+        out = {"param_sharding": mode, "accum_steps": accum, "steps": state["t"],
+               "step_ms": steady_s / steady_steps * 1e3, "img_per_s_per_chip": img_per_s,
+               "tflops": achieved / 1e12, "mfu_f32": frac, "peak_gb": peak_gb,
+               "epoch_losses": losses, "test_acc": acc,
+               "launches_per_step": expected["per_step"], "rs_flushes": expected["rs_flushes"],
+               "profile": profile, "counts": counts}
+        del engine
+    finally:
+        mpi.stop()
+    torch.cuda.empty_cache()
+    print(f"sharded: ResNet-50 {name}, p={P}, per-rank batch {RESNET['per_rank']}: {out['steps']} "
+          f"steps, epoch losses {losses}, test_acc {acc:.4f}, peak {peak_gb:.2f} GB, launches "
+          f"{counts} (a step: {expected['per_step']}; reduce-scatter flushes per rank "
+          f"{expected['rs_flushes']}), check_with_allreduce on the gathered parameters and the "
+          "statistics passed")
+    return out
+
+
+def phase_sharded(dev) -> dict:
+    """The sharded path (see the module docstring): ResNet-18 and LeNet on
+    the card against the CPU under fsdp, zero1, fsdp with two microbatches
+    and remat; then ResNet-50 at full width under each of
+    ``SHARDED_RUNS``, and one ``{"sharded": ...}`` line. Returns each full
+    run's launch counts."""
+    for model_name in ("resnet18", "lenet"):
+        for mode, accum, remat in SHARDED_SMALL:
+            what = f"{model_name} {mode} accum_steps={accum} remat={remat}"
+            cl, cp = sharded_small(dev, model_name, mode, accum, remat)
+            hl, hp = sharded_small(torch.device("cpu"), model_name, mode, accum, remat)
+            for a, b in zip(cl, hl):
+                require(abs(a - b) <= 1e-4 * abs(b), f"sharded {what}: loss {a} vs CPU {b}")
+            worst = max((float((cp[k] - hp[k]).abs().max()), k) for k in hp)
+            require(worst[0] <= 1e-4, f"sharded {what}: {worst[1]} differs from the CPU by {worst[0]}")
+            print(f"sharded: 3 steps of {what} on the card match the CPU plain path (losses {cl}, "
+                  f"max |card - CPU| {worst[0]:.3e} at {worst[1]})")
+    data = synthetic_imagenet(num_train=RESNET["train"], num_test=RESNET["test"],
+                              num_classes=RESNET["classes"], image_size=RESNET["image"])
+    runs, line = {}, []
+    for i, (mode, accum) in enumerate(SHARDED_RUNS):
+        out = sharded_path(dev, data, mode, accum, profile_steps=3 if i == 0 else 0)
+        runs[f"sharded_{mode}" + (f"_accum{accum}" if accum > 1 else "")] = out.pop("counts")
+        line.append(out)
+    print(json.dumps({"sharded": {
+        "model": "resnet50", "p": P, "per_rank_batch": RESNET["per_rank"], "image": RESNET["image"],
+        "classes": RESNET["classes"], "lr": RESNET["lr"], "momentum": RESNET["momentum"],
+        "runs": line, "card": card()}}))
+    return runs
 
 
 def ps_expected(variant: str, steps: int) -> tuple:
@@ -2009,6 +2232,28 @@ def timing_rows(randn) -> list:
             plain=lambda a, b: ops.scale_accumulate_many_plain(a, b, momentum),
             library=lambda a, b: torch._foreach_add(a, b, alpha=momentum), timing=LIST_TIMING,
         ),
+        # the sharded path (fsdp): K3 'rs' at its largest packed flush, 'ag'
+        # at its packed parameter shards
+        dict(
+            name="ring_reduce_scatter", at="ResNet-50 fsdp, its largest packed reduce-scatter flush",
+            err="ring_reduce_scatter@fsdp", per_step=("sharded_", SHARDED_STEPS),
+            source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:201",
+            shape=[P, flush], make=lambda: (randn(P, flush),), in_bytes=P * flush * 4,
+            bytes=(P + 1) * flush * 4, ops=(P - 1) * flush,
+            kernel=ops.ring_reduce_scatter, plain=ops.ring_reduce_scatter_plain,
+            library=lambda x: x.sum(0),
+        ),
+        dict(
+            name="ring_allgather", at="ResNet-50 fsdp, its parameter allgather",
+            err="ring_allgather@fsdp", per_step=("sharded_", SHARDED_STEPS),
+            source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:201",
+            shape=[P, RESNET_GATHER], make=lambda: (randn(P, RESNET_GATHER),),
+            in_bytes=P * RESNET_GATHER * 4, bytes=(P + P * P) * RESNET_GATHER * 4, ops=0,
+            kernel=ops.ring_allgather, plain=ops.ring_allgather_plain,
+            library=lambda x: x.reshape(1, -1).expand(P, -1).contiguous(),
+        ),
         dict(
             name="ring_broadcast", at="ResNet-50, the first parameter sync",
             err="ring_broadcast@resnet",
@@ -2177,9 +2422,10 @@ def time_rows(rows: list, runs: dict, errs: dict, launch_floor_ms: float) -> lis
         }
         if "at" in r:
             row["at"] = r["at"]
-            row["launches_per_resnet_step"] = {
-                path: counts[r["name"]] / RESNET_STEPS for path, counts in runs.items()
-                if path.startswith("resnet_")}
+            prefix, steps = r.get("per_step", ("resnet_", RESNET_STEPS))
+            row[f"launches_per_{prefix}step"] = {
+                path: counts[r["name"]] / steps for path, counts in runs.items()
+                if path.startswith(prefix)}
         if r.get("causal"):
             row["causal"] = True
         if r.get("tensor_cores"):
@@ -2223,24 +2469,41 @@ def host_us(fn, reps: int = 100) -> float:
     return statistics.median(times) * 1e6
 
 
-def phase_rs_retime(dev) -> None:
-    """K3 'rs' (``ring_reduce_scatter``) against ``x.sum(0)`` at [8, 2^23],
-    the kernels line's shapes and calls, timed in turns (kernel, sum, sum,
-    kernel, twice over) by :func:`time_ms` on inputs rotated past the L2:
-    four readings each, one ``{"rs_retime": ...}`` line of ms."""
+def in_turns(dev, kernel, library, n: int) -> dict:
+    """``kernel`` and ``library`` on [8, n] f32 inputs rotated past the L2,
+    timed in turns (kernel, library, library, kernel, twice over) by
+    :func:`time_ms`: four readings each, in ms."""
     gen = torch.Generator(device=dev).manual_seed(3)
 
     def make():
-        return (torch.randn((P, N23), generator=gen, device=dev),)
+        return (torch.randn((P, n), generator=gen, device=dev),)
 
-    fns = {"kernel_ms": rotating(ops.ring_reduce_scatter, make, P * N23 * 4),
-           "x_sum0_ms": rotating(lambda x: x.sum(0), make, P * N23 * 4)}
+    fns = {"kernel_ms": rotating(kernel, make, P * n * 4),
+           "library_ms": rotating(library, make, P * n * 4)}
     readings: dict = {name: [] for name in fns}
-    for name in ["kernel_ms", "x_sum0_ms", "x_sum0_ms", "kernel_ms"] * 2:
+    for name in ["kernel_ms", "library_ms", "library_ms", "kernel_ms"] * 2:
         readings[name].append(time_ms(fns[name]))
-    print(json.dumps({"rs_retime": {**readings, "shape": [P, N23],
-                                    "bound_ms": (P + 1) * N23 * 4 / HBM_BYTES_PER_S * 1e3,
-                                    "card": card()}}))
+    return readings
+
+
+def phase_rs_retime(dev) -> None:
+    """K3 'rs' (``ring_reduce_scatter``) against ``x.sum(0)`` at [8, 2^23],
+    the kernels line's shapes and calls, and, beside it, the sharded path's
+    K3 'rs' at its largest packed flush against ``x.sum(0)`` and K3 'ag' at
+    its packed parameter gather against expand-copy, each timed in turns
+    (:func:`in_turns`): one ``{"rs_retime": ...}`` line of ms."""
+    rs = in_turns(dev, ops.ring_reduce_scatter, lambda x: x.sum(0), N23)
+    fsdp_rs = in_turns(dev, ops.ring_reduce_scatter, lambda x: x.sum(0), RESNET_FLUSH)
+    fsdp_ag = in_turns(dev, ops.ring_allgather,
+                       lambda x: x.reshape(1, -1).expand(P, -1).contiguous(), RESNET_GATHER)
+    print(json.dumps({"rs_retime": {
+        "kernel_ms": rs["kernel_ms"], "x_sum0_ms": rs["library_ms"], "shape": [P, N23],
+        "bound_ms": (P + 1) * N23 * 4 / HBM_BYTES_PER_S * 1e3,
+        "fsdp_rs": {**fsdp_rs, "library": "x.sum(0)", "shape": [P, RESNET_FLUSH],
+                    "bound_ms": (P + 1) * RESNET_FLUSH * 4 / HBM_BYTES_PER_S * 1e3},
+        "fsdp_ag": {**fsdp_ag, "library": "expand-copy", "shape": [P, RESNET_GATHER],
+                    "bound_ms": (P + P * P) * RESNET_GATHER * 4 / HBM_BYTES_PER_S * 1e3},
+        "card": card()}}))
 
 
 def launch_floor_ms() -> float:
@@ -2286,6 +2549,10 @@ def main(argv=None) -> None:
         "--resnet", action="store_true",
         help="only the ResNet phase (after the build and the sync MNIST path it prints "
              "beside the sequential twin); prints no result line")
+    parser.add_argument(
+        "--sharded", action="store_true",
+        help="only the sharded phase (fsdp, zero1, accumulation and remat) and the "
+             "retime of K3 'rs' and 'ag', after the build; prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one card")
@@ -2309,6 +2576,10 @@ def main(argv=None) -> None:
     if args.resnet:
         phase_resnet(dev, main_path(dev, "sync", "full"))
         return
+    if args.sharded:
+        phase_sharded(dev)
+        phase_rs_retime(dev)
+        return
     errs = phase_kernels(dev)
     trainer = phase_trainer(dev)
     runs = {path: run["counts"] for path, run in trainer.items()}
@@ -2318,6 +2589,7 @@ def main(argv=None) -> None:
     lm_runs, lm_stats = phase_lm(dev)
     runs.update(lm_runs)
     runs.update(phase_resnet(dev, trainer["sync"]))
+    runs.update(phase_sharded(dev))
     runs.update(phase_ps(dev))
     phase_ps_vs_cpu(dev)
     phase_ps_throughput()

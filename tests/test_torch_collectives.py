@@ -101,7 +101,14 @@ def test_selector_cuda_row():
     assert selector.select("broadcast", cuda) == "kernel"
     # the ring backend is available, so reduce takes it, as on the JAX tpu row
     assert selector.select("reduce", cuda) == "ring"
-    for op in ("allgather", "reducescatter", "alltoall", "sendreceive"):
+    # sync allgather and reducescatter take the kernel rings on one node,
+    # which carry the engine's sharded modes
+    for op in ("allgather", "reducescatter"):
+        assert selector.select(op, cuda) == "kernel"
+        assert selector.select(op, cuda, mode="async") == "xla"
+        assert selector.select(op, cuda, multinode=True) == "xla"
+        assert selector.select(op, cpu) == "xla"
+    for op in ("alltoall", "sendreceive"):
         assert selector.select(op, cuda) == "xla"
     # async allreduce on the card is the same ring on a side stream, as the
     # reference's GPU async allreduce was its p2p ring

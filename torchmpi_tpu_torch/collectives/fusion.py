@@ -1,20 +1,30 @@
-"""Coalescing of same-dtype allreduces into one flat buffer.
+"""Coalescing of same-dtype allreduces and reduce-scatters into one flat
+buffer.
 
 The port of the part of ``torchmpi_tpu/collectives/fusion.py:FusionBuffer``
-that ``nn.synchronize_gradients(fused=True)`` uses: tensors submitted for
-an allreduce are grouped by ``(op, dtype, wire, backend)``
-(``fusion.py:126-136``); a group flushes as ONE allreduce of a
-``[p, total]`` buffer when its pending per-rank payload reaches
-``fusion_buffer_bytes`` or when a caller waits on it, and each handle
-slices its tensor back out. A flush of fewer than
+that ``nn.synchronize_gradients(fused=True)`` and the engine's sharded
+modes use: tensors submitted for an allreduce or a reduce-scatter are
+grouped by ``(op, dtype, wire, backend)`` (``fusion.py:126-136``); a group
+flushes as ONE collective of a ``[p, total]`` buffer when its pending
+per-rank payload reaches ``fusion_buffer_bytes`` or when a caller waits on
+it, and each handle slices its tensor back out. A flush of fewer than
 ``fusion_min_tensors`` tensors dispatches them one by one. Routing (the
 small-message cutoff) is decided on the fused total, which is what pushes
-many small gradients onto the kernel path. The JAX version's async
-dispatch, reduce-scatter packing and telemetry wait for later slices.
+many small gradients onto the kernel path.
+
+A reduce-scatter is fused only for a ``[p, n]`` tensor whose ``n`` divides
+by p (``fusion.py:207-214``); any other dispatches at once. Its flush
+interleaves the group (``fusion.py:349-364``): each tensor's ``[p, n_i]``
+becomes ``[p, p, n_i / p]`` and the chunk axes are concatenated, so rank
+r's scattered block holds every tensor's r-th chunk, and tensor i's result
+is the ``[p, n_i / p]`` slice of the ``[p, total / p]`` output at offset
+``sum(n_j / p, j < i)``. The JAX version's async dispatch and telemetry
+wait for later slices.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -22,7 +32,7 @@ import torch
 from .. import constants
 from ..runtime.communicator import Communicator
 
-_FUSABLE = ("allreduce",)
+_FUSABLE = ("allreduce", "reducescatter")
 
 
 class FusionHandle:
@@ -95,7 +105,10 @@ class FusionBuffer:
         from . import _dispatch
 
         cap = constants.get("fusion_buffer_bytes")
-        if cap <= 0 or op not in _FUSABLE or x.ndim < 1:
+        p = self.comm.size
+        scatter = op == "reducescatter"
+        if (cap <= 0 or op not in _FUSABLE or x.ndim < 1
+                or scatter and (x.ndim != 2 or x.shape[-1] % p)):
             return _Done(
                 _dispatch(op, x, self.comm, "sync", backend, wire_dtype=wire_dtype)
             )
@@ -103,7 +116,7 @@ class FusionBuffer:
         group = self._groups.get(key)
         if group is None:
             group = self._groups[key] = _PendingGroup(self, key)
-        h = FusionHandle(group, group.add(x.reshape(self.comm.size, -1), x.shape))
+        h = FusionHandle(group, group.add(x.reshape(p, -1), x.shape))
         if group.pending_bytes() >= cap:
             self._flush_group(group)
         return h
@@ -134,11 +147,18 @@ class FusionBuffer:
                 for f, s in zip(flats, group.shapes)
             ]
             return
-        out = _dispatch(op, torch.cat(flats, dim=1), self.comm, "sync", backend,
-                        wire_dtype=wire_dtype)
+        p = self.comm.size
+        if op == "reducescatter":
+            # interleaved: rank r's scattered block holds every tensor's
+            # r-th chunk, so tensor i's chunk sits at its offset / p
+            buf = torch.cat([f.reshape(p, p, -1) for f in flats], dim=2).reshape(p, -1)
+            shapes = [(p, s[1] // p) for s in group.shapes]
+        else:
+            buf, shapes = torch.cat(flats, dim=1), group.shapes
+        out = _dispatch(op, buf, self.comm, "sync", backend, wire_dtype=wire_dtype)
         results, off = [], 0
-        for f, s in zip(flats, group.shapes):
-            n = f.shape[1]
+        for s in shapes:
+            n = math.prod(s[1:])
             results.append(out[:, off : off + n].reshape(s))
             off += n
         group.results = results

@@ -50,14 +50,19 @@ _SLOW = {c: ["xla", "ring"] for c in _COLLECTIVES}
 # was its p2p ring (torchmpi_async_p2p_allreduce_THCudaTensor,
 # collectives_cuda.cpp:1457-1466): on one card an async collective is the
 # same kernel on a side stream. (The JAX tpu row's async entries are 'xla',
-# because its engine's async buckets are in-graph psums.)
+# because its engine's async buckets are in-graph psums.) Single-node sync
+# allgather and reducescatter prefer it for the same reason: on one node the
+# reference's collectives were its own ring, and on the card the
+# kernel's allgather beats its library call (expand-copy) and its
+# reduce-scatter ties ``x.sum(0)`` (PERF.md); they carry the engine's
+# sharded modes.
 _CUDA_SINGLENODE_SYNC = {
     "broadcast": ["kernel", "ring", "xla"],
     "reduce": ["ring", "xla"],
     "allreduce": ["kernel", "ring", "xla"],
     "sendreceive": ["xla", "ring"],
-    "allgather": ["xla", "ring"],
-    "reducescatter": ["xla", "ring"],
+    "allgather": ["kernel", "ring", "xla"],
+    "reducescatter": ["kernel", "ring", "xla"],
     "alltoall": ["xla", "ring"],
 }
 _DEFAULT: Dict[str, Dict[str, Dict[str, Dict[str, List[str]]]]] = {

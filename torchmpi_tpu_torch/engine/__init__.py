@@ -1,6 +1,6 @@
 """Training engines of the port and their optimizer."""
 
-from .optim import SGD
+from .optim import SGD, Adam
 from .sgd import AllReduceSGDEngine
 
-__all__ = ["AllReduceSGDEngine", "SGD"]
+__all__ = ["Adam", "AllReduceSGDEngine", "SGD"]

@@ -1,11 +1,15 @@
-"""Data-parallel SGD over virtual ranks, synchronous or asynchronous.
+"""Data-parallel SGD over virtual ranks: synchronous or asynchronous with
+replicated parameters, or synchronous with sharded optimizer state
+(``'zero1'``) or sharded parameters and optimizer state (``'fsdp'``).
 
-The port of ``torchmpi_tpu/engine/sgd.py:AllReduceSGDEngine`` with
-replicated parameters (``sgdengine.lua``). The JAX engine compiles one
-SPMD step whose gradient sync is in-graph; PyTorch has no such step, so
-this one does what ``sgdengine.lua`` did through
-``mpinn.synchronizeGradients`` — eager allreduces after the backward pass,
-which the selector sends through the ring kernels:
+The port of ``torchmpi_tpu/engine/sgd.py:AllReduceSGDEngine``. The JAX
+engine compiles one SPMD step whose gradient sync is in-graph (and, under
+fsdp/zero1, one GSPMD step over the global batch); PyTorch has no such
+step, so this one does what ``sgdengine.lua`` did through
+``mpinn.synchronizeGradients`` — eager collectives after the backward
+pass, which the selector sends through the ring kernels.
+
+``param_sharding='replicated'`` (the reference's model):
 
 1. per-rank losses and gradients over the rank-stacked batch, each rank
    with its own copy of the parameters: ``torch.func.vmap`` of
@@ -30,23 +34,78 @@ which the selector sends through the ring kernels:
 4. divide by p (``average_gradients=True``);
 5. the optimizer's update (:class:`~torchmpi_tpu_torch.engine.optim.SGD`:
    plain SGD with ``lr``, or with a momentum whose trace step is the
-   scale-accumulate kernel over every leaf at once), added to the
+   scale-accumulate kernel over every leaf at once; or
+   :class:`~torchmpi_tpu_torch.engine.optim.Adam`), added to the
    parameters by the accumulate kernel over every leaf at once (the port's
    ``optax.apply_updates``).
 
 At construction the parameters are replicated to every rank and, with
 ``broadcast_parameters=True``, equalised from rank 0 by
-``nn.synchronize_parameters`` (the ring-broadcast kernel). Under a
-compressed wire each chunk's owner keeps its f32 sum and the other ranks
-its wire decoding, so replicas drift apart by the wire's rounding, as in
-the JAX engine. The model state is replicated as it is given, not
+``nn.synchronize_parameters`` (the ring-broadcast kernel), which
+:meth:`AllReduceSGDEngine.broadcast_parameters_now` repeats on demand.
+Under a compressed wire each chunk's owner keeps its f32 sum and the other
+ranks its wire decoding, so replicas drift apart by the wire's rounding,
+as in the JAX engine. The model state is replicated as it is given, not
 broadcast, as in the JAX engine.
 
+``param_sharding='zero1'`` / ``'fsdp'`` (``sgd.py:343-361``, ``517-556``):
+a leaf is sharded when one of its axes has at least p elements and divides
+by p, as in the JAX engine; any other leaf stays replicated and its
+gradient is allreduced as above. Rank r's shard of a leaf is the r-th p-th
+of the leaf's row-major flattening, ``[p, n / p]`` over the ranks: the
+r-th block of the leaf's axis 0 where that axis divides by p. The JAX
+engine shards the first axis of the flax leaf that divides by p; the
+port's leaves are flax's transposed (dense kernels ``[out, in]``, conv
+kernels OIHW; ``models.convert``), so a resharding between the two moves
+that axis to the front of the port's layout before flattening. The step:
+
+1. under ``'fsdp'`` the parameter shards, packed per dtype, are gathered
+   by one ``allgather_tensor`` (K3 'ag'); under ``'zero1'`` the
+   parameters are replicated already;
+2. each rank's partial gradient: the gradient of the global loss with
+   respect to that rank's copy of the weights. For a stateless loss that
+   is the rank's gradient of its own mean loss, divided by p after the
+   sum. With a ``model_state`` the loss is called once on the rank-stacked
+   parameters, state and batch and must return the mean loss over all
+   ranks' rows and the global new state (``models.make_stateful_loss_fn``
+   does: batch norm over every rank's rows, as the JAX GSPMD step; the
+   state is not averaged afterwards);
+3. the sharded leaves' partials are summed by the reduce-scatter form of
+   the communicator's ``FusionBuffer`` (K3 'rs' per flush), each rank
+   keeping its shard of the sum;
+4. the optimizer runs on the shards (the momentum trace one K2 list
+   call); under ``'fsdp'`` one K1 list call adds the updates to the
+   parameter shards; under ``'zero1'`` the updates are gathered by one
+   ``allgather_tensor`` (K3 'ag', "the applied updates are gathered once
+   per step", ``sgd.py:211-214``) and one K1 list call adds them to the
+   replicated parameters.
+
+One process holds one logical copy, as in the JAX package, so the sharded
+modes broadcast nothing at construction and ``broadcast_parameters_now``
+is the identity (``sgd.py:376-389, 574-579``). ``self.params`` holds the
+shards of the sharded leaves under ``'fsdp'``;
+:meth:`AllReduceSGDEngine.gathered_params` gives the full rank-stacked
+parameters in every mode.
+
+``accum_steps=k`` cuts each rank's batch into k equal microbatches (rows
+``[i b, (i + 1) b)`` of every rank, the rank-major split of
+``sgd.py:527-540``), runs them in turn, sums their gradients from zeros
+with K1 list calls and divides by k, then makes one collective and one
+update (``sgd.py:430-464``). The model state gets k microbatch-sized
+updates: per rank, then averaged, under ``'replicated'``; global under the
+sharded modes. ``remat=True`` wraps the loss so that its backward
+recomputes the forward (:class:`_Remat`), with gradients equal to the
+plain ones bit for bit. ``batch_format`` ('auto' | 'flat' | 'stacked')
+says whether :meth:`AllReduceSGDEngine.step` takes flat ``[p B, ...]``
+batches (``sgd.py:1495-1519``).
+
 :meth:`AllReduceSGDEngine.train_resident` stages a dataset on the device
-once and runs epochs of steps over it, and
-:meth:`AllReduceSGDEngine.evaluate` runs a metric over an evaluation set
-split over the ranks. fsdp/zero1, accumulation, remat and checkpoints wait
-for later slices (ROADMAP queue A5).
+once and runs epochs of steps over it (rank r's batches from its own
+contiguous shard in every mode), and :meth:`AllReduceSGDEngine.evaluate`
+runs a metric over an evaluation set split over the ranks. The JAX
+engine's checkpoints (``checkpoint_every``), ``collective_specs`` and
+``precompile``, ``resize``, profiling and telemetry options and
+``invalidate_eval_cache`` wait for later slices (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -58,11 +117,71 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from .. import constants
+from .. import collectives, constants
 from .. import nn as mpinn
 from ..ops import accumulate_many
 from ..runtime.communicator import Communicator
 from .optim import SGD
+
+Tree = Dict[str, torch.Tensor]
+
+
+class _Remat(torch.autograd.Function):
+    """A loss whose backward recomputes its forward (``jax.checkpoint``):
+    ``apply(run, n, *flat)`` returns ``run(*flat)``, a tuple of the loss and
+    any state tensors (not differentiable), without keeping the forward's
+    activations; the backward runs ``run`` again under ``torch.func.vjp``
+    for the first ``n`` inputs (the parameters). It composes with
+    ``torch.func.grad`` and ``vmap`` (``setup_context`` and a generated
+    vmap rule), which ``torch.utils.checkpoint`` does not, and computes
+    the same operations, so the gradients equal the plain ones bit for
+    bit."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, n, *flat):
+        return run(*flat)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, n, *flat = inputs
+        ctx.run, ctx.n = run, n
+        ctx.save_for_backward(*flat)
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
+    def backward(ctx, grad_loss, *_):
+        flat, n = ctx.saved_tensors, ctx.n
+        _, vjp = torch.func.vjp(lambda *prm: ctx.run(*prm, *flat[n:])[0], *flat[:n])
+        return (None, None) + tuple(vjp(grad_loss)) + (None,) * (len(flat) - n)
+
+
+def remat_loss(loss_fn: Callable, has_state: bool) -> Callable:
+    """``loss_fn`` (``(params, batch) -> loss``, or ``(params, state,
+    batch) -> (loss, new_state)`` with ``has_state``) through
+    :class:`_Remat`."""
+
+    def wrapped(params: Tree, *rest):
+        keys = list(params)
+        flat_rest, spec = pytree.tree_flatten(rest)
+        state_keys: list = []
+
+        def run(*flat):
+            args = pytree.tree_unflatten(list(flat[len(keys):]), spec)
+            out = loss_fn(dict(zip(keys, flat[:len(keys)])), *args)
+            if not has_state:
+                return (out,)
+            loss, state = out
+            state_keys[:] = list(state)
+            return (loss,) + tuple(state.values())
+
+        out = _Remat.apply(run, len(keys), *[params[k] for k in keys], *flat_rest)
+        if not has_state:
+            return out[0]
+        return out[0], dict(zip(state_keys, out[1:]))
+
+    return wrapped
 
 
 class AllReduceSGDEngine:
@@ -71,9 +190,10 @@ class AllReduceSGDEngine:
     ``loss_fn(params, batch) -> scalar`` is one rank's loss (see
     ``models.make_loss_fn``); ``params`` is a dict of un-stacked initial
     parameters. ``self.params`` holds the rank-stacked ``[p, ...]``
-    parameters on the communicator's device, ``self.opt_state`` the
-    optimizer's state and ``self.model_state`` the rank-stacked model
-    state (or None)."""
+    parameters on the communicator's device (under ``'fsdp'``, the
+    ``[p, n / p]`` shards of the sharded leaves), ``self.opt_state`` the
+    optimizer's state (on the shards under the sharded modes) and
+    ``self.model_state`` the rank-stacked model state (or None)."""
 
     def __init__(
         self,
@@ -87,27 +207,51 @@ class AllReduceSGDEngine:
         broadcast_parameters: bool = True,
         hooks: Optional[Dict[str, Callable]] = None,
         wire_dtype: Optional[str] = None,
-        optimizer: Optional[SGD] = None,
+        optimizer=None,
         model_state: Optional[Dict[str, torch.Tensor]] = None,
         rank_map: str = "vmap",
+        param_sharding: str = "replicated",
+        accum_steps: int = 1,
+        remat: bool = False,
+        batch_format: str = "auto",
     ):
         """``mode``: 'sync' (one fused allreduce) or 'async' (bucketed);
         ``num_buckets``: the buckets of async mode (``BlockSequential``'s
         N). ``wire_dtype``: the gradient allreduce's wire ('full' |
         'bf16' | 'int8'; None = the ``wire_dtype`` constant, read once
-        here). ``optimizer``: an :class:`~torchmpi_tpu_torch.engine.SGD`
-        (None: plain SGD with ``lr``). ``model_state``: a dict of un-stacked
-        mutable model state (batch-norm statistics); ``loss_fn`` then has
-        the signature ``loss_fn(params, state, batch) -> (loss,
-        new_state)`` and the new states are averaged over the ranks every
-        step. ``rank_map``: 'vmap' or 'loop', how the per-rank gradients
-        are computed (the same values either way)."""
+        here, under ``'replicated'``; 'full' under the sharded modes).
+        ``optimizer``: an :class:`~torchmpi_tpu_torch.engine.SGD` or
+        :class:`~torchmpi_tpu_torch.engine.Adam` (None: plain SGD with
+        ``lr``). ``model_state``: a dict of un-stacked mutable model state
+        (batch-norm statistics); ``loss_fn`` then has the signature
+        ``loss_fn(params, state, batch) -> (loss, new_state)``.
+        ``rank_map``: 'vmap' or 'loop', how the per-rank gradients are
+        computed (the same values either way). ``param_sharding``:
+        'replicated', 'zero1' or 'fsdp'; the sharded modes require
+        ``mode='sync'`` and ``average_gradients=True``. ``accum_steps``:
+        microbatches per step. ``remat``: recompute the forward in the
+        backward. ``batch_format``: 'auto', 'flat' or 'stacked' (see
+        :meth:`step`)."""
         if comm is None:
             from .. import runtime_state
 
             comm = runtime_state.current_communicator()
         if mode not in ("sync", "async"):
             raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
+        if batch_format not in ("auto", "flat", "stacked"):
+            raise ValueError(f"batch_format must be auto/flat/stacked, got {batch_format!r}")
+        if param_sharding not in ("replicated", "fsdp", "zero1"):
+            raise ValueError(
+                f"param_sharding must be replicated/fsdp/zero1, got {param_sharding!r}")
+        sharded = param_sharding != "replicated"
+        if sharded and (mode != "sync" or not average_gradients):
+            raise ValueError(
+                f"param_sharding={param_sharding!r} requires mode='sync' and "
+                "average_gradients=True (the global-batch loss already yields mean "
+                "gradients)"
+            )
+        if not isinstance(accum_steps, int) or accum_steps < 1:
+            raise ValueError(f"accum_steps must be a positive int, got {accum_steps!r}")
         if wire_dtype not in (None, "full", "bf16", "int8"):
             raise ValueError(
                 f"wire_dtype must be None/'full'/'bf16'/'int8', got {wire_dtype!r}"
@@ -115,7 +259,12 @@ class AllReduceSGDEngine:
         if rank_map not in ("vmap", "loop"):
             raise ValueError(f"rank_map must be 'vmap' or 'loop', got {rank_map!r}")
         if wire_dtype is None:
-            wire_dtype = constants.get("wire_dtype")
+            wire_dtype = constants.get("wire_dtype") if not sharded else "full"
+        if wire_dtype in ("bf16", "int8") and sharded:
+            raise ValueError(
+                f"wire_dtype={wire_dtype!r} requires param_sharding='replicated' (the "
+                "sharded modes' reduce-scatter and allgather ship the full wire)"
+            )
         self.wire_dtype = wire_dtype
         # a compressed wire needs the bucketed (flat-buffer) sync even in
         # sync mode; one bucket keeps sync mode's single collective
@@ -125,25 +274,86 @@ class AllReduceSGDEngine:
             else None
         )
         self.comm = comm
-        self.loss_fn = loss_fn
         self.lr = lr
         self.optimizer = optimizer if optimizer is not None else SGD(lr)
         self.mode = mode
         self.average_gradients = average_gradients
         self.hooks = hooks or {}
         self.rank_map = rank_map
+        self.param_sharding = param_sharding
+        self.accum_steps = accum_steps
+        self.remat = remat
+        self.batch_format = batch_format
+        has_state = model_state is not None
+        self.loss_fn = remat_loss(loss_fn, has_state) if remat else loss_fn
+        p = comm.size
+        # rank-stacked shapes, and the leaves the sharded modes shard
+        # (sgd.py:343-361: an axis of at least p that divides by p)
+        self._shapes = {k: (p,) + tuple(v.shape) for k, v in params.items()}
+        self._sharded = [k for k, v in params.items()
+                         if sharded and any(d >= p and d % p == 0 for d in v.shape)]
         self.params = self._replicate(params)
-        if broadcast_parameters:
-            self.params = self._own(mpinn.synchronize_parameters(self.params, comm))
-        self.opt_state = self.optimizer.init(self.params)
+        if param_sharding == "fsdp":
+            self.params = self._shard_tree(self.params)
+        elif broadcast_parameters and not sharded:
+            self.broadcast_parameters_now()
+        self.opt_state = self.optimizer.init(self._shard_tree(self.params))
         self.model_state = None if model_state is None else self._replicate(model_state)
         self._grad_fn = self._per_rank(
-            torch.func.grad_and_value(loss_fn, has_aux=model_state is not None))
+            torch.func.grad_and_value(self.loss_fn, has_aux=has_state))
 
     def _replicate(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         p = self.comm.size
         return {k: v.detach().to(self.comm.device).unsqueeze(0).repeat((p,) + (1,) * v.ndim)
                 for k, v in tree.items()}
+
+    def _shard_tree(self, tree: Tree) -> Tree:
+        """``tree`` with each sharded leaf that is still whole (rank-stacked
+        ``[p, ...]``) cut to rank r's shard on rank r, ``[p, n / p]``."""
+        p = self.comm.size
+        out = dict(tree)
+        for k in self._sharded:
+            if tree[k].shape == self._shapes[k]:
+                r = torch.arange(p, device=tree[k].device)
+                out[k] = tree[k].reshape(p, p, -1)[r, r]
+        return out
+
+    def _gather(self, shards: Tree) -> Tree:
+        """``shards`` with every sharded leaf made whole: the shards of one
+        dtype packed ``[p, total / p]`` and gathered by one
+        ``allgather_tensor`` (rank s's block holds every leaf's s-th
+        chunk), then each leaf cut back out."""
+        p = self.comm.size
+        out = dict(shards)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for k in self._sharded:
+            by_dtype.setdefault(shards[k].dtype, []).append(k)
+        for names in by_dtype.values():
+            packed = torch.cat([shards[k] for k in names], dim=1)
+            full = collectives.allgather_tensor(packed, comm=self.comm).reshape(p, p, -1)
+            off = 0
+            for k in names:
+                m = shards[k].shape[1]
+                # contiguous, as the kernels take their leaves
+                out[k] = full[:, :, off:off + m].reshape(self._shapes[k]).contiguous()
+                off += m
+        return out
+
+    def gathered_params(self) -> Tree:
+        """The full rank-stacked ``[p, ...]`` parameters: under ``'fsdp'``
+        the shards gathered (one ``allgather_tensor`` per dtype), else
+        ``self.params``."""
+        if self.param_sharding == "fsdp":
+            return self._gather(self.params)
+        return self.params
+
+    def broadcast_parameters_now(self) -> None:
+        """One-shot replica equalisation (``sgdengine.lua:140-144``,
+        ``sgd.py:893``): rank 0's parameters on every rank, by one fused
+        broadcast (the ring-broadcast kernel above the tree cutoff). The
+        identity under the sharded modes, which hold one logical copy."""
+        if self.param_sharding == "replicated":
+            self.params = self._own(mpinn.synchronize_parameters(self.params, self.comm))
 
     def _per_rank(self, fn: Callable) -> Callable:
         """``fn`` over rank-stacked arguments, its outputs stacked on a
@@ -165,20 +375,109 @@ class AllReduceSGDEngine:
         # take contiguous inputs
         return {k: v.contiguous() for k, v in tree.items()}
 
-    def step(self, batch) -> torch.Tensor:
-        """One training step on a rank-stacked batch ``(x[p, B, ...],
-        y[p, B])``; updates ``self.params`` (and ``self.opt_state`` and
-        ``self.model_state``) and returns the mean of the ranks' losses as
-        a device scalar (not synchronised)."""
-        if self.model_state is None:
-            grads, losses = self._grad_fn(self.params, batch)
+    def _prepare_batch(self, batch):
+        """A rank-stacked ``[p, B, ...]`` batch on the communicator's
+        device from a flat ``[p B, ...]`` or a rank-stacked one
+        (``sgd.py:1495-1519``). Under 'auto' a batch is rank-stacked when
+        every leaf has at least two dims and a leading axis of p; that is
+        ambiguous for flat batches of exactly p samples whose every leaf
+        is at least 2-D (one-hot labels ``[p, C]``), which
+        ``batch_format='flat'`` or ``'stacked'`` settles."""
+        p = self.comm.size
+        leaves, spec = pytree.tree_flatten(batch)
+        leaves = [torch.as_tensor(t).to(self.comm.device) for t in leaves]
+        if self.batch_format == "auto":
+            stacked = all(t.ndim >= 2 and t.shape[0] == p for t in leaves)
         else:
-            grads, (losses, new_state) = self._grad_fn(self.params, self.model_state, batch)
-            # cross-replica batch statistics before the gradient sync, as the
-            # JAX step's pmean (sgd.py:489-492): one fused allreduce, / p
-            self.model_state = self._own(
-                mpinn.synchronize_parameters(new_state, self.comm, with_allreduce=True))
-        if self.buckets is None:
+            stacked = self.batch_format == "stacked"
+        if not stacked:
+            bad = [tuple(t.shape) for t in leaves if t.ndim < 1 or t.shape[0] % p]
+            if bad:
+                raise ValueError(f"flat batch leaves {bad} do not split over {p} ranks")
+            leaves = [t.reshape((p, t.shape[0] // p) + t.shape[1:]) for t in leaves]
+        return pytree.tree_unflatten(leaves, spec)
+
+    def _grads(self, params: Tree, state, batch) -> tuple:
+        """``(grads, loss, new_state)`` of one (micro)batch: the ranks'
+        gradients (under the sharded modes with a model state, the
+        partial gradients of the global loss), the mean loss as a device
+        scalar, and the new state, not yet averaged."""
+        if state is None:
+            grads, losses = self._grad_fn(params, batch)
+            return grads, losses.mean(), None
+        if self.param_sharding == "replicated":
+            grads, (losses, new_state) = self._grad_fn(params, state, batch)
+            return grads, losses.mean(), new_state
+        keys = list(params)
+        leaves = [params[k].detach().requires_grad_() for k in keys]
+        with torch.enable_grad():
+            loss, new_state = self.loss_fn(dict(zip(keys, leaves)), state, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return (dict(zip(keys, grads)), loss.detach(),
+                {k: v.detach() for k, v in new_state.items()})
+
+    def _accumulated(self, params: Tree, batch) -> tuple:
+        """:meth:`_grads` over ``accum_steps`` microbatches in turn: the
+        gradients summed from zeros by K1 list calls and divided by
+        ``accum_steps``, the mean of the losses, the state after the last
+        microbatch (``sgd.py:430-464``)."""
+        k = self.accum_steps
+        if k == 1:
+            return self._grads(params, self.model_state, batch)
+        n = pytree.tree_leaves(batch)[0].shape[1]
+        if n % k:
+            raise ValueError(f"per-rank batch {n} not divisible by accum_steps={k}")
+        b = n // k
+        keys = list(params)
+        gsum = [torch.zeros_like(params[key]) for key in keys]
+        state, losses = self.model_state, []
+        for i in range(k):
+            micro = pytree.tree_map(lambda t, i=i: t[:, i * b:(i + 1) * b], batch)
+            grads, loss, state = self._grads(params, state, micro)
+            gsum = accumulate_many(gsum, [grads[key].contiguous() for key in keys])
+            losses.append(loss)
+        return ({key: g / k for key, g in zip(keys, gsum)}, torch.stack(losses).mean(), state)
+
+    def _sync_sharded(self, grads: Tree, scale: float) -> Tree:
+        """The sharded modes' gradient sync: the sharded leaves' partials
+        through the ``FusionBuffer``'s reduce-scatter (rank r keeps its
+        shard of the sum), the others allreduced; every sum times
+        ``scale``."""
+        p = self.comm.size
+        fb = collectives.get_fusion_buffer(self.comm)
+        handles = {k: fb.submit("reducescatter", grads[k].reshape(p, -1)) for k in self._sharded}
+        fb.flush_for(handles.values())
+        out = {k: h.wait() for k, h in handles.items()}
+        rest = {k: g for k, g in grads.items() if k not in handles}
+        if rest:
+            out.update(mpinn.synchronize_gradients(rest, self.comm))
+        return {k: (out[k] * scale).to(grads[k].dtype) for k in grads}
+
+    def step(self, batch) -> torch.Tensor:
+        """One training step on a batch ``(x, y)``, rank-stacked ``[p, B,
+        ...]`` or flat ``[p B, ...]`` (``batch_format``); updates
+        ``self.params`` (and ``self.opt_state`` and ``self.model_state``)
+        and returns the mean loss over the ranks as a device scalar (not
+        synchronised)."""
+        return self._step(self._prepare_batch(batch))
+
+    def _step(self, batch) -> torch.Tensor:
+        sharding = self.param_sharding
+        params = self.gathered_params()
+        grads, loss, new_state = self._accumulated(params, batch)
+        if new_state is not None:
+            if sharding == "replicated":
+                # cross-replica batch statistics before the gradient sync, as
+                # the JAX step's pmean (sgd.py:489-492): one fused allreduce, / p
+                new_state = self._own(mpinn.synchronize_parameters(
+                    new_state, self.comm, with_allreduce=True))
+            self.model_state = new_state
+        if sharding != "replicated":
+            # partials of the global loss sum to its gradient; per-rank
+            # gradients of the ranks' own mean losses sum to p times it
+            scale = 1.0 if self.model_state is not None else 1.0 / self.comm.size
+            grads = self._sync_sharded(grads, scale)
+        elif self.buckets is None:
             grads = mpinn.synchronize_gradients(
                 grads, self.comm, average=self.average_gradients
             )
@@ -190,10 +489,14 @@ class AllReduceSGDEngine:
                 grads, handles, average=self.average_gradients
             )
         updates, self.opt_state = self.optimizer.update(grads, self.opt_state)
-        keys = list(self.params)
+        target = self.params
+        if sharding == "zero1":
+            # the applied updates are gathered once per step (sgd.py:211-214)
+            updates = self._gather(updates)
+        keys = list(target)
         self.params = dict(zip(keys, accumulate_many(
-            [self.params[k] for k in keys], [updates[k] for k in keys])))
-        return losses.mean()
+            [target[k] for k in keys], [updates[k] for k in keys])))
+        return loss
 
     def _hook(self, name: str, state: Dict[str, Any]) -> None:
         fn = self.hooks.get(name)
@@ -202,7 +505,8 @@ class AllReduceSGDEngine:
 
     def train(self, iterator_fn: Callable[[], Any], max_epochs: int = 5) -> Dict[str, Any]:
         """Run the training loop (``sgd.py:1379``): ``iterator_fn()`` is
-        called per epoch and yields rank-stacked device batches. Hooks
+        called per epoch and yields batches (rank-stacked or flat, as
+        :meth:`step` takes them). Hooks
         ``on_start``, ``on_start_epoch``, ``on_sample``, ``on_forward``,
         ``on_backward``, ``on_update``, ``on_end_epoch`` and ``on_end`` get
         the state dict; ``state['losses']`` holds each epoch's last loss,
@@ -225,9 +529,10 @@ class AllReduceSGDEngine:
             loss = None
             self._hook("on_start_epoch", state)
             for batch in iterator_fn():
+                batch = self._prepare_batch(batch)
                 state["sample"] = batch
                 self._hook("on_sample", state)
-                loss = self.step(batch)
+                loss = self._step(batch)
                 state["loss"] = loss
                 self._hook("on_forward", state)
                 self._hook("on_backward", state)
@@ -283,7 +588,8 @@ class AllReduceSGDEngine:
         step loss, plus ``epoch_times``; ``epoch_callback(epoch, loss,
         seconds)`` runs after each epoch. Epoch-level hooks fire as in
         :meth:`train`, the per-step ones do not (as in the JAX engine).
-        The parameters were equalised at construction."""
+        The parameters were equalised at construction. Every mode walks
+        the same batches (``sgd.py:1199-1241``)."""
         p, dev = self.comm.size, self.comm.device
         xd, yd = self.stage_dataset(x, y, dtype=image_dtype)
         ns = xd.shape[0] // p
@@ -313,7 +619,7 @@ class AllReduceSGDEngine:
             losses = []
             for i in range(nb):
                 idx = perm[:, i * per_rank_batch:(i + 1) * per_rank_batch]
-                losses.append(self.step((xs[rows, idx], ys[rows, idx])))
+                losses.append(self._step((xs[rows, idx], ys[rows, idx])))
             losses = torch.stack(losses).cpu()  # waits for the epoch's steps
             state["epoch_times"].append(time.perf_counter() - te)
             state["t"] += nb
@@ -336,17 +642,19 @@ class AllReduceSGDEngine:
         as :meth:`stage_dataset` cuts it (the tail ``len(x) % p`` dropped),
         each rank runs its shard on its own parameters and state, and the
         ranks' values are averaged: ``metric`` must be a mean-style
-        reduction, so the result is its value over the kept set."""
+        reduction, so the result is its value over the kept set. Under
+        ``'fsdp'`` the parameters are gathered first."""
         p = self.comm.size
         if len(x) < p:
             raise ValueError(f"evaluation set of {len(x)} samples < {p} ranks")
         xd, yd = self.stage_dataset(x, y)
         xs, ys = xd.reshape((p, -1) + xd.shape[1:]), yd.reshape(p, -1)
+        params = self.gathered_params()
         if self.model_state is None:
-            fn, args = (lambda prm, xb, yb: metric(apply_fn(prm, xb), yb)), (self.params,)
+            fn, args = (lambda prm, xb, yb: metric(apply_fn(prm, xb), yb)), (params,)
         else:
             fn = lambda prm, st, xb, yb: metric(apply_fn(prm, st, xb), yb)  # noqa: E731
-            args = (self.params, self.model_state)
+            args = (params, self.model_state)
         with torch.no_grad():
             values = self._per_rank(fn)(*args, xs, ys)
         return float(values.float().mean())

@@ -15,15 +15,23 @@ throughput and MFU against the card's f32 (``--bf16``: bf16) peak by the
 analytic FLOP count, checks replica consistency of the parameters and the
 statistics, and evaluates the test accuracy over the ranks.
 
-``--fsdp`` and ``--accum-steps`` (ROADMAP A5) and ``--streaming`` /
-``--input-workers`` (ROADMAP A12) are not ported yet: the parser rejects
-them instead of ignoring them.
+``--fsdp`` shards the parameters and the momentum over the ranks
+(``param_sharding='fsdp'``): the parameter shards are gathered before
+each forward (the ring-allgather kernel), the batch statistics are the
+global batch's, and the partial gradients are reduce-scattered (the ring
+reduce-scatter kernel) before the momentum step and the update run on the
+shards; the replica check then runs on the gathered parameters.
+``--accum-steps N`` cuts each step's per-rank batch into N microbatches
+whose gradients are summed before one collective and one update.
+``--streaming`` / ``--input-workers`` (ROADMAP A12) are not ported yet:
+the parser rejects them instead of ignoring them.
 
 Run:  python -m torchmpi_tpu_torch.examples.resnet_allreduce [--mode async]
+      [--fsdp] [--accum-steps 4]
       (ResNet-50, 224 px, 8 ranks, per-rank batch 32 on the card)
       python -m torchmpi_tpu_torch.examples.resnet_allreduce --device cpu
       --ranks 2 --model resnet18 --classes 8 --image-size 16 --train 32
-      --test 16 --per-rank-batch 4
+      --test 16 --per-rank-batch 4 [--fsdp --accum-steps 2]
 """
 
 from __future__ import annotations
@@ -35,8 +43,6 @@ import torch
 
 # flags of the JAX example that wait for a later slice
 _UNPORTED = {
-    "fsdp": "--fsdp waits for param_sharding='fsdp' (ROADMAP A5)",
-    "accum_steps": "--accum-steps waits for accum_steps (ROADMAP A5)",
     "streaming": "--streaming waits for the streaming input pipeline (ROADMAP A12)",
     "input_workers": "--input-workers waits for the streaming input pipeline (ROADMAP A12)",
 }
@@ -58,13 +64,14 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--device", default=None, help="default: cuda:0")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--fsdp", action="store_true", help="not ported (ROADMAP A5)")
-    ap.add_argument("--accum-steps", type=int, default=1, help="not ported (ROADMAP A5)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="ZeRO-3: shard params + optimizer state over the ranks")
+    ap.add_argument("--accum-steps", type=int, default=1,
+                    help="gradient accumulation microbatches per step")
     ap.add_argument("--streaming", action="store_true", help="not ported (ROADMAP A12)")
     ap.add_argument("--input-workers", type=int, default=0, help="not ported (ROADMAP A12)")
     args = ap.parse_args(argv)
-    given = {"fsdp": args.fsdp, "accum_steps": args.accum_steps != 1,
-             "streaming": args.streaming, "input_workers": args.input_workers != 0}
+    given = {"streaming": args.streaming, "input_workers": args.input_workers != 0}
     for flag, why in _UNPORTED.items():
         if given[flag]:
             ap.error(why)
@@ -112,7 +119,10 @@ def main(argv: Optional[Sequence[str]] = None):
             # grouped convolutions are slower and hold every rank's
             # activations at once (PERF.md)
             rank_map="loop",
+            param_sharding="fsdp" if args.fsdp else "replicated",
+            accum_steps=args.accum_steps,
         )
+        print(f"[resnet] param_sharding {engine.param_sharding}, accum_steps {args.accum_steps}")
 
         def log_epoch(epoch, loss, secs):
             ips = args.per_rank_batch * p * ((args.train // p // args.per_rank_batch) or 1) / max(secs, 1e-9)
@@ -129,7 +139,7 @@ def main(argv: Optional[Sequence[str]] = None):
               f"{achieved / 1e12:.3f} TFLOP/s/chip"
               + (f", MFU {frac:.1%}" if frac is not None else " (no peak for this device: MFU n/a)"))
         # replica consistency of the parameters and the batch statistics
-        mpinn.check_with_allreduce(engine.params, comm)
+        mpinn.check_with_allreduce(engine.gathered_params(), comm)
         mpinn.check_with_allreduce(engine.model_state, comm)
         print("check_with_allreduce: ok")
         acc = engine.evaluate(make_eval_fn(model), xte, yte, accuracy)

@@ -1,7 +1,8 @@
-"""Models of the port: the MNIST family, the ResNet family and the
-long-context LM."""
+"""Models of the port: the MNIST family, the 6-layer MLP, the ResNet family
+and the long-context LM."""
 
 from .convert import from_jax_params, lm_from_jax_params, resnet_from_jax_params
+from .mlp import MLP6
 from .mnist import (
     LeNet,
     LogisticRegression,
@@ -33,6 +34,7 @@ __all__ = [
     "LeNet",
     "LogisticRegression",
     "LongContextTransformer",
+    "MLP6",
     "ResNet",
     "ResNet18",
     "ResNet50",

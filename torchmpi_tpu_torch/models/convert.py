@@ -1,7 +1,7 @@
 """Carry the JAX package's model weights into the port's modules.
 
-``from_jax_params`` takes the flax parameter tree of ``LeNet`` or
-``LogisticRegression`` as nested dicts of numpy arrays (as
+``from_jax_params`` takes the flax parameter tree of ``LeNet``,
+``LogisticRegression`` or ``MLP6`` as nested dicts of numpy arrays (as
 ``jax.device_get`` returns it) and gives the matching ``state_dict`` of the
 port's module: flax's ``Conv_i`` / ``Dense_i`` become ``conv{i}`` /
 ``dense{i}``, conv kernels ``[kh, kw, in, out]`` become ``[out, in, kh,

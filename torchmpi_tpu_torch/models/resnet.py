@@ -24,8 +24,20 @@ function, so the weights of one carry to the other through
 
 The model runs over a parameter dict and a statistics dict (its buffers)
 through ``torch.func.functional_call``, so the engine can map it over
-rank-stacked copies: :func:`make_stateful_loss_fn` gives the engine's
-``loss_fn(params, state, batch) -> (loss, new_state)`` and
+rank-stacked copies. Given rank-stacked parameters (``[p, ...]``, one copy
+a rank) and a rank-stacked batch ``[p, B, H, W, C]``, the training forward
+runs the ranks together, as the JAX engine's sharded step runs one
+computation over the global batch (``engine/sgd.py:517-556``): each
+convolution and the head run rank by rank on the rank's own weights (a
+loop inside the layer; the grouped form was 2.28x slower at ResNet-50's
+width, PERF.md), and batch norm normalises over every rank's rows, (rank,
+batch, H, W), before each rank's own scale and bias, the counterpart of
+the per-channel sums that GSPMD all-reduces inside the forward; its new
+statistics are the global ones, the same on every rank. The gradient of
+the mean loss over all rows with respect to rank r's weights is then rank
+r's partial gradient, and their sum over the ranks the global gradient.
+:func:`make_stateful_loss_fn` gives the engine's
+``loss_fn(params, state, batch) -> (loss, new_state)`` (either form) and
 :func:`make_eval_fn` the evaluation's ``apply_fn(params, state, x)``.
 :func:`init_resnet` draws flax's initialisers from a seeded
 ``torch.Generator``: lecun-normal conv and dense kernels, zero biases, BN
@@ -90,7 +102,53 @@ class Conv(nn.Module):
             x, pad = _pad_same(x, self.kernel, self.stride)
         else:
             pad = self.padding
-        return F.conv2d(x, self.weight.to(self.dtype), stride=self.stride, padding=pad)
+        weight = self.weight.to(self.dtype)
+        if weight.ndim == 5:
+            # rank-stacked: x holds the ranks' batches one after another,
+            # each convolved with its own rank's weights
+            return torch.cat([F.conv2d(xr, wr, stride=self.stride, padding=pad)
+                              for xr, wr in zip(x.chunk(len(weight)), weight)])
+        return F.conv2d(x, weight, stride=self.stride, padding=pad)
+
+
+class _RankBatchNorm(torch.autograd.Function):
+    """Training batch norm of rank-stacked rows: ``x`` ``[p B, C, H, W]``
+    normalised over every rank's rows, then rank r's rows scaled and
+    shifted by its own ``weight[r]`` and ``bias[r]`` (``[p, C]``).
+    Returns ``(y, mean, invstd)``. It keeps what ATen's batch norm keeps,
+    the input and the per-channel statistics, where composing the
+    normalisation and the per-rank scale would keep the normalised rows
+    too (a second copy of every batch norm's activations); the backward
+    recomputes them."""
+
+    @staticmethod
+    def forward(x, weight, bias):
+        xhat, mean, invstd = torch.ops.aten.native_batch_norm(x, None, None, None, None, True,
+                                                             0.0, BN_EPS)
+        shape = (len(weight), 1, -1, 1, 1)
+        y = xhat.unflatten(0, (len(weight), -1)) * weight.reshape(shape) + bias.reshape(shape)
+        return y.flatten(0, 1), mean, invstd
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, weight, _ = inputs
+        _, mean, invstd = output
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mark_non_differentiable(mean, invstd)
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        x, weight, mean, invstd = ctx.saved_tensors
+        p = len(weight)
+        stat = (-1, 1, 1)
+        xhat = ((x - mean.reshape(stat)) * invstd.reshape(stat)).unflatten(0, (p, -1))
+        dy = dy.unflatten(0, (p, -1))
+        dweight, dbias = (dy * xhat).sum(dim=(1, 3, 4)), dy.sum(dim=(1, 3, 4))
+        del xhat
+        dxhat = (dy * weight.reshape(p, 1, -1, 1, 1)).flatten(0, 1)
+        dx = torch.ops.aten.native_batch_norm_backward(
+            dxhat, x, None, None, None, mean, invstd, True, BN_EPS, [True, False, False])[0]
+        return dx, dweight, dbias
 
 
 class BatchNorm(nn.Module):
@@ -121,7 +179,9 @@ class BatchNorm(nn.Module):
         var = ((d * d).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
         new_stats[self.stats_name + "mean"] = BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean
         new_stats[self.stats_name + "var"] = BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPS)
+        if self.weight.ndim == 1:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPS)
+        return _RankBatchNorm.apply(x, self.weight, self.bias)[0]
 
 
 class BottleneckBlock(nn.Module):
@@ -211,12 +271,19 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 new_stats: Optional[Tree] = None) -> torch.Tensor:
+        if x.ndim == 5:  # rank-stacked [p, B, H, W, C]: the ranks' batches in turn
+            x = x.flatten(0, 1)
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW, channels_last memory
         x = F.relu(self.bn_init(self.conv_init(x), train, new_stats))
         x = max_pool_same(x)
         for block in self.blocks:
             x = block(x, train, new_stats)
-        return self.dense(x.mean(dim=(2, 3)))
+        x = x.mean(dim=(2, 3))
+        weight, bias = self.dense.weight, self.dense.bias
+        if weight.ndim == 3:  # rank-stacked: each rank's rows through its own head
+            x = torch.baddbmm(bias[:, None], x.unflatten(0, (len(weight), -1)), weight.mT)
+            return x.flatten(0, 1)
+        return self.dense(x)
 
 
 def ResNet18(**kw) -> ResNet:
@@ -255,15 +322,20 @@ def init_resnet(model: ResNet, image_size: int = 224, seed: int = 0, device=None
 def make_stateful_loss_fn(model: ResNet) -> Callable:
     """``loss_fn(params, state, batch) -> (loss, new_state)`` for the
     engine's ``model_state`` path: the mean cross-entropy of the training
-    forward and the new batch statistics (the engine averages them over
-    the ranks every step)."""
+    forward and the new batch statistics. On one rank's parameters and
+    batch it is that rank's loss (the replicated engine averages the
+    ranks' statistics every step); on rank-stacked parameters ``[p, ...]``,
+    state and batch ``([p, B, H, W, C], [p, B])`` it is the rank-stacked
+    forward (see :class:`ResNet`): the mean over all ``p * B`` rows, and
+    the global statistics on every rank, as the engine's sharded modes
+    need."""
 
     def loss_fn(params: Tree, state: Tree, batch) -> Tuple[torch.Tensor, Tree]:
         x, y = batch
         new_state: Tree = {}
         logits = torch.func.functional_call(model, {**params, **state}, (x,),
                                             {"train": True, "new_stats": new_state})
-        return cross_entropy_loss(logits, y), new_state
+        return cross_entropy_loss(logits, y.reshape(-1)), new_state
 
     return loss_fn
 
