@@ -9,7 +9,8 @@ phase fails:
 1. prints the card (``nvidia-smi`` name and power limit) and the
    toolchain;
 2. builds every kernel from ``torchmpi_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together) and prints the registers and spills of the
+   source, started together with the host compiler's build of the C++
+   async issue path, ``csrc/issue.cpp``) and prints the registers and spills of the
    tensor-core attention kernels and of K4 (``ring_quant_kernel``), and
    K4's SASS opcode counts (``{"ptxas": ...}``, ``{"sass": ...}``);
 3. holds each kernel against its plain PyTorch version on the card, at
@@ -45,7 +46,15 @@ phase fails:
    hold, each op's launch counts (0 just before, read just after) must be
    the calls the sweep routed to each kernel, and each config prints one
    ``{"bench": ...}`` line; then the host time to issue an async allreduce
-   at 2^8 elements and its parts (``{"async_issue": ...}``);
+   at 2^8 elements and its parts (``{"async_issue": ...}``: the schedule
+   compiler's memo hit and the C++ issue path among them); then the
+   schedule compiler's phase (:func:`phase_compiler`, the
+   ``{"compiler": ...}`` line): no plan-cache or dispatch-memo miss in 20
+   MNIST sync steps after ``engine.precompile()``, a ``plan_id`` on every
+   flight-recorder entry of 5 sync and 5 async int8 steps, the sync
+   step's time with telemetry off and on in turns, and the ``ring``
+   backend's allreduce at [8, 2^24] at the compiler's pipeline depth,
+   bitwise equal to depth 1;
 7. drives the long-context LM path (``examples/long_context.py``): a small
    LM on the card against the same LM on the CPU (plain versions), then the
    ``lm`` line's widths (vocab 8192, 8 layers, 8 heads x 64, d_model 512),
@@ -119,7 +128,8 @@ phase fails:
 
 ``python3 chip_smoke.py --resnet`` runs the build, the sync MNIST path and
 step 8's ResNet phase alone; ``--sharded`` the build, step 8's sharded
-path and step 11's retime. ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
+path and step 11's retime; ``--compiler`` the build, the schedule
+compiler's phase and the async issue line. ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
 SASS counts, holds it against its plain version and times its rows
@@ -416,7 +426,7 @@ def sass_counts(lib: Path, name_of) -> dict:
     return counts
 
 
-def phase_build(names=_build.SOURCES) -> None:
+def phase_build(names=_build.SOURCES + _build.EXTENSIONS) -> None:
     t0 = time.perf_counter()
     paths = _build.build_all(names)
     print(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
@@ -1934,11 +1944,17 @@ def phase_async_issue(dev) -> None:
     event and ``record_stream``, and ``run_async``'s own parts: the switch
     to the side stream and back, a stream context entered and left (the
     switch it replaces), the reused ordering event, and a handle made and
-    registered. Each the median of 1,000 calls on the host clock, after 50
-    warm-up calls, with every handle waited outside the timed window; one
+    registered; the schedule compiler's dispatch-memo hit alone
+    (``compile_collective_hit``), and the C++ issue path's own call for
+    the routed plan (``cpp_issue``: the ordering event, the stream switch,
+    the vendor path's three calls, the done event and ``record_stream``).
+    Each the median of 1,000 calls on the host clock, after 50 warm-up
+    calls, with every handle waited outside the timed window; one
     ``{"async_issue": ...}`` line of microseconds."""
     from torchmpi_tpu_torch.collectives import eager, selector
+    from torchmpi_tpu_torch.ops.issue import issue_async
     from torchmpi_tpu_torch.runtime.handles import SyncHandle, handles
+    from torchmpi_tpu_torch.schedule import compile_collective
 
     n = 1 << 8
 
@@ -1960,6 +1976,10 @@ def phase_async_issue(dev) -> None:
         x = torch.randn((P, n), device=dev)
         side = torch.cuda.Stream(dev)
         main, ctx, order = torch.cuda.current_stream(dev), torch.cuda.stream(side), torch.cuda.Event()
+        routed = selector.select("allreduce", dev, False, "async")
+        route = compile_collective("allreduce", tuple(x.shape), x.dtype, comm,
+                                   backend=routed).issue
+        require(route is not None, f"async_issue: the routed plan ({routed}) has no C++ route")
         row = {
             "async_allreduce_tensor": median_us(lambda: mpi.async_.allreduce_tensor(x), mpi.wait),
             "async_kernel_pinned": median_us(lambda: mpi.async_.kernel.allreduce_tensor(x),
@@ -1967,10 +1987,19 @@ def phase_async_issue(dev) -> None:
             "selector_select": median_us(lambda: selector.select("allreduce", dev, False,
                                                                  "async")),
             "eager_run_sync": median_us(lambda: eager.run("allreduce", x, comm, backend="kernel")),
-            # the route memoized (above) and re-derived on every call
+            # the plan memoized (above), and its dispatch memo dropped on
+            # every call (the plan cache still hits)
             "eager_run_route_miss": median_us(
-                lambda: (comm.__dict__.pop("_routes", None),
+                lambda: (comm.__dict__.pop("_dispatch_memo", None),
                          eager.run("allreduce", x, comm, backend="kernel"))),
+            # the routed call's memo lookup alone, and the C++ issue of its
+            # plan (the vendor path at 2^8)
+            "compile_collective_hit": median_us(
+                lambda: compile_collective("allreduce", tuple(x.shape), x.dtype, comm,
+                                           backend=routed)),
+            "cpp_issue": median_us(
+                lambda: SyncHandle(issue_async(x, side, order, torch.cuda.Event(), route)),
+                mpi.wait),
             # K3's wrapper at 2^8 (a launch): on the current stream, and
             # with the stream passed, as run_async passes its side stream
             "k3_wrapper": median_us(lambda: ops.ring_allreduce(x)),
@@ -1998,6 +2027,177 @@ def phase_async_issue(dev) -> None:
         mpi.stop()
     print(json.dumps({"async_issue": {"us": row, "nelem": n, "p": P, "reps": 1000,
                                       "reference_contract_us": 50}}))
+
+
+def plan_compiles() -> int:
+    """The schedule compiler's dispatch-memo misses so far (its
+    ``tm_plan_compiles_total`` counter, counted while telemetry is on)."""
+    series = mpi.telemetry.metrics.snapshot().get("tm_plan_compiles_total", {}).get("series", {})
+    return int(sum(series.values()))
+
+
+def mnist_engine(comm, mode: str, wire: str):
+    model = LeNet()
+    return AllReduceSGDEngine(make_loss_fn(model), init_params(model, seed=0), lr=LR, comm=comm,
+                              mode=mode, wire_dtype=wire)
+
+
+def mnist_batches(comm, steps: int) -> list:
+    (xtr, ytr), _ = synthetic_mnist()
+    it = DistributedIterator(xtr, ytr, BATCH, P, device=comm.device)
+    return [b for _, b in zip(range(steps), itertools.cycle(it))]
+
+
+def phase_compiler(dev) -> dict:
+    """The schedule compiler on the card (BASELINE config 1: LeNet, p=8,
+    batch 336):
+
+    1. warm plans: ``engine.precompile()``, then 20 sync steps with
+       telemetry on must make no dispatch-memo miss (the compiler's
+       ``tm_plan_compiles_total``, bumped by ``_count_compile``) and no
+       plan-cache miss (no new plan-cache entry), with every collective a
+       memo hit (``_count_hit``) and one K3 launch a step;
+    2. plan stamps: 5 sync steps and 5 async int8 steps with telemetry
+       and the flight recorder on: every entry completes, every
+       collective entry carries a ``plan_id``, one ``flat-kernel-full``
+       allreduce a sync step and an int8 ``flat-kernel`` plan for each
+       async step's bucket 0;
+    3. telemetry's cost: 30 sync steps with telemetry (and so the flight
+       recorder) off and on, in turns (off, on, on, off), ms a step;
+    4. the ring's pipeline depth: a ``ring``-backend allreduce at [8,
+       2^24] f32 runs the depth the compiler chose, bitwise equal to the
+       same ring at depth 1.
+
+    Prints one ``{"compiler": ...}`` line."""
+    from torchmpi_tpu_torch.collectives import eager
+    from torchmpi_tpu_torch.telemetry import flightrecorder
+
+    telemetry = mpi.telemetry
+    out = {}
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        engine = mnist_engine(comm, "sync", "full")
+        batches = mnist_batches(comm, 20)
+        warmed = engine.precompile()
+        telemetry.reset()
+        telemetry.enable()
+        try:
+            ops.reset_launch_counts()
+            plans_before = set(comm._plan_cache)
+            misses_before = plan_compiles()
+            for b in batches:
+                engine.step(b)
+            torch.cuda.synchronize()
+            hits = sum(telemetry.metrics.snapshot().get("tm_plan_cache_hits_total", {})
+                       .get("series", {}).values())
+            memo_misses = plan_compiles() - misses_before
+            plan_misses = len(set(comm._plan_cache) - plans_before)
+        finally:
+            telemetry.disable()
+        k3 = ops.launch_counts()["ring_allreduce"]
+        require(memo_misses == 0 and plan_misses == 0,
+                f"compiler: after precompile, 20 warm steps made {memo_misses} dispatch-memo and "
+                f"{plan_misses} plan-cache misses")
+        require(k3 == len(batches), f"compiler: {k3} K3 launches in {len(batches)} warm steps")
+        out["warm"] = {"warmed": warmed, "steps": len(batches), "memo_misses": memo_misses,
+                       "plan_cache_misses": plan_misses, "memo_hits": int(hits),
+                       "k3_launches": k3,
+                       "pinned": [comm._dispatch_memo.pinned_count(),
+                                  comm._plan_cache.pinned_count()]}
+
+        # plan stamps
+        telemetry.reset()
+        telemetry.enable()
+        try:
+            for b in batches[:5]:
+                engine.step(b)
+            quant = mnist_engine(comm, "async", "int8")
+            flightrecorder.recorder.reset()
+            for b in batches[:5]:
+                quant.step(b)
+            async_entries = flightrecorder.recorder.entries()
+            torch.cuda.synchronize()
+        finally:
+            telemetry.disable()
+        entries = async_entries
+        require(all(e["status"] == flightrecorder.STATUS_COMPLETED for e in entries),
+                "compiler: a flight entry did not complete")
+        collectives = [e for e in entries if not e["op"].startswith(("fusion.", "engine."))]
+        require(collectives and all(e["plan"] for e in collectives),
+                "compiler: a collective flight entry carries no plan_id")
+        bucket0 = [e["plan"] for e in collectives if e["wire"] == "int8"]
+        require(len(bucket0) == 5 and all(pl.startswith("flat-kernel-int8") for pl in bucket0),
+                f"compiler: async int8 bucket 0 plans {bucket0}")
+        out["stamps"] = {"async": sorted({(e["op"], e["plan"]) for e in collectives})}
+    finally:
+        mpi.stop()
+
+    # the sync steps' stamps, apart: a fresh runtime, so the entries are
+    # only these 5 steps'
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        engine = mnist_engine(comm, "sync", "full")
+        batches = mnist_batches(comm, 30)
+        telemetry.reset()
+        telemetry.enable()
+        try:
+            for b in batches[:5]:
+                engine.step(b)
+            torch.cuda.synchronize()
+            entries = flightrecorder.recorder.entries()
+        finally:
+            telemetry.disable()
+        require(all(e["status"] == flightrecorder.STATUS_COMPLETED for e in entries),
+                "compiler: a sync flight entry did not complete")
+        collectives = [e for e in entries if not e["op"].startswith(("fusion.", "engine."))]
+        require(all(e["plan"] for e in collectives),
+                "compiler: a sync collective flight entry carries no plan_id")
+        allreduces = [e["plan"] for e in collectives if e["op"] == "allreduce"]
+        require(len(allreduces) == 5 and all(pl.startswith("flat-kernel-full") for pl in allreduces),
+                f"compiler: sync allreduce plans {allreduces}")
+        out["stamps"]["sync"] = sorted({(e["op"], e["plan"], e["routing"]) for e in collectives})
+        out["stamps"]["entries"] = len(entries)
+
+        # telemetry's cost, in turns
+        def step_ms(on: bool) -> float:
+            (telemetry.enable if on else telemetry.disable)()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in batches:
+                    engine.step(b)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / len(batches)
+            finally:
+                telemetry.disable()
+
+        step_ms(False)  # warm
+        turns = [("off", step_ms(False)), ("on", step_ms(True)), ("on", step_ms(True)),
+                 ("off", step_ms(False))]
+        out["telemetry_step_ms"] = turns
+
+        # the ring's pipeline depth at [8, 2^24] f32
+        x = torch.randn((P, 1 << 24), device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+        from torchmpi_tpu_torch.schedule import compile_collective
+
+        ep = compile_collective("allreduce", tuple(x.shape), x.dtype, comm, backend="ring")
+        got = eager.run("allreduce", x, comm, backend="ring")
+        minb, maxb, nbuf = eager.ring_tuning("cuda")
+        want = primitives.ring_allreduce(x, max_bytes_per_step=maxb, min_bytes_per_step=minb,
+                                         num_buffers=nbuf, pipeline_depth=1)
+        require(torch.equal(bits(got), bits(want)),
+                f"compiler: the ring at depth {ep.plan.pipeline} differs from depth 1")
+        require(ep.plan.pipeline > 1, f"compiler: ring plan {ep.plan_id} is not pipelined")
+        out["ring_depth"] = {"shape": list(x.shape), "plan": ep.plan_id,
+                             "depth": ep.plan.pipeline, "bitwise_equal_depth1": True}
+        del x, got, want
+    finally:
+        mpi.stop()
+    out["card"] = card()
+    print(json.dumps({"compiler": out}))
+    return out
 
 
 def phase_profile(mode: str, wire: str) -> None:
@@ -2553,6 +2753,11 @@ def main(argv=None) -> None:
         "--sharded", action="store_true",
         help="only the sharded phase (fsdp, zero1, accumulation and remat) and the "
              "retime of K3 'rs' and 'ag', after the build; prints no result line")
+    parser.add_argument(
+        "--compiler", action="store_true",
+        help="only the schedule compiler's phase (warm plans after precompile, plan stamps, "
+             "telemetry's cost, the ring's pipeline depth) and the async issue line, after the "
+             "build; prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one card")
@@ -2580,12 +2785,17 @@ def main(argv=None) -> None:
         phase_sharded(dev)
         phase_rs_retime(dev)
         return
+    if args.compiler:
+        phase_compiler(dev)
+        phase_async_issue(dev)
+        return
     errs = phase_kernels(dev)
     trainer = phase_trainer(dev)
     runs = {path: run["counts"] for path, run in trainer.items()}
     phase_async(dev)
     runs.update(phase_bench())
     phase_async_issue(dev)
+    phase_compiler(dev)
     lm_runs, lm_stats = phase_lm(dev)
     runs.update(lm_runs)
     runs.update(phase_resnet(dev, trainer["sync"]))

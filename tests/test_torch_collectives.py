@@ -102,10 +102,12 @@ def test_selector_cuda_row():
     # the ring backend is available, so reduce takes it, as on the JAX tpu row
     assert selector.select("reduce", cuda) == "ring"
     # sync allgather and reducescatter take the kernel rings on one node,
-    # which carry the engine's sharded modes
+    # which carry the engine's sharded modes, and so does async
+    # reducescatter (the FusionBuffer's unfused remainder of a sharded step)
     for op in ("allgather", "reducescatter"):
         assert selector.select(op, cuda) == "kernel"
-        assert selector.select(op, cuda, mode="async") == "xla"
+        assert selector.select(op, cuda, mode="async") == (
+            "kernel" if op == "reducescatter" else "xla")
         assert selector.select(op, cuda, multinode=True) == "xla"
         assert selector.select(op, cpu) == "xla"
     for op in ("alltoall", "sendreceive"):

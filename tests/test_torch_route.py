@@ -1,10 +1,11 @@
 """``eager.run``'s memoized routes, on the CPU.
 
-The route of an eager collective (its effective backend, wire and
-function) is memoized on the communicator per call shape. These tests
-hold it to what re-deriving it would give: a changed constant changes the
-route, freeing the communicator's resources drops it, and the argument
-checks still run on every call. At p=3 the ring's order of adds gives
+The route of an eager collective (its plan: effective backend, wire and
+bound function) is memoized on the communicator per call shape, in the
+schedule compiler's dispatch memo. These tests hold it to what
+re-deriving it would give: a changed constant changes the route, freeing
+the communicator's resources drops it, and the argument checks still run
+on every call. At p=3 the ring's order of adds gives
 other f32 bits than the vendor path's sum on some elements, so the route
 a call took shows in its result.
 """
@@ -56,13 +57,15 @@ def test_routes_are_memoized_per_call_shape_and_freed(op):
     comm = tmpi.current_communicator()
     x = _x()
     first = eager.run(op, x, comm, backend="ring")
-    routes = comm.__dict__["_routes"][1]
+    routes = comm.__dict__["_dispatch_memo"]
     assert len(routes) == 1
     assert torch.equal(eager.run(op, x, comm, backend="ring"), first)
+    assert len(routes) == 1
     eager.run(op, x[:, :100].contiguous(), comm, backend="ring")
     assert len(routes) == 2  # one route per size
     eager.free_collective_resources(comm)
-    assert "_routes" not in comm.__dict__
+    assert "_dispatch_memo" not in comm.__dict__
+    assert "_plan_cache" not in comm.__dict__
 
 
 def test_checks_run_on_a_memoized_route():

@@ -168,20 +168,22 @@ def test_ring_tuning_and_broadcast_plan_match_jax(nelem, dtype):
 
 def test_selector_matches_the_jax_table(monkeypatch):
     """Each (op, mode) choice on a CUDA communicator is the JAX tpu row's
-    with 'pallas' named 'kernel', and on the CPU the JAX cpu row's. Three
+    with 'pallas' named 'kernel', and on the CPU the JAX cpu row's. Four
     choices differ on purpose: async allreduce on the card prefers the
     kernel ring on a side stream (the reference's GPU async allreduce was
     its p2p ring), where the JAX tpu row's async entries are in-graph
-    psums; and sync allgather and reducescatter prefer the kernel rings,
+    psums; sync allgather and reducescatter prefer the kernel rings,
     which carry the engine's sharded modes (on one node the reference's
-    collectives were its own ring), where the JAX tpu row names XLA's."""
+    collectives were its own ring), where the JAX tpu row names XLA's; and
+    async reducescatter prefers its kernel ring too (the FusionBuffer's
+    unfused remainder of a sharded step dispatches async)."""
     monkeypatch.setattr(jring, "_FORCE_INTERPRET", True)
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     for op in OPS:
         for mode in ("sync", "async"):
             want = jselector.select(op, "tpu", mode=mode).replace("pallas", "kernel")
             if (op, mode) in (("allreduce", "async"), ("allgather", "sync"),
-                              ("reducescatter", "sync")):
+                              ("reducescatter", "sync"), ("reducescatter", "async")):
                 want = "kernel"
             assert selector.select(op, cuda, mode=mode) == want, (op, mode)
             assert selector.select(op, cpu, mode=mode) == jselector.select(
@@ -341,7 +343,7 @@ def test_runtime_and_scalar_names_are_exported(name):
 
 def test_every_reference_name_is_exported():
     missing = {n for n in jmpi.__all__ if n not in tmpi.__all__ or not hasattr(tmpi, n)}
-    assert missing == {"telemetry", "pallas"}
+    assert missing == {"pallas"}
     assert tmpi.__version__ == jmpi.__version__
     assert tmpi.collective_selector is selector
 

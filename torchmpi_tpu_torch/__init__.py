@@ -22,14 +22,18 @@ kernel; ``mpi.async_`` returns handles to wait on (``mpi.wait(h)``). The whole
 collective surface (broadcast, reduce, allreduce, allgather, sendreceive,
 reducescatter, alltoall) runs on the ``xla``, ``ring`` and ``kernel``
 backends; ``python -m torchmpi_tpu_torch.examples.bench_collectives``
-sweeps it. ``mpi.parameterserver`` shards tensors over the ranks on the
-same device and runs the Downpour, EASGD and DSGD schedules
+sweeps it. Every eager collective is compiled by ``mpi.schedule`` to a
+cached plan (``python -m torchmpi_tpu_torch.schedule --explain`` shows the
+choice), and ``mpi.telemetry`` records its spans, metrics and
+flight-recorder entries, each stamped with the plan's ``plan_id``.
+``mpi.parameterserver`` shards tensors over the ranks on the same device
+and runs the Downpour, EASGD and DSGD schedules
 (``python -m torchmpi_tpu_torch.examples.mnist_parameterserver``).
 
 The package imports ``torch`` and never ``jax`` or ``torchmpi_tpu``.
 """
 
-from . import collectives, constants, nn, ops, parameterserver
+from . import collectives, constants, nn, ops, parameterserver, schedule, telemetry
 from .collectives import (
     allgather_tensor,
     allgatherv_tensor,
@@ -117,6 +121,7 @@ __all__ = [
     "reduce_tensor",
     "reducescatter_tensor",
     "ring",
+    "schedule",
     "sendreceive_scalar",
     "sendreceive_tensor",
     "set_collective_span",
@@ -128,6 +133,7 @@ __all__ = [
     "started",
     "stop",
     "sync_all",
+    "telemetry",
     "utils",
     "wait",
     "xla",

@@ -23,7 +23,7 @@ from .. import constants
 from ..runtime.communicator import Communicator
 from ..runtime.handles import SyncHandle, sync_all, wait
 from . import eager, primitives
-from .eager import CollectiveArgumentError, free_collective_resources
+from .eager import CollectiveArgumentError, free_collective_resources, precompile
 from .fusion import FusionBuffer, get_fusion_buffer
 from .selector import backend_availability, collective_availability, selector
 
@@ -42,7 +42,10 @@ def _current_comm(comm: Optional[Communicator]) -> Communicator:
 def _dispatch(op: str, x: torch.Tensor, comm: Optional[Communicator] = None,
               mode: str = "sync", backend: Optional[str] = None, **kw):
     """Run ``op`` on ``comm``: ``mode`` 'sync' returns the result, 'async'
-    a handle. ``backend=None`` takes the selector's choice for the mode,
+    a handle, 'fused' the result of a list of ``[p, n_i]`` slabs packed
+    and reduced as one plan (:func:`~.eager.run_fused`). ``backend=None``
+    takes the selector's choice for the mode (a fused dispatch takes the
+    'sync' choice),
     memoized on the communicator per ``(op, mode)`` as the JAX
     ``_dispatch`` does (``collectives/__init__.py:37-52``; it lives until
     the communicator's resources are freed); where that is a custom ring,
@@ -55,7 +58,8 @@ def _dispatch(op: str, x: torch.Tensor, comm: Optional[Communicator] = None,
         backend = cache.get((op, mode))
         if backend is None:
             backend = cache[(op, mode)] = selector.select(
-                op, comm.device, multinode=comm.num_nodes() > 1, mode=mode
+                op, comm.device, multinode=comm.num_nodes() > 1,
+                mode="sync" if mode == "fused" else mode,
             )
         if backend in ("ring", "kernel"):
             impl = constants.get("ring_implementation")
@@ -72,6 +76,8 @@ def _dispatch(op: str, x: torch.Tensor, comm: Optional[Communicator] = None,
                 backend = chosen
     if mode == "sync":
         return eager.run(op, x, comm, backend=backend, **kw)
+    if mode == "fused":
+        return eager.run_fused(op, x, comm, backend=backend, **kw)
     return eager.run_async(op, x, comm, backend=backend, **kw)
 
 
@@ -229,6 +235,7 @@ __all__ = [
     "free_collective_resources",
     "get_fusion_buffer",
     "kernel",
+    "precompile",
     "primitives",
     "reduce_scalar",
     "reduce_tensor",

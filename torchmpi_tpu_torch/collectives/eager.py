@@ -1,37 +1,47 @@
 """Eager collectives on rank-stacked tensors.
 
-The port of ``torchmpi_tpu/collectives/eager.py`` for flat plans: ``run``
-validates a rank-stacked ``[p, ...]`` tensor, resolves the backend (the
-size cutoff of :func:`op_route` and the kernel's dtype gates) and the wire
-format (:func:`resolve_wire_dtype`), and calls the backend's function
-directly; :func:`run_async` runs the same call on a side stream and
-returns a :class:`~torchmpi_tpu_torch.runtime.handles.SyncHandle`. The
-three backends are the JAX package's, with ``pallas`` named ``kernel``:
+The port of ``torchmpi_tpu/collectives/eager.py``: :func:`run` validates a
+rank-stacked ``[p, ...]`` tensor and has the schedule compiler
+(:func:`~torchmpi_tpu_torch.schedule.compile_collective`) resolve the
+request to a cached :class:`~torchmpi_tpu_torch.schedule.ir.Plan`: the
+effective backend (the size cutoff of :func:`op_route` and the kernels'
+dtype gates), the wire format (:func:`resolve_wire_dtype`), the schedule
+family and the ring's pipeline depth, bound to a function of the kernel
+table (:func:`_kernels`) and replayed through :func:`_dispatch`, which
+stamps the plan's ``plan_id`` on telemetry spans, metrics and
+flight-recorder entries. :func:`run_async` runs the same plan on a side
+stream and returns a
+:class:`~torchmpi_tpu_torch.runtime.handles.SyncHandle`; a warm CUDA
+allreduce is issued there by one C++ call (``ops/issue.py``).
+:func:`run_fused` packs and reduces a fusion buffer's flush as one plan,
+and :func:`precompile` warms and pins plans before training. The three
+backends are the JAX package's, with ``pallas`` named ``kernel``:
 
 - ``xla`` — plain PyTorch over the rank axis (``primitives``' vendor ops);
 - ``ring`` — the ``ppermute`` ring, hop by hop on the rank axis
-  (``primitives.ring_*``), with its byte-bounded steps, buffers and wire;
+  (``primitives.ring_*``), with its byte-bounded steps, buffers, wire and
+  pipeline depth;
 - ``kernel`` — the hand-written CUDA ring kernels (``ops``).
 
-The JAX package compiles each request through the schedule compiler
-(``schedule/compiler.py:607``); on a flat communicator that binds the flat
-lowering (``schedule/lower.py:50``) whose decisions are made here: the
-bidirectional ring under ``ring_implementation='kernel_bidir'``, the ring
-tuning, and the tree-or-pipeline broadcast. The other schedule families
-wait for later slices (ROADMAP queue A2).
+The compiler lowers the flat family only; the two-level families are
+ROADMAP A8 (``schedule/generators.py`` says how they are kept out).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
+from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from .. import constants
+from .. import constants, telemetry as _telemetry
+from ..ops import issue as _issue
 from ..runtime.communicator import Communicator
 from ..runtime.handles import SyncHandle, handles
+from ..telemetry import flightrecorder as _flight
 from . import primitives as prim
 
 _OPS = (
@@ -46,10 +56,74 @@ _OPS = (
 # collectives the compressed wire formats apply to (the bandwidth-path
 # reductions; data movers are lossless by contract and stay verbatim)
 _WIRE_OPS = ("allreduce", "reducescatter")
-_REDUCTIONS = ("allreduce", "reduce", "reducescatter")
-# routes eager.run memoizes per communicator before it starts afresh (a
-# sweep over sizes adds one per size)
-_MAX_ROUTES = 256
+_BACKENDS = ("xla", "ring", "kernel")
+
+# telemetry handles, created on first instrumented dispatch (the metric
+# objects are process-lived; the disabled path never touches them)
+_MET = None
+
+
+def _metric_handles():
+    global _MET
+    if _MET is None:
+        m = _telemetry.metrics
+        _MET = (
+            m.counter(
+                "tm_collective_calls_total",
+                "eager collective dispatches by op/backend/wire",
+            ),
+            m.histogram(
+                "tm_collective_dispatch_seconds",
+                "host-side dispatch wall time per eager collective "
+                "(CUDA launches are async: submit cost, not completion)",
+            ),
+        )
+    return _MET
+
+
+def _dispatch(fn, x, op: str, backend: str, wire: str, nelem: int,
+              comm: Optional[Communicator] = None, payload=None, routing: str = "",
+              plan: str = ""):
+    """Run ``fn(x)``, recording the dispatch (span + metrics) when
+    telemetry is enabled, plus a flight-recorder entry (per-comm seq, op,
+    payload, issue/complete stamps) when the recorder is on; one branch
+    each when disabled (``eager.py:91``; the port compiles no executable,
+    so there is no executable-cache label). ``payload`` is the raw (shape,
+    dtype) pair, stringified only at snapshot time. ``plan`` is the
+    schedule compiler's stable plan_id."""
+    entry = None
+    if _flight.enabled() and comm is not None:
+        entry = _flight.recorder.record(
+            _flight.comm_key(comm), op, payload=payload, wire=wire,
+            backend=backend, routing=routing, plan=plan,
+        )
+    if not _telemetry.enabled():
+        if entry is None:
+            return fn(x)
+        try:
+            out = fn(x)
+        except BaseException:
+            _flight.FlightRecorder.fail(entry)
+            raise
+        _flight.FlightRecorder.complete(entry)
+        return out
+    calls, lat = _metric_handles()
+    attrs = {"backend": backend, "wire_dtype": wire, "nelem": nelem}
+    if plan:
+        attrs["plan"] = plan
+    t0 = time.perf_counter()
+    try:
+        with _telemetry.span(f"collective.{op}", **attrs):
+            out = fn(x)
+    except BaseException:
+        if entry is not None:
+            _flight.FlightRecorder.fail(entry)
+        raise
+    if entry is not None:
+        _flight.FlightRecorder.complete(entry)
+    calls.inc(op=op, backend=backend, wire=wire)
+    lat.observe(time.perf_counter() - t0, op=op, backend=backend)
+    return out
 
 
 class CollectiveArgumentError(ValueError):
@@ -68,18 +142,93 @@ def _check_rank_stacked(x: torch.Tensor, comm: Communicator) -> None:
         )
 
 
+class _LRUCache(OrderedDict):
+    """Bounded cache (``eager.py:162``): get() refreshes recency, inserts
+    evict the least-recently-used entry past
+    ``collective_cache_max_entries``. The schedule compiler's plan cache
+    and dispatch memo use it: a 2^8..2^23 tester sweep would otherwise
+    accumulate an entry per size with no way back (the reference frees
+    its per-size descriptors for the same reason,
+    ``torchmpi/cache.lua:19-61``).
+
+    Entries may be **pinned** (:meth:`pin`, the ``precompile`` path):
+    pinned entries are never LRU-evicted, so a sweep cannot evict the
+    plans a training loop declared up front. They still go away with the
+    whole cache (``free_collective_resources`` / ``stop()``, a wholesale
+    teardown)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._pinned = set()
+        self._access_log = None  # set: records gets/inserts when armed
+
+    def log_accesses(self, log: Optional[set]) -> None:
+        """Arm (or, with None, disarm) access logging: every hit and
+        insert lands in ``log``. Used by ``precompile`` to pin exactly
+        the entries its dispatches touched, entries that already existed
+        included."""
+        self._access_log = log
+
+    def get(self, key, default=None):
+        try:
+            value = super().__getitem__(key)
+        except KeyError:
+            return default
+        self.move_to_end(key)
+        if self._access_log is not None:
+            self._access_log.add(key)
+        return value
+
+    def pin(self, key) -> bool:
+        """Exempt ``key`` from LRU eviction; True if it was present."""
+        if key in self:
+            self._pinned.add(key)
+            return True
+        return False
+
+    def pinned_count(self) -> int:
+        return len(self._pinned)
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self.move_to_end(key)
+        if self._access_log is not None:
+            self._access_log.add(key)
+        limit = constants.get("collective_cache_max_entries")
+        while len(self) > limit:
+            victim = next((k for k in self if k not in self._pinned), None)
+            if victim is None:
+                break  # everything pinned: the pins outrank the bound
+            del self[victim]
+
+
+def _dispatch_memo(comm: Communicator) -> _LRUCache:
+    """The warm-dispatch memo: call signature -> bound
+    :class:`~torchmpi_tpu_torch.schedule.compiler.ExecutablePlan`
+    (``eager.py:232``), on the communicator."""
+    memo = comm.__dict__.get("_dispatch_memo")
+    if memo is None:
+        memo = comm.__dict__["_dispatch_memo"] = _LRUCache()
+    return memo
+
+
 def free_collective_resources(comm: Communicator) -> None:
     """The analog of the reference's ``freeCollectiveResources``
     (``torchmpi/cache.lua:19-61``), which the tester calls between sizes
     and :func:`~torchmpi_tpu_torch.runtime_state.stop` calls for every stack
     level (``eager.py:246``): dispatch the fusion buffer's pending groups,
-    then drop the communicator's memoized selector choices (and backend
-    availability), its memoized routes and its fusion buffer. The port
-    compiles nothing per size, so there is no executable to free."""
+    then drop the communicator's dispatch memo and plan cache (pinned
+    entries too: teardown outranks pins), its memoized selector choices
+    (and backend availability) and its fusion buffer. The port compiles
+    nothing per size, so there is no executable to free."""
     fb = getattr(comm, "_fusion_buffer", None)
     if fb is not None:
-        fb.flush_all()
-    for attr in ("_selector_cache", "_availability", "_fusion_buffer", "_routes"):
+        try:
+            fb.flush_all(reason="explicit")
+        except Exception:
+            pass
+    for attr in ("_dispatch_memo", "_plan_cache", "_selector_cache", "_availability",
+                 "_fusion_buffer"):
         comm.__dict__.pop(attr, None)
 
 
@@ -104,27 +253,6 @@ def op_route(op: str, nelem: int, platform: str, requested: str = "ring") -> str
     else:
         return requested
     return "xla" if nelem <= cutoff else requested
-
-
-def effective_backend(op: str, nelem: int, dtype: torch.dtype, platform: str,
-                      backend: str, route_small: bool) -> str:
-    """Resolve the requested backend (``schedule/compiler.py:190``): the
-    small-message cutoff reroutes custom requests to the vendor path; a
-    reduction whose dtype the kernels cannot carry exactly, and a complex
-    payload of any op, fall to the ``ring`` backend, as in the JAX
-    package."""
-    effective = backend
-    if backend in ("ring", "kernel") and route_small:
-        effective = op_route(op, nelem, platform, backend)
-    if effective == "kernel":
-        from ..ops import ring_kernels
-
-        if op in _REDUCTIONS:
-            if not ring_kernels.supports_dtype(dtype):
-                effective = "ring"
-        elif dtype.is_complex:
-            effective = "ring"
-    return effective
 
 
 def resolve_wire_dtype(op: str, nelem: int, dtype: torch.dtype,
@@ -202,13 +330,14 @@ def _allgather_lastdim(x: torch.Tensor, **kw) -> torch.Tensor:
 
 def _kernels(op: str, backend: str, nelem: int, dtype: torch.dtype,
              platform: str, root: int = 0, src: int = 0, dst: int = 0,
-             wire: str = "full") -> Callable:
+             wire: str = "full", pipeline: int = 1) -> Callable:
     """The function of ``backend`` that runs ``op`` on a rank-stacked
-    tensor (the flat part of the JAX ``_kernels`` table, with the flat
-    lowering's decisions). A compressed ``wire`` pins the quantized rings
+    tensor (the JAX ``_kernels`` table, with the flat lowering's
+    decisions). A compressed ``wire`` pins the quantized rings
     (``eager.py:489-500``); the vendor path ships every payload
-    verbatim. The kernel backend's functions pass ``stream=`` (the CUDA
-    stream to launch on) to the kernels."""
+    verbatim. ``pipeline`` is the plan's depth, which the ``ring``
+    backend's allreduce runs. The kernel backend's functions pass
+    ``stream=`` (the CUDA stream to launch on) to the kernels."""
     wire_arg = None if wire == "full" else wire
     if backend == "xla":
         table = {
@@ -221,14 +350,12 @@ def _kernels(op: str, backend: str, nelem: int, dtype: torch.dtype,
             "alltoall": prim.alltoall,
         }
     elif backend == "ring":
-        # pipeline depth 1: the JAX schedule compiler's depth choice changes
-        # no bits (primitives.ring_allreduce), and the port has no compiler
         minb, maxb, nbuf = ring_tuning(platform)
         tree, k = broadcast_plan(nelem, dtype, platform)
         table = {
             "allreduce": lambda x: prim.ring_allreduce(
                 x, max_bytes_per_step=maxb, min_bytes_per_step=minb,
-                num_buffers=nbuf, wire_dtype=wire_arg,
+                num_buffers=nbuf, wire_dtype=wire_arg, pipeline_depth=pipeline,
             ),
             "broadcast": (
                 (lambda x: prim.tree_broadcast(x, root)) if tree
@@ -312,6 +439,25 @@ def _validate(op: str, x: torch.Tensor, comm: Communicator, root: int,
     return x
 
 
+def _compile(op: str, x: torch.Tensor, comm: Communicator, backend: str,
+             root: int, src: int, dst: int, route_small: bool,
+             wire_dtype: Optional[str]):
+    """Validate one call and fetch its bound plan from the schedule
+    compiler (a dispatch-memo hit when warm); returns the (possibly
+    lifted) input and the plan."""
+    from ..schedule import compiler as _sched
+
+    x = _validate(op, x, comm, root, src, dst, wire_dtype)
+    if backend not in _BACKENDS:
+        raise CollectiveArgumentError(f"unknown backend {backend!r}")
+    ep = _sched.compile_collective(
+        op, tuple(x.shape), x.dtype, comm, backend=backend,
+        route_small=route_small, wire_dtype=wire_dtype, root=root, src=src,
+        dst=dst,
+    )
+    return x, ep
+
+
 def run(
     op: str,
     x: torch.Tensor,
@@ -325,37 +471,55 @@ def run(
     stream: Optional[torch.cuda.Stream] = None,
 ) -> torch.Tensor:
     """Synchronous eager collective on a rank-stacked tensor; returns a new
-    rank-stacked tensor (the input is never written). ``wire_dtype``
-    ('full' | 'bf16' | 'int8'; None = the ``wire_dtype`` constant) picks
-    the wire of the ring and kernel backends' allreduce and reduce-scatter
+    rank-stacked tensor (the input is never written). The request is
+    compiled by the schedule compiler (``eager.py:614``): effective
+    backend, wire format and schedule are one cached plan decision, and
+    the bound function replays through :func:`_dispatch` with its
+    ``plan_id``; warm calls are one memo hit. ``wire_dtype`` ('full' |
+    'bf16' | 'int8'; None = the ``wire_dtype`` constant) picks the wire of
+    the ring and kernel backends' allreduce and reduce-scatter
     (:func:`resolve_wire_dtype` gives the gates). ``stream``: the CUDA
-    stream a kernel launches on (default: the current one).
+    stream a kernel launches on (default: the current one). The argument
+    checks run on every call."""
+    x, ep = _compile(op, x, comm, backend, root, src, dst, route_small, wire_dtype)
+    return ep.execute(x.contiguous(), stream)
 
-    The route (the effective backend, the wire and the function) is
-    memoized on the communicator per call shape until a constant changes
-    or its resources are freed; the argument checks run on every call."""
-    x = _validate(op, x, comm, root, src, dst, wire_dtype)
-    nelem = x.numel() // x.shape[0]  # per rank; x[0] would build a view
-    version = constants.version()
-    memo = comm.__dict__.get("_routes")
-    if memo is None or memo[0] != version or len(memo[1]) >= _MAX_ROUTES:
-        memo = comm.__dict__["_routes"] = (version, {})
-    key = (op, backend, nelem, x.dtype, route_small, wire_dtype, root, src, dst)
-    route = memo[1].get(key)
-    if route is None:
-        platform = comm.device.type
-        effective = effective_backend(op, nelem, x.dtype, platform, backend, route_small)
-        wire = (
-            resolve_wire_dtype(op, nelem, x.dtype, wire_dtype)
-            if effective in ("ring", "kernel")
-            else "full"
-        )
-        fn = _kernels(op, effective, nelem, x.dtype, platform, root, src, dst, wire)
-        route = memo[1][key] = (fn, effective == "kernel")
-    fn, takes_stream = route
-    if stream is not None and takes_stream:
-        return fn(x.contiguous(), stream=stream)
-    return fn(x.contiguous())
+
+def run_fused(op: str, flats, comm: Communicator, backend: str = "xla",
+              route_small: bool = True, wire_dtype: Optional[str] = None) -> torch.Tensor:
+    """Coalesced multi-input dispatch (``eager.py:650``): ``flats``
+    (rank-stacked ``[p, n_i]`` slabs) are packed and reduced by one plan,
+    compiled once per (op, layout, dtype, routing) and replayed. Routing
+    (cutoff, wire format) is decided on the total payload: coalescing is
+    what pushes small tensors past the bandwidth-path and quantization
+    cutoffs. Slabs of mixed dtypes are promoted to their common dtype. The
+    inputs are only read. Returns the fused ``[p, total]`` result;
+    callers slice their segments back out."""
+    if op != "allreduce":
+        raise CollectiveArgumentError(f"run_fused supports allreduce, got {op!r}")
+    if backend not in _BACKENDS:
+        raise CollectiveArgumentError(f"unknown backend {backend!r}")
+    flats = list(flats)
+    if not flats:
+        raise CollectiveArgumentError("run_fused needs at least one tensor")
+    for f in flats:
+        _check_rank_stacked(f, comm)
+        if f.ndim != 2:
+            raise CollectiveArgumentError(
+                f"run_fused takes [p, n] slabs; got shape {tuple(f.shape)}"
+            )
+    dtype = flats[0].dtype
+    if any(f.dtype != dtype for f in flats):
+        for f in flats[1:]:
+            dtype = torch.promote_types(dtype, f.dtype)
+        flats = [f.to(dtype) for f in flats]
+    from ..schedule import compiler as _sched
+
+    ep = _sched.compile_fused(
+        op, tuple(f.shape[1] for f in flats), dtype, comm, backend=backend,
+        route_small=route_small, wire_dtype=wire_dtype,
+    )
+    return ep.execute(flats)
 
 
 def run_allgatherv(blocks, comm: Communicator, backend: str = "xla") -> torch.Tensor:
@@ -415,13 +579,22 @@ def _async_side(comm: Communicator) -> threading.local:
     return side
 
 
-def run_async(op: str, x: torch.Tensor, comm: Communicator, **kw) -> SyncHandle:
+def run_async(op: str, x: torch.Tensor, comm: Communicator, backend: str = "xla",
+              root: int = 0, src: int = 0, dst: int = 0, route_small: bool = True,
+              wire_dtype: Optional[str] = None) -> SyncHandle:
     """Asynchronous variant of :func:`run` (``eager.py:785``); returns a
     handle at once. On a CUDA communicator the collective runs on the
     communicator's side stream, after an event recorded on the caller's
     stream, and ``x`` is kept alive until the side stream has read it; on
     the CPU it runs now and the handle holds the result. The handle is
-    registered, so ``sync_all()`` and ``stop()`` drain it."""
+    registered, so ``sync_all()`` and ``stop()`` drain it.
+
+    A plan with an :attr:`~torchmpi_tpu_torch.schedule.compiler.ExecutablePlan.issue`
+    route (a CUDA allreduce on the vendor path or through K3) is issued by
+    one C++ call (:func:`~torchmpi_tpu_torch.ops.issue.issue_async`: the
+    ordering event, the stream switch, the work, the done event and
+    ``record_stream``) while telemetry and the flight recorder are off;
+    with either on, the Python path issues it, so every stamp is made."""
     # backpressure: bound the unwaited async collectives
     # (kNumAsyncCollectivesInFlight, lib/constants.cpp:152-155) by waiting
     # the oldest first, as the reference's bounded queues block enqueue;
@@ -430,10 +603,16 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, **kw) -> SyncHandle:
     while handles.outstanding_kind("collective") >= limit:
         if not handles.wait_oldest("collective"):
             break
+    x, ep = _compile(op, x, comm, backend, root, src, dst, route_small, wire_dtype)
     if comm.device.type != "cuda":
-        h = SyncHandle(run(op, x, comm, **kw))
+        h = SyncHandle(ep.execute(x.contiguous()))
+        handles.register(h, kind="collective")
+        return h
+    side = _async_side(comm)
+    if ep.issue is not None and not _telemetry.enabled() and not _flight.enabled():
+        done = torch.cuda.Event()
+        out = _issue.issue_async(x, side.stream, side.order, done, ep.issue)
     else:
-        side = _async_side(comm)
         caller = torch.cuda.current_stream(comm.device)
         side.order.record(caller)
         side.stream.wait_event(side.order)
@@ -445,15 +624,103 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, **kw) -> SyncHandle:
         with contextlib.nullcontext() if same else torch.cuda.device(comm.device):
             torch.cuda.set_stream(side.stream)
             try:
-                out = run(op, x, comm, stream=side.stream, **kw)
+                out = ep.execute(x.contiguous(), side.stream)
                 done = torch.cuda.Event()
                 done.record(side.stream)
             finally:
                 torch.cuda.set_stream(caller)
         x.record_stream(side.stream)
-        h = SyncHandle(out, done)
+    h = SyncHandle(out, done)
     handles.register(h, kind="collective")
     return h
+
+
+def precompile(specs, comm: Optional[Communicator] = None, pin: bool = True) -> int:
+    """Warm-up before training (``eager.py:807``): populate and **pin** the
+    schedule compiler's plan cache and dispatch memo from declared
+    collective specs, so the first training step plans no collective.
+
+    ``specs`` is an iterable of tuples ``(op, shape, dtype)`` optionally
+    extended with ``backend`` and ``wire_dtype`` (or dicts with those keys
+    plus ``root``). ``shape`` is the rank-stacked shape; a shape whose
+    leading axis differs from ``comm.size`` is taken as the per-rank block
+    shape and the rank axis is prepended. A dict spec may instead carry
+    ``layout``: a tuple of per-rank widths declaring a coalesced group,
+    warmed through :func:`run_fused`, the plan a ``FusionBuffer`` flush of
+    that layout replays.
+
+    Each spec is dispatched once on a zeros payload through the production
+    route (selector, schedule compiler, wire resolution), so the plan
+    cache and the per-signature dispatch memo are warm afterwards; every
+    entry the warm-up touches, new or already present, is pinned against
+    LRU eviction (``free_collective_resources`` still frees them). The
+    warm-up's launches count like any other. Returns the number of specs
+    warmed. Typically called through ``start(precompile_collectives=...)``
+    or ``AllReduceSGDEngine.precompile()``."""
+    if comm is None:
+        from .. import runtime_state
+
+        comm = runtime_state.current_communicator()
+    from ..schedule import compiler as _sched
+
+    caches = [_dispatch_memo(comm), _sched._plan_cache(comm)]
+    touched = [set(), set()]
+    if pin:
+        # log every hit and insert the warm-up makes, so pinning covers
+        # entries that already existed
+        for cache, log in zip(caches, touched):
+            cache.log_accesses(log)
+    try:
+        warmed = _precompile_dispatch(specs, comm)
+    finally:
+        if pin:
+            for cache in caches:
+                cache.log_accesses(None)
+    if comm.device.type == "cuda":
+        torch.cuda.synchronize(comm.device)
+    if pin:
+        for cache, log in zip(caches, touched):
+            for key in log:
+                cache.pin(key)
+    return warmed
+
+
+def _precompile_dispatch(specs, comm: Communicator) -> int:
+    """The spec-by-spec warm-up loop of :func:`precompile`."""
+    from . import _dispatch as _ns_dispatch
+
+    warmed = 0
+    for spec in specs:
+        if isinstance(spec, dict) and "layout" in spec:
+            flats = [torch.zeros((comm.size, int(n)), dtype=spec["dtype"], device=comm.device)
+                     for n in spec["layout"]]
+            kw = {}
+            if spec.get("wire_dtype") is not None:
+                kw["wire_dtype"] = spec["wire_dtype"]
+            _ns_dispatch(spec.get("op", "allreduce"), flats, comm, "fused",
+                         spec.get("backend"), **kw)
+            warmed += 1
+            continue
+        if isinstance(spec, dict):
+            op, shape, dtype = spec["op"], tuple(spec["shape"]), spec["dtype"]
+            backend, wire = spec.get("backend"), spec.get("wire_dtype")
+            root = spec.get("root", 0)
+        else:
+            op, shape, dtype = spec[0], tuple(spec[1]), spec[2]
+            backend = spec[3] if len(spec) > 3 else None
+            wire = spec[4] if len(spec) > 4 else None
+            root = 0
+        if shape and shape[0] != comm.size:
+            shape = (comm.size,) + shape
+        kw = {}
+        if wire is not None and op in _WIRE_OPS:
+            kw["wire_dtype"] = wire
+        if op in ("broadcast", "reduce"):
+            kw["root"] = root
+        _ns_dispatch(op, torch.zeros(shape, dtype=dtype, device=comm.device), comm, "sync",
+                     backend, **kw)
+        warmed += 1
+    return warmed
 
 
 def run_group_broadcast(x: torch.Tensor, comm: Communicator, root: int = 0) -> torch.Tensor:

@@ -55,7 +55,10 @@ _SLOW = {c: ["xla", "ring"] for c in _COLLECTIVES}
 # reference's collectives were its own ring, and on the card the
 # kernel's allgather beats its library call (expand-copy) and its
 # reduce-scatter ties ``x.sum(0)`` (PERF.md); they carry the engine's
-# sharded modes.
+# sharded modes. Single-node async reducescatter prefers it too: a
+# ``FusionBuffer`` dispatches what it cannot fuse async (a sharded step's
+# last single-tensor flush), and on one card that is the same kernel on a
+# side stream.
 _CUDA_SINGLENODE_SYNC = {
     "broadcast": ["kernel", "ring", "xla"],
     "reduce": ["ring", "xla"],
@@ -73,7 +76,8 @@ _DEFAULT: Dict[str, Dict[str, Dict[str, Dict[str, List[str]]]]] = {
     "cuda": {
         "singlenode": {
             "sync": dict(_CUDA_SINGLENODE_SYNC),
-            "async": {**_SLOW, "allreduce": ["kernel", "ring", "xla"]},
+            "async": {**_SLOW, "allreduce": ["kernel", "ring", "xla"],
+                      "reducescatter": ["kernel", "ring", "xla"]},
         },
         "multinode": {"sync": dict(_SLOW), "async": dict(_SLOW)},
     },

@@ -275,7 +275,10 @@ class _Constants:
     # throughput term and a per-dispatch overhead. These order candidate
     # plans analytically between measurements; tune_plan measures real
     # candidates and persists the winner per plan-cache key, which
-    # overrides the analytic pick.
+    # overrides the analytic pick. The values are the JAX package's model
+    # units, kept so that the port's plan choices equal its compiler's;
+    # they are not measurements of any card (the virtual ranks of one
+    # device share no link), and calibrating them is ROADMAP A11.
     plan_cost_alpha_ici_us: float = 1.0
     plan_cost_beta_ici_us_per_mib: float = 10.0
     plan_cost_alpha_dcn_us: float = 25.0

@@ -102,16 +102,20 @@ batches (``sgd.py:1495-1519``).
 :meth:`AllReduceSGDEngine.train_resident` stages a dataset on the device
 once and runs epochs of steps over it (rank r's batches from its own
 contiguous shard in every mode), and :meth:`AllReduceSGDEngine.evaluate`
-runs a metric over an evaluation set split over the ranks. The JAX
-engine's checkpoints (``checkpoint_every``), ``collective_specs`` and
-``precompile``, ``resize``, profiling and telemetry options and
-``invalidate_eval_cache`` wait for later slices (ROADMAP A5).
+runs a metric over an evaluation set split over the ranks.
+:meth:`AllReduceSGDEngine.collective_specs` declares the gradient sync's
+collectives and :meth:`AllReduceSGDEngine.precompile` warms and pins their
+plans in the schedule compiler (``sgd.py:654-730``), so the first step
+plans none. The JAX engine's checkpoints (``checkpoint_every``),
+``resize``, profiling and telemetry options and ``invalidate_eval_cache``
+are not ported yet (ROADMAP A5).
 """
 
 from __future__ import annotations
 
+import math
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -658,6 +662,62 @@ class AllReduceSGDEngine:
         with torch.no_grad():
             values = self._per_rank(fn)(*args, xs, ys)
         return float(values.float().mean())
+
+    def collective_specs(self) -> List:
+        """The gradient sync's collectives as declared specs for
+        :func:`~torchmpi_tpu_torch.collectives.eager.precompile` (or
+        ``start(precompile_collectives=...)``), as ``sgd.py:654`` declares
+        them: a bucketed engine's one ``(op, (p, total), dtype, None,
+        wire)`` per bucket (the packed buffer ``GradientBuckets``
+        dispatches); an unbucketed one's fused groups as ``{"layout":
+        per-leaf widths}`` dicts (what ``nn.synchronize_gradients``
+        flushes through ``run_fused``), cut where the ``FusionBuffer``
+        cuts them: at ``fusion_buffer_bytes`` of one dtype, with a leaf
+        of one dim, and a group of fewer than ``fusion_min_tensors``
+        leaves, dispatched on their own, as ``(op, shape, dtype)``
+        specs. Empty under the sharded modes, as in JAX: their
+        reduce-scatter and allgather flushes are not warmed."""
+        if self.param_sharding != "replicated":
+            return []
+        p = self.comm.size
+        if self.buckets is not None:
+            return [("allreduce", (p, sum(self.buckets.sizes[i] for i in self.buckets.buckets[b])),
+                     self.buckets.bucket_dtype(b), None, self.wire_dtype)
+                    for b in range(self.buckets.num_buckets)]
+        cap = constants.get("fusion_buffer_bytes")
+        specs, groups = [], {}
+
+        def close(dtype):
+            shapes = groups.pop(dtype, [])
+            if len(shapes) < max(1, constants.get("fusion_min_tensors")):
+                specs.extend(("allreduce", shape, dtype) for shape in shapes)
+            else:
+                specs.append({"op": "allreduce", "dtype": dtype,
+                              "layout": tuple(math.prod(s[1:]) for s in shapes)})
+
+        for key, shape in self._shapes.items():
+            dtype = self.params[key].dtype
+            if cap <= 0 or len(shape) < 2:
+                specs.append(("allreduce", shape, dtype))
+                continue
+            group = groups.setdefault(dtype, [])
+            group.append(shape)
+            if sum(math.prod(s[1:]) for s in group) * dtype.itemsize >= cap:
+                close(dtype)
+        for dtype in list(groups):
+            close(dtype)
+        return specs
+
+    def precompile(self) -> int:
+        """Warm and pin the plans of :meth:`collective_specs`
+        (``sgd.py:709``), so the first step plans no collective; returns
+        the number of specs warmed. The JAX engine's ``precompile(batch)``
+        also compiles its jitted step for the batch's shapes; the port's
+        step runs op by op and has nothing to compile."""
+        from ..collectives.eager import precompile
+
+        specs = self.collective_specs()
+        return precompile(specs, comm=self.comm) if specs else 0
 
     def _synchronize(self) -> None:
         if self.comm.device.type == "cuda":

@@ -20,7 +20,7 @@ Leaves are taken in sorted-name order, the order in which
 ``jax.tree_util`` flattens a dict, so the buckets are the JAX package's.
 The in-graph variants have no torch counterpart: the engine runs the
 eager path (ROADMAP, North star). ``GradientBuckets.sync_scheduled``
-waits for the overlap scheduler and the telemetry core (ROADMAP A11).
+waits for the overlap scheduler (``schedule/overlap.py``, ROADMAP A3).
 """
 
 from __future__ import annotations

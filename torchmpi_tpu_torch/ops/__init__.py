@@ -25,7 +25,9 @@
   function around them.
 
 Every wrapper counts its launches; :func:`launch_counts` reads the counts
-and :func:`reset_launch_counts` sets them to 0.
+and :func:`reset_launch_counts` sets them to 0. ``ops.issue`` is the C++
+issue path of a warm async allreduce (``csrc/issue.cpp``), which launches
+``ring_allreduce``'s kernel itself and counts it under the same name.
 """
 
 from __future__ import annotations

@@ -2,20 +2,26 @@
 
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds). The libraries go to ``torchmpi_tpu_torch/_build/``,
-named by a hash of every source and of the compiler command, so an edited
-source is rebuilt and an unchanged one is not. :func:`build_all` starts one
-``nvcc`` per source, all at once; :func:`library` builds (if needed) and
-loads one library. Nothing here runs when the module is imported.
+build takes seconds). Each ``csrc/<name>.cpp`` of :data:`EXTENSIONS` is a
+Python extension module that includes PyTorch's headers, compiled with the
+host C++ compiler (tens of seconds) and imported by :func:`extension`. The
+libraries go to ``torchmpi_tpu_torch/_build/``, named by a hash of every
+source and of the compiler commands, so an edited source is rebuilt and an
+unchanged one is not. :func:`build_all` starts one compiler per source,
+all at once; :func:`library` builds (if needed) and loads one library.
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 from typing import Dict, List
@@ -24,6 +30,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("reduce_kernel", "ring_kernels", "ring_quant", "ring_attention")
+# Python extension modules (csrc/<name>.cpp, module tm_<name>)
+EXTENSIONS = ("issue",)
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -32,7 +41,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, object] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -54,17 +63,48 @@ def nvcc_path() -> str:
     return found
 
 
+def cuda_home() -> Path:
+    """The CUDA toolkit's root: the directory above ``bin/nvcc``."""
+    return Path(nvcc_path()).resolve().parent.parent
+
+
+def _cxx_command(name: str, out: Path) -> List[str]:
+    """The host compiler's command for the extension ``csrc/<name>.cpp``:
+    PyTorch's, CUDA's and Python's headers, linked against PyTorch's
+    libraries (found again at load through the rpath) and the CUDA
+    runtime."""
+    import torch
+
+    root = Path(torch.__file__).resolve().parent
+    cuda = cuda_home()
+    abi = int(getattr(torch._C, "_GLIBCXX_USE_CXX11_ABI", True))
+    cxx = os.environ.get("CXX") or shutil.which("c++") or "g++"
+    return [
+        cxx, *CXX_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+        "-I", str(root / "include"), "-I", str(root / "include/torch/csrc/api/include"),
+        "-I", str(cuda / "include"), "-I", sysconfig.get_paths()["include"],
+        "-o", str(out), str(CSRC / f"{name}.cpp"),
+        "-L", str(root / "lib"), f"-Wl,-rpath,{root / 'lib'}",
+        "-lc10", "-lc10_cuda", "-ltorch", "-ltorch_cpu", "-ltorch_cuda", "-ltorch_python",
+        "-L", str(cuda / "lib64"), "-lcudart",
+    ]
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    import torch
+
+    # the extensions are built against this PyTorch's headers and libraries
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + CXX_FLAGS + (torch.__version__,)).encode())
     for path in sorted(CSRC.iterdir()):
-        if path.suffix in (".cu", ".cuh"):
+        if path.suffix in (".cu", ".cuh", ".cpp"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
 def target(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` (or ``.cpp``)
+    lives."""
     return BUILD_DIR / f"lib{name}-{_digest()}.so"
 
 
@@ -74,9 +114,10 @@ def build_log(name: str) -> Path:
     return target(name).with_suffix(".log")
 
 
-def build_all(names=SOURCES) -> List[Path]:
+def build_all(names=SOURCES + EXTENSIONS) -> List[Path]:
     """Compile every library of ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together, keeping each
+    compiler process per source (``nvcc`` for a kernel source, the host
+    C++ compiler for an extension), all started together, keeping each
     compiler output (:func:`build_log`). Raises :class:`KernelBuildError`
     with the compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -89,7 +130,10 @@ def build_all(names=SOURCES) -> List[Path]:
         # each build writes its own temporary file, renamed into place when
         # done, so concurrent builds never load a half-written library
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        if name in EXTENSIONS:
+            cmd = _cxx_command(name, tmp)
+        else:
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -122,6 +166,22 @@ def library(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+def extension(name: str):
+    """Build (if needed) and import the extension ``csrc/<name>.cpp`` as
+    the module ``tm_<name>``."""
+    with _lock:
+        mod = _loaded.get(name)
+        if mod is None:
+            (path,) = build_all((name,))
+            loader = importlib.machinery.ExtensionFileLoader(f"tm_{name}", str(path))
+            spec = importlib.util.spec_from_file_location(f"tm_{name}", str(path),
+                                                          loader=loader)
+            mod = importlib.util.module_from_spec(spec)
+            loader.exec_module(mod)
+            _loaded[name] = mod
+        return mod
 
 
 def launch(device, call, stream=None):

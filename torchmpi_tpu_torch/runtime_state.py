@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Callable, List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -91,6 +91,7 @@ def start(
     with_cartesian_communicator: Optional[bool] = None,
     custom_communicator_init: Optional[Callable[[], None]] = None,
     collective_communicator: Optional[Tuple[int, int]] = None,
+    precompile_collectives: Optional[Sequence] = None,
     **constant_overrides,
 ) -> None:
     """Initialise the runtime (``MPI.start``, ``torchmpi/init.lua:31-100``).
@@ -103,6 +104,11 @@ def start(
     - ``custom_communicator_init`` — callback run right after start, in
       which user code may :func:`push_communicator` (``init.lua:84-91``).
     - ``collective_communicator`` — an explicit ``(begin, end)`` span.
+    - ``precompile_collectives`` — declared collective specs (see
+      :func:`~torchmpi_tpu_torch.collectives.eager.precompile`) whose plans
+      are compiled and pinned before ``start()`` returns, against the
+      communicator the collectives will use, so step 1 of training plans
+      no collective.
     - ``**constant_overrides`` — any :mod:`~torchmpi_tpu_torch.constants`
       knob by name (``start(wire_dtype="int8")``), set after the
       ``TORCHMPI_TPU_CONSTANTS`` overrides, so an explicit one wins. An
@@ -137,6 +143,10 @@ def start(
             custom_communicator_init()
         if collective_communicator is not None:
             _stack.set_span(*collective_communicator)
+        if precompile_collectives:
+            from .collectives.eager import precompile
+
+            precompile(precompile_collectives, comm=_stack.current)
     except BaseException:
         # roll back so a corrected retry of start() works, the cartesian
         # constant set above included
