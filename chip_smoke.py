@@ -54,7 +54,20 @@ phase fails:
    flight-recorder entry of 5 sync and 5 async int8 steps, the sync
    step's time with telemetry off and on in turns, and the ``ring``
    backend's allreduce at [8, 2^24] at the compiler's pipeline depth,
-   bitwise equal to depth 1;
+   bitwise equal to depth 1; then the two-level phase
+   (:func:`phase_hier`, BASELINE config 5): every two-level lowering
+   (hierarchical allreduce on ``xla``, ``ring`` at depths 1 and 2,
+   ``kernel``, ``kernel_bidir`` and the int8 wire; broadcast, reduce and
+   allgather on ``ring`` and ``kernel``; the staged allreduce; the tree
+   allreduce and broadcast on ragged splits) on the card against the CPU,
+   bit for bit (``xla`` within ``HIER_XLA_RTOL``) with one kernel launch
+   a group; the twin of ``examples/blocksequential_2host.py`` at its
+   defaults (MLP6, Adam, 3 blocks, 2 hosts of 4, 64 steps) with the
+   ``ring`` and the ``kernel`` intra phase: falling losses, accuracy
+   above 0.6, ``check_with_allreduce``, the hierarchical plan run, K3
+   launched steps x blocks x hosts times; and the two-level allreduce at
+   [8, 2^23] beside flat K3, the intra phase's library call and one
+   host's K3 slab against its bound (``{"hier": ...}``);
 7. drives the long-context LM path (``examples/long_context.py``): a small
    LM on the card against the same LM on the CPU (plain versions), then the
    ``lm`` line's widths (vocab 8192, 8 layers, 8 heads x 64, d_model 512),
@@ -129,7 +142,8 @@ phase fails:
 ``python3 chip_smoke.py --resnet`` runs the build, the sync MNIST path and
 step 8's ResNet phase alone; ``--sharded`` the build, step 8's sharded
 path and step 11's retime; ``--compiler`` the build, the schedule
-compiler's phase and the async issue line. ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
+compiler's phase and the async issue line; ``--hier`` the build and the
+two-level phase. ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
 SASS counts, holds it against its plain version and times its rows
@@ -290,6 +304,17 @@ RESNET_STEP_BYTES = 3 * 4 * P * RESNET_PARAMS
 # takes milliseconds, so 5 calls a timing behind a sleep of about 60 ms
 # keep the card fed while the host enqueues them
 LIST_TIMING = dict(per=5, sleep=100_000_000)
+# the two-level phase (BASELINE config 5): two-level communicators of the
+# p=8 ranks, ragged ones for the tree, the payload a rank of the checks
+# (ragged: the last chunk is short), the twin's defaults
+HIER_KEYS = {"2x4": lambda r: str(r % 2), "4x2": lambda r: f"host{r // 2}"}
+HIER_RAGGED = {"1+7": lambda r: "a" if r == 0 else "b", "3+2+3": lambda r: "abc"[r * 3 // P]}
+HIER_N = (1 << 16) + 5  # just above wire_quant_min_elements: the int8 wire engages
+HIER_XLA_RTOL = 1e-5  # the card's sum within and across groups against the CPU's
+CONFIG5 = dict(blocks=3, hosts=2, epochs=4, train=1024, batch_per_rank=8)
+CONFIG5_STEPS = CONFIG5["epochs"] * (CONFIG5["train"] // P // CONFIG5["batch_per_rank"])  # 64
+CONFIG5_G, CONFIG5_I = CONFIG5["hosts"], P // CONFIG5["hosts"]
+CONFIG5_BUCKET = 100480  # its largest gradient bucket per rank (dense1.bias, dense0.weight)
 
 
 def require(cond: bool, what: str) -> None:
@@ -2200,6 +2225,283 @@ def phase_compiler(dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def cuda_columns_on_cpu():
+    """Inside the block every ``_cpu`` routing constant holds its ``_cuda``
+    value, so a CPU reference cuts its rings and picks its broadcasts as
+    the card does."""
+    snap = constants.snapshot()
+    try:
+        for name, value in snap.items():
+            if name.endswith("_cuda"):
+                constants.set(name[:-len("cuda")] + "cpu", value)
+        yield
+    finally:
+        for name, value in snap.items():
+            if name.endswith("_cpu"):
+                constants.set(name, value)
+
+
+@contextlib.contextmanager
+def constants_set(values: dict):
+    before = {name: constants.get(name) for name in values}
+    try:
+        for name, value in values.items():
+            constants.set(name, value)
+        yield
+    finally:
+        for name, value in before.items():
+            constants.set(name, value)
+
+
+def two_level(device, keys):
+    """A two-level communicator of the P ranks on ``device``, split by
+    ``keys`` as ``push_communicator`` splits the global one."""
+    from torchmpi_tpu_torch.runtime.communicator import Communicator, split_by_keys
+
+    return split_by_keys(Communicator(range(P), device), keys, name="two-level")
+
+
+def hier_cases(G: int, I: int) -> list:
+    """(name, call, constants, launches a float and an int payload make):
+    every two-level lowering on a cartesian communicator of G groups of I
+    ranks."""
+    from torchmpi_tpu_torch.collectives import eager
+
+    ar, col = eager.run_hierarchical_allreduce, eager.run_hierarchical_collective
+    bidir = "ring_allreduce_bidir" if I > 2 else "ring_allreduce"  # K5 runs K3 on 2 ranks
+    depth2 = {"plan_pipeline_depth": 2, "plan_pipeline_min_chunk_bytes": 1024}
+    return [
+        ("allreduce xla", lambda x, c: ar(x, c, impl="xla"), {}, {}, {}),
+        ("allreduce ring", lambda x, c: ar(x, c, impl="ring"), {}, {}, {}),
+        ("allreduce ring depth 2", lambda x, c: ar(x, c, impl="ring"), depth2, {}, {}),
+        ("allreduce ring int8", lambda x, c: ar(x, c, impl="ring", wire="int8"), {}, {}, {}),
+        ("allreduce kernel", lambda x, c: ar(x, c, impl="kernel"), {},
+         {"ring_allreduce": G}, {"ring_allreduce": G}),
+        ("allreduce kernel_bidir", lambda x, c: ar(x, c, impl="kernel"),
+         {"ring_implementation": "kernel_bidir"}, {bidir: G}, {bidir: G}),
+        ("allreduce kernel int8", lambda x, c: ar(x, c, impl="kernel", wire="int8"), {},
+         {"ring_allreduce_quant_int8": G}, {"ring_allreduce": G}),
+        ("broadcast ring", lambda x, c: col("broadcast", x, c, root=3), {}, {}, {}),
+        ("broadcast kernel", lambda x, c: col("broadcast", x, c, root=3, ring_impl="kernel"), {},
+         {"ring_broadcast": G}, {"ring_broadcast": G}),
+        ("reduce ring", lambda x, c: col("reduce", x, c, root=5), {}, {}, {}),
+        ("reduce kernel", lambda x, c: col("reduce", x, c, root=5, ring_impl="kernel"), {},
+         {"ring_reduce": G}, {"ring_reduce": G}),
+        ("allgather ring", lambda x, c: col("allgather", x[:, :HIER_N // 8], c), {}, {}, {}),
+        ("allgather kernel",
+         lambda x, c: col("allgather", x[:, :HIER_N // 8].contiguous(), c, ring_impl="kernel"), {},
+         {"ring_allgather": G}, {"ring_allgather": G}),
+        ("staged ring", lambda x, c: ar(x, c, impl="staged"), {}, {}, {}),
+        ("staged kernel", lambda x, c: ar(x, c, impl="staged", staged_intra="kernel"), {},
+         {"ring_allreduce": G}, {"ring_allreduce": G}),
+    ]
+
+
+def tree_cases() -> list:
+    from torchmpi_tpu_torch.collectives import eager
+    from torchmpi_tpu_torch.schedule import compiler as sched
+
+    def bcast(root):
+        return lambda x, c: sched.compile_collective(
+            "broadcast", tuple(x.shape), x.dtype, c, root=root, generator="tree",
+            impl="ring").execute(x)
+
+    tree = eager.run_tree_hierarchical_allreduce
+    return [
+        ("tree allreduce", lambda x, c: tree(x, c), {}, {}, {}),
+        ("tree allreduce int8", lambda x, c: tree(x, c, wire="int8"), {}, {}, {}),
+        ("tree broadcast root 0", bcast(0), {}, {}, {}),
+        ("tree broadcast root 5", bcast(5), {}, {}, {}),
+    ]
+
+
+def check_hier(dev) -> dict:
+    """Every two-level lowering on the card against the same lowering on
+    the CPU (plain versions), p=8 as 2x4 (``str(r % 2)``: groups of
+    non-contiguous ranks) and 4x2 (``host{r // 2}``) cartesian groups, the
+    tree on two ragged splits, f32 and int32 payloads of ``HIER_N`` a
+    rank: bit for bit (the ``xla`` sums within ``HIER_XLA_RTOL`` of the
+    largest |sum| on f32, exact on int32), and each case's launches
+    exact (0 just before the card's call, read just after; G a kernel's
+    intra phase). Returns the largest |card - CPU| of each case."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs = {}
+    with cuda_columns_on_cpu():
+        layouts = [(name, keys, hier_cases) for name, keys in HIER_KEYS.items()]
+        layouts += [(name, keys, lambda G, I: tree_cases()) for name, keys in HIER_RAGGED.items()]
+        for layout, keys, cases in layouts:
+            gcomm, ccomm = two_level(dev, keys), two_level("cpu", keys)
+            G, I = gcomm.num_intra_groups, len(gcomm.groups[0])
+            for name, call, consts, f32_launch, int_launch in cases(G, I):
+                for dtype, launches in ((torch.float32, f32_launch), (torch.int32, int_launch)):
+                    x = rand((P, HIER_N), dtype, gen, dev)
+                    with constants_set(consts):
+                        ops.reset_launch_counts()
+                        got = call(x, gcomm)
+                        torch.cuda.synchronize()
+                        counts = ops.launch_counts()
+                        want = call(x.cpu(), ccomm)
+                    what = f"hier {layout} {name} {dtype}"
+                    require(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape")
+                    got = got.cpu()
+                    err = float((got.double() - want.double()).abs().max())
+                    if name.endswith("xla") and dtype.is_floating_point:
+                        scale = float(x.abs().sum(0).max())
+                        require(err <= HIER_XLA_RTOL * scale,
+                                f"{what}: card and CPU sums {err} apart (limit "
+                                f"{HIER_XLA_RTOL * scale})")
+                    else:
+                        require(torch.equal(bits(got), bits(want)), f"{what}: card != CPU ({err})")
+                    expected = {k: launches.get(k, 0) for k in counts}
+                    require(counts == expected, f"{what}: launches {counts}, expected {expected}")
+                    errs[f"{layout} {name} {str(dtype)[6:]}"] = err
+    print(f"hier: {len(errs)} two-level lowerings on the card equal the CPU's, launches exact")
+    return errs
+
+
+def config5_run(backend: str) -> dict:
+    """The config-5 twin at its defaults with ``--backend``: the launch
+    counts (0 just before, read just after) and the plans its
+    communicator held when it stopped."""
+    from torchmpi_tpu_torch.examples import blocksequential_2host
+
+    memo = {}
+    real_stop = mpi.stop
+
+    def stop():
+        memo.update(mpi.current_communicator().__dict__.get("_dispatch_memo", {}))
+        real_stop()
+
+    mpi.stop = stop
+    try:
+        ops.reset_launch_counts()
+        losses, acc, hier_used, sps = blocksequential_2host.main(["--backend", backend])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        mpi.stop = real_stop
+    plans = sorted({(ent[1].op_label, ent[1].plan_id) for key, ent in memo.items()
+                    if key[0] == "_plan"})
+    return dict(losses=losses, acc=acc, hier_used=hier_used, samples_per_s_chip=sps,
+                counts=counts, plans=plans)
+
+
+def config5_expected(run: dict, backend: str) -> dict:
+    """Its launches: K3 a host for every bucket of every step on the
+    kernel backend, and K7 a host for the first parameter sync where that
+    broadcast took the two-level plan with the kernel intra phase."""
+    expected = dict.fromkeys(run["counts"], 0)
+    if backend == "kernel":
+        expected["ring_allreduce"] = CONFIG5_STEPS * CONFIG5["blocks"] * CONFIG5_G
+    expected["ring_broadcast"] = CONFIG5_G * sum(
+        1 for label, plan_id in run["plans"]
+        if label == "hier_broadcast" and plan_id.startswith("hier-kernel"))
+    return expected
+
+
+def phase_hier(dev) -> tuple:
+    """BASELINE config 5 and the two-level lowerings on the card:
+
+    1. :func:`check_hier`, every lowering against the CPU's, and the
+       twin below on a small run (256 images, 2 epochs) against the same
+       run on the CPU, losses within rtol 1e-4;
+    2. the twin of ``examples/blocksequential_2host.py`` at its defaults
+       (MLP6 at 128 features, Adam lr 1e-3, 3 blocks, 2 hosts of 4 ranks,
+       8 a rank, 4 epochs of ``synthetic_mnist(1024)``: 64 steps) with
+       ``--backend ring`` and then ``--backend kernel``: falling test
+       losses, accuracy above 0.6, ``check_with_allreduce`` (inside the
+       twin), the hierarchical plan run, exact launches
+       (:func:`config5_expected`);
+    3. the two-level allreduce at [8, 2^23] f32 on 2 hosts of 4 with the
+       kernel and the ring intra phases, flat K3 at the same size, the
+       intra phase's library call (each host's sum, ``x.view(G, I,
+       n).sum(1)``, expanded to its ranks) and K3 on one host's [4, 2^23]
+       slab against its bound, and the kernel allreduce's two phases
+       alone (K3 a host with the slabs' ``torch.cat``; the inter rings),
+       every time in ms by :func:`time_ms` on inputs rotated past the L2.
+
+    Prints one ``{"hier": ...}`` line; returns the runs' launch counts
+    (paths ``hier_ring``, ``hier_kernel``) and the errors of the checks."""
+    from torchmpi_tpu_torch.collectives import eager
+
+    errs = check_hier(dev)
+    # the twin on the card against the twin on the CPU (plain versions),
+    # on a small run: the same losses but for the devices' roundings
+    from torchmpi_tpu_torch.examples import blocksequential_2host
+
+    small = ["--train", "256", "--epochs", "2", "--backend", "kernel"]
+    card_losses = blocksequential_2host.main(small)[0]
+    cpu_losses = blocksequential_2host.main(small + ["--device", "cpu"])[0]
+    for a, b in zip(card_losses, cpu_losses):
+        require(abs(a - b) <= 1e-4 * abs(b),
+                f"config 5 small run: card losses {card_losses}, CPU {cpu_losses}")
+    runs, twin = {}, {}
+    for backend in ("ring", "kernel"):
+        run = config5_run(backend)
+        losses, what = run["losses"], f"config 5 --backend {backend}"
+        require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+                f"{what}: test losses {losses} do not fall")
+        require(run["acc"] > 0.6, f"{what}: test accuracy {run['acc']}")
+        require(run["hier_used"], f"{what}: the hierarchical plan did not run")
+        expected = config5_expected(run, backend)
+        require(run["counts"] == expected,
+                f"{what}: launches {run['counts']}, expected {expected}")
+        runs[f"hier_{backend}"] = run["counts"]
+        twin[backend] = {k: run[k] for k in ("losses", "acc", "samples_per_s_chip", "plans")}
+        twin[backend]["launches"] = {k: v for k, v in run["counts"].items() if v}
+
+    # times at [8, 2^23] f32 on the config's 2 hosts of 4
+    from torchmpi_tpu_torch.schedule import lower
+
+    G, I, n = CONFIG5_G, CONFIG5_I, N23
+    comm = two_level(dev, lambda r: f"host{r // I}")
+    minb, maxb, nbuf = eager.ring_tuning("cuda")
+
+    def inter(v):
+        return primitives.ring_allreduce(v, max_bytes_per_step=maxb, min_bytes_per_step=minb,
+                                         num_buffers=nbuf, batched=True)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def timed(fn, rows: int = P):
+        return time_ms(rotating(fn, lambda: (torch.randn((rows, n), generator=gen, device=dev),),
+                                rows * n * 4))
+
+    # K3 on one host's slab at the largest bucket (the kernels line's row)
+    # and at 2^23, against its plain version
+    slab_errs = []
+    for width in (CONFIG5_BUCKET, n):
+        slab = torch.randn((I, width), generator=gen, device=dev)
+        slab_errs.append(float((ops.ring_allreduce(slab) - ops.ring_allreduce_plain(slab))
+                               .abs().max()))
+        require(slab_errs[-1] == 0.0,
+                f"K3 on a [{I}, {width}] slab differs from its plain version by {slab_errs[-1]}")
+    del slab
+    times = {
+        "two_level_kernel_ms": timed(lambda x: eager.run_hierarchical_allreduce(x, comm,
+                                                                               impl="kernel")),
+        "two_level_ring_ms": timed(lambda x: eager.run_hierarchical_allreduce(x, comm,
+                                                                             impl="ring")),
+        # its parts: the intra phase (K3 a host and the slabs' cat), the
+        # inter phase (the ring backend's rings of 2 ranks, 4 at once)
+        "intra_kernel_ms": timed(lambda x: lower._per_group(ops.ring_allreduce, x, G, I)),
+        "inter_ring_ms": timed(lambda x: lower._inter_rings(inter, x, G, I)),
+        "flat_k3_ms": timed(ops.ring_allreduce),
+        "intra_library_ms": timed(
+            lambda x: x.view(G, I, n).sum(1, keepdim=True).expand(G, I, n).reshape(P, n)),
+        "slab_k3_ms": timed(ops.ring_allreduce, rows=I),
+        "slab_bound_ms": 2 * I * n * 4 / HBM_BYTES_PER_S * 1e3,
+    }
+    require(times["slab_k3_ms"] >= times["slab_bound_ms"],
+            f"K3 on a slab read {times['slab_k3_ms']} ms, under its bound")
+    print(json.dumps({"hier": {
+        "checks": len(errs), "config5": twin, "steps": CONFIG5_STEPS,
+        "times_at": {"shape": [P, n], "dtype": "float32", "groups": f"{G}x{I}", **times},
+        "card": card()}}))
+    return runs, {**errs, "ring_allreduce@config5": slab_errs[0]}
+
+
 def phase_profile(mode: str, wire: str) -> None:
     """Where a main-path step's time goes: ``torch.profiler`` over 5 steps
     after 3 warm-up steps, device time by kernel and the share of the
@@ -2466,6 +2768,19 @@ def timing_rows(randn) -> list:
             library=lambda x: x[0:1].expand_as(x).clone(),
         ),
     ]
+    # config 5: the intra phase of its largest bucket, K3 on one host's slab
+    c5 = CONFIG5_BUCKET
+    rows.append(dict(
+        name="ring_allreduce", at="config 5, the intra phase of its largest bucket on one "
+        "host's slab (one launch a host)",
+        err="ring_allreduce@config5", per_step=("hier_", CONFIG5_STEPS),
+        source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+        replaces="torchmpi_tpu/ops/ring_kernels.py:201",
+        shape=[CONFIG5_I, c5], make=lambda: (randn(CONFIG5_I, c5),), in_bytes=CONFIG5_I * c5 * 4,
+        bytes=2 * CONFIG5_I * c5 * 4, ops=(CONFIG5_I - 1) * c5,
+        kernel=ops.ring_allreduce, plain=ops.ring_allreduce_plain,
+        library=lambda x: x.sum(0, keepdim=True).expand_as(x).contiguous(),
+    ))
     for wire in WIRES:
         # per element and hop: int8 |v|, max, divide, two adds that round,
         # then a multiply and an add (one FMA in the reduce-scatter); bf16 a
@@ -2754,6 +3069,11 @@ def main(argv=None) -> None:
         help="only the sharded phase (fsdp, zero1, accumulation and remat) and the "
              "retime of K3 'rs' and 'ag', after the build; prints no result line")
     parser.add_argument(
+        "--hier", action="store_true",
+        help="only the two-level phase (every two-level lowering against the CPU, the config-5 "
+             "twin under both intra transports, the {\"hier\"} line), after the build; prints "
+             "no result line")
+    parser.add_argument(
         "--compiler", action="store_true",
         help="only the schedule compiler's phase (warm plans after precompile, plan stamps, "
              "telemetry's cost, the ring's pipeline depth) and the async issue line, after the "
@@ -2789,6 +3109,9 @@ def main(argv=None) -> None:
         phase_compiler(dev)
         phase_async_issue(dev)
         return
+    if args.hier:
+        phase_hier(dev)
+        return
     errs = phase_kernels(dev)
     trainer = phase_trainer(dev)
     runs = {path: run["counts"] for path, run in trainer.items()}
@@ -2796,6 +3119,9 @@ def main(argv=None) -> None:
     runs.update(phase_bench())
     phase_async_issue(dev)
     phase_compiler(dev)
+    hier_runs, hier_errs = phase_hier(dev)
+    runs.update(hier_runs)
+    errs.update(hier_errs)
     lm_runs, lm_stats = phase_lm(dev)
     runs.update(lm_runs)
     runs.update(phase_resnet(dev, trainer["sync"]))

@@ -29,23 +29,36 @@ from torchmpi_tpu import collectives as jcollectives
 from torchmpi_tpu import constants as jconstants
 from torchmpi_tpu import telemetry as jtelemetry
 from torchmpi_tpu.runtime.handles import handles as jhandles
+from torchmpi_tpu.telemetry import flightrecorder as jflight
 from torchmpi_tpu_torch import collectives, constants, ops, telemetry
 from torchmpi_tpu_torch.collectives import eager, get_fusion_buffer
 from torchmpi_tpu_torch.collectives.fusion import FusionHandle
 from torchmpi_tpu_torch.runtime.handles import handles
+from torchmpi_tpu_torch.telemetry import flightrecorder as tflight
 
 P = 4
 
 
+def _quiet_telemetry():
+    for pkg in (telemetry, jtelemetry):
+        pkg.disable()
+        pkg.reset()
+    for flight in (tflight, jflight):
+        flight.disable()
+
+
 @pytest.fixture(autouse=True)
 def _fresh_port():
+    # both packages' telemetry and flight recorders are process-wide: a
+    # test of another file that ran earlier in the same worker may have
+    # left series or flight entries, which the first test here would
+    # count as its own
+    _quiet_telemetry()
     yield
     tmpi.runtime_state._reset_for_tests()
     constants._reset_for_tests()
     ops.reset_launch_counts()
-    for pkg in (telemetry, jtelemetry):
-        pkg.disable()
-        pkg.reset()
+    _quiet_telemetry()
 
 
 def _both(name, value):

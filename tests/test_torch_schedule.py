@@ -10,10 +10,11 @@ generator, backend with ``kernel``<->``pallas`` mapped, wire, pipeline
 depth, steps, topology fingerprint). Costs are compared exactly: the same
 arithmetic on the same constants.
 
-On a two-level communicator the JAX compiler may choose the
-hierarchical, staged or tree families, whose lowerings the port does not
-have yet (ROADMAP A8): there the port chooses flat, and ``explain`` says
-why. ``TWO_LEVEL_DIFFERENCES`` lists those cases.
+On a two-level communicator both compilers choose the hierarchical,
+staged or tree families where the JAX gates send a request there
+(``TWO_LEVEL_DIFFERENCES`` lists the cases, which once chose apart), and
+the port's result equals JAX's. The algebra-synthesized families are not
+lowered in the port: a pinned one is refused.
 
 Results of live collectives: the ``ring`` backend keeps the JAX ring's
 order of adds, so its f32 results are bitwise equal at every pipeline
@@ -194,6 +195,31 @@ def test_candidate_plans_decide_as_jax(op, backend, p):
                     _same_plan(_chosen(tc).plan, _chosen(jc).plan)
 
 
+@pytest.mark.parametrize("groups,cartesian,staged", [
+    ((4, 4), True, False), ((2, 2, 2, 2), True, False), ((4, 4), True, True),
+    ((1, 7), False, False), ((3, 2, 3), False, False),
+])
+@pytest.mark.parametrize("backend", ["xla", "ring", "kernel"])
+def test_candidate_plans_decide_as_jax_on_two_level(groups, cartesian, staged, backend):
+    """``candidate_plans`` on two-level topologies (cartesian, ragged, a
+    host-staged inter link): every family's candidate, verdict, reason
+    and cost, and the chosen plan, as JAX's."""
+    kw = dict(platform="cpu", group_sizes=groups, cartesian=cartesian, staged_inter=staged)
+    t, j = topology.Topology(**kw), jtopology.Topology(**kw)
+    for op in OPS:
+        for nelem in NELEMS:
+            for wire in WIRES:
+                tc = generators.candidate_plans(op, nelem, 4, t, backend, wire)
+                jc = jgen.candidate_plans(op, nelem, 4, j, JAX_BACKEND[backend], wire)
+                assert len(tc) == len(jc)
+                for a, b in zip(tc, jc):
+                    _same_plan(a.plan, b.plan)
+                    assert (a.feasible, a.cost_us, a.structural) == (
+                        b.feasible, b.cost_us, b.structural)
+                    assert a.reason.replace("kernel", "pallas") == b.reason
+                _same_plan(_chosen(tc).plan, _chosen(jc).plan)
+
+
 # --- the compiler on a live flat communicator --------------------------------
 @pytest.mark.parametrize("wire", [None, "int8"])
 @pytest.mark.parametrize("backend", ["xla", "ring", "kernel"])
@@ -360,8 +386,10 @@ def test_explain_lists_chosen_and_rejected():
     for gen in ("flat", "hier", "staged", "tree"):
         assert gen in text, text
     chosen = next(line for line in text.splitlines() if line.startswith("CHOSEN"))
-    assert ": flat-ring-full" in chosen
-    assert generators.A8_REASON in text
+    jtopo = jtopology.Topology(platform="cpu", group_sizes=(4,) * 8, cartesian=True)
+    jtext = jsched.explain(op="allreduce", nbytes=4 << 20, topo=jtopo, backend="ring")
+    assert chosen == next(line for line in jtext.splitlines() if line.startswith("CHOSEN"))
+    assert ": hier-ring-full" in chosen
 
 
 def test_explain_cli_main(capsys):
@@ -372,7 +400,8 @@ def test_explain_cli_main(capsys):
     assert "CHOSEN" in out and "candidates:" in out and "cuda topology 8" in out
     assert main(["--explain", "op=broadcast", "bytes=1M", "groups=1+3+4"]) == 0
     out = capsys.readouterr().out
-    assert "tree" in out and generators.A8_REASON in out
+    chosen = next(line for line in out.splitlines() if line.startswith("CHOSEN"))
+    assert ": tree-ring-full" in chosen and generators.A8_REASON not in out
     assert main(["--explain", "op=allreduce", "bytes=64M", "groups=8", "backend=ring",
                  "platform=cpu"]) == 0
     assert "pipeline: depth 2" in capsys.readouterr().out
@@ -394,9 +423,9 @@ def test_flight_entries_carry_plan_id():
         flight.disable()
 
 
-# --- two-level communicators: flat until the A8 lowerings ---------------------
-# (op, keys, constants, backend): where the JAX compiler chooses another
-# family than flat and the port chooses flat with the A8 reason
+# --- two-level communicators: the JAX families ------------------------------
+# (op, keys, constants, backend, family): where the JAX compiler chooses
+# another family than flat, which the port must choose as well
 TWO_LEVEL_DIFFERENCES = [
     ("allreduce", "cartesian", {}, "ring", "hier"),
     ("allreduce", "cartesian", {}, "kernel", "hier"),
@@ -411,6 +440,11 @@ KEYS = {"cartesian": lambda r: str(r % 2), "ragged": lambda r: "a" if r == 0 els
 
 @pytest.mark.parametrize("op,keys,consts,backend,jax_family", TWO_LEVEL_DIFFERENCES)
 def test_two_level_chooses_flat_with_the_a8_reason(op, keys, consts, backend, jax_family):
+    """The port chooses the JAX family with the same decision, no
+    candidate of it carries the A8 reason, ``explain`` chooses it, and
+    the integer result equals JAX's exactly."""
+    from torchmpi_tpu.ops import ring_kernels as jrk
+
     tmpi.start(ranks=8, device="cpu")
     jmpi.start(devices=jax.devices()[:8])
     for name, value in {"small_allreduce_size_cpu": 0, "small_broadcast_size_cpu": 0,
@@ -422,25 +456,31 @@ def test_two_level_chooses_flat_with_the_a8_reason(op, keys, consts, backend, ja
     shape = (8, 3, 1 << 12)
     ep = sched.compile_collective(op, shape, torch.float32, tcomm, backend=backend)
     jep = jsched.compile_collective(op, shape, jnp.float32, jcomm, backend=JAX_BACKEND[backend])
-    assert jep.plan.generator == jax_family
-    assert ep.plan.generator == "flat"
+    assert jep.plan.generator == jax_family == ep.plan.generator
+    _same_plan(ep.plan, jep.plan)
+    assert (ep.op_label, ep.routing) == (jep.op_label, jep.routing)
     topo = topology.Topology.from_communicator(tcomm)
     cands = generators.candidate_plans(op, math.prod(shape[1:]), 4, topo, backend)
-    rejected = {c.plan.generator for c in cands if not c.feasible and c.reason ==
-                generators.A8_REASON}
-    assert jax_family in rejected
+    assert not any(c.reason == generators.A8_REASON for c in cands)
     text = schedule.explain(op=op, nbytes=4 * math.prod(shape[1:]), topo=topo, backend=backend)
-    assert generators.A8_REASON in text
-    # the flat plan runs: the same sum as the vendor path's, exactly on ints
-    x = torch.from_numpy(np.random.RandomState(1).randint(-1000, 1000, shape).astype(np.int32))
-    got = eager.run(op, x, tcomm, backend=backend)
-    assert torch.equal(got, eager.run(op, x, tcomm, backend="xla"))
+    chosen = next(line for line in text.splitlines() if line.startswith("CHOSEN"))
+    assert f": {jax_family}-" in chosen
+    x = np.random.RandomState(1).randint(-1000, 1000, shape).astype(np.int32)
+    got = eager.run(op, torch.from_numpy(x), tcomm, backend=backend)
+    jrk._FORCE_INTERPRET = backend == "kernel"
+    try:
+        want = np.asarray(jeager.run(op, jnp.asarray(x), jcomm, backend=JAX_BACKEND[backend]))
+    finally:
+        jrk._FORCE_INTERPRET = False
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_a_pinned_two_level_family_is_refused():
+    """A pinned synthesized two-level family (the torus) is refused: its
+    lowering is not ported."""
     tmpi.start(ranks=8, device="cpu")
     tmpi.push_communicator(KEYS["cartesian"], name="two")
     comm = tmpi.current_communicator()
     with pytest.raises(CollectiveArgumentError, match="ROADMAP A8"):
-        sched.compile_collective("allreduce", (8, 4096), torch.float32, comm, generator="hier",
-                                 impl="ring")
+        sched.compile_collective("allreduce", (8, 4096), torch.float32, comm,
+                                 generator="torus~synth", impl="ring")

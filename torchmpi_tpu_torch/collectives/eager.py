@@ -23,8 +23,11 @@ backends are the JAX package's, with ``pallas`` named ``kernel``:
   pipeline depth;
 - ``kernel`` — the hand-written CUDA ring kernels (``ops``).
 
-The compiler lowers the flat family only; the two-level families are
-ROADMAP A8 (``schedule/generators.py`` says how they are kept out).
+On a two-level communicator (``push_communicator`` with a key per
+group) the compiler lowers the hierarchical, staged and tree families
+(``schedule/lower.py``), as the JAX compiler does;
+:func:`run_hierarchical_allreduce`, :func:`run_hierarchical_collective`
+and :func:`run_tree_hierarchical_allreduce` pin them.
 """
 
 from __future__ import annotations
@@ -721,6 +724,83 @@ def _precompile_dispatch(specs, comm: Communicator) -> int:
                      backend, **kw)
         warmed += 1
     return warmed
+
+
+# ---------------------------------------------------------------------------
+# generator-pinning wrappers (the hierarchical entry points)
+# ---------------------------------------------------------------------------
+
+
+def run_hierarchical_allreduce(x: torch.Tensor, comm: Communicator, impl: str = "ring",
+                               staged_intra: str = "ring", wire: str = "full") -> torch.Tensor:
+    """Two-level allreduce over a cartesian communicator (the reference's
+    ``allreducep2pHierarchicalImpl``, ``collectives_cuda.cpp:501-581``;
+    ``eager.py:922``): pins the ``hier`` plan with the intra transport
+    ``impl`` ('xla', 'ring' or 'kernel'), or with ``impl='staged'`` the
+    ``staged`` plan with ``staged_intra``. ``wire`` is taken as it is,
+    not resolved again. Needs a cartesian communicator with more than
+    one group of more than one rank."""
+    _check_rank_stacked(x, comm)
+    if not (comm.cartesian and comm.has_inter_collective and comm.has_intra_collective):
+        raise CollectiveArgumentError(
+            "hierarchical allreduce needs a cartesian communicator with "
+            "multiple intra groups of size > 1"
+        )
+    from ..schedule import compiler as _sched
+
+    generator, eff = ("staged", staged_intra) if impl == "staged" else ("hier", impl)
+    ep = _sched.compile_collective(
+        "allreduce", tuple(x.shape), x.dtype, comm, generator=generator, impl=eff,
+        wire_override=wire,
+    )
+    return ep.execute(x.contiguous())
+
+
+def run_hierarchical_collective(op: str, x: torch.Tensor, comm: Communicator, root: int = 0,
+                                ring_impl: str = "ring") -> torch.Tensor:
+    """Two-level broadcast, reduce or allgather on a cartesian
+    communicator (``collectives_cuda.cpp:501-581,1057-1141``;
+    ``eager.py:960``): pins the ``hier`` plan; ``ring_impl`` is the intra
+    transport ('ring' or 'kernel')."""
+    _check_rank_stacked(x, comm)
+    if not (comm.cartesian and comm.has_inter_collective and comm.has_intra_collective):
+        raise CollectiveArgumentError(
+            "hierarchical collectives need a cartesian communicator with "
+            "multiple intra groups of size > 1"
+        )
+    if op not in ("broadcast", "reduce", "allgather"):
+        raise CollectiveArgumentError(
+            f"hierarchical collective supports broadcast/reduce/allgather, got {op!r}"
+        )
+    if op in ("broadcast", "reduce") and not 0 <= root < comm.size:
+        raise CollectiveArgumentError(f"root {root} out of range")
+    from ..schedule import compiler as _sched
+
+    ep = _sched.compile_collective(
+        op, tuple(x.shape), x.dtype, comm, root=root, generator="hier", impl=ring_impl,
+        wire_override="full",
+    )
+    return ep.execute(x.contiguous())
+
+
+def run_tree_hierarchical_allreduce(x: torch.Tensor, comm: Communicator,
+                                    wire: str = "full") -> torch.Tensor:
+    """Allreduce on a ragged (non-cartesian) communicator (the reference's
+    non-cartesian path, ``collectives_cuda.cpp:546-581``; ``eager.py:
+    987``): pins the ``tree`` plan, binomial steps and one read of the
+    total. A compressed ``wire`` encodes every exchange."""
+    _check_rank_stacked(x, comm)
+    if not (comm.has_inter_collective and comm.has_intra_collective):
+        raise CollectiveArgumentError(
+            "hierarchical allreduce needs a communicator with both levels"
+        )
+    from ..schedule import compiler as _sched
+
+    ep = _sched.compile_collective(
+        "allreduce", tuple(x.shape), x.dtype, comm, generator="tree", impl="ring",
+        wire_override=wire,
+    )
+    return ep.execute(x.contiguous())
 
 
 def run_group_broadcast(x: torch.Tensor, comm: Communicator, root: int = 0) -> torch.Tensor:

@@ -16,7 +16,10 @@ run per device under ``shard_map``; these take the rank-stacked tensor
   layout (``_flatten_pad``, the byte-bounded segments, the pipeline
   segments), so a float sum starts at the same rank and adds in the same
   order as in the JAX ring. The ring is plain PyTorch, the part XLA did;
-  it is not a kernel (the ``kernel`` backend is ``ops``).
+  it is not a kernel (the ``kernel`` backend is ``ops``). ``ring_allreduce``
+  and ``ring_reduce`` also run B independent rings at once
+  (``batched=True``, ``[p, B, ...]``), one level of a two-level
+  communicator, each ring as the JAX ring over one mesh axis.
 - **The wire codec** (EQuARX-style, arXiv:2506.17615): the rings may ship
   each hop as int8 with one f32 scale per block, or as a bf16 cast, and sum
   in f32. Callers opt in through ``wire_dtype=`` or the ``wire_dtype``
@@ -161,30 +164,38 @@ def _shift(msg: torch.Tensor, offset: int = 1) -> torch.Tensor:
     return torch.roll(msg, offset, dims=0)
 
 
+def wire_transfer(msg: torch.Tensor, wire: Optional[str], block: int,
+                  local: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """What a receiver installs for a message ``msg`` (``[..., m]``, one
+    message per leading index) that travelled in the wire's form
+    (``_wire_send_recv``): the decoded message or, given the receiver's
+    ``local`` partial, ``local + decoded``. An int8 message is cut into
+    blocks of ``block`` from its own start, zero-padded to whole blocks,
+    as ``quantize_blocks`` cuts a flat message. Its decode-and-add is
+    exact in f64 and rounds there, then to f32: XLA fuses the JAX ring's
+    into one f32 FMA, which this equals but for double rounding when
+    ``local`` is some 2^29 times smaller than the product."""
+    if wire == "int8":
+        m = msg.shape[-1]
+        blocks = torch.nn.functional.pad(msg, (0, -m % block))
+        blocks = blocks.reshape(msg.shape[:-1] + (-1, block))
+        scale = row_scale(blocks)
+        q = torch.round(blocks / scale).to(torch.int8)
+        if local is None:
+            return (q.float() * scale).reshape(msg.shape[:-1] + (-1,))[..., :m]
+        prod = (q.double() * scale.double()).reshape(msg.shape[:-1] + (-1,))
+        return (prod[..., :m] + local.double()).float()
+    recv = msg.to(torch.bfloat16).float() if wire == "bf16" else msg
+    return recv if local is None else local + recv
+
+
 def _hop(buf: torch.Tensor, wire: Optional[str], block: int,
          local: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One ring hop (``_wire_send_recv``): every rank's last-dim message in
-    ``buf`` (``[p, ..., m]``) goes to its right neighbour in the wire's
-    form. Returns what each rank installs: the decoded message or, given
-    its ``local`` partial, ``local + decoded``. An int8 message is cut into
-    blocks of ``block`` from its own start, zero-padded to whole blocks,
-    as ``quantize_blocks`` cuts a flat message. Its decode-and-add is exact
-    in f64 and rounds there, then to f32: XLA fuses the JAX ring's into one
-    f32 FMA, which this equals but for double rounding when ``local`` is
-    some 2^29 times smaller than the product."""
-    if wire == "int8":
-        m = buf.shape[-1]
-        blocks = torch.nn.functional.pad(buf, (0, -m % block))
-        blocks = blocks.reshape(buf.shape[:-1] + (-1, block))
-        scale = row_scale(blocks)
-        q = _shift(torch.round(blocks / scale).to(torch.int8))
-        scale = _shift(scale)
-        if local is None:
-            return (q.float() * scale).reshape(buf.shape[:-1] + (-1,))[..., :m]
-        prod = (q.double() * scale.double()).reshape(buf.shape[:-1] + (-1,))
-        return (prod[..., :m] + local.double()).float()
-    recv = _shift(buf.to(torch.bfloat16)).float() if wire == "bf16" else _shift(buf)
-    return recv if local is None else local + recv
+    """One ring hop: every rank's last-dim message in ``buf`` (``[p, ...,
+    m]``) goes to its right neighbour in the wire's form; returns what
+    each rank installs (:func:`wire_transfer`). Each rank's message is
+    encoded on its own, so encoding before the shift is encoding after."""
+    return wire_transfer(_shift(buf), wire, block, local)
 
 
 # ---------------------------------------------------------------------------
@@ -225,26 +236,30 @@ def _ring_phases(ch: torch.Tensor, wire: Optional[str] = None,
 
 def _pipeline_segments(flat: torch.Tensor, p: int, chunk: int, depth: int,
                        align: int = 1):
-    """Each rank's ring-padded ``[p * chunk]`` buffer as ``d`` interleaved
-    pipeline segments, ``[p(rank), d, p, sub]``: segment j holds sub-span j
-    of every ring chunk, so an element keeps its chunk (its start rank)
-    and, with ``align`` the int8 block, its block grid. Returns
-    ``(segments, d, sub)``."""
+    """Each ring's ring-padded ``[p * chunk]`` buffer, ``flat`` being
+    ``[p(rank), B(ring), p * chunk]``, as ``d`` interleaved pipeline
+    segments, ``[p(rank), B * d, p, sub]``: segment j holds sub-span j of
+    every ring chunk, so an element keeps its chunk (its start rank) and,
+    with ``align`` the int8 block, its block grid. Returns ``(segments,
+    d, sub)``."""
     sub = -(-chunk // max(1, depth))
     if align > 1:
         sub = -(-sub // align) * align
     sub = max(1, sub)
     d = max(1, -(-chunk // sub))
-    a = flat.reshape(flat.shape[0], p, chunk)
+    r, b = flat.shape[:2]
+    a = flat.reshape(r, b, p, chunk)
     a = torch.nn.functional.pad(a, (0, d * sub - chunk))
-    return a.reshape(flat.shape[0], p, d, sub).transpose(1, 2), d, sub
+    return a.reshape(r, b, p, d, sub).transpose(2, 3).reshape(r, b * d, p, sub), d, sub
 
 
-def _pipeline_unsegment(segs: torch.Tensor, chunk: int) -> torch.Tensor:
-    """Inverse of :func:`_pipeline_segments`: ``[p(rank), p, p * chunk]``
-    flat again, the padding inside each chunk dropped."""
-    r, d, p, sub = segs.shape
-    return segs.transpose(1, 2).reshape(r, p, d * sub)[:, :, :chunk].reshape(r, -1)
+def _pipeline_unsegment(segs: torch.Tensor, rings: int, chunk: int) -> torch.Tensor:
+    """Inverse of :func:`_pipeline_segments`: ``[p(rank), rings, p *
+    chunk]`` again, the padding inside each chunk dropped."""
+    r, bd, p, sub = segs.shape
+    d = bd // rings
+    out = segs.reshape(r, rings, d, p, sub).transpose(2, 3)
+    return out.reshape(r, rings, p, d * sub)[..., :chunk].reshape(r, rings, -1)
 
 
 def ring_allreduce(
@@ -255,6 +270,7 @@ def ring_allreduce(
     wire_dtype: Optional[str] = None,
     wire_block: Optional[int] = None,
     pipeline_depth: int = 1,
+    batched: bool = False,
 ) -> torch.Tensor:
     """Chunked ring allreduce of the rank-stacked ``x``: (p-1)
     reduce-scatter steps then (p-1) all-gather steps (``ring_allreduce``,
@@ -265,28 +281,35 @@ def ring_allreduce(
     ``wire_dtype`` ('int8' | 'bf16') that engages ships every hop encoded
     and sums in f32, unsegmented. ``pipeline_depth`` > 1 cuts each chunk
     into interleaved sub-spans, which changes no element's chunk: the
-    result is bitwise the same."""
+    result is bitwise the same.
+
+    ``batched``: ``x`` is ``[p, B, ...]``, B independent rings of p ranks
+    (ring b over ``x[:, b]``), one level of a two-level communicator.
+    Each ring has the chunk layout, segments and order of adds of a ring
+    over its own per-rank payload ``x[r, b]``, as the JAX ring over one
+    mesh axis has; the rings ride every hop together."""
     p = x.shape[0]
     if p == 1:
         return x
-    nelem = x[0].numel()
+    rows = x.reshape(p, x.shape[1] if batched else 1, -1)  # [rank, ring, payload]
+    rings, nelem = rows.shape[1:]
     itemsize = x.element_size()
     chunk = -(-nelem // p)
 
+    def padded(total: int) -> torch.Tensor:
+        return torch.nn.functional.pad(rows, (0, total - nelem))
+
+    wire, block = None, 0
     if wire_engages(wire_dtype, x.dtype, nelem):
         from .. import constants
 
+        wire = wire_dtype
         block = wire_block or constants.get("wire_quant_block_size")
-        flat, n, chunk = _flatten_pad(x, p)
-        segs, _, _ = _pipeline_segments(flat, p, chunk, pipeline_depth, align=block)
-        out = _ring_phases(segs, wire_dtype, block)
-        return _pipeline_unsegment(out, chunk)[:, :n].reshape(x.shape)
-
-    if max_bytes_per_step is None or chunk * itemsize <= max_bytes_per_step:
-        flat, n, chunk = _flatten_pad(x, p)
-        segs, _, _ = _pipeline_segments(flat, p, chunk, pipeline_depth)
-        out = _ring_phases(segs)
-        return _pipeline_unsegment(out, chunk)[:, :n].reshape(x.shape)
+    if wire is not None or max_bytes_per_step is None or chunk * itemsize <= max_bytes_per_step:
+        segs, _, _ = _pipeline_segments(padded(p * chunk), p, chunk, pipeline_depth,
+                                        align=max(1, block))
+        out = _ring_phases(segs, wire, block)
+        return _pipeline_unsegment(out, rings, chunk)[..., :nelem].reshape(x.shape)
 
     # byte-bounded segments: per-step message size in [min, max] bytes
     seg_chunk = max(1, int(max_bytes_per_step) // itemsize)
@@ -297,9 +320,8 @@ def ring_allreduce(
     nseg = -(-nelem // seg)
     nb = max(1, min(int(num_buffers), nseg))
     nwave = -(-nseg // nb)
-    flat = torch.nn.functional.pad(x.reshape(p, -1), (0, nwave * nb * seg - nelem))
-    out = _ring_phases(flat.reshape(p, nwave * nb, p, seg_chunk))
-    return out.reshape(p, -1)[:, :nelem].reshape(x.shape)
+    out = _ring_phases(padded(nwave * nb * seg).reshape(p, -1, p, seg_chunk))
+    return out.reshape(p, rings, -1)[..., :nelem].reshape(x.shape)
 
 
 def ring_reduce(
@@ -309,13 +331,15 @@ def ring_reduce(
     min_bytes_per_step: Optional[int] = None,
     num_buffers: int = 1,
     wire_dtype: Optional[str] = None,
+    batched: bool = False,
 ) -> torch.Tensor:
     """Reduce to ``root`` as the ring allreduce masked to the root; every
-    other rank keeps its input (``ring_reduce``, ``primitives.py:493``)."""
+    other rank keeps its input (``ring_reduce``, ``primitives.py:493``).
+    ``batched`` as :func:`ring_allreduce`: rank ``root`` of every ring."""
     total = ring_allreduce(
         x, max_bytes_per_step=max_bytes_per_step,
         min_bytes_per_step=min_bytes_per_step, num_buffers=num_buffers,
-        wire_dtype=wire_dtype,
+        wire_dtype=wire_dtype, batched=batched,
     )
     out = x.clone()
     out[root] = total[root]

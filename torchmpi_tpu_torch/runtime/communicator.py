@@ -115,6 +115,16 @@ class Communicator:
     def num_intra_groups(self) -> int:
         return len(self._groups)
 
+    @property
+    def has_intra_collective(self) -> bool:
+        """True when an intra group has more than one member."""
+        return any(len(g) > 1 for g in self._groups)
+
+    @property
+    def has_inter_collective(self) -> bool:
+        """True when there is more than one intra group."""
+        return len(self._groups) > 1
+
     def member(self, rank: int) -> _Member:
         return self._members[rank]
 

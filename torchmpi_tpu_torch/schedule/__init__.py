@@ -11,10 +11,11 @@ payload bucket, wire, constants.version())``, and lowered onto the
 port's executors (the CUDA ring kernels, the ``ring`` backend, the
 vendor path), so numerics and launches are unchanged.
 
-The port lowers the flat family only; the other families are priced and
-shown by :func:`explain` with the reason ``lowering not ported (ROADMAP
-A8)``. Not here yet: the bucket overlap scheduler (``overlap.py``, ROADMAP
-A3), and the measured calibration pipeline and ``tune_plan`` (A11);
+The port lowers the flat, hierarchical, staged and tree families; the
+algebra-synthesized ones are priced and shown by :func:`explain` with the
+reason ``synthesized lowering not ported (ROADMAP A8)``. Not here yet:
+the bucket overlap scheduler (``overlap.py``, ROADMAP A3), and the
+measured calibration pipeline and ``tune_plan`` (A11);
 :func:`set_calibration` takes a table in the JAX package's format.
 
 Public surface:

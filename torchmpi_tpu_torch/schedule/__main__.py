@@ -6,8 +6,9 @@ introspection dump that replaces the selector's static preference
 table. The port of ``torchmpi_tpu/schedule/__main__.py``: the kernel
 backend is named ``kernel``, the platform defaults to ``cuda`` and the
 groups to one card's eight virtual ranks; a two-level request shows the
-flat plan chosen, the other families marked ``lowering not ported
-(ROADMAP A8)``.
+hierarchical, staged or tree plan the JAX package's CLI shows, and
+``--families synth`` the synthesized candidates, marked ``synthesized
+lowering not ported (ROADMAP A8)``.
 
 Examples::
 

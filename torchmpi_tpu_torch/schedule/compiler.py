@@ -26,9 +26,9 @@ Its differences from the JAX compiler:
 - the kernel backend is named ``kernel`` (the JAX package's ``pallas``);
 - the memo and cache keys carry ``constants.version()``, the port's
   counter of constant changes (the JAX ``generation()``);
-- ``_bind`` lowers the flat family only: the hierarchical, staged, tree
-  and synthesized lowerings are ROADMAP A8, and the port's
-  ``candidate_plans`` never lets selection choose them;
+- ``_bind`` lowers the flat, hierarchical, staged and tree families; the
+  algebra-synthesized ones (``~synth``) are not ported (ROADMAP A8), and
+  the port's ``candidate_plans`` never lets selection choose them;
 - :meth:`ExecutablePlan.execute` places nothing (the virtual ranks live
   on ``comm.device`` already) and passes a CUDA ``stream`` on to the
   kernels, and :attr:`ExecutablePlan.issue` names the warm async
@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import math
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from .. import constants, telemetry as _telemetry
 from . import algebra as _algebra
@@ -455,15 +457,18 @@ class ExecutablePlan:
 class FusedExecutablePlan:
     """The coalesced variant: ``execute(flats)`` feeds same-dtype
     ``[p, n_i]`` slabs through one pack (``torch.cat``) and the flat
-    plan's function, as one dispatch with one flight entry."""
+    plan's function, as one dispatch with one flight entry; on a
+    two-level routing (``inner``: the request's backend, ``route_small``
+    and ``wire_dtype``) the pack, then the composition through
+    ``eager.run``, its own plan and flight entry."""
 
     __slots__ = (
         "plan", "plan_id", "fn", "comm", "backend_label", "wire", "ns",
-        "total", "dtype",
+        "total", "dtype", "inner",
     )
 
     def __init__(self, plan: Plan, fn, comm, backend_label: str, wire: str,
-                 ns: Tuple[int, ...], total: int, dtype):
+                 ns: Tuple[int, ...], total: int, dtype, inner=None):
         self.plan = plan
         self.plan_id = plan.plan_id
         self.fn = fn
@@ -473,8 +478,13 @@ class FusedExecutablePlan:
         self.ns = ns
         self.total = total
         self.dtype = dtype
+        self.inner = inner
 
     def execute(self, flats):
+        if self.inner is not None:
+            backend, route_small, wire_dtype = self.inner
+            return _eager().run(self.plan.op, self.fn(flats), self.comm, backend=backend,
+                                route_small=route_small, wire_dtype=wire_dtype)
         return _eager()._dispatch(
             self.fn, flats, self.plan.op, self.backend_label, self.wire,
             self.total, comm=self.comm, payload=(self.ns, self.dtype),
@@ -485,26 +495,59 @@ class FusedExecutablePlan:
 def _not_lowered(plan: Plan):
     return _eager().CollectiveArgumentError(
         f"plan {plan.plan_id} of the {plan.generator!r} family cannot run: "
-        "its lowering is not ported (ROADMAP A8); the port lowers the flat "
-        "family only"
+        "the algebra-synthesized lowerings are not ported (ROADMAP A8)"
     )
 
 
 def _bind(plan: Plan, comm, shape: Tuple[int, ...], dtype, wire: str,
           root: int, src: int, dst: int) -> ExecutablePlan:
+    """Bind ``plan`` to its lowering (``compiler.py:531``), with the JAX
+    package's labels: the op label ``hier_allreduce``, ``hier_{op}``,
+    ``staged_allreduce``, ``tree_hier_allreduce`` or ``tree_broadcast``
+    and the routing ``hier``, ``staged`` or ``tree`` of the flight entries
+    and spans, the backend label the plan's intra transport."""
     from . import lower
 
-    if plan.generator != "flat":
-        raise _not_lowered(plan)
     op = plan.op
-    fn, takes_stream = lower.lower_flat(
-        comm, op, plan.backend, shape, dtype, wire, root, src, dst,
-        pipeline=plan.pipeline,
-    )
-    return ExecutablePlan(
-        plan, fn, comm, op, plan.backend, wire, _nelem(shape), dtype, "flat",
-        takes_stream, lower.issue_route(comm, op, plan.backend, shape, dtype, wire),
-    )
+    nelem = _nelem(shape)
+    if plan.generator == "flat":
+        fn, takes_stream = lower.lower_flat(
+            comm, op, plan.backend, shape, dtype, wire, root, src, dst,
+            pipeline=plan.pipeline,
+        )
+        return ExecutablePlan(
+            plan, fn, comm, op, plan.backend, wire, nelem, dtype, "flat",
+            takes_stream, lower.issue_route(comm, op, plan.backend, shape, dtype, wire),
+        )
+    if plan.generator in _algebra.SYNTH_GENERATORS:
+        raise _not_lowered(plan)
+    impl = plan.impl or plan.backend
+    if plan.generator == "hier":
+        if op == "allreduce":
+            fn, takes_stream = lower.lower_hier_allreduce(
+                comm, impl, shape, dtype, wire, pipeline=plan.pipeline)
+            return ExecutablePlan(plan, fn, comm, "hier_allreduce", impl, wire, nelem,
+                                  dtype, "hier", takes_stream)
+        fn, takes_stream = lower.lower_hier_collective(comm, op, root, impl, shape, dtype)
+        return ExecutablePlan(plan, fn, comm, f"hier_{op}", impl, "full", nelem, dtype,
+                              "hier", takes_stream)
+    if plan.generator == "staged":
+        depth = plan.pipeline
+
+        def fn(a, stream=None):
+            return lower.run_staged_hierarchical_allreduce(a, comm, impl, wire,
+                                                           pipeline=depth, stream=stream)
+
+        return ExecutablePlan(plan, fn, comm, "staged_allreduce", impl, wire, nelem, dtype,
+                              "staged", impl == "kernel")
+    # tree
+    if op == "allreduce":
+        fn, _ = lower.lower_tree_allreduce(comm, shape, dtype, wire, pipeline=plan.pipeline)
+        return ExecutablePlan(plan, fn, comm, "tree_hier_allreduce", "ring", wire, nelem,
+                              dtype, "tree")
+    fn, _ = lower.lower_tree_broadcast(comm, root, shape, dtype)
+    return ExecutablePlan(plan, fn, comm, "tree_broadcast", impl, "full", nelem, dtype,
+                          "tree")
 
 
 # ---------------------------------------------------------------------------
@@ -615,13 +658,20 @@ def compile_fused(
     plan, _cands = select_plan(
         op, total, dtype.itemsize, topo, eff, wire, route_small, comm=comm
     )
-    if plan.generator != "flat":
-        raise _not_lowered(plan)
-    from . import lower
+    if plan.generator == "flat":
+        from . import lower
 
-    fn = lower.lower_fused_flat(comm, op, plan.backend, tuple(ns), dtype,
-                                wire, pipeline=plan.pipeline)
-    ep = FusedExecutablePlan(plan, fn, comm, plan.backend, wire, tuple(ns), total, dtype)
+        fn = lower.lower_fused_flat(comm, op, plan.backend, tuple(ns), dtype,
+                                    wire, pipeline=plan.pipeline)
+        ep = FusedExecutablePlan(plan, fn, comm, plan.backend, wire, tuple(ns), total,
+                                 dtype)
+    else:
+        # a two-level routing: the pack, then the composition through
+        # run() (its own plan and flight entry), as the JAX package
+        # delegates (compiler.py:707-720)
+        ep = FusedExecutablePlan(plan, lambda flats: torch.cat(flats, dim=1), comm,
+                                 plan.backend, wire, tuple(ns), total, dtype,
+                                 inner=(backend, route_small, wire_dtype))
     memo[sig] = (gen_now, ep, (_OVR_EPOCH, _cost.calibration_epoch()))
     _count_compile(op, plan.generator)
     return ep

@@ -42,13 +42,12 @@ recursive-halving RS + recursive-doubling AG for power-of-two axes,
 This module is jax-free: candidates can be generated offline.
 
 The port's copy names the hand-written kernel backend ``kernel`` where
-the JAX package says ``pallas`` (``collectives/selector.py``), and it
-lowers only the flat family (``schedule/lower.py``): every other family
-that the gates would admit is marked infeasible with the reason
-:data:`A8_REASON`, and a flat candidate that the JAX gates reject in
-favour of a composition stays feasible with that reason, so selection
-takes flat and ``explain`` says why. The hierarchical, staged, tree and
-synthesized lowerings are ROADMAP A8.
+the JAX package says ``pallas`` (``collectives/selector.py``). It lowers
+the flat, hierarchical, staged and tree families (``schedule/lower.py``)
+but not the algebra-synthesized ones: a ``~synth`` candidate that the
+gates would admit is marked infeasible with the reason
+:data:`A8_REASON`, so selection never takes it and ``explain`` says why
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -89,8 +88,8 @@ HIER_OPS = ("allreduce", "broadcast", "reduce", "allgather")
 #: broadcast = new capability the old router could not express)
 TREE_OPS = ("allreduce", "broadcast")
 
-#: why a family other than flat is not chosen on a two-level communicator
-A8_REASON = "lowering not ported (ROADMAP A8)"
+#: why an algebra-synthesized family is not chosen
+A8_REASON = "synthesized lowering not ported (ROADMAP A8)"
 
 #: ops with an autotuned latency-path crossover constant
 _CUTOFF_OPS = ("allreduce", "broadcast")
@@ -422,7 +421,7 @@ def candidate_plans(
     def add(plan: Plan, feasible: bool, reason: str = "",
             structural: bool = True) -> None:
         cost = _cost.estimate_us(plan) if plan.steps or feasible else None
-        if feasible and plan.generator != "flat":
+        if feasible and _algebra.is_synthesized(plan.generator):
             feasible, reason = False, A8_REASON
         out.append(Candidate(
             plan=plan, cost_us=cost, feasible=feasible, reason=reason,
@@ -457,19 +456,19 @@ def candidate_plans(
             "latency path wins, autotuned)")
     elif (op == "allreduce" and topo.staged_inter and hier_on
           and route_small and topo.two_level):
-        add(flat_plan, True,
-            "inter link declared host-staged (use_staged_collectives), "
-            f"but the staged {A8_REASON}")
+        add(flat_plan, False,
+            "inter link declared host-staged (use_staged_collectives): "
+            "no direct cross-island device schedule")
     elif (op == "allreduce" and hier_on and route_small
           and topo.two_level and not topo.cartesian):
         # the legacy router delegated EVERY large ragged allreduce to
         # the tree composition; keeping flat feasible would let the
         # cost model silently flip the reduction order on real
         # deployments (behavior-compat contract)
-        add(flat_plan, True,
+        add(flat_plan, False,
             "ragged two-level topology with hierarchical routing on: "
-            "the JAX package delegates to the tree composition, whose "
-            + A8_REASON)
+            "allreduce delegates to the tree composition "
+            "(collectives_cuda.cpp:546-581)")
     else:
         add(flat_plan, True)
 

@@ -6,23 +6,37 @@ to the functions that run it: the hand-written CUDA ring kernels
 ``collectives/primitives.py``, through the flat kernel table
 ``collectives.eager._kernels``.
 
-The port of the flat part of ``torchmpi_tpu/schedule/lower.py``:
-:func:`lower_flat` (``lower.py:50``) and :func:`lower_fused_flat`
-(``:91``). The JAX lowerings compile an executable per exact shape; the
-port binds a function, which the schedule compiler's dispatch memo keeps
-per call signature.
-The hierarchical, staged, tree, halving, torus and striped lowerings
-(``lower.py:203-940``) are ROADMAP A8.
+The port of ``torchmpi_tpu/schedule/lower.py``: the flat lowerings
+(:func:`lower_flat`, ``lower.py:50``; :func:`lower_fused_flat`, ``:91``),
+the two-level cartesian compositions (:func:`lower_hier_allreduce`,
+``:203``; :func:`lower_hier_collective`, ``:277``), the host-staged
+allreduce (:func:`run_staged_hierarchical_allreduce`, ``:386``) and the
+ragged binomial compositions (:func:`lower_tree_allreduce`, ``:563``;
+:func:`lower_tree_broadcast`, ``:698``). The JAX lowerings compile an
+executable per exact shape; the port binds a function, which the
+schedule compiler's dispatch memo keeps per call signature.
+
+A two-level composition runs on the rows permuted into group order
+(``concat(comm._groups)``, :func:`_group_major`): intra group g is the
+contiguous slab of rows ``[g*I, (g+1)*I)``, so the intra phase launches a
+kernel once per group on its ``[I, ...]`` slab (the chunk layout of a
+ring of I ranks, as the JAX kernel sees the ``intra`` mesh axis), and the
+``ring`` backend runs all groups' rings at once
+(``primitives.ring_allreduce(batched=True)``) with the chunk layout and
+order of adds of one ring per group. The algebra-synthesized lowerings
+(halving, torus, striped; ``lower.py:770-940``) are not ported (ROADMAP
+A8).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from .. import constants
+from ..collectives import primitives as prim
 
 
 def _eager():
@@ -82,3 +96,363 @@ def issue_route(comm, op: str, backend: str, shape: Tuple, dtype,
         return None
     return (1, ring_kernels.NATIVE_DTYPES[dtype], n,
             ring_kernels.chunk_elems(n, comm.size, dtype))
+
+
+# ---------------------------------------------------------------------------
+# two-level cartesian compositions
+# ---------------------------------------------------------------------------
+
+
+def _group_major(comm) -> Tuple[Callable, Callable, int, int]:
+    """``(to_groups, to_ranks, G, I)`` of a cartesian communicator: the
+    rank-stacked rows permuted into group order (``perm =
+    concat(comm._groups)``, an ``index_select``) and back through
+    ``argsort(perm)``; identities when the groups are contiguous ranks
+    (``_hier_compile``, ``lower.py:174``)."""
+    perm = [r for g in comm._groups for r in g]
+    G, I = len(comm._groups), len(comm._groups[0])
+    if perm == list(range(len(perm))):
+        return (lambda a: a), (lambda a: a), G, I
+    fwd = torch.tensor(perm, device=comm.device)
+    inv = torch.argsort(fwd)
+    return (lambda a: a.index_select(0, fwd)), (lambda a: a.index_select(0, inv)), G, I
+
+
+def _per_group(kernel, xg: torch.Tensor, G: int, I: int) -> torch.Tensor:
+    """``kernel`` on each group's contiguous ``[I, ...]`` slab of the
+    group-major ``xg`` (one launch a group), the outputs stacked in
+    group order."""
+    return torch.cat([kernel(xg[g * I:(g + 1) * I]) for g in range(G)])
+
+
+def _intra_rings(fn, xg: torch.Tensor, G: int, I: int) -> torch.Tensor:
+    """``fn`` over the G intra rings of I ranks of the group-major
+    ``xg``: the rank axis I first, the group as the batch axis."""
+    out = fn(xg.reshape((G, I) + tuple(xg.shape[1:])).transpose(0, 1)).transpose(0, 1)
+    return out.reshape((G * I,) + tuple(out.shape[2:]))
+
+
+def _inter_rings(fn, xg: torch.Tensor, G: int, I: int) -> torch.Tensor:
+    """``fn`` over the I inter rings of G ranks of the group-major
+    ``xg``: the rank axis G first, the intra rank as the batch axis."""
+    out = fn(xg.reshape((G, I) + tuple(xg.shape[1:])))
+    return out.reshape((G * I,) + tuple(out.shape[2:]))
+
+
+def _intra_allreduce_kernel(n: int, dtype: torch.dtype, wire: Optional[str]):
+    """The kernel of the intra allreduce on the kernel backend
+    (``_pallas_intra_ring``, ``lower.py:150``): K4 under a compressed wire
+    that engages, else K5 under ``ring_implementation='kernel_bidir'``
+    with the full wire, else K3. A wire that does not engage (an integer
+    payload, a payload under ``wire_quant_min_elements``) ships verbatim
+    through K3, as the JAX wrapper resolves it."""
+    from ..ops import ring_kernels
+
+    if wire is not None:
+        if prim.wire_engages(wire, dtype, n):
+            return lambda x, **kw: ring_kernels.ring_allreduce_quant(x, wire, **kw)
+        return ring_kernels.ring_allreduce
+    if constants.get("ring_implementation") == "kernel_bidir":
+        return ring_kernels.ring_allreduce_bidir
+    return ring_kernels.ring_allreduce
+
+
+def lower_hier_allreduce(comm, impl: str, shape: Tuple, dtype, wire: str,
+                         pipeline: int = 1):
+    """Two-level allreduce over a cartesian communicator: a ring within
+    each intra group, then a ring across the groups (the reference's
+    ``allreducep2pHierarchicalImpl``, ``collectives_cuda.cpp:501-581``;
+    ``lower.py:203``). Per ``impl``:
+
+    - ``xla``: the sum within each group, then the sum across groups;
+    - ``ring``: the batched ring on the intra level, then on the inter
+      level, with the wire and the plan's pipeline depth on both;
+    - ``kernel``: the intra phase one kernel launch a group
+      (:func:`_intra_allreduce_kernel`), the inter phase the batched
+      ``ring`` with the same wire, as the JAX composition runs its
+      ppermute ring over the slower fabric.
+
+    Returns ``(fn, takes_stream)``."""
+    to_groups, to_ranks, G, I = _group_major(comm)
+    n = math.prod(shape[1:])
+    wire_arg = None if wire == "full" else wire
+    minb, maxb, nbuf = _eager().ring_tuning(comm.device.type)
+
+    def ring(depth: int):
+        return lambda v: prim.ring_allreduce(
+            v, max_bytes_per_step=maxb, min_bytes_per_step=minb, num_buffers=nbuf,
+            wire_dtype=wire_arg, pipeline_depth=depth, batched=True,
+        )
+
+    if impl == "xla":
+        def levels(xg, stream=None):
+            v = xg.reshape(G, I, -1)
+            total = v.sum(1, dtype=xg.dtype).sum(0, dtype=xg.dtype)
+            return total.expand(G * I, -1).reshape(xg.shape)
+    elif impl == "ring":
+        depth = int(pipeline)
+
+        def levels(xg, stream=None):
+            return _inter_rings(ring(depth), _intra_rings(ring(depth), xg, G, I), G, I)
+    else:
+        kernel = _intra_allreduce_kernel(n, dtype, wire_arg)
+
+        def levels(xg, stream=None):
+            kw = {} if stream is None else {"stream": stream}
+            y = _per_group(lambda s: kernel(s, **kw), xg, G, I)
+            return _inter_rings(ring(1), y, G, I)
+
+    def fn(x, stream=None):
+        return to_ranks(levels(to_groups(x), stream)).contiguous()
+
+    return fn, impl == "kernel"
+
+
+def lower_hier_collective(comm, op: str, root: int, ring_impl: str,
+                          shape: Tuple, dtype):
+    """Two-level broadcast, reduce or allgather on a cartesian
+    communicator (``collectives_cuda.cpp:501-581,1057-1141``;
+    ``lower.py:277``):
+
+    - broadcast: the inter tree or pipelined ring from the root's group
+      (``eager.broadcast_plan``), then the intra broadcast from the
+      root's intra rank, K7 a group on the kernel backend;
+    - reduce: the intra ring reduce to the root's intra rank (K6 a group
+      on the kernel backend), then the inter ring reduce to the root's
+      group; every rank but the root keeps its input;
+    - allgather: the intra allgather (K3 'ag' a group on the kernel
+      backend), then the inter ring allgather along the last dim, the
+      blocks then put from group order into rank order.
+
+    ``ring_impl`` picks the intra transport (``ring`` or ``kernel``); the
+    inter phase always runs the ``ring`` backend. Returns ``(fn,
+    takes_stream)``."""
+    from ..ops import ring_kernels
+
+    eager = _eager()
+    to_groups, to_ranks, G, I = _group_major(comm)
+    platform = comm.device.type
+    minb, maxb, nbuf = eager.ring_tuning(platform)
+    tuning = dict(max_bytes_per_step=maxb, min_bytes_per_step=minb, num_buffers=nbuf)
+    g0 = comm.member(root).intra_group
+    i0 = comm.member(root).intra_rank
+    kernel_intra = ring_impl == "kernel"
+
+    if op == "broadcast":
+        tree, chunks = eager.broadcast_plan(math.prod(shape[1:]), dtype, platform)
+
+        def bcast(r):
+            if tree:
+                return lambda v: prim.tree_broadcast(v, r)
+            return lambda v: prim.ring_broadcast(v, r, num_chunks=chunks)
+
+        def levels(xg, kw):
+            y = _inter_rings(bcast(g0), xg, G, I)
+            if kernel_intra:
+                return _per_group(lambda s: ring_kernels.ring_broadcast(s, i0, **kw), y, G, I)
+            return _intra_rings(bcast(i0), y, G, I)
+        post = None
+    elif op == "reduce":
+        k0 = g0 * I + i0  # the root's row in group order
+
+        def levels(xg, kw):
+            if kernel_intra:
+                y = _per_group(lambda s: ring_kernels.ring_reduce(s, i0, **kw), xg, G, I)
+            else:
+                y = _intra_rings(
+                    lambda v: prim.ring_reduce(v, i0, batched=True, **tuning), xg, G, I)
+            z = _inter_rings(lambda v: prim.ring_reduce(v, g0, batched=True, **tuning), y, G, I)
+            out = xg.clone()
+            out[k0] = z[k0]
+            return out
+        post = None
+    else:
+        p, d = comm.size, int(shape[-1])
+
+        def levels(xg, kw):
+            if kernel_intra:
+                y = _per_group(lambda s: eager._allgather_lastdim(s, **kw), xg, G, I)
+            else:
+                y = _intra_rings(lambda v: prim.ring_allgather(v, dim=-1), xg, G, I)
+            return _inter_rings(lambda v: prim.ring_allgather(v, dim=-1), y, G, I)
+
+        order = torch.tensor([r for g in comm._groups for r in g], device=comm.device)
+        inv = torch.argsort(order)
+
+        def post(out):
+            # the gathered blocks arrive in group order: put them in rank order
+            blocks = out.reshape(out.shape[:-1] + (p, d))
+            return blocks.index_select(-2, inv).reshape(out.shape)
+
+    def fn(x, stream=None):
+        kw = {} if stream is None else {"stream": stream}
+        out = to_ranks(levels(to_groups(x), kw))
+        return (out if post is None else post(out)).contiguous()
+
+    return fn, kernel_intra
+
+
+# ---------------------------------------------------------------------------
+# host-staged inter allreduce
+# ---------------------------------------------------------------------------
+
+
+def run_staged_hierarchical_allreduce(x: torch.Tensor, comm, intra_impl: str = "ring",
+                                      wire: str = "full", pipeline: int = 1,
+                                      stream=None) -> torch.Tensor:
+    """Host-staged cross-group allreduce, the path of
+    ``use_staged_collectives`` (``lower.py:386``; the reference's
+    ``allreducep2pCrossNodesViaCPU``, ``collectives_cuda.cpp:390-683``,
+    for nodes without a direct device link between them):
+
+    1. on the communicator's device, the allreduce within each intra
+       group: the batched ``ring`` (with the plan's pipeline depth) or,
+       on the kernel backend, one kernel launch a group;
+    2. on the host, the group sums (each group's first row) copied over
+       and added in group order, one row after another (numpy's order
+       for the JAX package's ``host.sum(axis=0)``);
+    3. the total copied back to every rank.
+
+    The host hop is the designed transport of this path, not a fallback.
+    The JAX package's multi-process branch (``lower.py:472-523``, over
+    the parameter server's socket transport) is not ported: the port's
+    ranks live in one process (ROADMAP A13)."""
+    if comm.num_nodes() > 1:
+        raise NotImplementedError(
+            "the staged allreduce across processes (over the parameter server's "
+            "socket transport) is not ported (ROADMAP A13)"
+        )
+    to_groups, _, G, I = _group_major(comm)
+    n = math.prod(x.shape[1:])
+    wire_arg = None if wire == "full" else wire
+    xg = to_groups(x)
+    if intra_impl == "kernel":
+        kernel = _intra_allreduce_kernel(n, x.dtype, wire_arg)
+        kw = {} if stream is None else {"stream": stream}
+        reduced = _per_group(lambda s: kernel(s, **kw), xg, G, I)
+    else:
+        minb, maxb, nbuf = _eager().ring_tuning(comm.device.type)
+        reduced = _intra_rings(lambda v: prim.ring_allreduce(
+            v, max_bytes_per_step=maxb, min_bytes_per_step=minb, num_buffers=nbuf,
+            wire_dtype=wire_arg, pipeline_depth=int(pipeline), batched=True), xg, G, I)
+    host = reduced[::I].cpu()  # the group representatives: each group's first row
+    total = host[0].clone()
+    for row in host[1:]:
+        total += row
+    return total.to(comm.device).expand(x.shape).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# ragged (non-cartesian) compositions
+# ---------------------------------------------------------------------------
+
+
+def _binomial_reduce_steps(groups, p: int) -> List[List[Tuple[int, int]]]:
+    """The (src, dst) pairs of each step of a binomial reduction to each
+    group's first member (``lower.py:541``): member j at span s receives
+    from j + s when j % 2s == 0. ``log2(max group)`` steps; every value
+    is added exactly once. (The JAX schedule's receive mask is the set of
+    dsts.)"""
+    steps = []
+    span = 1
+    while True:
+        pairs = [(g[j + span], g[j]) for g in groups
+                 for j in range(0, len(g), 2 * span) if j + span < len(g)]
+        if not pairs:
+            break
+        steps.append(pairs)
+        span *= 2
+    return steps
+
+
+def _binomial_fanout_steps(root: int, targets, p: int) -> List[List[Tuple[int, int]]]:
+    """The (src, dst) pairs of each round delivering ``root``'s block to
+    every rank of ``targets`` (``lower.py:675``): each round every holder
+    forwards to one pending target, so the holders double and the depth
+    is ``ceil(log2(len(targets) + 1))``."""
+    pending = [t for t in targets if t != root]
+    holders = [root]
+    steps = []
+    while pending:
+        pairs = []
+        for h in holders:
+            if not pending:
+                break
+            pairs.append((h, pending.pop(0)))
+        holders = holders + [d for _, d in pairs]
+        steps.append(pairs)
+    return steps
+
+
+def _index_pairs(steps, device) -> list:
+    return [(torch.tensor([s for s, _ in pairs], device=device),
+             torch.tensor([d for _, d in pairs], device=device)) for pairs in steps]
+
+
+def lower_tree_allreduce(comm, shape: Tuple, dtype, wire: str, pipeline: int = 1):
+    """Allreduce on a ragged (non-cartesian) communicator
+    (``lower.py:563``; the reference's non-cartesian path,
+    ``collectives_cuda.cpp:546-581``): a binomial reduction within each
+    group to its first member, one across the group roots to the global
+    root, then every rank reads the global root's total. Each step is an
+    indexed gather of the senders' rows and an add into the receivers',
+    in the JAX schedule's order. A compressed ``wire`` encodes every
+    exchange (f32 adds); the final read ships the total verbatim. A
+    pipeline depth > 1 cuts each rank's buffer into that many
+    block-aligned sub-buffers, each encoded on its own: the same block
+    grid, so the same bits. Runs on the ``ring`` backend, as in JAX.
+    Returns ``(fn, takes_stream)``."""
+    p = comm.size
+    groups = [list(g) for g in comm._groups]
+    roots = [g[0] for g in groups]
+    steps = _index_pairs(
+        _binomial_reduce_steps(groups, p) + _binomial_reduce_steps([roots], p), comm.device)
+    n = math.prod(shape[1:])
+    # the JAX composition encodes every f32 exchange under a compressed
+    # wire, below wire_quant_min_elements too; integer payloads stay exact
+    wire_arg = None if wire == "full" or dtype != torch.float32 else wire
+    block = constants.get("wire_quant_block_size")
+    depth = max(1, int(pipeline))
+    sub = n
+    if depth > 1:
+        sub = -(-n // depth)
+        if wire_arg:
+            sub = -(-sub // block) * block
+        sub = max(1, sub)
+    d = max(1, -(-n // sub))
+
+    def fn(x, stream=None):
+        flat = torch.nn.functional.pad(x.reshape(p, n), (0, d * sub - n))
+        segs = flat.reshape(p, d, sub)
+        for src, dst in steps:
+            segs[dst] = prim.wire_transfer(segs[src], wire_arg, block, segs[dst])
+        total = segs[roots[0]].reshape(-1)[:n]
+        return total.expand(p, n).reshape(x.shape).contiguous()
+
+    return fn, False
+
+
+def lower_tree_broadcast(comm, root: int, shape: Tuple, dtype):
+    """Broadcast on a ragged communicator (``lower.py:698``): a binomial
+    fan-out of the root's block to every other group's first member,
+    then every member reads its group's first member (the root's own
+    group reads the root). Data movement only, on the ``ring`` backend.
+    Returns ``(fn, takes_stream)``."""
+    p = comm.size
+    groups = [list(g) for g in comm._groups]
+    g_root = next(g for g in groups if root in g)
+    targets = [g[0] for g in groups if g is not g_root]
+    steps = _index_pairs(_binomial_fanout_steps(root, targets, p), comm.device)
+    src = [0] * p
+    for g in groups:
+        for r in g:
+            src[r] = root if g is g_root else g[0]
+    gather = torch.tensor(src, device=comm.device)
+
+    def fn(x, stream=None):
+        b = x.clone()
+        for s, dst in steps:
+            b[dst] = b[s]
+        return b.index_select(0, gather)
+
+    return fn, False
