@@ -60,14 +60,18 @@ phase fails:
    ``kernel``, ``kernel_bidir`` and the int8 wire; broadcast, reduce and
    allgather on ``ring`` and ``kernel``; the staged allreduce; the tree
    allreduce and broadcast on ragged splits) on the card against the CPU,
-   bit for bit (``xla`` within ``HIER_XLA_RTOL``) with one kernel launch
-   a group; the twin of ``examples/blocksequential_2host.py`` at its
-   defaults (MLP6, Adam, 3 blocks, 2 hosts of 4, 64 steps) with the
-   ``ring`` and the ``kernel`` intra phase: falling losses, accuracy
-   above 0.6, ``check_with_allreduce``, the hierarchical plan run, K3
-   launched steps x blocks x hosts times; and the two-level allreduce at
-   [8, 2^23] beside flat K3, the intra phase's library call and one
-   host's K3 slab against its bound (``{"hier": ...}``);
+   bit for bit (``xla`` within ``HIER_XLA_RTOL``) with exact launches: one
+   over every group for an intra phase on K3, K3 'ag' or K7, one a group
+   on K4, K5 or K6; the grouped K3, K3 'ag' and K7 on the card against
+   their plain versions bit for bit (:func:`check_grouped`: config 5's
+   bucket widths, [8, 2^23], ``HIER_N``, every native dtype); the twin of
+   ``examples/blocksequential_2host.py`` at its defaults (MLP6, Adam, 3
+   blocks, 2 hosts of 4, 64 steps) with the ``ring`` and the ``kernel``
+   intra phase: falling losses, accuracy above 0.6,
+   ``check_with_allreduce``, the hierarchical plan run, K3 launched steps
+   x blocks times; and the two-level allreduce at [8, 2^23] beside flat
+   K3, the grouped intra phase against its bound and the library call,
+   and one host's K3 slab against its bound (``{"hier": ...}``);
 7. drives the long-context LM path (``examples/long_context.py``): a small
    LM on the card against the same LM on the CPU (plain versions), then the
    ``lm`` line's widths (vocab 8192, 8 layers, 8 heads x 64, d_model 512),
@@ -202,7 +206,7 @@ from torchmpi_tpu_torch.models import (  # noqa: E402
     make_stateful_loss_fn,
 )
 from torchmpi_tpu_torch.ops import _build  # noqa: E402
-from torchmpi_tpu_torch.ops.ring_kernels import bidir_chunk_elems  # noqa: E402
+from torchmpi_tpu_torch.ops.ring_kernels import NATIVE_DTYPES, bidir_chunk_elems  # noqa: E402
 from torchmpi_tpu_torch.parallel import ring_self_attention  # noqa: E402
 from torchmpi_tpu_torch.parameterserver import server as ps_server  # noqa: E402
 from torchmpi_tpu_torch.utils import (  # noqa: E402
@@ -315,6 +319,8 @@ CONFIG5 = dict(blocks=3, hosts=2, epochs=4, train=1024, batch_per_rank=8)
 CONFIG5_STEPS = CONFIG5["epochs"] * (CONFIG5["train"] // P // CONFIG5["batch_per_rank"])  # 64
 CONFIG5_G, CONFIG5_I = CONFIG5["hosts"], P // CONFIG5["hosts"]
 CONFIG5_BUCKET = 100480  # its largest gradient bucket per rank (dense1.bias, dense0.weight)
+CONFIG5_BUCKETS = (67210, CONFIG5_BUCKET, 128)  # its three buckets per rank
+CONFIG5_PARAMS = 167818  # MLP6 at 128 features: its first sync's one fused broadcast a rank
 
 
 def require(cond: bool, what: str) -> None:
@@ -2265,7 +2271,8 @@ def two_level(device, keys):
 def hier_cases(G: int, I: int) -> list:
     """(name, call, constants, launches a float and an int payload make):
     every two-level lowering on a cartesian communicator of G groups of I
-    ranks."""
+    ranks. An intra phase on K3, K3 'ag' or K7 is one launch over every
+    group; on K4, K5 or K6 one launch a group."""
     from torchmpi_tpu_torch.collectives import eager
 
     ar, col = eager.run_hierarchical_allreduce, eager.run_hierarchical_collective
@@ -2277,24 +2284,24 @@ def hier_cases(G: int, I: int) -> list:
         ("allreduce ring depth 2", lambda x, c: ar(x, c, impl="ring"), depth2, {}, {}),
         ("allreduce ring int8", lambda x, c: ar(x, c, impl="ring", wire="int8"), {}, {}, {}),
         ("allreduce kernel", lambda x, c: ar(x, c, impl="kernel"), {},
-         {"ring_allreduce": G}, {"ring_allreduce": G}),
+         {"ring_allreduce": 1}, {"ring_allreduce": 1}),
         ("allreduce kernel_bidir", lambda x, c: ar(x, c, impl="kernel"),
          {"ring_implementation": "kernel_bidir"}, {bidir: G}, {bidir: G}),
         ("allreduce kernel int8", lambda x, c: ar(x, c, impl="kernel", wire="int8"), {},
-         {"ring_allreduce_quant_int8": G}, {"ring_allreduce": G}),
+         {"ring_allreduce_quant_int8": G}, {"ring_allreduce": 1}),
         ("broadcast ring", lambda x, c: col("broadcast", x, c, root=3), {}, {}, {}),
         ("broadcast kernel", lambda x, c: col("broadcast", x, c, root=3, ring_impl="kernel"), {},
-         {"ring_broadcast": G}, {"ring_broadcast": G}),
+         {"ring_broadcast": 1}, {"ring_broadcast": 1}),
         ("reduce ring", lambda x, c: col("reduce", x, c, root=5), {}, {}, {}),
         ("reduce kernel", lambda x, c: col("reduce", x, c, root=5, ring_impl="kernel"), {},
          {"ring_reduce": G}, {"ring_reduce": G}),
         ("allgather ring", lambda x, c: col("allgather", x[:, :HIER_N // 8], c), {}, {}, {}),
         ("allgather kernel",
          lambda x, c: col("allgather", x[:, :HIER_N // 8].contiguous(), c, ring_impl="kernel"), {},
-         {"ring_allgather": G}, {"ring_allgather": G}),
+         {"ring_allgather": 1}, {"ring_allgather": 1}),
         ("staged ring", lambda x, c: ar(x, c, impl="staged"), {}, {}, {}),
         ("staged kernel", lambda x, c: ar(x, c, impl="staged", staged_intra="kernel"), {},
-         {"ring_allreduce": G}, {"ring_allreduce": G}),
+         {"ring_allreduce": 1}, {"ring_allreduce": 1}),
     ]
 
 
@@ -2323,8 +2330,9 @@ def check_hier(dev) -> dict:
     tree on two ragged splits, f32 and int32 payloads of ``HIER_N`` a
     rank: bit for bit (the ``xla`` sums within ``HIER_XLA_RTOL`` of the
     largest |sum| on f32, exact on int32), and each case's launches
-    exact (0 just before the card's call, read just after; G a kernel's
-    intra phase). Returns the largest |card - CPU| of each case."""
+    exact (0 just before the card's call, read just after; 1 an intra
+    phase on K3, K3 'ag' or K7, G on K4, K5 or K6). Returns the largest
+    |card - CPU| of each case."""
     gen = torch.Generator(device=dev).manual_seed(13)
     errs = {}
     with cuda_columns_on_cpu():
@@ -2388,16 +2396,57 @@ def config5_run(backend: str) -> dict:
 
 
 def config5_expected(run: dict, backend: str) -> dict:
-    """Its launches: K3 a host for every bucket of every step on the
-    kernel backend, and K7 a host for the first parameter sync where that
-    broadcast took the two-level plan with the kernel intra phase."""
+    """Its launches: one K3 over both hosts for every bucket of every step
+    on the kernel backend, and one K7 over both hosts for each
+    ``hier-kernel`` broadcast plan (the first parameter sync)."""
     expected = dict.fromkeys(run["counts"], 0)
     if backend == "kernel":
-        expected["ring_allreduce"] = CONFIG5_STEPS * CONFIG5["blocks"] * CONFIG5_G
-    expected["ring_broadcast"] = CONFIG5_G * sum(
+        expected["ring_allreduce"] = CONFIG5_STEPS * CONFIG5["blocks"]
+    expected["ring_broadcast"] = sum(
         1 for label, plan_id in run["plans"]
         if label == "hier_broadcast" and plan_id.startswith("hier-kernel"))
     return expected
+
+
+GROUPED_LAYOUTS = ((1, P), (CONFIG5_G, CONFIG5_I), (4, 2))  # G groups x I ranks
+
+
+def check_grouped(dev, gen) -> dict:
+    """The grouped K3, K3 'ag' and K7 (``groups=G`` on the group-major
+    rows, one launch) on the card against their plain versions on the same
+    card, bit for bit: G x I in ``GROUPED_LAYOUTS``, every native dtype, at
+    config 5's three bucket widths and its parameters (its first sync's
+    broadcast), ``HIER_N`` (odd) and 2^23 a rank (f32 only: the other
+    dtypes take the same code at the smaller widths), K7 from root I - 1. Returns the largest |kernel - plain| at the kernels
+    line's grouped shapes."""
+    errs = {}
+    widths = CONFIG5_BUCKETS + (CONFIG5_PARAMS, HIER_N)
+    cases = [(n, dtype) for n in widths for dtype in NATIVE_DTYPES]
+    cases.append((N23, torch.float32))
+    for G, I in GROUPED_LAYOUTS:
+        root = I - 1
+        grouped = (
+            ("ring_allreduce", lambda x: ops.ring_allreduce(x, groups=G),
+             lambda x: ops.ring_allreduce_plain(x, G)),
+            ("ring_allgather", lambda x: ops.ring_allgather(x, groups=G),
+             lambda x: ops.ring_allgather_plain(x, G)),
+            ("ring_broadcast", lambda x: ops.ring_broadcast(x, root, groups=G),
+             lambda x: ops.ring_broadcast_plain(x, root, G)),
+        )
+        for n, dtype in cases:
+            x = rand((P, n), dtype, gen, dev)
+            for name, kernel, plain in grouped:
+                got, want = kernel(x), plain(x)
+                torch.cuda.synchronize()
+                what = f"grouped {name} {G}x{I} [{P}, {n}] {dtype}"
+                require(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape")
+                require(torch.equal(bits(got), bits(want)), f"{what}: kernel != plain")
+                if dtype == torch.float32 and G == CONFIG5_G:
+                    errs[f"{name}@grouped_{n}"] = float((got - want).abs().max())
+            del x
+    print(f"grouped: K3, K3 'ag' and K7 over {len(GROUPED_LAYOUTS)} layouts and "
+          f"{len(cases)} widths and dtypes equal their plain versions")
+    return errs
 
 
 def phase_hier(dev) -> tuple:
@@ -2418,14 +2467,18 @@ def phase_hier(dev) -> tuple:
        intra phase's library call (each host's sum, ``x.view(G, I,
        n).sum(1)``, expanded to its ranks) and K3 on one host's [4, 2^23]
        slab against its bound, and the kernel allreduce's two phases
-       alone (K3 a host with the slabs' ``torch.cat``; the inter rings),
-       every time in ms by :func:`time_ms` on inputs rotated past the L2.
+       alone (the grouped K3, one launch, against its bound; the inter
+       rings), beside the intra phase as one K3 a host with the slabs'
+       ``torch.cat`` (the lowering until the grouped launch); the same
+       three intra forms at config 5's largest bucket, [8, 100480]; every
+       time in ms by :func:`time_ms` on inputs rotated past the L2.
 
     Prints one ``{"hier": ...}`` line; returns the runs' launch counts
     (paths ``hier_ring``, ``hier_kernel``) and the errors of the checks."""
     from torchmpi_tpu_torch.collectives import eager
 
     errs = check_hier(dev)
+    errs.update(check_grouped(dev, torch.Generator(device=dev).manual_seed(17)))
     # the twin on the card against the twin on the CPU (plain versions),
     # on a small run: the same losses but for the devices' roundings
     from torchmpi_tpu_torch.examples import blocksequential_2host
@@ -2464,42 +2517,58 @@ def phase_hier(dev) -> tuple:
 
     gen = torch.Generator(device=dev).manual_seed(5)
 
-    def timed(fn, rows: int = P):
-        return time_ms(rotating(fn, lambda: (torch.randn((rows, n), generator=gen, device=dev),),
-                                rows * n * 4))
+    def timed(fn, rows: int = P, width: int = n):
+        return time_ms(rotating(fn, lambda: (torch.randn((rows, width), generator=gen,
+                                                         device=dev),), rows * width * 4))
 
-    # K3 on one host's slab at the largest bucket (the kernels line's row)
-    # and at 2^23, against its plain version
-    slab_errs = []
+    def library(width):
+        return lambda x: x.view(G, I, width).sum(1, keepdim=True).expand(G, I, width).reshape(
+            P, width)
+
+    # K3 on one host's slab (the per-group form timed below) at the largest
+    # bucket and at 2^23, against its plain version
     for width in (CONFIG5_BUCKET, n):
         slab = torch.randn((I, width), generator=gen, device=dev)
-        slab_errs.append(float((ops.ring_allreduce(slab) - ops.ring_allreduce_plain(slab))
-                               .abs().max()))
-        require(slab_errs[-1] == 0.0,
-                f"K3 on a [{I}, {width}] slab differs from its plain version by {slab_errs[-1]}")
+        err = float((ops.ring_allreduce(slab) - ops.ring_allreduce_plain(slab)).abs().max())
+        require(err == 0.0, f"K3 on a [{I}, {width}] slab differs from its plain version by {err}")
     del slab
     times = {
         "two_level_kernel_ms": timed(lambda x: eager.run_hierarchical_allreduce(x, comm,
                                                                                impl="kernel")),
         "two_level_ring_ms": timed(lambda x: eager.run_hierarchical_allreduce(x, comm,
                                                                              impl="ring")),
-        # its parts: the intra phase (K3 a host and the slabs' cat), the
+        # its parts: the intra phase (the grouped K3, one launch), the
         # inter phase (the ring backend's rings of 2 ranks, 4 at once)
-        "intra_kernel_ms": timed(lambda x: lower._per_group(ops.ring_allreduce, x, G, I)),
+        "intra_kernel_ms": timed(lambda x: ops.ring_allreduce(x, groups=G)),
+        "intra_bound_ms": 2 * P * n * 4 / HBM_BYTES_PER_S * 1e3,
+        "intra_per_group_ms": timed(lambda x: lower._per_group(ops.ring_allreduce, x, G, I)),
         "inter_ring_ms": timed(lambda x: lower._inter_rings(inter, x, G, I)),
         "flat_k3_ms": timed(ops.ring_allreduce),
-        "intra_library_ms": timed(
-            lambda x: x.view(G, I, n).sum(1, keepdim=True).expand(G, I, n).reshape(P, n)),
+        "intra_library_ms": timed(library(n)),
         "slab_k3_ms": timed(ops.ring_allreduce, rows=I),
         "slab_bound_ms": 2 * I * n * 4 / HBM_BYTES_PER_S * 1e3,
     }
-    require(times["slab_k3_ms"] >= times["slab_bound_ms"],
-            f"K3 on a slab read {times['slab_k3_ms']} ms, under its bound")
+    c5 = CONFIG5_BUCKET
+    config5_intra = {
+        "shape": [P, c5],
+        "grouped_k3_ms": timed(lambda x: ops.ring_allreduce(x, groups=G), width=c5),
+        "bound_ms": 2 * P * c5 * 4 / HBM_BYTES_PER_S * 1e3,
+        "per_group_ms": timed(lambda x: lower._per_group(ops.ring_allreduce, x, G, I), width=c5),
+        "library_ms": timed(library(c5), width=c5),
+        "slab_k3_ms": timed(ops.ring_allreduce, rows=I, width=c5),
+    }
+    for what, ms, bound_ms in (
+            ("K3 on a slab", times["slab_k3_ms"], times["slab_bound_ms"]),
+            ("the grouped intra phase", times["intra_kernel_ms"], times["intra_bound_ms"]),
+            ("the per-group intra phase", times["intra_per_group_ms"], times["intra_bound_ms"]),
+            ("the grouped K3 at config 5's bucket", config5_intra["grouped_k3_ms"],
+             config5_intra["bound_ms"])):
+        require(ms >= bound_ms, f"{what} read {ms} ms, under its bound {bound_ms} ms")
     print(json.dumps({"hier": {
         "checks": len(errs), "config5": twin, "steps": CONFIG5_STEPS,
         "times_at": {"shape": [P, n], "dtype": "float32", "groups": f"{G}x{I}", **times},
-        "card": card()}}))
-    return runs, {**errs, "ring_allreduce@config5": slab_errs[0]}
+        "config5_intra": config5_intra, "card": card()}}))
+    return runs, errs
 
 
 def phase_profile(mode: str, wire: str) -> None:
@@ -2768,18 +2837,37 @@ def timing_rows(randn) -> list:
             library=lambda x: x[0:1].expand_as(x).clone(),
         ),
     ]
-    # config 5: the intra phase of its largest bucket, K3 on one host's slab
-    c5 = CONFIG5_BUCKET
+    # config 5 (2 hosts of 4): the intra phase of its largest bucket and a
+    # two-level allreduce's at 2^23, the grouped K3 (one launch over both
+    # hosts), and its first parameter sync's intra broadcast, the grouped
+    # K7; the library calls are each host's sum, or its root row, expanded
+    c5g, c5i = CONFIG5_G, CONFIG5_I
+    for width, err in ((CONFIG5_BUCKET, "config5"), (N23, "2^23")):
+        rows.append(dict(
+            name="ring_allreduce", at=f"config 5, the two-level intra phase at [{P}, {width}], "
+            f"{c5g} hosts of {c5i} in one launch",
+            err=f"ring_allreduce@grouped_{width}", per_step=("hier_", CONFIG5_STEPS),
+            source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:201",
+            shape=[P, width], make=lambda w=width: (randn(P, w),), in_bytes=P * width * 4,
+            bytes=2 * P * width * 4, ops=(c5i - 1) * c5g * width,
+            kernel=lambda x: ops.ring_allreduce(x, groups=c5g),
+            plain=lambda x: ops.ring_allreduce_plain(x, c5g),
+            library=lambda x, w=width: x.view(c5g, c5i, w).sum(1, keepdim=True).expand(
+                c5g, c5i, w).reshape(P, w),
+        ))
+    c5p = CONFIG5_PARAMS
     rows.append(dict(
-        name="ring_allreduce", at="config 5, the intra phase of its largest bucket on one "
-        "host's slab (one launch a host)",
-        err="ring_allreduce@config5", per_step=("hier_", CONFIG5_STEPS),
+        name="ring_broadcast", at=f"config 5, the first parameter sync's intra broadcast, "
+        f"{c5g} hosts of {c5i} in one launch",
+        err=f"ring_broadcast@grouped_{c5p}", per_step=("hier_", CONFIG5_STEPS),
         source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
-        replaces="torchmpi_tpu/ops/ring_kernels.py:201",
-        shape=[CONFIG5_I, c5], make=lambda: (randn(CONFIG5_I, c5),), in_bytes=CONFIG5_I * c5 * 4,
-        bytes=2 * CONFIG5_I * c5 * 4, ops=(CONFIG5_I - 1) * c5,
-        kernel=ops.ring_allreduce, plain=ops.ring_allreduce_plain,
-        library=lambda x: x.sum(0, keepdim=True).expand_as(x).contiguous(),
+        replaces="torchmpi_tpu/ops/ring_kernels.py:1282",
+        shape=[P, c5p], make=lambda: (randn(P, c5p),), in_bytes=P * c5p * 4,
+        bytes=c5g * (1 + c5i) * c5p * 4, ops=0,
+        kernel=lambda x: ops.ring_broadcast(x, 0, groups=c5g),
+        plain=lambda x: ops.ring_broadcast_plain(x, 0, c5g),
+        library=lambda x: x.view(c5g, c5i, c5p)[:, :1].expand(c5g, c5i, c5p).reshape(P, c5p),
     ))
     for wire in WIRES:
         # per element and hop: int8 |v|, max, divide, two adds that round,

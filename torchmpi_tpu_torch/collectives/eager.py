@@ -321,14 +321,16 @@ def _reduce_scatter_lastdim(x: torch.Tensor, wire: str, **kw) -> torch.Tensor:
     return out.movedim(1, -1)
 
 
-def _allgather_lastdim(x: torch.Tensor, **kw) -> torch.Tensor:
+def _allgather_lastdim(x: torch.Tensor, groups: int = 1, **kw) -> torch.Tensor:
     """The eager allgather, every rank's blocks concatenated along the last
-    dim, through the kernel, which stacks them (``eager.py:384``)."""
+    dim, through the kernel, which stacks them (``eager.py:384``); with
+    ``groups``, every rank gets its group's blocks (the group-major rows'
+    intra allgather, one launch)."""
     from ..ops import ring_kernels
 
-    stacked = ring_kernels.ring_allgather(x, **kw)  # [rank, source, ..., d]
+    stacked = ring_kernels.ring_allgather(x, groups=groups, **kw)  # [rank, source, ..., d]
     moved = stacked.movedim(1, -2)  # [rank, ..., source, d]
-    return moved.reshape(x.shape[:-1] + (x.shape[0] * x.shape[-1],))
+    return moved.reshape(x.shape[:-1] + (stacked.shape[1] * x.shape[-1],))
 
 
 def _kernels(op: str, backend: str, nelem: int, dtype: torch.dtype,

@@ -102,13 +102,30 @@ inline int vector_bytes(int itemsize, unsigned long long stride, const void* a,
   return w;
 }
 
-// Blocks for a grid-stride loop over `work` items: enough to fill the
-// card's 132 SMs several times over, no more.
-inline unsigned int grid_for(long long work, int threads) {
+// The card's streaming multiprocessors (H100 SXM).
+constexpr int kSMs = 132;
+
+// The launch of a grid-stride loop over `work` items in each of `groups`
+// groups, the group on blockIdx.y. 256 threads a block while the blocks
+// cover every SM at least twice; when the work is smaller, smaller blocks
+// (down to 64 threads), so that the blocks still reach every SM instead
+// of leaving a quarter of the card idle at a few hundred KB. At most 16
+// blocks an SM over all groups: above that each thread loops.
+struct LaunchShape {
+  dim3 grid;
+  unsigned int threads;
+};
+
+inline LaunchShape shape_for(long long work, int groups) {
+  const long long total = work * groups;
+  unsigned int threads = 256;
+  while (threads > 64 && (total + threads - 1) / threads < 2 * kSMs) threads >>= 1;
   long long blocks = (work + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
+  long long cap = (long long)kSMs * 16 / groups;
+  if (cap < 1) cap = 1;
+  if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  return (unsigned int)blocks;
+  return {dim3((unsigned int)blocks, (unsigned int)groups), threads};
 }
 
 }  // namespace tmpi

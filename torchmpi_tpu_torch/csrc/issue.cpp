@@ -30,8 +30,9 @@
 
 namespace {
 
-// tm_ring_allreduce(x, out, dtype, p, n, chunk_elems, stream)
-using RingAllreduce = int (*)(const void*, void*, int, int, long long, long long, void*);
+// tm_ring_allreduce(x, out, dtype, rows, groups, n, chunk_elems, stream)
+using RingAllreduce = int (*)(const void*, void*, int, int, int, long long, long long,
+                              void*);
 
 enum Route : long { kVendor = 0, kRing = 1 };
 
@@ -87,8 +88,9 @@ PyObject* issue(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
         out = xc.sum(0, /*keepdim=*/true, xc.scalar_type()).expand_as(xc).contiguous();
       } else if (route == kRing && fn != nullptr) {
         out = at::empty_like(xc, at::MemoryFormat::Contiguous);
+        // one ring over all the rows (one group)
         const int err = fn(xc.data_ptr(), out.data_ptr(), static_cast<int>(ints[2]),
-                           static_cast<int>(xc.size(0)), ints[3], ints[4], side.stream());
+                           static_cast<int>(xc.size(0)), 1, ints[3], ints[4], side.stream());
         if (err != 0) {
           return fail(PyExc_RuntimeError,
                       "tm_ring_allreduce: CUDA error " + std::to_string(err) + " at launch");

@@ -16,11 +16,19 @@
 //   sum to all p rows. The chunk layout comes from the Python wrapper
 //   (ops/ring_kernels.py:chunk_elems), which keeps the JAX wrapper's integer
 //   arithmetic, so f32 results match the JAX ring bit for bit.
-//   Bound: the p rows are read once and written once, 2*p*n*itemsize bytes
-//   at 3.35 TB/s (for MNIST LeNet at p=8, n=857738 f32: 54.9 MB, 16.4 us).
-//   The adds, (p-1)*n, are far below the card's rate, so bytes bound it;
-//   the design moves exactly those bytes and nothing more, with the widest
-//   vector access (up to 16 bytes) that the row stride and addresses allow.
+//   Groups: the rows may hold G rings of p ranks each, in group-major order
+//   (the intra phase of a two-level communicator, which the JAX package runs
+//   as one program over its (inter, intra) mesh). Group g's ring is rows
+//   g*p .. g*p+p-1, with the chunk layout of one p-rank ring, and blockIdx.y
+//   picks the group: one launch sums every group straight into the one
+//   output. G = 1 is the flat ring.
+//   Bound: the rows are read once and written once, 2*G*p*n*itemsize bytes
+//   at 3.35 TB/s (for MNIST LeNet at p=8, n=857738 f32: 54.9 MB, 16.4 us;
+//   for config 5's largest bucket, 2 groups of 4 at n=100480: 6.4 MB,
+//   1.92 us). The adds, (p-1)*n a group, are far below the card's rate, so
+//   bytes bound it; the design moves exactly those bytes and nothing more,
+//   with the widest vector access (up to 16 bytes) that the row stride and
+//   addresses allow.
 //
 // - _ring_phases_kernel, 'rs' mode (ring_reduce_scatter_pallas): every rank
 //   holds p segments, and rank s ends with the sum of every rank's segment
@@ -34,9 +42,10 @@
 // - _ring_phases_kernel, 'ag' mode (ring_allgather_pallas): every rank
 //   ends with every rank's block, stacked in rank order. On one card that
 //   is the whole rank-stacked input copied to each of the p output rows:
-//   the broadcast kernel below with the input as its one source row.
-//   Bytes, so any payload type, bool and -0.0 included. Bound: p*row bytes
-//   read, p*p*row written.
+//   the broadcast kernel below with the input as its one source row; with
+//   G groups, group g's [p, d] block copied to each of its p rows.
+//   Bytes, so any payload type, bool and -0.0 included. Bound: G*p*row
+//   bytes read, G*p*p*row written.
 //
 // - _ring_phases_kernel 'rs' then _ring_gather_root_kernel
 //   (ring_reduce_pallas): the reduce-scatter in the allreduce's chunk layout,
@@ -57,9 +66,26 @@
 // - _ring_broadcast_kernel. On the TPU the root's buffer flows down the
 //   ring in k pipelined chunks. On one card the root row is read once and
 //   its bytes are written to every rank's row; non-root inputs are ignored.
-//   Any payload type rides as bytes, so bool and -0.0 survive.
-//   Bound: the root row read once and p rows written, (1+p)*row_bytes at
-//   3.35 TB/s (for LeNet at p=8: 30.9 MB, 9.2 us). Pure data movement.
+//   With G groups, group g's root row g*p + root goes to the group's p
+//   rows, all groups in one launch. Any payload type rides as bytes, so
+//   bool and -0.0 survive. Bound: each root row read once and every row
+//   written, G*(1+p)*row_bytes at 3.35 TB/s (for LeNet at p=8: 30.9 MB,
+//   9.2 us). Pure data movement.
+//
+// The launch shape (common.cuh shape_for). Every kernel here streams: it
+// is bound by bytes, and at the paths' small payloads by the launch and by
+// how many loads are in flight. So (1) the groups share one launch, which
+// doubles the work a launch at config 5's two hosts and halves the
+// launches; (2) below two blocks an SM the blocks shrink (256 threads down
+// to 64) so that every SM gets one, where 256-thread blocks left a quarter
+// of the card without a block at [4, 100480] f32; (3) the rank loop of the
+// allreduce and the reduce-scatter is instantiated for p = 2, 4 and 8 (the
+// flat ring's 8 and the intra groups' 4 and 2), so that all p loads of a
+// vector are issued before the first add; other p take the same kernel
+// with the loop over a runtime p. Large work keeps 256 threads, at most 16
+// blocks an SM, a grid-stride loop and 16-byte accesses. (A TMA bulk ring
+// was 3-15% slower than plain loads for K1/K2's streaming passes, and is
+// not tried here.)
 //
 // Every entry point takes the stream, launches once, and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -112,6 +138,21 @@ bool with_reduce_type(int dtype, int bytes, F&& launch) {
   }
 }
 
+// Calls launch(Ranks<P>{}) with P = p for the ring sizes on the paths (2,
+// 4, 8), else P = 0: the kernel's loop over a runtime p.
+template <int P>
+using Ranks = std::integral_constant<int, P>;
+
+template <typename F>
+void with_ranks(int p, F&& launch) {
+  switch (p) {
+    case 2: launch(Ranks<2>{}); break;
+    case 4: launch(Ranks<4>{}); break;
+    case 8: launch(Ranks<8>{}); break;
+    default: launch(Ranks<0>{}); break;
+  }
+}
+
 template <typename Op, int BYTES>
 __device__ __forceinline__ void add_into(Pack<typename Op::S, BYTES>& acc,
                                          const Pack<typename Op::S, BYTES>& in) {
@@ -121,22 +162,27 @@ __device__ __forceinline__ void add_into(Pack<typename Op::S, BYTES>& acc,
   }
 }
 
-template <typename Op, int BYTES>
-__global__ void __launch_bounds__(256)
-    ring_allreduce_kernel(const typename Op::S* __restrict__ x,
-                          typename Op::S* __restrict__ out, int p,
-                          long long row_vecs, long long chunk_vecs) {
+// The ring's sum of vector v over the p rank rows at xr (row stride
+// row_vecs), started at rank r and taken rightward: ((x_r + x_{r+1}) +
+// ...) + x_{r+p-1}, ranks mod p. With P > 0 (P == p) the p loads are all
+// issued before the first add.
+template <typename Op, int BYTES, int P>
+__device__ __forceinline__ Pack<typename Op::S, BYTES> ring_sum(
+    const typename RawOf<BYTES>::T* __restrict__ xr, int p, long long row_vecs,
+    long long v, int r) {
   using S = typename Op::S;
-  using R = typename RawOf<BYTES>::T;
-  const R* xr = reinterpret_cast<const R*>(x);
-  R* outr = reinterpret_cast<R*>(out);
-  const long long seg_vecs = chunk_vecs * p;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       v < row_vecs; v += stride) {
-    // the chunk holding v is the rank its sum starts at
-    int r = (int)((v % seg_vecs) / chunk_vecs);
-    Pack<S, BYTES> acc;
+  Pack<S, BYTES> acc;
+  if constexpr (P > 0) {
+    Pack<S, BYTES> in[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int q = (r + k < P) ? r + k : r + k - P;
+      in[k].raw = xr[(long long)q * row_vecs + v];
+    }
+    acc = in[0];
+#pragma unroll
+    for (int k = 1; k < P; ++k) add_into<Op, BYTES>(acc, in[k]);
+  } else {
     acc.raw = xr[(long long)r * row_vecs + v];
 #pragma unroll 4
     for (int k = 1; k < p; ++k) {
@@ -145,17 +191,39 @@ __global__ void __launch_bounds__(256)
       in.raw = xr[(long long)r * row_vecs + v];
       add_into<Op, BYTES>(acc, in);
     }
+  }
+  return acc;
+}
+
+// blockIdx.y is the group: its p rows start at row blockIdx.y * p.
+template <typename Op, int BYTES, int P>
+__global__ void __launch_bounds__(256)
+    ring_allreduce_kernel(const typename Op::S* __restrict__ x,
+                          typename Op::S* __restrict__ out, int p,
+                          long long row_vecs, long long chunk_vecs) {
+  using R = typename RawOf<BYTES>::T;
+  if constexpr (P > 0) p = P;
+  const long long group = (long long)blockIdx.y * p * row_vecs;
+  const R* xr = reinterpret_cast<const R*>(x) + group;
+  R* outr = reinterpret_cast<R*>(out) + group;
+  const long long seg_vecs = chunk_vecs * p;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       v < row_vecs; v += stride) {
+    // the chunk holding v is the rank its sum starts at
+    const int r = (int)((v % seg_vecs) / chunk_vecs);
+    const auto acc = ring_sum<Op, BYTES, P>(xr, p, row_vecs, v, r);
     for (int q = 0; q < p; ++q) outr[(long long)q * row_vecs + v] = acc.raw;
   }
 }
 
-template <typename Op, int BYTES>
+template <typename Op, int BYTES, int P>
 __global__ void __launch_bounds__(256)
     ring_reduce_scatter_kernel(const typename Op::S* __restrict__ x,
                                typename Op::S* __restrict__ out, int p,
                                long long seg_vecs) {
-  using S = typename Op::S;
   using R = typename RawOf<BYTES>::T;
+  if constexpr (P > 0) p = P;
   const R* xr = reinterpret_cast<const R*>(x);
   R* outr = reinterpret_cast<R*>(out);
   // a rank's row holds its p segments; the output holds one per rank
@@ -165,17 +233,7 @@ __global__ void __launch_bounds__(256)
        v < row_vecs; v += stride) {
     // segment s's sum starts at rank s+1 and ends at its owner, rank s
     const int s = (int)(v / seg_vecs);
-    int r = (s + 1 == p) ? 0 : s + 1;
-    Pack<S, BYTES> acc;
-    acc.raw = xr[(long long)r * row_vecs + v];
-#pragma unroll 4
-    for (int k = 1; k < p; ++k) {
-      r = (r + 1 == p) ? 0 : r + 1;
-      Pack<S, BYTES> in;
-      in.raw = xr[(long long)r * row_vecs + v];
-      add_into<Op, BYTES>(acc, in);
-    }
-    outr[v] = acc.raw;
+    outr[v] = ring_sum<Op, BYTES, P>(xr, p, row_vecs, v, (s + 1 == p) ? 0 : s + 1).raw;
   }
 }
 
@@ -245,14 +303,16 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// Group g (blockIdx.y) copies its source row, src_group_vecs after group
+// g-1's, to its p rows of out.
 template <int BYTES>
 __global__ void __launch_bounds__(256)
     ring_broadcast_kernel(const unsigned char* __restrict__ src,
                           unsigned char* __restrict__ out, int p,
-                          long long row_vecs) {
+                          long long row_vecs, long long src_group_vecs) {
   using R = typename RawOf<BYTES>::T;
-  const R* s = reinterpret_cast<const R*>(src);
-  R* o = reinterpret_cast<R*>(out);
+  const R* s = reinterpret_cast<const R*>(src) + (long long)blockIdx.y * src_group_vecs;
+  R* o = reinterpret_cast<R*>(out) + (long long)blockIdx.y * p * row_vecs;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        v < row_vecs; v += stride) {
@@ -263,37 +323,52 @@ __global__ void __launch_bounds__(256)
 
 template <int BYTES>
 void launch_broadcast(const unsigned char* src, unsigned char* out, int p,
-                      long long row_bytes, cudaStream_t stream) {
+                      long long row_bytes, long long src_group_bytes, int groups,
+                      cudaStream_t stream) {
   const long long row_vecs = row_bytes / BYTES;
-  ring_broadcast_kernel<BYTES><<<grid_for(row_vecs, 256), 256, 0, stream>>>(
-      src, out, p, row_vecs);
+  const LaunchShape sh = shape_for(row_vecs, groups);
+  ring_broadcast_kernel<BYTES><<<sh.grid, sh.threads, 0, stream>>>(
+      src, out, p, row_vecs, src_group_bytes / BYTES);
 }
 
-// Writes the row_bytes at src to each of the p rows of out.
-inline int replicate(const void* src, void* out, int p, long long row_bytes,
-                     void* stream) {
+// For each of `groups` groups g: writes the row_bytes at src + g *
+// src_group_bytes to each of the group's p rows of out (rows g*p ..
+// g*p+p-1).
+inline int replicate(const void* src, long long src_group_bytes, void* out, int p,
+                     long long row_bytes, int groups, void* stream) {
   const unsigned char* s = static_cast<const unsigned char*>(src);
   unsigned char* d = static_cast<unsigned char*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (vector_bytes(1, (unsigned long long)row_bytes, s, d)) {
-    case 16: launch_broadcast<16>(s, d, p, row_bytes, st); break;
-    case 8: launch_broadcast<8>(s, d, p, row_bytes, st); break;
-    case 4: launch_broadcast<4>(s, d, p, row_bytes, st); break;
-    case 2: launch_broadcast<2>(s, d, p, row_bytes, st); break;
-    default: launch_broadcast<1>(s, d, p, row_bytes, st); break;
+  const long long stride = std::gcd(row_bytes, src_group_bytes);
+  switch (vector_bytes(1, (unsigned long long)stride, s, d)) {
+    case 16: launch_broadcast<16>(s, d, p, row_bytes, src_group_bytes, groups, st); break;
+    case 8: launch_broadcast<8>(s, d, p, row_bytes, src_group_bytes, groups, st); break;
+    case 4: launch_broadcast<4>(s, d, p, row_bytes, src_group_bytes, groups, st); break;
+    case 2: launch_broadcast<2>(s, d, p, row_bytes, src_group_bytes, groups, st); break;
+    default: launch_broadcast<1>(s, d, p, row_bytes, src_group_bytes, groups, st); break;
   }
   return (int)cudaGetLastError();
 }
 
+// Ranks per group of `rows` rows in `groups` groups, or 0 when they do not
+// split evenly (or more groups than a grid's y dimension takes).
+inline int group_size(int rows, int groups) {
+  if (rows < 1 || groups < 1 || groups > 65535 || rows % groups) return 0;
+  return rows / groups;
+}
+
 }  // namespace tmpi
 
-// x and out: [p, n] contiguous rows of the payload type `dtype` (tmpi::Dtype).
-// chunk_elems: elements per ring chunk, a multiple of 128.
-extern "C" int tm_ring_allreduce(const void* x, void* out, int dtype, int p,
-                                 long long n, long long chunk_elems,
+// x and out: [rows, n] contiguous rows of the payload type `dtype`
+// (tmpi::Dtype), `groups` rings of rows / groups ranks in group-major
+// order; every group's rows get its own ring's sum. chunk_elems: elements
+// per ring chunk of one group's ring, a multiple of 128.
+extern "C" int tm_ring_allreduce(const void* x, void* out, int dtype, int rows,
+                                 int groups, long long n, long long chunk_elems,
                                  void* stream) {
   using namespace tmpi;
   const int itemsize = itemsize_of(dtype);
+  const int p = group_size(rows, groups);
   if (itemsize == 0 || p < 1 || n < 0 || chunk_elems <= 0 || chunk_elems % 128) {
     return (int)cudaErrorInvalidValue;
   }
@@ -302,11 +377,14 @@ extern "C" int tm_ring_allreduce(const void* x, void* out, int dtype, int p,
   const bool launched = with_reduce_type(dtype, bytes, [&](auto op, auto width) {
     using Op = decltype(op);
     using S = typename Op::S;
-    constexpr int kVW = decltype(width)::value / (int)sizeof(S);
-    ring_allreduce_kernel<Op, decltype(width)::value>
-        <<<grid_for(n / kVW, 256), 256, 0, s>>>(static_cast<const S*>(x),
-                                                static_cast<S*>(out), p, n / kVW,
-                                                chunk_elems / kVW);
+    constexpr int kBytes = decltype(width)::value;
+    constexpr int kVW = kBytes / (int)sizeof(S);
+    const LaunchShape sh = shape_for(n / kVW, groups);
+    with_ranks(p, [&](auto ranks) {
+      ring_allreduce_kernel<Op, kBytes, decltype(ranks)::value>
+          <<<sh.grid, sh.threads, 0, s>>>(static_cast<const S*>(x), static_cast<S*>(out),
+                                          p, n / kVW, chunk_elems / kVW);
+    });
   });
   if (!launched) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -325,21 +403,28 @@ extern "C" int tm_ring_reduce_scatter(const void* x, void* out, int dtype, int p
   const bool launched = with_reduce_type(dtype, bytes, [&](auto op, auto width) {
     using Op = decltype(op);
     using S = typename Op::S;
-    constexpr int kVW = decltype(width)::value / (int)sizeof(S);
-    ring_reduce_scatter_kernel<Op, decltype(width)::value>
-        <<<grid_for(p * (seg_n / kVW), 256), 256, 0, s>>>(
-            static_cast<const S*>(x), static_cast<S*>(out), p, seg_n / kVW);
+    constexpr int kBytes = decltype(width)::value;
+    constexpr int kVW = kBytes / (int)sizeof(S);
+    const LaunchShape sh = shape_for(p * (seg_n / kVW), 1);
+    with_ranks(p, [&](auto ranks) {
+      ring_reduce_scatter_kernel<Op, kBytes, decltype(ranks)::value>
+          <<<sh.grid, sh.threads, 0, s>>>(static_cast<const S*>(x), static_cast<S*>(out),
+                                          p, seg_n / kVW);
+    });
   });
   if (!launched) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// x: [p, row_bytes] contiguous byte rows; out: [p, p, row_bytes], every
-// out[q] a copy of all of x.
-extern "C" int tm_ring_allgather(const void* x, void* out, int p,
+// x: [rows, row_bytes] contiguous byte rows, `groups` groups of p = rows /
+// groups ranks in group-major order; out: [rows, p, row_bytes], every row
+// of group g a copy of the group's p rows of x.
+extern "C" int tm_ring_allgather(const void* x, void* out, int rows, int groups,
                                  long long row_bytes, void* stream) {
+  const int p = tmpi::group_size(rows, groups);
   if (p < 1 || row_bytes < 0) return (int)cudaErrorInvalidValue;
-  return tmpi::replicate(x, out, p, (long long)p * row_bytes, stream);
+  const long long block = (long long)p * row_bytes;
+  return tmpi::replicate(x, block, out, p, block, groups, stream);
 }
 
 // x and out: [p, n] contiguous rows of the payload type `dtype`; out[root] is
@@ -359,10 +444,10 @@ extern "C" int tm_ring_reduce(const void* x, void* out, int dtype, int p,
     using Op = decltype(op);
     using S = typename Op::S;
     constexpr int kVW = decltype(width)::value / (int)sizeof(S);
+    const LaunchShape sh = shape_for(n / kVW, 1);
     ring_reduce_kernel<Op, decltype(width)::value>
-        <<<grid_for(n / kVW, 256), 256, 0, s>>>(static_cast<const S*>(x),
-                                                static_cast<S*>(out), p, n / kVW,
-                                                chunk_elems / kVW, root);
+        <<<sh.grid, sh.threads, 0, s>>>(static_cast<const S*>(x), static_cast<S*>(out), p,
+                                        n / kVW, chunk_elems / kVW, root);
   });
   if (!launched) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -388,22 +473,25 @@ extern "C" int tm_ring_allreduce_bidir(const void* x, void* out, int dtype, int 
     using Op = decltype(op);
     using S = typename Op::S;
     constexpr int kVW = decltype(width)::value / (int)sizeof(S);
+    const LaunchShape sh = shape_for(n / kVW, 1);
     ring_allreduce_bidir_kernel<Op, decltype(width)::value>
-        <<<grid_for(n / kVW, 256), 256, 0, s>>>(static_cast<const S*>(x),
-                                                static_cast<S*>(out), p, n / kVW,
-                                                half / kVW, chunk_elems / kVW);
+        <<<sh.grid, sh.threads, 0, s>>>(static_cast<const S*>(x), static_cast<S*>(out), p,
+                                        n / kVW, half / kVW, chunk_elems / kVW);
   });
   if (!launched) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// x and out: [p, row_bytes] contiguous byte rows; out[q] = x[root] for all q.
-extern "C" int tm_ring_broadcast(const void* x, void* out, int p,
+// x and out: [rows, row_bytes] contiguous byte rows, `groups` groups of p =
+// rows / groups ranks in group-major order; every row of group g gets the
+// group's row g*p + root.
+extern "C" int tm_ring_broadcast(const void* x, void* out, int rows, int groups,
                                  long long row_bytes, int root, void* stream) {
+  const int p = tmpi::group_size(rows, groups);
   if (p < 1 || row_bytes < 0 || root < 0 || root >= p) {
     return (int)cudaErrorInvalidValue;
   }
   const unsigned char* src =
       static_cast<const unsigned char*>(x) + (long long)root * row_bytes;
-  return tmpi::replicate(src, out, p, row_bytes, stream);
+  return tmpi::replicate(src, (long long)p * row_bytes, out, p, row_bytes, groups, stream);
 }

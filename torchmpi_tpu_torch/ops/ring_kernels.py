@@ -13,7 +13,12 @@ its arithmetic. A wrapper takes the plain version only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises.
 
 Inputs are rank-stacked: ``x[r]`` is rank r's buffer, and the leading axis
-is the ring. Two contracts of the JAX kernels are kept:
+is the ring. :func:`ring_allreduce`, :func:`ring_allgather` and
+:func:`ring_broadcast` also take ``groups``: the rows then hold that many
+rings of equal size in group-major order (group g is rows ``g*I ..
+g*I+I-1``, the intra phase of a two-level communicator), every group's
+result is that of its own ring, and one launch runs them all. Two
+contracts of the JAX kernels are kept:
 
 - **Chunk layout and order of adds.** :func:`chunk_elems` (and
   :func:`bidir_chunk_elems`, :func:`quant_chunk_elems`) is the JAX
@@ -68,14 +73,14 @@ launches = {
 
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # x, out, dtype, p, n, chunk_elems, stream
-    "tm_ring_allreduce": [_PTR, _PTR, _INT, _INT, _LONG, _LONG, _PTR],
-    # x, out, p, row_bytes, root, stream
-    "tm_ring_broadcast": [_PTR, _PTR, _INT, _LONG, _INT, _PTR],
+    # x, out, dtype, rows, groups, n, chunk_elems, stream
+    "tm_ring_allreduce": [_PTR, _PTR, _INT, _INT, _INT, _LONG, _LONG, _PTR],
+    # x, out, rows, groups, row_bytes, root, stream
+    "tm_ring_broadcast": [_PTR, _PTR, _INT, _INT, _LONG, _INT, _PTR],
     # x, out, dtype, p, seg_n, stream
     "tm_ring_reduce_scatter": [_PTR, _PTR, _INT, _INT, _LONG, _PTR],
-    # x, out, p, row_bytes, stream
-    "tm_ring_allgather": [_PTR, _PTR, _INT, _LONG, _PTR],
+    # x, out, rows, groups, row_bytes, stream
+    "tm_ring_allgather": [_PTR, _PTR, _INT, _INT, _LONG, _PTR],
     # x, out, dtype, p, n, chunk_elems, root, stream
     "tm_ring_reduce": [_PTR, _PTR, _INT, _INT, _LONG, _LONG, _INT, _PTR],
     # x, out, dtype, p, n, half, chunk_elems, stream
@@ -142,6 +147,14 @@ def _check_stacked(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} expects a contiguous tensor")
 
 
+def _group_size(x: torch.Tensor, groups: int, what: str) -> int:
+    """Ranks per group of the group-major rows of ``x``."""
+    if groups < 1 or x.shape[0] % groups:
+        raise ValueError(
+            f"{what}: {x.shape[0]} rows do not split into {groups} groups of equal size")
+    return x.shape[0] // groups
+
+
 def _as_rows(x: torch.Tensor):
     """[p, ...] -> ([p, n] in the carrier dtype, carrier)."""
     carrier = carrier_dtype(x.dtype)
@@ -165,41 +178,51 @@ def _launch(fn: str, x: torch.Tensor, *args, stream=None) -> None:
 
 
 def _ring_sum(rows: torch.Tensor, chunk: int, step: int = 1) -> torch.Tensor:
-    """The ring's sum over the ``[p, n]`` rows: element i's sum starts at
-    the rank of its chunk, ``(i % (p * chunk)) // chunk``, and adds the
-    ranks after it (``step`` 1, rightward) or before it (``step`` -1,
-    leftward) round the ring, in the rows' dtype."""
-    p, n = rows.shape
+    """The ring's sum over the ``[..., p, n]`` rows, one ring over each
+    ``[p, n]`` of the leading axes: element i's sum starts at the rank of
+    its chunk, ``(i % (p * chunk)) // chunk``, and adds the ranks after it
+    (``step`` 1, rightward) or before it (``step`` -1, leftward) round the
+    ring, in the rows' dtype. Returns ``[..., n]``."""
+    p, n = rows.shape[-2:]
     start = (torch.arange(n, device=rows.device) % (p * chunk)) // chunk
-    acc = rows.gather(0, start[None])[0]
+
+    def rank(k: int) -> torch.Tensor:
+        index = ((start + step * k) % p).expand(rows.shape[:-2] + (1, n))
+        return rows.gather(-2, index).squeeze(-2)
+
+    acc = rank(0)
     for k in range(1, p):
-        acc = acc + rows.gather(0, ((start + step * k) % p)[None])[0]
+        acc = acc + rank(k)
     return acc
 
 
-def ring_allreduce_plain(x: torch.Tensor) -> torch.Tensor:
+def ring_allreduce_plain(x: torch.Tensor, groups: int = 1) -> torch.Tensor:
     """Plain PyTorch version of :func:`ring_allreduce`: the same chunk
-    layout and the same order of adds, in the same payload type."""
+    layout and the same order of adds, in the same payload type, every
+    group's ring at once."""
     _check_stacked(x, "ring_allreduce")
-    p = x.shape[0]
+    p = _group_size(x, groups, "ring_allreduce")
     if p == 1:
         return x
     rows, carrier = _as_rows(x)
     n = rows.shape[1]
-    acc = _ring_sum(rows, chunk_elems(n, p, carrier))
-    return acc.expand(p, n).contiguous().to(x.dtype).reshape(x.shape)
+    acc = _ring_sum(rows.reshape(groups, p, n), chunk_elems(n, p, carrier))
+    return acc[:, None].expand(groups, p, n).contiguous().to(x.dtype).reshape(x.shape)
 
 
-def ring_allreduce(x: torch.Tensor, stream=None) -> torch.Tensor:
+def ring_allreduce(x: torch.Tensor, groups: int = 1, stream=None) -> torch.Tensor:
     """Sum-allreduce the rank-stacked ``x`` (``[p, ...]``) round the ring;
-    every rank's row of the result holds the same sum. ``p == 1`` returns
-    ``x``. The CUDA kernel for a CUDA tensor, the plain version for a CPU
-    one (``ring_allreduce_pallas``, ``ring_kernels.py:385``)."""
+    every rank's row of the result holds the same sum. With ``groups`` G,
+    the rows are G rings of ``p / G`` ranks in group-major order, each
+    summed on its own (the chunk layout of one ``p / G``-rank ring), in one
+    launch. Rings of one rank return ``x``. The CUDA kernel for a CUDA
+    tensor, the plain version for a CPU one (``ring_allreduce_pallas``,
+    ``ring_kernels.py:385``)."""
     if x.device.type == "cpu":
-        return ring_allreduce_plain(x)
+        return ring_allreduce_plain(x, groups)
     _check_stacked(x, "ring_allreduce")
     _check_cuda(x, "ring_allreduce")
-    p = x.shape[0]
+    p = _group_size(x, groups, "ring_allreduce")
     if p == 1:
         return x
     rows, carrier = _as_rows(x)
@@ -207,7 +230,8 @@ def ring_allreduce(x: torch.Tensor, stream=None) -> torch.Tensor:
     out = torch.empty_like(rows)
     if n:
         _launch("tm_ring_allreduce", x, rows.data_ptr(), out.data_ptr(),
-                NATIVE_DTYPES[carrier], p, n, chunk_elems(n, p, carrier), stream=stream)
+                NATIVE_DTYPES[carrier], x.shape[0], groups, n, chunk_elems(n, p, carrier),
+                stream=stream)
         launches["ring_allreduce"] += 1
     return out.to(x.dtype).reshape(x.shape)
 
@@ -275,31 +299,35 @@ def _check_movable(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: complex dtypes are not supported ({x.dtype})")
 
 
-def ring_allgather_plain(x: torch.Tensor) -> torch.Tensor:
+def ring_allgather_plain(x: torch.Tensor, groups: int = 1) -> torch.Tensor:
     """Plain PyTorch version of :func:`ring_allgather`: every rank's row
-    of the result is a copy of all of ``x``."""
+    of the result is a copy of its group's rows of ``x``."""
     _check_movable(x, "ring_allgather")
-    p = x.shape[0]
-    return x.unsqueeze(0).expand((p,) + tuple(x.shape)).contiguous()
+    p = _group_size(x, groups, "ring_allgather")
+    blocks = x.reshape((groups, 1, p) + tuple(x.shape[1:]))
+    out = blocks.expand((groups, p, p) + tuple(x.shape[1:])).contiguous()
+    return out.reshape((groups * p, p) + tuple(x.shape[1:]))
 
 
-def ring_allgather(x: torch.Tensor, stream=None) -> torch.Tensor:
+def ring_allgather(x: torch.Tensor, groups: int = 1, stream=None) -> torch.Tensor:
     """Allgather the rank-stacked ``x`` (``[p, *s]``) into ``[p, p, *s]``:
     every rank gets every rank's block, stacked in rank order
     (``ring_allgather_pallas``, ``ring_kernels.py:831``: the phases
-    kernel's 'ag' mode). Any dtype but complex: the kernel copies bytes,
-    so bool and -0.0 survive. The CUDA kernel for a CUDA tensor, the plain
-    version for a CPU one."""
+    kernel's 'ag' mode). With ``groups`` G, the rows are G groups of ``I =
+    p / G`` ranks in group-major order and the result ``[p, I, *s]``: every
+    rank gets its group's blocks, all groups in one launch. Any dtype but
+    complex: the kernel copies bytes, so bool and -0.0 survive. The CUDA
+    kernel for a CUDA tensor, the plain version for a CPU one."""
     if x.device.type == "cpu":
-        return ring_allgather_plain(x)
+        return ring_allgather_plain(x, groups)
     _check_movable(x, "ring_allgather")
     _check_cuda(x, "ring_allgather")
-    p = x.shape[0]
-    out = torch.empty((p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    p = _group_size(x, groups, "ring_allgather")
+    out = torch.empty((x.shape[0], p) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     row_bytes = x[0].numel() * x.element_size()
     if row_bytes:
-        _launch("tm_ring_allgather", x, x.data_ptr(), out.data_ptr(), p, row_bytes,
-                stream=stream)
+        _launch("tm_ring_allgather", x, x.data_ptr(), out.data_ptr(), x.shape[0], groups,
+                row_bytes, stream=stream)
         launches["ring_allgather"] += 1
     return out
 
@@ -404,37 +432,40 @@ def ring_allreduce_bidir(x: torch.Tensor, stream=None) -> torch.Tensor:
     return out.to(x.dtype).reshape(x.shape)
 
 
-def ring_broadcast_plain(x: torch.Tensor, root: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of :func:`ring_broadcast`: root's bytes
-    copied to every rank's row."""
+def ring_broadcast_plain(x: torch.Tensor, root: int = 0, groups: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_broadcast`: each group's root
+    bytes copied to every row of the group."""
     _check_stacked(x, "ring_broadcast")
-    p = x.shape[0]
+    p = _group_size(x, groups, "ring_broadcast")
     _check_root(root, p)
     if p == 1:
         return x
-    src = x.reshape(p, -1)[root]
-    return src.expand(p, src.shape[0]).contiguous().reshape(x.shape)
+    src = x.reshape(groups, p, -1)[:, root]
+    return src[:, None].expand(groups, p, src.shape[1]).contiguous().reshape(x.shape)
 
 
-def ring_broadcast(x: torch.Tensor, root: int = 0, stream=None) -> torch.Tensor:
+def ring_broadcast(x: torch.Tensor, root: int = 0, groups: int = 1,
+                   stream=None) -> torch.Tensor:
     """Broadcast rank ``root``'s buffer to every rank of the rank-stacked
-    ``x``; non-root inputs are ignored and ``p == 1`` returns ``x``. Any
-    dtype: the kernel copies bytes. The CUDA kernel for a CUDA tensor, the
-    plain version for a CPU one (``ring_broadcast_pallas``,
-    ``ring_kernels.py:1386``)."""
+    ``x``; non-root inputs are ignored. With ``groups`` G, the rows are G
+    groups of ``p / G`` ranks in group-major order and ``root`` the rank
+    within each group: every group gets its own root's buffer, all in one
+    launch. Groups of one rank return ``x``. Any dtype: the kernel copies
+    bytes. The CUDA kernel for a CUDA tensor, the plain version for a CPU
+    one (``ring_broadcast_pallas``, ``ring_kernels.py:1386``)."""
     if x.device.type == "cpu":
-        return ring_broadcast_plain(x, root)
+        return ring_broadcast_plain(x, root, groups)
     _check_stacked(x, "ring_broadcast")
     _check_cuda(x, "ring_broadcast")
-    p = x.shape[0]
+    p = _group_size(x, groups, "ring_broadcast")
     _check_root(root, p)
     if p == 1:
         return x
     out = torch.empty_like(x)
     row_bytes = x[0].numel() * x.element_size()
     if row_bytes:
-        _launch("tm_ring_broadcast", x, x.data_ptr(), out.data_ptr(), p, row_bytes, root,
-                stream=stream)
+        _launch("tm_ring_broadcast", x, x.data_ptr(), out.data_ptr(), x.shape[0], groups,
+                row_bytes, root, stream=stream)
         launches["ring_broadcast"] += 1
     return out
 

@@ -18,10 +18,13 @@ schedule compiler's dispatch memo keeps per call signature.
 
 A two-level composition runs on the rows permuted into group order
 (``concat(comm._groups)``, :func:`_group_major`): intra group g is the
-contiguous slab of rows ``[g*I, (g+1)*I)``, so the intra phase launches a
-kernel once per group on its ``[I, ...]`` slab (the chunk layout of a
-ring of I ranks, as the JAX kernel sees the ``intra`` mesh axis), and the
-``ring`` backend runs all groups' rings at once
+contiguous slab of rows ``[g*I, (g+1)*I)``. On the kernel backend the
+intra allreduce (K3), broadcast (K7) and allgather (K3 'ag') are one
+launch over every group (the wrappers' ``groups``), each group with the
+chunk layout of a ring of I ranks, as the JAX kernel sees the ``intra``
+mesh axis of the one program it runs over the (inter, intra) mesh; K4,
+K5 and K6 still launch once per group on its ``[I, ...]`` slab
+(:func:`_per_group`). The ``ring`` backend runs all groups' rings at once
 (``primitives.ring_allreduce(batched=True)``) with the chunk layout and
 order of adds of one ring per group. The algebra-synthesized lowerings
 (halving, torus, striped; ``lower.py:770-940``) are not ported (ROADMAP
@@ -139,22 +142,24 @@ def _inter_rings(fn, xg: torch.Tensor, G: int, I: int) -> torch.Tensor:
     return out.reshape((G * I,) + tuple(out.shape[2:]))
 
 
-def _intra_allreduce_kernel(n: int, dtype: torch.dtype, wire: Optional[str]):
-    """The kernel of the intra allreduce on the kernel backend
-    (``_pallas_intra_ring``, ``lower.py:150``): K4 under a compressed wire
-    that engages, else K5 under ``ring_implementation='kernel_bidir'``
-    with the full wire, else K3. A wire that does not engage (an integer
-    payload, a payload under ``wire_quant_min_elements``) ships verbatim
-    through K3, as the JAX wrapper resolves it."""
+def _intra_allreduce(n: int, dtype: torch.dtype, wire: Optional[str], G: int, I: int):
+    """The intra allreduce of the G groups of I ranks of the group-major
+    rows on the kernel backend (``_pallas_intra_ring``, ``lower.py:150``):
+    K4 under a compressed wire that engages, else K5 under
+    ``ring_implementation='kernel_bidir'`` with the full wire, each one
+    launch a group; else K3, one launch over every group. A wire that
+    does not engage (an integer payload, a payload under
+    ``wire_quant_min_elements``) ships verbatim through K3, as the JAX
+    wrapper resolves it. Returns ``fn(xg, **kw)``."""
     from ..ops import ring_kernels
 
-    if wire is not None:
-        if prim.wire_engages(wire, dtype, n):
-            return lambda x, **kw: ring_kernels.ring_allreduce_quant(x, wire, **kw)
-        return ring_kernels.ring_allreduce
-    if constants.get("ring_implementation") == "kernel_bidir":
-        return ring_kernels.ring_allreduce_bidir
-    return ring_kernels.ring_allreduce
+    if wire is not None and prim.wire_engages(wire, dtype, n):
+        return lambda xg, **kw: _per_group(
+            lambda s: ring_kernels.ring_allreduce_quant(s, wire, **kw), xg, G, I)
+    if wire is None and constants.get("ring_implementation") == "kernel_bidir":
+        return lambda xg, **kw: _per_group(
+            lambda s: ring_kernels.ring_allreduce_bidir(s, **kw), xg, G, I)
+    return lambda xg, **kw: ring_kernels.ring_allreduce(xg, groups=G, **kw)
 
 
 def lower_hier_allreduce(comm, impl: str, shape: Tuple, dtype, wire: str,
@@ -167,8 +172,8 @@ def lower_hier_allreduce(comm, impl: str, shape: Tuple, dtype, wire: str,
     - ``xla``: the sum within each group, then the sum across groups;
     - ``ring``: the batched ring on the intra level, then on the inter
       level, with the wire and the plan's pipeline depth on both;
-    - ``kernel``: the intra phase one kernel launch a group
-      (:func:`_intra_allreduce_kernel`), the inter phase the batched
+    - ``kernel``: the intra phase on the kernels (:func:`_intra_allreduce`:
+      K3 one launch over every group), the inter phase the batched
       ``ring`` with the same wire, as the JAX composition runs its
       ppermute ring over the slower fabric.
 
@@ -195,12 +200,11 @@ def lower_hier_allreduce(comm, impl: str, shape: Tuple, dtype, wire: str,
         def levels(xg, stream=None):
             return _inter_rings(ring(depth), _intra_rings(ring(depth), xg, G, I), G, I)
     else:
-        kernel = _intra_allreduce_kernel(n, dtype, wire_arg)
+        intra = _intra_allreduce(n, dtype, wire_arg, G, I)
 
         def levels(xg, stream=None):
             kw = {} if stream is None else {"stream": stream}
-            y = _per_group(lambda s: kernel(s, **kw), xg, G, I)
-            return _inter_rings(ring(1), y, G, I)
+            return _inter_rings(ring(1), intra(xg, **kw), G, I)
 
     def fn(x, stream=None):
         return to_ranks(levels(to_groups(x), stream)).contiguous()
@@ -216,13 +220,15 @@ def lower_hier_collective(comm, op: str, root: int, ring_impl: str,
 
     - broadcast: the inter tree or pipelined ring from the root's group
       (``eager.broadcast_plan``), then the intra broadcast from the
-      root's intra rank, K7 a group on the kernel backend;
+      root's intra rank, one K7 launch over every group on the kernel
+      backend;
     - reduce: the intra ring reduce to the root's intra rank (K6 a group
       on the kernel backend), then the inter ring reduce to the root's
       group; every rank but the root keeps its input;
-    - allgather: the intra allgather (K3 'ag' a group on the kernel
-      backend), then the inter ring allgather along the last dim, the
-      blocks then put from group order into rank order.
+    - allgather: the intra allgather (one K3 'ag' launch over every
+      group on the kernel backend), then the inter ring allgather along
+      the last dim, the blocks then put from group order into rank
+      order.
 
     ``ring_impl`` picks the intra transport (``ring`` or ``kernel``); the
     inter phase always runs the ``ring`` backend. Returns ``(fn,
@@ -249,7 +255,7 @@ def lower_hier_collective(comm, op: str, root: int, ring_impl: str,
         def levels(xg, kw):
             y = _inter_rings(bcast(g0), xg, G, I)
             if kernel_intra:
-                return _per_group(lambda s: ring_kernels.ring_broadcast(s, i0, **kw), y, G, I)
+                return ring_kernels.ring_broadcast(y, i0, groups=G, **kw)
             return _intra_rings(bcast(i0), y, G, I)
         post = None
     elif op == "reduce":
@@ -271,7 +277,7 @@ def lower_hier_collective(comm, op: str, root: int, ring_impl: str,
 
         def levels(xg, kw):
             if kernel_intra:
-                y = _per_group(lambda s: eager._allgather_lastdim(s, **kw), xg, G, I)
+                y = eager._allgather_lastdim(xg, groups=G, **kw)
             else:
                 y = _intra_rings(lambda v: prim.ring_allgather(v, dim=-1), xg, G, I)
             return _inter_rings(lambda v: prim.ring_allgather(v, dim=-1), y, G, I)
@@ -307,7 +313,8 @@ def run_staged_hierarchical_allreduce(x: torch.Tensor, comm, intra_impl: str = "
 
     1. on the communicator's device, the allreduce within each intra
        group: the batched ``ring`` (with the plan's pipeline depth) or,
-       on the kernel backend, one kernel launch a group;
+       on the kernel backend, :func:`_intra_allreduce` (K3 one launch
+       over every group);
     2. on the host, the group sums (each group's first row) copied over
        and added in group order, one row after another (numpy's order
        for the JAX package's ``host.sum(axis=0)``);
@@ -327,9 +334,8 @@ def run_staged_hierarchical_allreduce(x: torch.Tensor, comm, intra_impl: str = "
     wire_arg = None if wire == "full" else wire
     xg = to_groups(x)
     if intra_impl == "kernel":
-        kernel = _intra_allreduce_kernel(n, x.dtype, wire_arg)
         kw = {} if stream is None else {"stream": stream}
-        reduced = _per_group(lambda s: kernel(s, **kw), xg, G, I)
+        reduced = _intra_allreduce(n, x.dtype, wire_arg, G, I)(xg, **kw)
     else:
         minb, maxb, nbuf = _eager().ring_tuning(comm.device.type)
         reduced = _intra_rings(lambda v: prim.ring_allreduce(
