@@ -107,7 +107,23 @@ phase fails:
    microbatches), the last epoch's loss below the first's,
    ``check_with_allreduce`` on the gathered parameters and the statistics,
    and one ``{"sharded": ...}`` line (step time, img/s/chip, MFU, peak
-   memory, losses, launches a step, the card);
+   memory, losses, launches a step, the card); then the engine's options
+   (:func:`phase_engine`, one ``{"engine": ...}`` line with the card): (a)
+   LeNet sync at the MNIST path's widths resumed from a
+   ``checkpoint_every(3)`` checkpoint after 3 of 6 steps, bit for bit
+   the unbroken run, with its launches counted (1 K3 and 1 K1 a step;
+   its first sync takes the tree broadcast); (b) ResNet-50 fsdp at full
+   width resumed after 2 of 4 steps from a checkpoint reshaped 8 -> 4 ->
+   8 by ``python -m torchmpi_tpu_torch.reshard`` (the files byte for byte
+   the original's), bit for bit, with the save's bytes, host copy and
+   write and the step at and off a save boundary timed; (c) ResNet-50
+   sync with ``flops_per_sample``, telemetry off and on: the step times
+   and ``tm_engine_mfu``; (d) LeNet ``train`` with ``profile_dir`` and
+   window (3, 5): the trace holds exactly 2 K3 and 2 K1 launches by their
+   kernel names; (e) ``GradientBuckets.sync_scheduled`` on config 2's two
+   buckets, full and int8 wire: 'none' and 'reverse' bit for bit, the
+   launches exact, each schedule's median ms; (f) a second ``evaluate``
+   of the same set staged nothing and copied nothing to the card;
 9. drives the parameter-server path (``examples/mnist_parameterserver.py``'s
    twin, ``train`` on LeNet): p=8, global batch 336, lr 0.2, ``--tau 5
    --init-delay 10``, two epochs (48 steps) each of Downpour, EASGD (beta
@@ -147,7 +163,8 @@ phase fails:
 step 8's ResNet phase alone; ``--sharded`` the build, step 8's sharded
 path and step 11's retime; ``--compiler`` the build, the schedule
 compiler's phase and the async issue line; ``--hier`` the build and the
-two-level phase. ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
+two-level phase; ``--engine`` the build and the engine phase.
+``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
 SASS counts, holds it against its plain version and times its rows
@@ -214,6 +231,7 @@ from torchmpi_tpu_torch.utils import (  # noqa: E402
     synthetic_imagenet,
     synthetic_mnist,
 )
+from torchmpi_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from torchmpi_tpu_torch.utils.flops import (  # noqa: E402
     mfu,
     resnet_forward_flops,
@@ -321,6 +339,16 @@ CONFIG5_G, CONFIG5_I = CONFIG5["hosts"], P // CONFIG5["hosts"]
 CONFIG5_BUCKET = 100480  # its largest gradient bucket per rank (dense1.bias, dense0.weight)
 CONFIG5_BUCKETS = (67210, CONFIG5_BUCKET, 128)  # its three buckets per rank
 CONFIG5_PARAMS = 167818  # MLP6 at 128 features: its first sync's one fused broadcast a rank
+# the engine phase: its checkpoints under the checkout (removed at the end),
+# LeNet 3 steps + a checkpoint + 3, ResNet-50 fsdp 2 + 2, the telemetry run's
+# (warm-up, timed) steps, the profile window, the scheduled syncs timed
+ENGINE_CKPT_ROOT = Path(__file__).resolve().parent / "_engine_ckpt"
+ENGINE_RESUME_STEPS = 3
+ENGINE_RESNET_STEPS = 2
+ENGINE_TELEMETRY_STEPS = (2, 3)
+ENGINE_WINDOW = (3, 5)
+ENGINE_SCHED_REPS = 20
+CONFIG2_BUCKETS = (BUCKET0, LENET_PARAMS - BUCKET0)  # config 2's two buckets a rank
 
 
 def require(cond: bool, what: str) -> None:
@@ -2571,6 +2599,374 @@ def phase_hier(dev) -> tuple:
     return runs, errs
 
 
+# --- the engine phase: checkpoints, telemetry, the profile window, the
+# scheduled bucket sync and the eval cache ------------------------------------
+def live_state(engine) -> list:
+    """``(path, leaf)`` of the engine's parameters, optimizer state and
+    model state, in the checkpoint's order."""
+    return ckpt._walk({"params": engine.params, "opt_state": engine.opt_state,
+                       "model_state": engine.model_state})
+
+
+def same_bits(state_a: list, state_b: list) -> bool:
+    if [k for k, _ in state_a] != [k for k, _ in state_b]:
+        return False
+    for (_, a), (_, b) in zip(state_a, state_b):
+        if isinstance(a, torch.Tensor):
+            if a.shape != b.shape or not torch.equal(bits(a.cpu()), bits(b.cpu())):
+                return False
+        elif a != b:
+            return False
+    return True
+
+
+def synced_ms(fn) -> tuple:
+    """``(fn(), its wall ms)``, the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def counts_want(**launches) -> dict:
+    want = {name: 0 for name in ops.launch_counts()}
+    want.update(launches)
+    return want
+
+
+def file_digests(data_dir: Path) -> dict:
+    import hashlib
+
+    return {f.name: hashlib.sha1(f.read_bytes()).hexdigest() for f in sorted(data_dir.iterdir())}
+
+
+def engine_lenet(dev, root: Path) -> tuple:
+    """(a) and (f): config 1's LeNet sync at p=8, batch 336: 6 unbroken
+    steps with the launches counted, then 3 steps with
+    ``checkpoint_every(3)``, a flush, a restore into a fresh engine and 3
+    more, bit for bit the unbroken run; then two ``evaluate`` calls on the
+    test set, the second profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    (xtr, ytr), (xte, yte) = synthetic_mnist()
+    model = LeNet()
+    it = DistributedIterator(xtr, ytr, BATCH, P, device=dev)
+    batches = [b for _, b in zip(range(2 * ENGINE_RESUME_STEPS), iter(it))]
+    path = root / "lenet"
+    ops.reset_launch_counts()
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+
+        def make():
+            return AllReduceSGDEngine(make_loss_fn(model), init_params(model, seed=0), lr=LR,
+                                      comm=comm)
+
+        with counting(primitives, "tree_broadcast") as tree:
+            unbroken = make()
+            losses = [float(unbroken.step(b)) for b in batches]
+            torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        steps = len(batches)
+        require(counts == counts_want(ring_allreduce=steps,
+                                      accumulate=steps * list_launches(LENET_LEAVES)),
+                f"engine lenet: launches {counts}")
+        require(len(tree) >= 1, "engine lenet: the first weight sync took no tree broadcast")
+        first = make()
+        first.checkpoint_every(ENGINE_RESUME_STEPS, path)
+        resumed = [float(first.step(b)) for b in batches[:ENGINE_RESUME_STEPS]]
+        first.flush_checkpoint()
+        second = make()
+        meta = ckpt.restore_engine_sharded(path, second)
+        require(meta["step"] == ENGINE_RESUME_STEPS, f"engine lenet: checkpoint step {meta['step']}")
+        resumed += [float(second.step(b)) for b in batches[ENGINE_RESUME_STEPS:]]
+        require(resumed == losses, f"engine lenet: resumed losses {resumed} != {losses}")
+        require(same_bits(live_state(second), live_state(unbroken)),
+                "engine lenet: the resumed state differs from the unbroken run's")
+        # (f) the eval cache
+        apply_fn = lambda prm, x: torch.func.functional_call(model, prm, (x,))  # noqa: E731
+        staged = []
+        real_stage = second.stage_dataset
+        second.stage_dataset = lambda x, y, **k: staged.append(1) or real_stage(x, y, **k)
+        v1, first_ms = synced_ms(lambda: second.evaluate(apply_fn, xte, yte, accuracy))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            v2, _ = synced_ms(lambda: second.evaluate(apply_fn, xte, yte, accuracy))
+        _, second_ms = synced_ms(lambda: second.evaluate(apply_fn, xte, yte, accuracy))
+        h2d = sum(e.count for e in prof.key_averages() if "HtoD" in e.key)
+        require(v1 == v2 and len(staged) == 1 and h2d == 0,
+                f"engine eval cache: values {v1} / {v2}, staged {len(staged)} times, "
+                f"{h2d} host-to-device copies in the second evaluate")
+    finally:
+        mpi.stop()
+    return counts, {
+        "lenet_resume": {"steps": steps, "checkpoint_step": ENGINE_RESUME_STEPS,
+                         "bitwise": True, "losses": losses,
+                         "launches_per_step": {"ring_allreduce": 1,
+                                               "accumulate": list_launches(LENET_LEAVES)},
+                         "first_sync": "tree broadcast (3.4 MB a rank, under the 4 MiB tree "
+                                       "cutoff): 0 K7"},
+        "eval_cache": {"value": v1, "staged": len(staged), "h2d_copies_second_call": h2d,
+                       "first_ms": first_ms, "cached_ms": second_ms, "test_set": len(xte)},
+    }
+
+
+def engine_resnet_fsdp(dev, data, root: Path) -> tuple:
+    """(b): ResNet-50 fsdp at config 4's widths, 32 a rank, p=8: 4 unbroken
+    steps with the launches counted; then 2 steps with
+    ``checkpoint_every(2)`` (the second a save boundary), the checkpoint
+    reshaped 8 -> 4 -> 8 by the CLI (the files byte for byte the
+    original's), restored into a fresh engine and 2 more steps, bit for
+    bit the unbroken run; the host copy and the write of a save timed
+    alone."""
+    import subprocess as sp
+
+    model = ResNet50(num_classes=RESNET["classes"], device=dev)
+    steps = 2 * ENGINE_RESNET_STEPS
+    (x, y), _ = data
+    n = P * RESNET["per_rank"]
+    batches = [resnet_batch(((x[i * n:], y[i * n:]), None), P, RESNET["per_rank"], dev)
+               for i in range(steps)]
+    ck8, ck4, ck8b = root / "rn8", root / "rn4", root / "rn8b"
+    out = {}
+    ops.reset_launch_counts()
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+
+        def make():
+            params, stats = init_resnet(model, RESNET["image"], seed=0)
+            return AllReduceSGDEngine(
+                make_stateful_loss_fn(model), params, comm=comm, model_state=stats,
+                optimizer=SGD(RESNET["lr"], momentum=RESNET["momentum"]), param_sharding="fsdp")
+
+        engine = make()
+        losses = [float(engine.step(b)) for b in batches]
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        expected = sharded_expected(engine, steps)
+        require(counts == expected["counts"],
+                f"engine resnet fsdp: launches {counts} != {expected['counts']}")
+        unbroken = [(k, v.cpu() if isinstance(v, torch.Tensor) else v)
+                    for k, v in live_state(engine)]
+        del engine
+        torch.cuda.empty_cache()
+        engine = make()
+        engine.checkpoint_every(ENGINE_RESNET_STEPS, ck8)
+        resumed, step_ms = [], []
+        for b in batches[:ENGINE_RESNET_STEPS]:
+            loss, ms = synced_ms(lambda b=b: engine.step(b))
+            resumed.append(float(loss))
+            step_ms.append(ms)
+        _, flush_ms = synced_ms(lambda: engine.flush_checkpoint(timeout=600))
+        # one save's parts alone: the host copy on the step thread, the files
+        state, host_ms = synced_ms(lambda: ckpt.host_state(engine))
+        t0 = time.perf_counter()
+        ckpt.save_engine_sharded(root / "timed", engine, step=ENGINE_RESNET_STEPS, state=state)
+        write_s = time.perf_counter() - t0
+        del engine, state
+        torch.cuda.empty_cache()
+        data_dir = ckpt.current_data_dir(ck8)
+        nbytes = sum(f.stat().st_size for f in data_dir.iterdir())
+        cli = {}
+        for src, dst, frm, world in ((ck8, ck4, P, P // 2), (ck4, ck8b, P // 2, P)):
+            t0 = time.perf_counter()
+            run = sp.run([sys.executable, "-m", "torchmpi_tpu_torch.reshard", "--from",
+                          str(frm), "--to", str(world), str(src), str(dst), "--json"],
+                         capture_output=True, text=True, cwd=str(Path(__file__).resolve().parent))
+            require(run.returncode == 0, f"engine reshard CLI {src.name} -> {dst.name}: "
+                                         f"{run.stderr[-2000:]}")
+            stats = json.loads(run.stdout)
+            require(stats["peak_scratch_bytes"] < 2 * stats["largest_shard_bytes"],
+                    f"engine reshard CLI: scratch {stats['peak_scratch_bytes']} bytes")
+            cli[f"{frm}to{world}"] = {
+                "s": time.perf_counter() - t0, "moved_bytes": stats["moved_bytes"],
+                "peak_scratch_bytes": stats["peak_scratch_bytes"],
+                "largest_shard_bytes": stats["largest_shard_bytes"]}
+        require(file_digests(ckpt.current_data_dir(ck8b)) == file_digests(data_dir),
+                "engine reshard: 8 -> 4 -> 8 changed the files")
+        engine = make()
+        meta = ckpt.restore_engine_sharded(ck8b, engine)
+        require(meta["step"] == ENGINE_RESNET_STEPS and meta["world"] == P,
+                f"engine resnet fsdp: restored header {meta['step']}, {meta['world']}")
+        resumed += [float(engine.step(b)) for b in batches[ENGINE_RESNET_STEPS:]]
+        require(resumed == losses, f"engine resnet fsdp: resumed losses {resumed} != {losses}")
+        require(same_bits(live_state(engine), unbroken),
+                "engine resnet fsdp: the resumed state differs from the unbroken run's")
+        del engine
+        out = {"steps": steps, "checkpoint_step": ENGINE_RESNET_STEPS, "bitwise": True,
+               "losses": losses, "launches_per_step": expected["per_step"],
+               "checkpoint_bytes": nbytes, "files": len(list(data_dir.iterdir())),
+               "host_copy_ms": host_ms, "write_s": write_s,
+               "step_ms_no_boundary": step_ms[0], "step_ms_save_boundary": step_ms[1],
+               "flush_wait_ms": flush_ms, "reshard_cli": cli}
+    finally:
+        mpi.stop()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def engine_telemetry(dev, data) -> tuple:
+    """(c): ResNet-50 sync (replicated, the example's loop) with
+    ``flops_per_sample``, an engine with telemetry off and one with it on,
+    each ``ENGINE_TELEMETRY_STEPS`` warm-up and timed steps; the on run's
+    launches counted and its ``tm_engine_*`` gauges read."""
+    model = ResNet50(num_classes=RESNET["classes"], device=dev)
+    fps = train_flops(resnet_forward_flops(RESNET["image"], num_classes=RESNET["classes"]))
+    warm, timed = ENGINE_TELEMETRY_STEPS
+    batch = resnet_batch(data, P, RESNET["per_rank"], dev)
+    out, counts = {}, None
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        for on in (False, True):
+            if on:
+                mpi.telemetry.reset()
+                mpi.telemetry.enable()
+            ops.reset_launch_counts()
+            params, stats = init_resnet(model, RESNET["image"], seed=0)
+            engine = AllReduceSGDEngine(
+                make_stateful_loss_fn(model), params, comm=comm, model_state=stats,
+                optimizer=SGD(RESNET["lr"], momentum=RESNET["momentum"]), rank_map="loop",
+                flops_per_sample=fps)
+            for _ in range(warm):
+                engine.step(batch)
+            ms = [synced_ms(lambda: engine.step(batch))[1] for _ in range(timed)]
+            if on:
+                counts = ops.launch_counts()
+                expected = resnet_expected(engine, warm + timed)
+                require(counts == expected["counts"],
+                        f"engine telemetry: launches {counts} != {expected['counts']}")
+                snap = mpi.telemetry.metrics.snapshot()
+                gauge = {name: snap[name]["series"].get("") for name in (
+                    "tm_engine_mfu", "tm_engine_tflops_per_chip", "tm_engine_examples_per_sec",
+                    "tm_engine_grad_norm")}
+                hist = snap["tm_engine_step_seconds"]["series"][""]
+                require(hist["count"] == warm + timed and gauge["tm_engine_mfu"] is not None
+                        and 0 < gauge["tm_engine_mfu"] < 1,
+                        f"engine telemetry: {hist['count']} steps recorded, gauges {gauge}")
+                out["on"] = {"step_ms": ms, **gauge}
+                mpi.telemetry.disable()
+            else:
+                out["off"] = {"step_ms": ms}
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        mpi.telemetry.disable()
+        mpi.stop()
+    out.update(flops_per_sample=fps, warmup_steps=warm)
+    return counts, out
+
+
+def engine_profile_window(dev, root: Path) -> dict:
+    """(d): MNIST LeNet sync ``train`` with ``profile_dir`` and window
+    (3, 5): the Chrome trace holds exactly two steps' K3 and K1 launches,
+    by their CUDA kernel names."""
+    (xtr, ytr), _ = synthetic_mnist()
+    it = DistributedIterator(xtr, ytr, BATCH, P, device=dev)
+    batches = [b for _, b in zip(range(6), iter(it))]
+    mpi.start(ranks=P)
+    try:
+        model = LeNet()
+        engine = AllReduceSGDEngine(make_loss_fn(model), init_params(model, seed=0), lr=LR,
+                                    comm=mpi.current_communicator(),
+                                    profile_dir=str(root / "trace"), profile_window=ENGINE_WINDOW)
+        engine.train(lambda: iter(batches), max_epochs=1)
+    finally:
+        mpi.stop()
+    traces = list((root / "trace").glob("*.json"))
+    require(len(traces) == 1, f"engine profile window: {len(traces)} trace files")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k3 = sum("ring_allreduce_kernel" in k for k in kernels)
+    k1 = sum("many_kernel" in k for k in kernels)
+    # the host's ranges (the card's timeline repeats the name per kernel)
+    steps = [e for e in events
+             if e.get("name") == "engine.step" and e.get("cat") == "user_annotation"]
+    n = ENGINE_WINDOW[1] - ENGINE_WINDOW[0]
+    require(k3 == n and k1 == n * list_launches(LENET_LEAVES) and len(steps) == n,
+            f"engine profile window: {k3} K3, {k1} K1, {len(steps)} engine.step ranges in the "
+            f"trace of steps {ENGINE_WINDOW}")
+    return {"window": list(ENGINE_WINDOW), "k3": k3, "k1": k1, "engine_step_ranges": len(steps),
+            "kernel_events": len(kernels), "trace_mb": traces[0].stat().st_size / 1e6}
+
+
+def engine_scheduled(dev) -> tuple:
+    """(e): ``GradientBuckets.sync_scheduled`` on config 2's buckets
+    (LeNet, 4 asked, 2 made: 805,386 and 52,352 a rank) at p=8, the full
+    and the int8 wire: 'none' and 'reverse' bit for bit, the launches of
+    ``ENGINE_SCHED_REPS`` calls exact (the first bucket K3, or K4 int8;
+    the second on the vendor path), the median ms of each schedule."""
+    params = init_params(LeNet(), seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    runs, out = {}, {}
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        bkts = mpinn.GradientBuckets(params, 4)
+        sizes = [sum(bkts.sizes[i] for i in b) for b in bkts.buckets]
+        require(tuple(sizes) == CONFIG2_BUCKETS, f"engine scheduled: buckets {sizes}")
+        grads = {k: torch.randn((P,) + tuple(v.shape), generator=gen, device=dev)
+                 for k, v in params.items()}
+        for wire in ("full", "int8"):
+            res, row = {}, {}
+            for sched in ("none", "reverse"):
+                for _ in range(3):
+                    bkts.sync_scheduled(grads, comm=comm, wire_dtype=wire, schedule=sched)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                ms = []
+                for _ in range(ENGINE_SCHED_REPS):
+                    res[sched], t = synced_ms(lambda: bkts.sync_scheduled(
+                        grads, comm=comm, wire_dtype=wire, schedule=sched))
+                    ms.append(t)
+                counts = ops.launch_counts()
+                key = "ring_allreduce" if wire == "full" else "ring_allreduce_quant_int8"
+                require(counts == counts_want(**{key: ENGINE_SCHED_REPS}),
+                        f"engine scheduled {wire} {sched}: launches {counts}")
+                runs[f"engine_sched_{wire}_{sched}"] = counts
+                row[sched] = {"median_ms": statistics.median(ms), "min_ms": min(ms),
+                              "max_ms": max(ms)}
+            for k in grads:
+                require(torch.equal(bits(res["none"][k]), bits(res["reverse"][k])),
+                        f"engine scheduled {wire}: 'none' and 'reverse' differ at {k}")
+            out[wire] = {**row, "bitwise": True}
+    finally:
+        mpi.stop()
+    out.update(buckets=list(CONFIG2_BUCKETS), reps=ENGINE_SCHED_REPS)
+    return runs, out
+
+
+def phase_engine(dev) -> dict:
+    """The engine's checkpoints, telemetry, profile window, scheduled
+    bucket sync and eval cache ((a)-(f) of the module docstring), each
+    path's launches counted; one ``{"engine": ...}`` line. The
+    checkpoints live under ``_engine_ckpt/`` of the checkout, removed at
+    the end. Returns each counted run's launch counts."""
+    import shutil
+
+    root = ENGINE_CKPT_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    runs, line = {}, {}
+    try:
+        runs["engine_lenet"], lenet = engine_lenet(dev, root)
+        line.update(lenet)
+        line["profile_window"] = engine_profile_window(dev, root)
+        sched_runs, line["scheduled"] = engine_scheduled(dev)
+        runs.update(sched_runs)
+        data = synthetic_imagenet(num_train=2 * ENGINE_RESNET_STEPS * P * RESNET["per_rank"],
+                                  num_test=1, num_classes=RESNET["classes"],
+                                  image_size=RESNET["image"])
+        runs["engine_resnet50_fsdp"], line["resnet50_fsdp_resume"] = engine_resnet_fsdp(
+            dev, data, root)
+        runs["engine_resnet50_telemetry"], line["telemetry"] = engine_telemetry(dev, data)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"engine": {**line, "p": P, "card": card()}}))
+    return runs
+
+
 def phase_profile(mode: str, wire: str) -> None:
     """Where a main-path step's time goes: ``torch.profiler`` over 5 steps
     after 3 warm-up steps, device time by kernel and the share of the
@@ -3162,6 +3558,11 @@ def main(argv=None) -> None:
              "twin under both intra transports, the {\"hier\"} line), after the build; prints "
              "no result line")
     parser.add_argument(
+        "--engine", action="store_true",
+        help="only the engine phase (checkpoints and resume, the reshard CLI, telemetry, the "
+             "profile window, the scheduled bucket sync, the eval cache; the {\"engine\"} line), "
+             "after the build; prints no result line")
+    parser.add_argument(
         "--compiler", action="store_true",
         help="only the schedule compiler's phase (warm plans after precompile, plan stamps, "
              "telemetry's cost, the ring's pipeline depth) and the async issue line, after the "
@@ -3200,6 +3601,9 @@ def main(argv=None) -> None:
     if args.hier:
         phase_hier(dev)
         return
+    if args.engine:
+        phase_engine(dev)
+        return
     errs = phase_kernels(dev)
     trainer = phase_trainer(dev)
     runs = {path: run["counts"] for path, run in trainer.items()}
@@ -3214,6 +3618,7 @@ def main(argv=None) -> None:
     runs.update(lm_runs)
     runs.update(phase_resnet(dev, trainer["sync"]))
     runs.update(phase_sharded(dev))
+    runs.update(phase_engine(dev))
     runs.update(phase_ps(dev))
     phase_ps_vs_cpu(dev)
     phase_ps_throughput()

@@ -39,6 +39,40 @@ def _current_comm(comm: Optional[Communicator]) -> Communicator:
     return runtime_state.current_communicator()
 
 
+def _resolve_backend(comm: Communicator, op: str, mode: str) -> str:
+    """The selector's memoized choice for ``(op, mode)`` with the
+    ``ring_implementation`` constant applied; the result is memoized too
+    (``comm._backend_memo``), valid while ``constants.version()`` stands
+    still, so a warm call reads one dict entry."""
+    resolved_memo = comm.__dict__.setdefault("_backend_memo", {})
+    resolved = resolved_memo.get((op, mode))
+    version = constants.version()
+    if resolved is not None and resolved[0] == version:
+        return resolved[1]
+    cache = comm.__dict__.setdefault("_selector_cache", {})
+    backend = cache.get((op, mode))
+    if backend is None:
+        backend = cache[(op, mode)] = selector.select(
+            op, comm.device, multinode=comm.num_nodes() > 1,
+            mode="sync" if mode == "fused" else mode,
+        )
+    if backend in ("ring", "kernel"):
+        impl = constants.get("ring_implementation")
+        if impl not in _RING_IMPLEMENTATIONS:
+            raise CollectiveArgumentError(
+                f"unknown ring_implementation {impl!r}; expected one of "
+                f"{sorted(_RING_IMPLEMENTATIONS)}"
+            )
+        chosen = _RING_IMPLEMENTATIONS[impl]
+        avail = comm.__dict__.get("_availability")
+        if avail is None:
+            avail = comm.__dict__["_availability"] = backend_availability(comm.device)
+        if avail.get(chosen):
+            backend = chosen
+    resolved_memo[(op, mode)] = (version, backend)
+    return backend
+
+
 def _dispatch(op: str, x: torch.Tensor, comm: Optional[Communicator] = None,
               mode: str = "sync", backend: Optional[str] = None, **kw):
     """Run ``op`` on ``comm``: ``mode`` 'sync' returns the result, 'async'
@@ -49,31 +83,12 @@ def _dispatch(op: str, x: torch.Tensor, comm: Optional[Communicator] = None,
     memoized on the communicator per ``(op, mode)`` as the JAX
     ``_dispatch`` does (``collectives/__init__.py:37-52``; it lives until
     the communicator's resources are freed); where that is a custom ring,
-    the ``ring_implementation`` constant (read per call) says which one
-    runs: 'kernel' and 'kernel_bidir' the CUDA kernels, 'ppermute' the
-    ``ring`` backend."""
+    the ``ring_implementation`` constant says which one runs: 'kernel' and
+    'kernel_bidir' the CUDA kernels, 'ppermute' the ``ring`` backend
+    (:func:`_resolve_backend`)."""
     comm = _current_comm(comm)
     if backend is None:
-        cache = comm.__dict__.setdefault("_selector_cache", {})
-        backend = cache.get((op, mode))
-        if backend is None:
-            backend = cache[(op, mode)] = selector.select(
-                op, comm.device, multinode=comm.num_nodes() > 1,
-                mode="sync" if mode == "fused" else mode,
-            )
-        if backend in ("ring", "kernel"):
-            impl = constants.get("ring_implementation")
-            if impl not in _RING_IMPLEMENTATIONS:
-                raise CollectiveArgumentError(
-                    f"unknown ring_implementation {impl!r}; expected one of "
-                    f"{sorted(_RING_IMPLEMENTATIONS)}"
-                )
-            chosen = _RING_IMPLEMENTATIONS[impl]
-            avail = comm.__dict__.get("_availability")
-            if avail is None:
-                avail = comm.__dict__["_availability"] = backend_availability(comm.device)
-            if avail.get(chosen):
-                backend = chosen
+        backend = _resolve_backend(comm, op, mode)
     if mode == "sync":
         return eager.run(op, x, comm, backend=backend, **kw)
     if mode == "fused":

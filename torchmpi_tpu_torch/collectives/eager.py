@@ -230,8 +230,8 @@ def free_collective_resources(comm: Communicator) -> None:
             fb.flush_all(reason="explicit")
         except Exception:
             pass
-    for attr in ("_dispatch_memo", "_plan_cache", "_selector_cache", "_availability",
-                 "_fusion_buffer"):
+    for attr in ("_dispatch_memo", "_plan_cache", "_selector_cache", "_backend_memo",
+                 "_availability", "_fusion_buffer"):
         comm.__dict__.pop(attr, None)
 
 
@@ -450,8 +450,7 @@ def _compile(op: str, x: torch.Tensor, comm: Communicator, backend: str,
     """Validate one call and fetch its bound plan from the schedule
     compiler (a dispatch-memo hit when warm); returns the (possibly
     lifted) input and the plan."""
-    from ..schedule import compiler as _sched
-
+    _sched = _compiler()
     x = _validate(op, x, comm, root, src, dst, wire_dtype)
     if backend not in _BACKENDS:
         raise CollectiveArgumentError(f"unknown backend {backend!r}")
@@ -584,6 +583,49 @@ def _async_side(comm: Communicator) -> threading.local:
     return side
 
 
+_SCHED = None
+
+
+def _compiler():
+    """The schedule compiler module, imported at first use (it imports
+    this module)."""
+    global _SCHED
+    if _SCHED is None:
+        from ..schedule import compiler
+
+        _SCHED = compiler
+    return _SCHED
+
+
+def _issue_route(op: str, x: torch.Tensor, comm: Communicator, backend: str, root: int,
+                 src: int, dst: int, route_small: bool, wire_dtype: Optional[str]):
+    """The bound plan of an async call that goes through the C++ issue
+    path, from a memo beside the dispatch memo keyed by everything the
+    argument checks and the compiler read (op, backend, shape, dtype,
+    device, wire, root, src, dst): a warm call repeats neither the checks
+    nor the compiler's signature build, which gave the same answer on
+    every call. The entry holds while ``constants.version()``, the plan
+    overrides and the calibration stand still; it goes with the dispatch
+    memo (``free_collective_resources``), and is neither read nor filled
+    while ``precompile`` logs the memo's accesses (the compiler runs, so
+    its entries are logged and pinned). Returns None where the Python
+    path must run (no C++ route, or an input the checks lift)."""
+    memo = _dispatch_memo(comm)
+    logging = memo._access_log is not None
+    sched = _compiler()
+    key = (op, backend, x.shape, x.dtype, x.get_device(), wire_dtype, root, src, dst,
+           route_small)
+    stamp = (constants.version(), sched._OVR_EPOCH, sched._cost.calibration_epoch())
+    fast = memo.__dict__.setdefault("_issue", {})
+    ent = None if logging else fast.get(key)
+    if ent is None or ent[0] != stamp:
+        lifted, ep = _compile(op, x, comm, backend, root, src, dst, route_small, wire_dtype)
+        ent = (stamp, ep if lifted is x and ep.issue is not None else None)
+        if not logging:
+            fast[key] = ent
+    return ent[1]
+
+
 def run_async(op: str, x: torch.Tensor, comm: Communicator, backend: str = "xla",
               root: int = 0, src: int = 0, dst: int = 0, route_small: bool = True,
               wire_dtype: Optional[str] = None) -> SyncHandle:
@@ -598,8 +640,9 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, backend: str = "xla"
     route (a CUDA allreduce on the vendor path or through K3) is issued by
     one C++ call (:func:`~torchmpi_tpu_torch.ops.issue.issue_async`: the
     ordering event, the stream switch, the work, the done event and
-    ``record_stream``) while telemetry and the flight recorder are off;
-    with either on, the Python path issues it, so every stamp is made."""
+    ``record_stream``) while telemetry and the flight recorder are off,
+    its plan memoized per call shape (:func:`_issue_route`); with either
+    on, the Python path issues it, so every stamp is made."""
     # backpressure: bound the unwaited async collectives
     # (kNumAsyncCollectivesInFlight, lib/constants.cpp:152-155) by waiting
     # the oldest first, as the reference's bounded queues block enqueue;
@@ -608,33 +651,38 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, backend: str = "xla"
     while handles.outstanding_kind("collective") >= limit:
         if not handles.wait_oldest("collective"):
             break
+    cuda = comm.device.type == "cuda"
+    if cuda and not _telemetry.enabled() and not _flight.enabled():
+        ep = _issue_route(op, x, comm, backend, root, src, dst, route_small, wire_dtype)
+        if ep is not None:
+            side = _async_side(comm)
+            done = torch.cuda.Event()
+            h = SyncHandle(_issue.issue_async(x, side.stream, side.order, done, ep.issue), done)
+            handles.register(h, kind="collective")
+            return h
     x, ep = _compile(op, x, comm, backend, root, src, dst, route_small, wire_dtype)
-    if comm.device.type != "cuda":
+    if not cuda:
         h = SyncHandle(ep.execute(x.contiguous()))
         handles.register(h, kind="collective")
         return h
     side = _async_side(comm)
-    if ep.issue is not None and not _telemetry.enabled() and not _flight.enabled():
-        done = torch.cuda.Event()
-        out = _issue.issue_async(x, side.stream, side.order, done, ep.issue)
-    else:
-        caller = torch.cuda.current_stream(comm.device)
-        side.order.record(caller)
-        side.stream.wait_event(side.order)
-        # switch to the side stream and back by hand (a stream context
-        # would look the current stream and devices up again); setting a
-        # stream makes its device current, so a caller on another device
-        # gets its device back from the guard
-        same = torch.cuda.current_device() == comm.device.index
-        with contextlib.nullcontext() if same else torch.cuda.device(comm.device):
-            torch.cuda.set_stream(side.stream)
-            try:
-                out = ep.execute(x.contiguous(), side.stream)
-                done = torch.cuda.Event()
-                done.record(side.stream)
-            finally:
-                torch.cuda.set_stream(caller)
-        x.record_stream(side.stream)
+    caller = torch.cuda.current_stream(comm.device)
+    side.order.record(caller)
+    side.stream.wait_event(side.order)
+    # switch to the side stream and back by hand (a stream context would
+    # look the current stream and devices up again); setting a stream makes
+    # its device current, so a caller on another device gets its device
+    # back from the guard
+    same = torch.cuda.current_device() == comm.device.index
+    with contextlib.nullcontext() if same else torch.cuda.device(comm.device):
+        torch.cuda.set_stream(side.stream)
+        try:
+            out = ep.execute(x.contiguous(), side.stream)
+            done = torch.cuda.Event()
+            done.record(side.stream)
+        finally:
+            torch.cuda.set_stream(caller)
+    x.record_stream(side.stream)
     h = SyncHandle(out, done)
     handles.register(h, kind="collective")
     return h

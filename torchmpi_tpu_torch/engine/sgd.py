@@ -106,15 +106,44 @@ runs a metric over an evaluation set split over the ranks.
 :meth:`AllReduceSGDEngine.collective_specs` declares the gradient sync's
 collectives and :meth:`AllReduceSGDEngine.precompile` warms and pins their
 plans in the schedule compiler (``sgd.py:654-730``), so the first step
-plans none. The JAX engine's checkpoints (``checkpoint_every``),
-``resize``, profiling and telemetry options and ``invalidate_eval_cache``
-are not ported yet (ROADMAP A5).
+plans none. :meth:`AllReduceSGDEngine.evaluate` stages an evaluation set
+on the device once and serves it from a cache of up to four sets, keyed
+by the arrays' identities and checked by a full-buffer checksum, so an
+in-place mutation re-stages (:meth:`AllReduceSGDEngine.invalidate_eval_cache`
+drops sets by hand).
+
+Observability and checkpoints (``sgd.py:787-891, 1379-1493``):
+
+- ``profile_dir`` opens a :class:`~torchmpi_tpu_torch.utils.tracing.ProfilerWindow`
+  (``torch.profiler``) over steps ``profile_window = (begin, end)`` of
+  :meth:`AllReduceSGDEngine.train`, the reference's nvprof window
+  (``sgdengine.lua:38-63``), and writes a Chrome trace when it closes;
+- with telemetry enabled at construction, every step of :meth:`step` and
+  :meth:`train` (and every epoch of :meth:`train_resident`) blocks on its
+  loss and records the ``tm_engine_*`` metrics, an ``engine.step`` (or
+  ``engine.epoch``) span and flight entry, each step under a trace
+  context rooted at its ordinal; the global gradient norm after the sync
+  is computed then only; ``flops_per_sample`` turns the rate into
+  TFLOP/s and MFU against the card's peak in the parameters' dtype;
+  :meth:`train` measures its wait on the input iterator
+  (``state['input_stall']``);
+- :meth:`AllReduceSGDEngine.checkpoint_every` saves a portable sharded
+  checkpoint (:mod:`~torchmpi_tpu_torch.utils.checkpoint`) every N calls
+  of :meth:`step`: the host copy on the step thread, the files on a
+  background thread, one save in flight.
+
+The JAX engine's ``resize`` (a live world resize) is not ported yet
+(ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import sys
+import threading
 import time
+import zlib
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -123,11 +152,76 @@ from torch.utils import _pytree as pytree
 
 from .. import collectives, constants
 from .. import nn as mpinn
+from .. import telemetry as _telemetry
 from ..ops import accumulate_many
 from ..runtime.communicator import Communicator
+from ..telemetry import flightrecorder as _flight
+from ..telemetry import tracecontext as _tracecontext
+from ..utils import checkpoint as _ckpt
+from ..utils.flops import mfu
+from ..utils.tracing import ProfilerWindow, annotate
 from .optim import SGD
 
 Tree = Dict[str, torch.Tensor]
+
+# the engine's telemetry handles, made by the first telemetry-enabled engine
+_ENG_MET = None
+
+
+def _engine_metrics():
+    """The ``tm_engine_*`` metrics of ``sgd.py:50-95``, same names and
+    kinds."""
+    global _ENG_MET
+    if _ENG_MET is None:
+        m = _telemetry.metrics
+        _ENG_MET = (
+            m.counter("tm_engine_steps_total", "optimizer steps taken"),
+            m.histogram(
+                "tm_engine_step_seconds",
+                "blocking wall time per training step (telemetry-enabled "
+                "engines block on the step to time it honestly)",
+            ),
+            m.histogram("tm_engine_epoch_seconds", "wall time per device-resident epoch"),
+            m.gauge("tm_engine_examples_per_sec", "training throughput over the last step/epoch"),
+            m.gauge("tm_engine_grad_norm", "global gradient norm after synchronization"),
+            m.gauge(
+                "tm_engine_mfu",
+                "model-FLOPs utilization vs the card's peak in the parameters' "
+                "dtype (engines constructed with flops_per_sample only)",
+            ),
+            m.gauge("tm_engine_tflops_per_chip",
+                    "achieved TFLOP/s per chip (flops_per_sample engines)"),
+            m.gauge(
+                "tm_engine_mfu_incl_input",
+                "MFU over the step window INCLUDING measured input-stall "
+                "time; diverges from tm_engine_mfu exactly when the run "
+                "is input-bound",
+            ),
+            m.counter(
+                "tm_engine_input_stall_seconds",
+                "seconds the training loop spent waiting on the input "
+                "iterator (excluded from tm_engine_mfu's step window)",
+            ),
+        )
+    return _ENG_MET
+
+
+def _array_fingerprint(a) -> Optional[tuple]:
+    """Exact content fingerprint (shape, dtype, full-buffer CRC32) of a
+    host array or CPU tensor (``sgd.py:144-162``), which detects any
+    in-place mutation of a cached evaluation set; None for a tensor on a
+    device, which is not cached (staging it copies nothing)."""
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            return None
+        a = a.detach()
+        a = (a.view(torch.int16) if a.dtype == torch.bfloat16 else a).numpy()
+    arr = np.asarray(a)
+    if arr.size == 0:
+        return (arr.shape, arr.dtype.str, 0)
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)
+    return (arr.shape, arr.dtype.str, zlib.crc32(memoryview(arr).cast("B")))
 
 
 class _Remat(torch.autograd.Function):
@@ -218,6 +312,9 @@ class AllReduceSGDEngine:
         accum_steps: int = 1,
         remat: bool = False,
         batch_format: str = "auto",
+        profile_dir: Optional[str] = None,
+        profile_window: tuple = (3, 8),
+        flops_per_sample: Optional[int] = None,
     ):
         """``mode``: 'sync' (one fused allreduce) or 'async' (bucketed);
         ``num_buckets``: the buckets of async mode (``BlockSequential``'s
@@ -235,7 +332,12 @@ class AllReduceSGDEngine:
         ``mode='sync'`` and ``average_gradients=True``. ``accum_steps``:
         microbatches per step. ``remat``: recompute the forward in the
         backward. ``batch_format``: 'auto', 'flat' or 'stacked' (see
-        :meth:`step`)."""
+        :meth:`step`). ``profile_dir``: where :meth:`train` writes a
+        ``torch.profiler`` trace of its steps ``profile_window = (begin,
+        end)``. ``flops_per_sample``: analytic training FLOPs a sample
+        (``utils/flops.py``), read only when telemetry is enabled: the
+        rate becomes TFLOP/s and MFU gauges. Whether telemetry is enabled
+        is read once, here, as in the JAX engine."""
         if comm is None:
             from .. import runtime_state
 
@@ -288,6 +390,19 @@ class AllReduceSGDEngine:
         self.accum_steps = accum_steps
         self.remat = remat
         self.batch_format = batch_format
+        self.profile_dir = profile_dir
+        self.profile_window = profile_window
+        self.flops_per_sample = flops_per_sample
+        # captured once, as the JAX engine's compiled step is
+        self._telemetry = _telemetry.enabled()
+        # step ordinal for per-step trace-context roots
+        self._trace_steps = 0
+        self._gnorm: Optional[torch.Tensor] = None
+        self._ckpt_every, self._ckpt_path, self._ckpt_counter = 0, None, 0
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_warned = False
+        # staged evaluation sets: (id(x), id(y)) -> (fingerprint, xd, yd, x, y)
+        self._eval_data: Dict[tuple, tuple] = {}
         has_state = model_state is not None
         self.loss_fn = remat_loss(loss_fn, has_state) if remat else loss_fn
         p = comm.size
@@ -462,8 +577,128 @@ class AllReduceSGDEngine:
         ...]`` or flat ``[p B, ...]`` (``batch_format``); updates
         ``self.params`` (and ``self.opt_state`` and ``self.model_state``)
         and returns the mean loss over the ranks as a device scalar (not
-        synchronised)."""
-        return self._step(self._prepare_batch(batch))
+        synchronised, but under telemetry, which blocks on it to time the
+        step). Each call counts towards :meth:`checkpoint_every`."""
+        loss = self._train_step(self._prepare_batch(batch))
+        self._maybe_checkpoint()
+        return loss
+
+    @staticmethod
+    def _examples(batch) -> int:
+        lead = pytree.tree_leaves(batch)[0]
+        return lead.shape[0] * lead.shape[1]
+
+    @staticmethod
+    def _block(loss: torch.Tensor) -> float:
+        """Wait for ``loss`` (and so for its step); the host clock after."""
+        loss.item()
+        return time.perf_counter()
+
+    def _grad_norm(self, grads: Tree) -> torch.Tensor:
+        """The global gradient norm after the sync, as a device scalar: a
+        sharded leaf's shards summed over every rank, any other leaf's
+        rank 0 row (every rank holds the same sum)."""
+        squares = [(g if k in self._sharded and tuple(g.shape) != self._shapes[k] else g[0])
+                   .float().square().sum() for k, g in grads.items()]
+        return torch.stack(squares).sum().sqrt()
+
+    def _record_step(self, examples: int, t0: float, t1: float, gnorm=None,
+                     steps: int = 1, epoch: bool = False, input_stall_s: float = 0.0) -> None:
+        """Record one step (or epoch) whose compute window is ``[t0, t1]``
+        (``sgd.py:600-652``): the ``tm_engine_*`` metrics, an
+        ``engine.step``/``engine.epoch`` span and flight entry.
+        ``input_stall_s`` is the wait on the input iterator before the
+        window; throughput and MFU come from the window alone, and
+        ``tm_engine_mfu_incl_input`` counts the stall in. The p virtual
+        ranks share the communicator's one device, so the chip's rate is
+        the whole rate (the JAX engine, a device a rank, divides by p)."""
+        (n_steps, step_s, epoch_s, eps, gn, mfu_g, tflops_g,
+         mfu_incl_g, stall_c) = _engine_metrics()
+        dt = max(t1 - t0, 1e-12)
+        stall = max(float(input_stall_s), 0.0)
+        n_steps.inc(steps, mode=self.mode, sharding=self.param_sharding)
+        (epoch_s if epoch else step_s).observe(dt)
+        rate = examples / dt
+        eps.set(rate)
+        if stall > 0:
+            stall_c.inc(stall)
+        if gnorm is not None:
+            gn.set(float(gnorm))
+        if self.flops_per_sample:
+            dev = self.comm.device
+            name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else None
+            dtype = str(next(iter(self.params.values())).dtype).replace("torch.", "")
+            achieved, frac = mfu(rate, self.flops_per_sample, name, dtype)
+            tflops_g.set(achieved / 1e12)
+            if frac is not None:
+                mfu_g.set(frac)
+                mfu_incl_g.set(frac * dt / (dt + stall))
+        _telemetry.spans.record(
+            "engine.epoch" if epoch else "engine.step", t0 * 1e6, dt * 1e6,
+            {"examples": examples, "steps": steps},
+        )
+        if _flight.enabled():
+            wall_t1 = time.time()
+            _flight.recorder.record_complete(
+                _flight.comm_key(self.comm), "engine.epoch" if epoch else "engine.step",
+                wall_t1 - dt, wall_t1, payload=f"examples={examples},steps={steps}",
+                routing=self.mode,
+            )
+
+    # --- checkpoint_every: the async rollback-artifact hook (sgd.py:812-891) ---
+    def checkpoint_every(self, steps: int, path, start_step: int = 0) -> None:
+        """Arm periodic checkpoints: every ``steps`` calls of :meth:`step`,
+        save a portable sharded checkpoint
+        (:func:`~torchmpi_tpu_torch.utils.checkpoint.save_engine_sharded`:
+        atomic ``CURRENT`` pointer, restore onto any world) to ``path`` and
+        register it as the newest rollback artifact. The state is copied
+        to host memory on the step thread (the next step replaces the
+        tensors); the files are written by one daemon thread. One save in
+        flight at a time: a boundary reached while the previous save is
+        still writing is skipped, not queued. Only :meth:`step` counts, as
+        in the JAX engine: :meth:`train` and :meth:`train_resident` neither
+        count nor save. ``steps=0`` disarms. A resumed run passes
+        ``start_step`` (the restored checkpoint's step) so the saved step
+        numbers continue the trajectory."""
+        if int(steps) < 0:
+            raise ValueError(f"checkpoint_every expects steps >= 0, got {steps}")
+        self._ckpt_every = int(steps)
+        self._ckpt_path = path
+        self._ckpt_counter = int(start_step)
+
+    def _maybe_checkpoint(self) -> None:
+        if not self._ckpt_every:
+            return
+        self._ckpt_counter += 1
+        if self._ckpt_counter % self._ckpt_every:
+            return
+        t = self._ckpt_thread
+        if t is not None and t.is_alive():
+            return  # the previous save is still in flight
+        state = _ckpt.host_state(self)
+        self._ckpt_thread = threading.Thread(
+            target=self._save_checkpoint, args=(self._ckpt_counter, state),
+            name="tm-engine-ckpt", daemon=True,
+        )
+        self._ckpt_thread.start()
+
+    def _save_checkpoint(self, step: int, state) -> None:
+        try:
+            _ckpt.save_engine_sharded(self._ckpt_path, self, step=step, state=state)
+        except Exception as e:  # noqa: BLE001 - a failed async save must not
+            # take the training loop down, but one that always fails leaves
+            # no rollback artifact: say so once
+            if not self._ckpt_warned:
+                self._ckpt_warned = True
+                print(f"[engine] checkpoint_every save to {self._ckpt_path} failed: {e!r} "
+                      "(further failures suppressed)", file=sys.stderr)
+
+    def flush_checkpoint(self, timeout: float = 60.0) -> None:
+        """Join any save in flight (call before a deliberate exit, so the
+        newest artifact is published)."""
+        t = self._ckpt_thread
+        if t is not None:
+            t.join(timeout=timeout)
 
     def _step(self, batch) -> torch.Tensor:
         sharding = self.param_sharding
@@ -492,6 +727,8 @@ class AllReduceSGDEngine:
             grads = self.buckets.wait_and_unflatten(
                 grads, handles, average=self.average_gradients
             )
+        if self._telemetry:
+            self._gnorm = self._grad_norm(grads)
         updates, self.opt_state = self.optimizer.update(grads, self.opt_state)
         target = self.params
         if sharding == "zero1":
@@ -514,7 +751,12 @@ class AllReduceSGDEngine:
         ``on_start``, ``on_start_epoch``, ``on_sample``, ``on_forward``,
         ``on_backward``, ``on_update``, ``on_end_epoch`` and ``on_end`` get
         the state dict; ``state['losses']`` holds each epoch's last loss,
-        ``state['samples'] / state['time']`` is samples per second."""
+        ``state['samples'] / state['time']`` is samples per second, and
+        ``state['input_stall']`` the seconds spent waiting on the
+        iterator. With ``profile_dir`` the steps ``profile_window`` are
+        traced (the trace is stopped on every exit, and on loops that end
+        inside the window). Steps of ``train`` do not count towards
+        :meth:`checkpoint_every`, as in the JAX engine."""
         state: Dict[str, Any] = {
             "engine": self,
             "epoch": 0,
@@ -524,37 +766,81 @@ class AllReduceSGDEngine:
             "losses": [],
             "samples": 0,
             "time": 0.0,
+            "input_stall": 0.0,
         }
         self._hook("on_start", state)
+        win = (ProfilerWindow(self.profile_dir, *self.profile_window, device=self.comm.device)
+               if self.profile_dir else None)
         self._synchronize()
         t_start = time.perf_counter()
-        for epoch in range(max_epochs):
-            state["epoch"] = epoch
-            loss = None
-            self._hook("on_start_epoch", state)
-            for batch in iterator_fn():
-                batch = self._prepare_batch(batch)
-                state["sample"] = batch
-                self._hook("on_sample", state)
-                loss = self._step(batch)
-                state["loss"] = loss
-                self._hook("on_forward", state)
-                self._hook("on_backward", state)
-                self._hook("on_update", state)
-                state["t"] += 1
-                state["samples"] += batch[0].shape[0] * batch[0].shape[1]
-            if loss is None:
-                raise RuntimeError(
-                    f"iterator_fn() yielded no batches in epoch {epoch}; it "
-                    "must return a fresh iterator each call"
-                )
-            state["losses"].append(float(loss))
-            self._hook("on_end_epoch", state)
+        try:
+            for epoch in range(max_epochs):
+                state["epoch"] = epoch
+                loss = None
+                self._hook("on_start_epoch", state)
+                # an explicit next(), so the wait on the iterator is measured
+                batch_iter = iter(iterator_fn())
+                while True:
+                    t_fetch = time.perf_counter()
+                    try:
+                        batch = next(batch_iter)
+                    except StopIteration:
+                        break
+                    fetch_s = time.perf_counter() - t_fetch
+                    state["input_stall"] += fetch_s
+                    batch = self._prepare_batch(batch)
+                    state["sample"] = batch
+                    self._hook("on_sample", state)
+                    if win is not None:
+                        if win.active and state["t"] >= win.end:
+                            # the traced tail complete before the window stops
+                            self._synchronize()
+                        win.step(state["t"])
+                    traced = (annotate("engine.step") if win is not None and win.active
+                              else contextlib.nullcontext())
+                    with traced:
+                        loss = self._train_step(batch, fetch_s)
+                    state["loss"] = loss
+                    self._hook("on_forward", state)
+                    self._hook("on_backward", state)
+                    self._hook("on_update", state)
+                    state["t"] += 1
+                    state["samples"] += self._examples(batch)
+                if loss is None:
+                    raise RuntimeError(
+                        f"iterator_fn() yielded no batches in epoch {epoch}; it "
+                        "must return a fresh iterator each call"
+                    )
+                state["losses"].append(float(loss))
+                self._hook("on_end_epoch", state)
+        finally:
+            if win is not None:
+                if win.active:
+                    try:  # the same flush for loops ending inside the window
+                        self._synchronize()
+                    except Exception:  # noqa: BLE001 - close regardless
+                        pass
+                win.close()
         self._synchronize()
         state["time"] = time.perf_counter() - t_start
         state["training"] = False
         self._hook("on_end", state)
         return state
+
+    def _train_step(self, batch, fetch_s: float = 0.0) -> torch.Tensor:
+        """One step of :meth:`step` or :meth:`train`. With telemetry, a
+        causal trace root whose ids derive from the step ordinal
+        (``sgd.py:787-807``), blocked on and recorded with the wait on the
+        input iterator before it (``fetch_s``)."""
+        if not self._telemetry:
+            return self._step(batch)
+        self._trace_steps += 1
+        with _tracecontext.use(_tracecontext.new_trace("engine.step", self._trace_steps)):
+            t0 = time.perf_counter()
+            loss = self._step(batch)
+            self._record_step(self._examples(batch), t0, self._block(loss), self._gnorm,
+                              input_stall_s=fetch_s)
+        return loss
 
     def stage_dataset(self, x, y, dtype: Optional[torch.dtype] = None):
         """``(x, y)`` on the communicator's device, trimmed to a multiple of
@@ -593,7 +879,8 @@ class AllReduceSGDEngine:
         seconds)`` runs after each epoch. Epoch-level hooks fire as in
         :meth:`train`, the per-step ones do not (as in the JAX engine).
         The parameters were equalised at construction. Every mode walks
-        the same batches (``sgd.py:1199-1241``)."""
+        the same batches (``sgd.py:1199-1241``). With telemetry each epoch
+        is recorded as one ``engine.epoch``."""
         p, dev = self.comm.size, self.comm.device
         xd, yd = self.stage_dataset(x, y, dtype=image_dtype)
         ns = xd.shape[0] // p
@@ -626,6 +913,9 @@ class AllReduceSGDEngine:
                 losses.append(self._step((xs[rows, idx], ys[rows, idx])))
             losses = torch.stack(losses).cpu()  # waits for the epoch's steps
             state["epoch_times"].append(time.perf_counter() - te)
+            if self._telemetry:
+                self._record_step(nb * per_rank_batch * p, te, te + state["epoch_times"][-1],
+                                  self._gnorm, steps=nb, epoch=True)
             state["t"] += nb
             state["samples"] += nb * per_rank_batch * p
             state["loss"] = float(losses[-1])
@@ -639,6 +929,43 @@ class AllReduceSGDEngine:
         self._hook("on_end", state)
         return state
 
+    def invalidate_eval_cache(self, x=None, y=None) -> None:
+        """Drop staged evaluation sets: every set (no arguments), every set
+        staged for array ``x`` (``y`` omitted), or exactly the ``(x, y)``
+        set (``sgd.py:1521-1536``). In-place mutations are seen anyway
+        (the checksum of every :meth:`evaluate` call); this gives the
+        device memory back before the next :meth:`evaluate`."""
+        if x is None:
+            self._eval_data.clear()
+        elif y is None:
+            for key in [k for k in self._eval_data if k[0] == id(x)]:
+                del self._eval_data[key]
+        else:
+            self._eval_data.pop((id(x), id(y)), None)
+
+    def _staged_eval(self, x, y):
+        """``(x, y)`` on the device, staged once per ``(id(x), id(y))``
+        and checked by a full-buffer checksum (``sgd.py:1555-1576``): at
+        most 4 sets, the least recently used dropped first; a set that
+        changed in place is staged again. Sets already on a device are
+        not cached."""
+        fp = (_array_fingerprint(x), _array_fingerprint(y))
+        if None in fp:
+            return self.stage_dataset(x, y)
+        key = (id(x), id(y))
+        cached = self._eval_data.get(key)
+        if cached is not None and cached[0] == fp:
+            # recency refresh: a loop over more than 4 sets reuses the newest
+            self._eval_data[key] = self._eval_data.pop(key)
+            return cached[1], cached[2]
+        self._eval_data.pop(key, None)
+        xd, yd = self.stage_dataset(x, y)
+        if len(self._eval_data) >= 4:
+            self._eval_data.pop(next(iter(self._eval_data)))
+        # the arrays are kept, so their ids stay unique while cached
+        self._eval_data[key] = (fp, xd, yd, x, y)
+        return xd, yd
+
     def evaluate(self, apply_fn: Callable, x, y, metric: Callable) -> float:
         """``metric(apply_fn(...), y)`` over the evaluation set
         (``sgd.py:1538``): ``apply_fn(params, x)``, or ``apply_fn(params,
@@ -647,11 +974,13 @@ class AllReduceSGDEngine:
         each rank runs its shard on its own parameters and state, and the
         ranks' values are averaged: ``metric`` must be a mean-style
         reduction, so the result is its value over the kept set. Under
-        ``'fsdp'`` the parameters are gathered first."""
+        ``'fsdp'`` the parameters are gathered first. A host set is copied
+        to the device once and then served from the engine's cache
+        (:meth:`_staged_eval`)."""
         p = self.comm.size
         if len(x) < p:
             raise ValueError(f"evaluation set of {len(x)} samples < {p} ranks")
-        xd, yd = self.stage_dataset(x, y)
+        xd, yd = self._staged_eval(x, y)
         xs, ys = xd.reshape((p, -1) + xd.shape[1:]), yd.reshape(p, -1)
         params = self.gathered_params()
         if self.model_state is None:

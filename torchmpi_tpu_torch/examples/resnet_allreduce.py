@@ -121,6 +121,7 @@ def main(argv: Optional[Sequence[str]] = None):
             rank_map="loop",
             param_sharding="fsdp" if args.fsdp else "replicated",
             accum_steps=args.accum_steps,
+            flops_per_sample=flops_per_sample,
         )
         print(f"[resnet] param_sharding {engine.param_sharding}, accum_steps {args.accum_steps}")
 

@@ -12,15 +12,16 @@ the port's counterpart of a rank-stacked pytree.
   ``wire_dtype`` picks the wire of the kernel ring.
 - :class:`GradientBuckets` — the leaves cut into buckets of about equal
   size (``BlockSequential.lua:29-89``), one async allreduce per bucket,
-  waited in reverse order (``nn.lua:207-212``).
+  waited in reverse order (``nn.lua:207-212``); ``sync_scheduled`` runs
+  them under the overlap scheduler (``schedule/overlap.py``).
 - :func:`check_with_allreduce` — the replica-consistency invariant
   (``init.lua:372-395``).
 
 Leaves are taken in sorted-name order, the order in which
 ``jax.tree_util`` flattens a dict, so the buckets are the JAX package's.
-The in-graph variants have no torch counterpart: the engine runs the
-eager path (ROADMAP, North star). ``GradientBuckets.sync_scheduled``
-waits for the overlap scheduler (``schedule/overlap.py``, ROADMAP A3).
+The in-graph variants (``in_graph_*``, psums inside a jitted step) have
+no torch counterpart: the engine runs the eager path (ROADMAP, North
+star).
 """
 
 from __future__ import annotations
@@ -227,6 +228,31 @@ class GradientBuckets:
         # the divisor of wait_and_unflatten's average defaults to this size
         self._launch_comm = comm
         return handles
+
+    def sync_scheduled(
+        self,
+        grads: Tree,
+        comm: Optional[Communicator] = None,
+        backend: Optional[str] = None,
+        wire_dtype: Optional[str] = None,
+        average: bool = False,
+        schedule: Optional[str] = None,
+        tag: str = "grads",
+    ) -> Tree:
+        """Synchronous bucketed allreduce under the overlap scheduler
+        (:mod:`torchmpi_tpu_torch.schedule.overlap`, ``nn/__init__.py:
+        401``): ``schedule='reverse'`` dispatches every bucket async in
+        reverse-layer order before any wait, ``'none'`` packs every bucket
+        first, then dispatches and waits them one by one; None reads the
+        ``overlap_schedule`` constant. The same collectives either way, so
+        the results are bitwise identical. ``tag`` names the flush in its
+        flight entries."""
+        from ..schedule import overlap as _overlap
+
+        return _overlap.run_bucketed_sync(
+            self, grads, _comm(comm), backend=backend, wire_dtype=wire_dtype,
+            average=average, schedule=schedule, tag=tag,
+        )
 
     def wait_and_unflatten(
         self,

@@ -13,9 +13,9 @@ vendor path), so numerics and launches are unchanged.
 
 The port lowers the flat, hierarchical, staged and tree families; the
 algebra-synthesized ones are priced and shown by :func:`explain` with the
-reason ``synthesized lowering not ported (ROADMAP A8)``. Not here yet:
-the bucket overlap scheduler (``overlap.py``, ROADMAP A3), and the
-measured calibration pipeline and ``tune_plan`` (A11);
+reason ``synthesized lowering not ported (ROADMAP A8)``. The bucket overlap
+scheduler is :mod:`.overlap`. Not here yet: the measured calibration
+pipeline and ``tune_plan`` (A11);
 :func:`set_calibration` takes a table in the JAX package's format.
 
 Public surface:
