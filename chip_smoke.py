@@ -79,7 +79,22 @@ phase fails:
    20 steps with ``kernel_full`` (K8 forward, K10 backward, in every layer)
    with exact launch counts and the loss falling, then 5 steps each with
    ``kernel_bidir_full`` (K9) and ``xla`` (no kernel) from the same init
-   and batches, whose losses must match the first 5;
+   and batches, whose losses must match the first 5; then the parallel
+   phase (:func:`phase_parallel`, the ``{"parallel"}`` line): the twins of
+   ``examples/mnist_modelparallel.py`` (dp 2 x tp 4, 72 steps) and
+   ``examples/pipeline_stages.py`` under GPipe and 1F1B (dp 2 x pp 4, 64
+   steps each), one MoE step (ep 8, top-2) and one dp 2 x pp 2 x tp 2 step
+   at ``__graft_entry__.py``'s widths, each also small on the card against
+   the CPU, with every K3 launch exact (``axis_psum`` is one grouped K3,
+   its backward another); the LM above in bf16, with and without remat, 5
+   steps each (K8 8 or 16 a step, K10 16), its losses within
+   ``LM_BF16_RTOL`` of the f32 run's and remat's equal to the plain
+   run's; and the LM through the engine at ``bench.py:758-770``'s chip
+   widths (vocab 8192, 8 layers, 8x64 heads, d_model 512, seq 1024, bf16,
+   Adam 3e-4, 8 sequences a rank, two epochs of 4 steps) with exact
+   launches (K3 per fused flush, one K7, one K1 list call a step), a
+   falling loss, tokens/sec/chip, step ms, peak memory and a 2-step
+   profile beside the card;
 8. drives the ResNet path (``examples/resnet_allreduce.py``, BASELINE
    config 4): a narrow ResNet (stages [1, 1], 8 filters, 32 px, p=4) on
    the card against the CPU (plain versions), sync and async; the step
@@ -163,7 +178,8 @@ phase fails:
 step 8's ResNet phase alone; ``--sharded`` the build, step 8's sharded
 path and step 11's retime; ``--compiler`` the build, the schedule
 compiler's phase and the async issue line; ``--hier`` the build and the
-two-level phase; ``--engine`` the build and the engine phase.
+two-level phase; ``--engine`` the build and the engine phase;
+``--parallel`` the build and the parallel phase.
 ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
@@ -230,6 +246,7 @@ from torchmpi_tpu_torch.utils import (  # noqa: E402
     DistributedIterator,
     synthetic_imagenet,
     synthetic_mnist,
+    synthetic_tokens,
 )
 from torchmpi_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from torchmpi_tpu_torch.utils.flops import (  # noqa: E402
@@ -250,6 +267,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 # the f32 rate on the tensor cores as 3xTF32: three TF32 MMAs (495 TFLOP/s
 # dense, data sheet) per f32 product
 F32_3XTF32_OPS_PER_S = 495e12 / 3
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 L2_BYTES = 50 * 2**20  # H100 L2 cache
 P = 8  # virtual ranks on the main path
 BATCH = 336
@@ -269,6 +287,20 @@ LM_WIDTHS = dict(vocab_size=8192, num_layers=8, num_heads=8, head_dim=64, d_mode
                  max_len=4096)
 LM_SEQ, LM_SP, LM_BATCH, LM_LR, LM_STEPS, LM_CHECK_STEPS = 4096, 4, 4, 3e-4, 20, 5
 ATTN_MAIN = (LM_SP, LM_BATCH, LM_SEQ // LM_SP, 8, 64)  # its [sp, b, n_local, h, d]
+# the parallel phase: the MoE step and the 3-D step at __graft_entry__.py's
+# widths; the LM through the engine at bench.py:758-770's chip widths, bf16,
+# two epochs of synthetic_tokens(256, 1024, 8192) at 8 sequences a rank
+MOE = dict(d=8, T=6, top_k=2)
+CUBE = dict(k=4, m=2, mb=2)
+LM_ENGINE = dict(vocab_size=8192, num_layers=8, num_heads=8, head_dim=64, d_model=512,
+                 max_len=1024)
+LM_ENGINE_RUN = dict(num_seqs=256, seq=1024, per_rank=8, epochs=2, lr=3e-4)
+LM_ENGINE_STEPS = LM_ENGINE_RUN["epochs"] * (LM_ENGINE_RUN["num_seqs"] // P
+                                             // LM_ENGINE_RUN["per_rank"])  # 8
+# bf16 against f32 losses, step by step: the loss is an f32 mean over 16,384
+# tokens, so the residual stream's bf16 roundings (2^-8 relative) mostly
+# average out (1e-6 to 1.5e-4 relative on the CPU at 2 layers of width 128)
+LM_BF16_RTOL = 2.0**-8
 # kernel against plain, (atol, rtol). f32: as tests/test_ops.py holds the
 # JAX kernels, outputs atol 2e-5, the backward and K9 against K8 2e-4; lse
 # (f32 for every input dtype) 1e-4. bf16: both sides round an f32 result
@@ -733,8 +765,9 @@ def check_attention(dev, gen) -> dict:
     causal and not, f32 and bf16, d in {32, 64}, at a ragged n_local of
     1000 (b 1, h 2); d in {8, 16, 128} at p=3, n_local 200; d 64 at p=5,
     n_local 24 (under one key tile); then the LM path's shape
-    [4, 4, 1024, 8, 64], f32, causal. Returns the main shape's max
-    |kernel - plain| of each."""
+    [4, 4, 1024, 8, 64], causal, in f32 and in bf16 (the bf16 and remat
+    sp LM's). Returns the main shape's max |kernel - plain| of each, the
+    bf16 ones keyed ``name@lm_bf16``."""
     err = {}
 
     def close(got, want, key, what):
@@ -780,6 +813,8 @@ def check_attention(dev, gen) -> dict:
     for causal, dtype in itertools.product((False, True), (torch.float32, torch.bfloat16)):
         run((5, 1, 24, 2, 64), dtype, causal, f"p=5 causal={causal} {dtype} d=64 n_local=24")
     err.update(run(ATTN_MAIN, torch.float32, True, f"{list(ATTN_MAIN)} f32 causal"))
+    err.update({f"{name}@lm_bf16": e for name, e in run(
+        ATTN_MAIN, torch.bfloat16, True, f"{list(ATTN_MAIN)} bf16 causal").items()})
     # what the kernels do not take raises on the card (no plain fallback),
     # under the 'auto' backend too
     for x in (torch.zeros(ATTN_MAIN, device=dev, dtype=torch.float16),
@@ -869,6 +904,7 @@ def phase_kernels(dev) -> dict:
     require(torch.equal(bits(k), bits(pl)), "accumulate [8, 256, 3136] != plain")
 
     err.update(check_resnet_shapes(dev, gen))
+    err.update(check_lm_shapes(dev, gen))
     err.update(check_many(dev, gen))
     err.update(check_scale(dev, gen))
     err.update(check_quant(dev, gen))
@@ -916,6 +952,56 @@ def check_resnet_shapes(dev, gen) -> dict:
         require(torch.equal(bits(k), bits(pl)), f"{name} [{P}, {n}] != plain")
         err[f"{name}@fsdp"] = float((k - pl).abs().max())
         del k, pl
+    return err
+
+
+def lm_engine_shapes() -> list:
+    """The LM engine path's parameter shapes a rank (bench widths), in the
+    order the engine submits their gradients: the model's."""
+    with torch.device("meta"):
+        model = LongContextTransformer(**LM_ENGINE, dtype=torch.bfloat16)
+    return [tuple(v.shape) for v in model.parameters()]
+
+
+def lm_engine_flushes() -> list:
+    """The distinct sizes a rank of the LM engine path's fused gradient
+    flushes that K3 sums (above ``small_allreduce_size_cuda``)."""
+    cutoff = constants.get("small_allreduce_size_cuda")
+    sizes = [math.prod(s) for s in lm_engine_shapes()]
+    return sorted({n for n, _ in fusion_flushes(sizes) if n > cutoff})
+
+
+def check_lm_shapes(dev, gen) -> dict:
+    """K3, K7 and K1's list form against their plain versions, bit for bit,
+    at the LM engine path's shapes (bench widths, p=8): K3 at every size
+    of its fused gradient flushes, K7 at its first parameter sync (every
+    parameter in one broadcast), and one K1 list call over its leaves (the
+    Adam update), with the launches it counts. Returns max |kernel -
+    plain| of each, keyed ``name@lm``."""
+    err = {"ring_allreduce@lm": 0.0}
+    flushes = lm_engine_flushes()
+    for n in flushes:
+        x = torch.randn((P, n), generator=gen, device=dev)
+        k, pl = ops.ring_allreduce(x), ops.ring_allreduce_plain(x)
+        require(torch.equal(bits(k), bits(pl)), f"ring_allreduce f32 [{P}, {n}] (LM flush) != plain")
+        err["ring_allreduce@lm"] = max(err["ring_allreduce@lm"], float((k - pl).abs().max()))
+    shapes = lm_engine_shapes()
+    total = sum(math.prod(s) for s in shapes)
+    x = torch.randn((P, total), generator=gen, device=dev)
+    k, pl = ops.ring_broadcast(x, 0), ops.ring_broadcast_plain(x, 0)
+    require(torch.equal(bits(k), bits(pl)), f"ring_broadcast [{P}, {total}] (LM sync) != plain")
+    err["ring_broadcast@lm"] = float((k - pl).abs().max())
+    del x, k, pl
+    outs = [torch.randn((P,) + s, generator=gen, device=dev) for s in shapes]
+    inps = [torch.randn((P,) + s, generator=gen, device=dev) for s in shapes]
+    k, counts = counted(ops.accumulate_many, outs, inps)
+    expect_launches(counts, "accumulate_many LM", accumulate=list_launches(len(shapes)))
+    pl = ops.accumulate_many_plain(outs, inps)
+    for i, (a, b) in enumerate(zip(k, pl)):
+        require(torch.equal(bits(a), bits(b)), f"accumulate_many LM: leaf {i} != plain")
+    err["accumulate_many@lm"] = max(float((a - b).abs().max()) for a, b in zip(k, pl))
+    print(f"lm shapes: K3 at the LM engine's flushes {flushes}, K7 at [{P}, {total}] and K1 over "
+          f"its {len(shapes)} leaves bit for bit equal to their plain versions")
     return err
 
 
@@ -1193,11 +1279,20 @@ def phase_async(dev) -> None:
     print("async: every step's buckets equal the blocking allreduce bit for bit ('full', int8)")
 
 
-def lm_run(dev, widths: dict, seq: int, batch: int, lr: float, steps: int, backend: str) -> dict:
+def expect_launches(counts: dict, what: str, **launched) -> None:
+    """Every launch count 0 but ``launched``, which must be exact."""
+    want = {name: 0 for name in counts}
+    want.update(launched)
+    require(counts == want, f"{what}: launches {counts} != {want}")
+
+
+def lm_run(dev, widths: dict, seq: int, batch: int, lr: float, steps: int, backend: str,
+           **model_kw) -> dict:
     """Train a fresh LM (seed 0) for ``steps`` steps of the example's step
     over ``LM_SP`` sequence shards: every launch count set to 0 just before
-    and read just after. Tokens/sec/chip over the steps after the first."""
-    model = LongContextTransformer(**widths, sp_backend=backend).to(dev)
+    and read just after. Tokens/sec/chip over the steps after the first.
+    ``model_kw``: the model's ``dtype`` and ``remat``."""
+    model = LongContextTransformer(**widths, sp_backend=backend, **model_kw).to(dev)
     model.load_state_dict(init_lm_params(model, seed=0))
     batches = long_context.make_batches(0, steps, batch, seq)
     marks = []
@@ -1238,14 +1333,9 @@ def phase_lm(dev) -> tuple:
     require(card["counts"]["ring_attention_fwd"] == 2 * 3, "small LM: K8 not launched")
     print(f"lm: 3 small steps on the card match the CPU plain path (losses {card['losses']})")
 
-    def expect(counts, what, **launched):
-        want = {name: 0 for name in counts}
-        want.update(launched)
-        require(counts == want, f"LM {what}: launches {counts} != {want}")
-
     full = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_STEPS, "kernel_full")
     losses = full["losses"]
-    expect(full["counts"], "kernel_full", ring_attention_fwd=layers * LM_STEPS,
+    expect_launches(full["counts"], "LM kernel_full", ring_attention_fwd=layers * LM_STEPS,
            ring_attention_bwd=2 * layers * LM_STEPS)
     last = sum(losses[-3:]) / 3
     require(last < losses[0], f"LM: loss did not fall: {losses[0]:.4f} -> {last:.4f}")
@@ -1264,20 +1354,213 @@ def phase_lm(dev) -> tuple:
           f"MFU {frac:.2%} of the f32 peak by the analytic count)")
     runs = {"lm_kernel_full": full["counts"]}
     stats = {"step_ms": full["step_ms"], "tokens_per_s_per_chip": full["tokens_per_s"],
-             "tflops": achieved / 1e12, "mfu_f32": frac}
+             "tflops": achieved / 1e12, "mfu_f32": frac, "losses": losses}
     for backend, launched in (
         ("kernel_bidir_full", dict(ring_attention_fwd_bidir=layers * LM_CHECK_STEPS,
                                    ring_attention_bwd=2 * layers * LM_CHECK_STEPS)),
         ("xla", {}),
     ):
         run = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_CHECK_STEPS, backend)
-        expect(run["counts"], backend, **launched)
+        expect_launches(run["counts"], f"LM {backend}", **launched)
         for a, b in zip(run["losses"], losses):
             require(abs(a - b) <= 1e-3 * abs(b), f"LM {backend}: loss {a} vs kernel_full {b}")
         print(f"lm: {backend} {LM_CHECK_STEPS} steps match kernel_full's (losses {run['losses']}); "
               f"tokens/sec/chip {run['tokens_per_s']:.1f}, peak memory {run['peak_gb']:.2f} GB")
         runs[f"lm_{backend}"] = run["counts"]
     return runs, stats
+
+
+def counted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every launch count set to 0 just before and
+    read just after: ``(result, counts)``."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn(*args, **kw)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def moe_step(device) -> tuple:
+    """One MoE step at ``__graft_entry__.py:539-579``'s widths: ep 8, d 8, 6
+    tokens a rank, top-2, capacity 2T; the loss ``sum(y^2) + 0.01 aux``
+    each rank, SGD 0.1 on the experts. Returns (losses [p], new weights)."""
+    from torchmpi_tpu_torch.parallel import make_parallel_mesh, moe_dispatch_combine, moe_load_stats
+
+    p, d, T = P, MOE["d"], MOE["T"]
+    rng = np.random.RandomState(0)
+    w = torch.as_tensor(rng.randn(p, d, d).astype(np.float32) * 0.3, device=device)
+    x = torch.as_tensor(rng.randn(p, T, d).astype(np.float32), device=device)
+    logits = torch.as_tensor(rng.randn(p, T, p).astype(np.float32), device=device)
+    layout = make_parallel_mesh(p, {"ep": p})
+    w.requires_grad_()
+    y = moe_dispatch_combine(x, logits, lambda ww, tk: torch.bmm(tk, ww), w, layout,
+                             capacity=2 * T, top_k=MOE["top_k"])
+    _, aux = moe_load_stats(logits, layout, top_k=MOE["top_k"])
+    lanes = (y ** 2).sum((1, 2)) + 0.01 * aux
+    (g,) = torch.autograd.grad(lanes.sum(), w)
+    return lanes.detach(), (w - 0.1 * g).detach()
+
+
+def cube_step(device) -> tuple:
+    """One dp 2 x pp 2 x tp 2 step of ``__graft_entry__.py:480-537``: GPipe
+    stages whose contraction is tensor-parallel (a psum over tp in every
+    stage), 2 microbatches of 2, the stage gradients averaged over dp, SGD
+    0.1. Returns (losses [p], new weights)."""
+    from torchmpi_tpu_torch.models import axis_stack_from_jax
+    from torchmpi_tpu_torch.parallel import axis_psum, make_parallel_mesh, pipeline_loss_fn
+    from torchmpi_tpu_torch.parallel import shard_input_features
+
+    k, m, mb = CUBE["k"], CUBE["m"], CUBE["mb"]
+    layout = make_parallel_mesh(P, {"dp": 2, "pp": 2, "tp": P // 4})
+    tp = layout.size("tp")
+    d = k * tp
+    rng = np.random.RandomState(0)
+    W = axis_stack_from_jax(rng.randn(2, tp, k, d).astype(np.float32) * 0.3, layout,
+                            ("pp", "tp")).to(device)
+    x = axis_stack_from_jax(rng.randn(2, m, mb, d).astype(np.float32), layout, "dp").to(device)
+    t = axis_stack_from_jax(rng.randn(2, m, mb, d).astype(np.float32), layout, "dp").to(device)
+
+    def stage(w, xmb):
+        return torch.tanh(axis_psum(torch.bmm(shard_input_features(xmb, layout), w), layout,
+                                    "tp"))
+
+    loss_fn = pipeline_loss_fn(stage, lambda o, tt: ((o - tt) ** 2).flatten(1).mean(1), layout)
+    W.requires_grad_()
+    lanes = loss_fn(W, x, t)
+    (g,) = torch.autograd.grad(lanes.sum(), W)
+    g = mpinn.in_graph_synchronize_gradients({"w": g}, layout, "dp")["w"]
+    return lanes.detach(), (W - 0.1 * g).detach()
+
+
+def lm_engine_expected(num_leaves: int, sizes: list, steps: int) -> dict:
+    """The LM engine run's launches: the first sync one fused broadcast (K7
+    above the tree cutoff); a step one K3 per fusion flush above
+    ``small_allreduce_size_cuda`` (the gradients, f32, in the parameters'
+    order) and the update one K1 list call (Adam itself is plain torch)."""
+    cutoff = constants.get("small_allreduce_size_cuda")
+    k3 = sum(n > cutoff for n, _ in fusion_flushes(sizes))
+    total = sum(sizes)
+    k7 = int(total > constants.get("small_broadcast_size_cuda")
+             and total * 4 > constants.get("broadcast_size_tree_based_cuda"))
+    return {"ring_allreduce": k3 * steps, "ring_broadcast": k7,
+            "accumulate": list_launches(num_leaves) * steps}
+
+
+def phase_parallel(dev, f32_losses=None) -> dict:
+    """Tensor, pipeline and expert parallelism and the LM's bf16, remat and
+    engine paths (see the module docstring); every K3 count exact. Returns
+    each path's launch counts."""
+    from torchmpi_tpu_torch.examples import mnist_modelparallel, pipeline_stages
+
+    runs, line = {}, {"card": card()}
+    device = ["--device", str(dev)]
+
+    # tensor parallelism: the twin small on the card and the CPU, then at
+    # its defaults (dp 2 x tp 4, 72 steps): a step one K3 in the forward,
+    # one in the backward, 3 for the dp mean and 2 for the head's tp mean;
+    # the evaluation one
+    small = ["--train", "1344", "--test", "256", "--epochs", "1"]
+    a = mnist_modelparallel.main(device + small)
+    b = mnist_modelparallel.main(["--device", "cpu"] + small)
+    for u, v in zip(a["losses"], b["losses"]):
+        require(abs(u - v) <= 1e-4 * abs(v), f"tp twin: loss {u} vs CPU {v}")
+    tp, counts = counted(mnist_modelparallel.main, device)
+    expect_launches(counts, "tp twin", ring_allreduce=7 * tp["steps"] + 1)
+    require(tp["losses"][-1] < tp["losses"][0], f"tp twin: loss did not fall {tp['losses']}")
+    runs["parallel_tp"] = counts
+    line["tp"] = {k: tp[k] for k in ("losses", "acc", "steps", "samples_per_s")}
+
+    # pipeline parallelism: both schedules small against the CPU, then at the
+    # defaults (dp 2 x pp 4, 64 steps): a step one K3 for the loss over pp,
+    # one for the dp mean of the stage gradients
+    for schedule in ("gpipe", "1f1b"):
+        small = ["--schedule", schedule, "--epochs", "2"]
+        a = pipeline_stages.main(device + small)
+        b = pipeline_stages.main(["--device", "cpu"] + small)
+        for u, v in zip(a["losses"], b["losses"]):
+            require(abs(u - v) <= 1e-4 * abs(v), f"pipeline {schedule}: loss {u} vs CPU {v}")
+        run, counts = counted(pipeline_stages.main, device + ["--schedule", schedule])
+        expect_launches(counts, f"pipeline {schedule}", ring_allreduce=2 * run["steps"])
+        runs[f"parallel_pp_{schedule}"] = counts
+        line[f"pp_{schedule}"] = {k: run[k] for k in ("losses", "steps", "microbatches_per_s")}
+
+    # one MoE step (3 K3: the route counts, int32, and the two gate means)
+    # and one 3-D step (3 ticks' tp psums forward and back, the loss over pp,
+    # the dp mean: 8 K3), each against the CPU
+    for name, step, k3 in (("moe", moe_step, 3), ("cube", cube_step, 8)):
+        (lanes, w), counts = counted(step, dev)
+        cpu_lanes, cpu_w = step(torch.device("cpu"))
+        require(torch.allclose(lanes.cpu(), cpu_lanes, rtol=1e-5, atol=1e-5),
+                f"{name}: losses {lanes.tolist()} vs CPU {cpu_lanes.tolist()}")
+        err = float((w.cpu() - cpu_w).abs().max())
+        require(err <= 1e-5, f"{name}: weights differ from the CPU by {err}")
+        require(bool(torch.isfinite(lanes).all()), f"{name}: non-finite loss")
+        expect_launches(counts, name, ring_allreduce=k3)
+        runs[f"parallel_{name}"] = counts
+        line[name] = {"loss": float(lanes.mean()), "max_abs_err_vs_cpu": err}
+
+    # the sp LM in bf16, without and with remat (K8 once or twice a layer
+    # and step, K10 2 launches a layer and step either way), against f32
+    layers = LM_WIDTHS["num_layers"]
+    if f32_losses is None:
+        f32_losses = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_CHECK_STEPS,
+                            "kernel_full")["losses"]
+    bf16 = {}
+    for remat in (False, True):
+        run = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_CHECK_STEPS, "kernel_full",
+                     dtype=torch.bfloat16, remat=remat)
+        what = "LM bf16" + (" remat" if remat else "")
+        expect_launches(run["counts"], what,
+                        ring_attention_fwd=(2 if remat else 1) * layers * LM_CHECK_STEPS,
+                        ring_attention_bwd=2 * layers * LM_CHECK_STEPS)
+        losses = run["losses"]
+        require(losses[-1] < losses[0], f"{what}: loss did not fall {losses}")
+        for u, v in zip(losses, f32_losses):
+            require(abs(u - v) <= LM_BF16_RTOL * abs(v), f"{what}: loss {u} vs f32 {v}")
+        runs["lm_bf16" + ("_remat" if remat else "")] = run["counts"]
+        bf16[remat] = run
+        line[what.replace(" ", "_")] = {k: run[k] for k in ("losses", "tokens_per_s", "step_ms",
+                                                            "peak_gb")}
+    for u, v in zip(bf16[True]["losses"], bf16[False]["losses"]):
+        require(abs(u - v) <= 1e-5 * abs(v), f"LM bf16 remat: loss {u} vs {v} without remat")
+    line["lm_bf16_remat_equal_bits"] = bf16[True]["losses"] == bf16[False]["losses"]
+    line["lm_f32_losses"] = f32_losses[:LM_CHECK_STEPS]
+
+    # the LM through the engine at bench.py's chip widths, bf16, 8 ranks x 8
+    # sequences of 1024, two epochs of 4 steps
+    from torchmpi_tpu_torch.examples.long_context import engine_run
+
+    mpi.start(ranks=P, device=dev)
+    try:
+        comm = mpi.current_communicator()
+        model = LongContextTransformer(**LM_ENGINE, dtype=torch.bfloat16)
+        sizes = [v.numel() for v in model.parameters()]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        (run, engine), counts = counted(engine_run, model, comm, **LM_ENGINE_RUN)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+        if dev.type == "cuda":
+            # where a step's time goes: two profiled steps on the first batch
+            x, y = synthetic_tokens(P * LM_ENGINE_RUN["per_rank"], LM_ENGINE_RUN["seq"],
+                                    LM_ENGINE["vocab_size"])
+            line["lm_engine_profile"] = resnet_profile(
+                engine, (x, y), 2, f"LM engine, bench widths, bf16, p={P}")["split_us_per_step"]
+    finally:
+        mpi.stop()
+    expect_launches(counts, "LM engine",
+                    **lm_engine_expected(len(sizes), sizes, run["steps"]))
+    require(run["losses"][-1] < run["losses"][0], f"LM engine: loss did not fall {run['losses']}")
+    runs["lm_engine"] = counts
+    line["lm_engine"] = {**{k: run[k] for k in ("losses", "steps", "tokens_per_s", "step_ms")},
+                         "params_per_rank": sum(sizes), "peak_gb": peak,
+                         "widths": LM_ENGINE, **LM_ENGINE_RUN}
+    print(f"lm engine: {LM_ENGINE}, bf16, {P} ranks x {LM_ENGINE_RUN['per_rank']} sequences of "
+          f"{LM_ENGINE_RUN['seq']}: tokens/sec/chip {run['tokens_per_s']:.1f}, "
+          f"{run['step_ms']:.2f} ms a step, peak {peak} GB, losses {run['losses']} ({card()})")
+    print(json.dumps({"parallel": line}))
+    return runs
 
 
 def resnet_expected(engine, steps: int) -> dict:
@@ -1398,7 +1681,7 @@ def rank_maps(dev, data) -> dict:
 
 
 def kernel_class(name: str) -> str:
-    """The class of a device kernel by its name, for the ResNet split."""
+    """The class of a device kernel by its name, for the ResNet and LM engine splits."""
     if "ring_allreduce_kernel" in name:
         return "K3 ring_allreduce"
     if "ring_reduce_scatter_kernel" in name:
@@ -1410,6 +1693,8 @@ def kernel_class(name: str) -> str:
     if "tmpi::" in name:
         return "other port kernels"
     low = name.lower()
+    if "softmax" in low:
+        return "softmax"
     if any(t in low for t in ("conv", "cudnn", "xmma", "dgrad", "wgrad", "winograd", "gemm",
                               "cutlass")):
         return "cuDNN conv and cuBLAS"
@@ -3063,12 +3348,15 @@ def phase_profile_lm(dev, lm: dict) -> None:
     print_profile(prof, wall_us, 2, "LM kernel_full, full width", lm_run_unprofiled=lm)
 
 
-def bound(nbytes: int, nops: int, tensor_cores: bool = False) -> tuple:
+def bound(nbytes: int, nops: int, tensor_cores: bool = False, bf16: bool = False) -> tuple:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the f32 rate, on the CUDA
-    cores or, for work the tensor cores can do, as 3xTF32."""
+    cores or, for work the tensor cores can do, as 3xTF32 (f32 inputs) or
+    at the bf16 rate (bf16 inputs)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if tensor_cores:
+    if tensor_cores and bf16:
+        by_ops, ops_name = nops / BF16_OPS_PER_S * 1e3, "operations (bf16)"
+    elif tensor_cores:
         by_ops, ops_name = nops / F32_3XTF32_OPS_PER_S * 1e3, "operations (3xTF32)"
     else:
         by_ops, ops_name = nops / F32_OPS_PER_S * 1e3, "operations"
@@ -3233,6 +3521,47 @@ def timing_rows(randn) -> list:
             library=lambda x: x[0:1].expand_as(x).clone(),
         ),
     ]
+    # the LM engine path's shapes (bench widths): K3 at its largest fused
+    # flush, K7 at its first parameter sync, K1 over its leaves (the Adam
+    # update, one list call)
+    lm_shapes = lm_engine_shapes()
+    lm_flush, lm_whole = max(lm_engine_flushes()), sum(math.prod(sh) for sh in lm_shapes)
+    lm_per_step = ("lm_engine", LM_ENGINE_STEPS)
+    rows += [
+        dict(
+            name="ring_allreduce", at="LM engine, its largest fused gradient flush",
+            err="ring_allreduce@lm", per_step=lm_per_step,
+            source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:201",
+            shape=[P, lm_flush], make=lambda: (randn(P, lm_flush),), in_bytes=P * lm_flush * 4,
+            bytes=2 * P * lm_flush * 4, ops=(P - 1) * lm_flush,
+            kernel=ops.ring_allreduce, plain=ops.ring_allreduce_plain,
+            library=lambda x: x.sum(0, keepdim=True).expand_as(x).contiguous(),
+        ),
+        dict(
+            name="ring_broadcast", at="LM engine, the first parameter sync",
+            err="ring_broadcast@lm", per_step=lm_per_step,
+            source="torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            replaces="torchmpi_tpu/ops/ring_kernels.py:1282",
+            shape=[P, lm_whole], make=lambda: (randn(P, lm_whole),), in_bytes=P * lm_whole * 4,
+            bytes=(1 + P) * lm_whole * 4, ops=0,
+            kernel=lambda x: ops.ring_broadcast(x, 0),
+            plain=lambda x: ops.ring_broadcast_plain(x, 0),
+            library=lambda x: x[0:1].expand_as(x).clone(),
+        ),
+        dict(
+            name="accumulate",
+            at=f"LM engine step, the update of all {len(lm_shapes)} leaves in one call",
+            err="accumulate_many@lm", per_step=lm_per_step,
+            source="torchmpi_tpu_torch/csrc/reduce_kernel.cu",
+            replaces="torchmpi_tpu/ops/reduce_kernel.py:28",
+            shape=[P, lm_whole],
+            make=lambda: tuple([randn(P, *sh) for sh in lm_shapes] for _ in range(2)),
+            in_bytes=2 * P * lm_whole * 4, bytes=3 * P * lm_whole * 4, ops=P * lm_whole,
+            kernel=ops.accumulate_many, plain=ops.accumulate_many_plain,
+            library=torch._foreach_add, timing=LIST_TIMING,
+        ),
+    ]
     # config 5 (2 hosts of 4): the intra phase of its largest bucket and a
     # two-level allreduce's at 2^23, the grouped K3 (one launch over both
     # hosts), and its first parameter sync's intra broadcast, the grouped
@@ -3337,17 +3666,33 @@ def timing_rows(randn) -> list:
     # at f32 accuracy), with the CUDA cores' f32 bound beside it; the
     # library call is SDPA over the gathered sequence [b, h, T, d] (and its
     # backward)
-    # (names apart from n above: the earlier rows' lambdas read it late)
+    rows += attention_rows(randn, torch.float32)
+    # K8 and K10 in bf16 at the same shape, as the bf16 and remat sp LM
+    # runs them (bf16 inputs: the bound at the bf16 tensor-core rate)
+    rows += [dict(r, at="the bf16 sp LM, with and without remat",
+                  err=f"{r['name']}@lm_bf16", per_step=("lm_bf16", LM_CHECK_STEPS))
+             for r in attention_rows(randn, torch.bfloat16)
+             if r["name"] != "ring_attention_fwd_bidir"]
+    return rows
+
+
+def attention_rows(randn, dtype) -> list:
+    """The kernels line's rows of K8, K9 and K10 at the LM path's shape,
+    causal, on ``dtype`` inputs (the lse is f32 for every dtype)."""
     asp, ab, an, ah, ad = ATTN_MAIN
     pair_flops = ab * ah * (asp * an) * (asp * an + 1) // 2 * ad
-    qkv_bytes, lse_bytes = asp * ab * an * ah * ad * 4, asp * ab * ah * an * 4
+    size = torch.finfo(dtype).bits // 8
+    qkv_bytes, lse_bytes = asp * ab * an * ah * ad * size, asp * ab * ah * an * 4
+
+    def draw(*shape):
+        return randn(*shape).to(dtype)
 
     def qkv():
-        return tuple(randn(*ATTN_MAIN) for _ in range(3))
+        return tuple(draw(*ATTN_MAIN) for _ in range(3))
 
     def bwd_inputs():
         q, k, v = qkv()
-        return (q, k, v, *ops.ring_attention_fwd_plain(q, k, v, True), randn(*ATTN_MAIN))
+        return (q, k, v, *ops.ring_attention_fwd_plain(q, k, v, True), draw(*ATTN_MAIN))
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -3356,11 +3701,11 @@ def timing_rows(randn) -> list:
 
     def sdpa_graph():
         leaves = [t.requires_grad_() for t in gathered()]
-        return sdpa(*leaves, is_causal=True), leaves, randn(ab, ah, asp * an, ad)
+        return sdpa(*leaves, is_causal=True), leaves, draw(ab, ah, asp * an, ad)
 
     attn = dict(source="torchmpi_tpu_torch/csrc/ring_attention.cu", shape=list(ATTN_MAIN),
-                causal=True, tensor_cores=True)
-    rows += [
+                causal=True, tensor_cores=True, dtype=str(dtype)[6:])
+    return [
         dict(attn, name="ring_attention_fwd",
              replaces="torchmpi_tpu/ops/ring_attention_kernel.py:117",
              make=qkv, in_bytes=3 * qkv_bytes, bytes=4 * qkv_bytes + lse_bytes, ops=4 * pair_flops,
@@ -3382,7 +3727,6 @@ def timing_rows(randn) -> list:
              library=lambda out, leaves, do: torch.autograd.grad(out, leaves, do, retain_graph=True),
              library_make=sdpa_graph),
     ]
-    return rows
 
 
 def step_leaves(randn) -> tuple:
@@ -3404,7 +3748,8 @@ def time_rows(rows: list, runs: dict, errs: dict, launch_floor_ms: float) -> lis
             return time_ms(rotating(fn, make, r["in_bytes"]), **r.get("timing", {}))
 
         ms = timed(r["kernel"])
-        bound_ms, bound_by = bound(r["bytes"], r["ops"], r.get("tensor_cores", False))
+        bound_ms, bound_by = bound(r["bytes"], r["ops"], r.get("tensor_cores", False),
+                                   r.get("dtype") == "bfloat16")
         require(bound_ms <= ms, f"{r['name']}: {ms} ms is under its bound {bound_ms} ms")
         by_path = {path: counts[r["name"]] for path, counts in runs.items()}
         row = {
@@ -3417,12 +3762,12 @@ def time_rows(rows: list, runs: dict, errs: dict, launch_floor_ms: float) -> lis
             # no single PyTorch call computes a requantizing ring; the
             # attention rows' library calls take the gathered layout
             "library_ms": r["library"] and timed(r["library"], r.get("library_make", r["make"])),
-            "shape": r["shape"], "dtype": "float32",
+            "shape": r["shape"], "dtype": r.get("dtype", "float32"),
         }
         if "at" in r:
             row["at"] = r["at"]
             prefix, steps = r.get("per_step", ("resnet_", RESNET_STEPS))
-            row[f"launches_per_{prefix}step"] = {
+            row[f"launches_per_{prefix.rstrip('_')}_step"] = {
                 path: counts[r["name"]] / steps for path, counts in runs.items()
                 if path.startswith(prefix)}
         if r.get("causal"):
@@ -3563,6 +3908,11 @@ def main(argv=None) -> None:
              "profile window, the scheduled bucket sync, the eval cache; the {\"engine\"} line), "
              "after the build; prints no result line")
     parser.add_argument(
+        "--parallel", action="store_true",
+        help="only the parallel phase (the tp and pipeline twins, the MoE and 3-D steps, the "
+             "bf16 and remat sp LM, the LM through the engine; the {\"parallel\"} line), after "
+             "the build; prints no result line")
+    parser.add_argument(
         "--compiler", action="store_true",
         help="only the schedule compiler's phase (warm plans after precompile, plan stamps, "
              "telemetry's cost, the ring's pipeline depth) and the async issue line, after the "
@@ -3604,6 +3954,9 @@ def main(argv=None) -> None:
     if args.engine:
         phase_engine(dev)
         return
+    if args.parallel:
+        phase_parallel(dev)
+        return
     errs = phase_kernels(dev)
     trainer = phase_trainer(dev)
     runs = {path: run["counts"] for path, run in trainer.items()}
@@ -3616,6 +3969,7 @@ def main(argv=None) -> None:
     errs.update(hier_errs)
     lm_runs, lm_stats = phase_lm(dev)
     runs.update(lm_runs)
+    runs.update(phase_parallel(dev, lm_stats.pop("losses")))
     runs.update(phase_resnet(dev, trainer["sync"]))
     runs.update(phase_sharded(dev))
     runs.update(phase_engine(dev))

@@ -887,7 +887,7 @@ class AllReduceSGDEngine:
         nb = ns // per_rank_batch
         if nb == 0:
             raise ValueError(f"dataset shard of {ns} samples < per-rank batch {per_rank_batch}")
-        xs, ys = xd.reshape((p, ns) + xd.shape[1:]), yd.reshape(p, ns)
+        xs, ys = xd.reshape((p, ns) + xd.shape[1:]), yd.reshape((p, ns) + yd.shape[1:])
         rows = torch.arange(p, device=dev)[:, None]
         gens = [torch.Generator().manual_seed(
             int(np.random.SeedSequence((seed, r)).generate_state(1, np.uint64)[0]))

@@ -21,10 +21,27 @@ Prints the step losses, tokens/sec/chip (steps after the first, which
 builds the kernels), TFLOP/s/chip and MFU against the card's f32 peak,
 and exits non-zero if the loss does not fall.
 
+``--dtype bf16`` computes the embeddings and blocks in bf16 (the
+kernels K8/K10 then take bf16), ``--remat`` recomputes each block in the
+backward (K8 launched twice a layer and step).
+
+``--engine`` runs the LM as the JAX package's benchmark does
+(``bench.py:758-782``): ``synthetic_tokens(--num-seqs, --seq, --vocab)``
+through ``AllReduceSGDEngine(make_lm_loss_fn(model), optimizer=Adam(lr),
+rank_map="loop").train_resident`` with ``--batch`` sequences a rank, no
+sequence parallelism (full attention, plain torch), the gradients synced
+by the engine's fused ring-allreduce flushes (K3), the first parameter
+sync a ring broadcast (K7). It prints each epoch's mean loss,
+tokens/sec/chip and step ms over the epochs after the first, and the
+peak memory on a card.
+
 Run:  python -m torchmpi_tpu_torch.examples.long_context --ranks 4 --sp 4
       --seq 4096 --batch 4 --steps 20 --lr 3e-4 --sp-backend kernel_full
       --vocab 8192 --layers 8 --heads 8 --head-dim 64 --d-model 512
       (``--device cpu`` runs the kernels' plain versions on the CPU)
+      python -m torchmpi_tpu_torch.examples.long_context --engine --ranks 8
+      --seq 1024 --batch 8 --num-seqs 256 --epochs 2 --lr 3e-4 --dtype bf16
+      --vocab 8192 --layers 8 --heads 8 --head-dim 64 --d-model 512
 """
 
 from __future__ import annotations
@@ -38,6 +55,7 @@ import torch
 
 BACKENDS = ("xla", "auto", "kernel", "kernel_full", "kernel_bidir", "kernel_bidir_full")
 PERIOD = 17
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def make_batches(seed: int, steps: int, rows: int, seq: int) -> List[np.ndarray]:
@@ -98,10 +116,36 @@ def train(model: torch.nn.Module, batches: Sequence[np.ndarray], lr: float, dp: 
     return losses
 
 
+def engine_run(model: torch.nn.Module, comm, num_seqs: int, seq: int, per_rank: int,
+               epochs: int, lr: float, seed: int = 0) -> dict:
+    """Train ``model`` (fresh parameters from ``seed``) through the engine
+    on ``synthetic_tokens``: ``epochs`` epochs of ``train_resident`` with
+    ``per_rank`` sequences a rank, Adam ``lr``, ``rank_map='loop'``.
+    Returns the epochs' mean losses, and the tokens/sec/chip and step ms
+    of the epochs after the first; and the engine."""
+    from torchmpi_tpu_torch.engine import Adam, AllReduceSGDEngine
+    from torchmpi_tpu_torch.models import init_lm_params, make_lm_loss_fn
+    from torchmpi_tpu_torch.utils import synthetic_tokens
+
+    x, y = synthetic_tokens(num_seqs=num_seqs, seq_len=seq, vocab=model.vocab_size)
+    engine = AllReduceSGDEngine(make_lm_loss_fn(model), init_lm_params(model, seed=seed),
+                                comm=comm, optimizer=Adam(lr), rank_map="loop")
+    state = engine.train_resident(
+        x, y, per_rank, max_epochs=epochs, shuffle=False,
+        epoch_callback=lambda e, loss, s: print(f"epoch {e}: loss={loss:.4f} ({s:.3f} s)"))
+    steps = len(x) // comm.size // per_rank
+    timed = state["epoch_times"][1:] or state["epoch_times"]
+    tokens = len(timed) * steps * comm.size * per_rank * seq
+    return {"losses": state["losses"], "steps": steps * epochs,
+            "tokens_per_s": tokens / sum(timed),
+            "step_ms": sum(timed) / (len(timed) * steps) * 1e3}, engine
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=60)
-    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="default: 3e-3, or 3e-4 with --engine (bench.py's)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--sp", type=int, default=4)
@@ -116,7 +160,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--heads", type=int, default=4)
     ap.add_argument("--head-dim", type=int, default=32)
     ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--dtype", default="f32", choices=sorted(DTYPES))
+    ap.add_argument("--remat", action="store_true", help="recompute each block in the backward")
+    ap.add_argument("--engine", action="store_true",
+                    help="train through AllReduceSGDEngine.train_resident (no sp)")
+    ap.add_argument("--num-seqs", type=int, default=256, help="--engine: the dataset's size")
+    ap.add_argument("--epochs", type=int, default=2, help="--engine: epochs")
     args = ap.parse_args(argv)
+    if args.lr is None:
+        args.lr = 3e-4 if args.engine else 3e-3
 
     import torchmpi_tpu_torch as mpi
     from torchmpi_tpu_torch.models import LongContextTransformer, init_lm_params
@@ -131,6 +183,25 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     try:
         comm = mpi.current_communicator()
         p, device = comm.size, comm.device
+        widths = dict(vocab_size=args.vocab, num_layers=args.layers, num_heads=args.heads,
+                      head_dim=args.head_dim, d_model=args.d_model, max_len=args.seq,
+                      dtype=DTYPES[args.dtype], remat=args.remat)
+        if args.engine:
+            print(f"ranks={p} engine, no sp: seq={args.seq} batch={args.batch} a rank "
+                  f"dtype={args.dtype} device={device}")
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            run, _ = engine_run(LongContextTransformer(**widths), comm, args.num_seqs, args.seq,
+                                args.batch, args.epochs, args.lr, args.seed)
+            peak = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
+            losses = run["losses"]
+            print(f"throughput: {run['tokens_per_s']:,.0f} tok/s/chip, {run['step_ms']:.2f} ms "
+                  f"a step" + ("" if peak is None else f", peak memory {peak:.2f} GB"))
+            print(f"final: loss={losses[-1]:.4f} (first epoch {losses[0]:.4f})")
+            if not losses[-1] < losses[0]:
+                raise SystemExit(f"long_context: the loss did not fall ({losses[0]:.4f} -> "
+                                 f"{losses[-1]:.4f})")
+            return {**run, "peak_gb": peak}
         sp = args.sp if p % args.sp == 0 else 1
         mesh = make_parallel_mesh(comm, axes={"dp": p // sp, "sp": sp})
         dp = mesh.size("dp")
@@ -138,11 +209,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               f"sp_backend={args.sp_backend}")
         if args.seq % sp:
             raise ValueError(f"--seq {args.seq} does not split over sp={sp}")
-        model = LongContextTransformer(
-            vocab_size=args.vocab, num_layers=args.layers, num_heads=args.heads,
-            head_dim=args.head_dim, d_model=args.d_model, max_len=args.seq,
-            sp_backend=args.sp_backend,
-        ).to(device)
+        model = LongContextTransformer(**widths, sp_backend=args.sp_backend).to(device)
         model.load_state_dict(init_lm_params(model, seed=args.seed))
         batches = make_batches(args.seed, args.steps, dp * args.batch, args.seq)
 

@@ -1,7 +1,13 @@
 """Models of the port: the MNIST family, the 6-layer MLP, the ResNet family
 and the long-context LM."""
 
-from .convert import from_jax_params, lm_from_jax_params, resnet_from_jax_params
+from .convert import (
+    axis_stack_from_jax,
+    from_jax_params,
+    lm_from_jax_params,
+    mplinear_from_jax,
+    resnet_from_jax_params,
+)
 from .mlp import MLP6
 from .mnist import (
     LeNet,
@@ -40,6 +46,7 @@ __all__ = [
     "ResNet50",
     "RingAttentionBlock",
     "accuracy",
+    "axis_stack_from_jax",
     "cross_entropy_loss",
     "from_jax_params",
     "init_lm_params",
@@ -50,5 +57,6 @@ __all__ = [
     "make_lm_loss_fn",
     "make_loss_fn",
     "make_stateful_loss_fn",
+    "mplinear_from_jax",
     "resnet_from_jax_params",
 ]

@@ -24,12 +24,23 @@ as ``conv{j}`` / ``bn{j}`` (``proj`` and ``proj_bn`` as they are), and
 kernel ``[in, out]`` becomes ``[out, in]``, and a BN's ``scale`` becomes
 ``weight`` while its ``bias``, ``mean`` and ``var`` keep their names and
 values.
+
+The parallel strategies' parameters are rank-stacked over a
+:class:`~torchmpi_tpu_torch.parallel.MeshLayout`:
+``mplinear_from_jax`` gives an ``MPLinear``'s ``kernel [p, in / tp,
+features]`` and ``bias [p, features]`` from flax's leaves: the full
+``[in, features]`` kernel (as ``shard_map`` returns it under
+``out_specs=P("tp")``) cut into tp shards, or ``[p, ...]`` per-device
+shards as they are; and
+``axis_stack_from_jax`` gives every rank its entry of a stack whose
+leading dims are mesh axes: a pipeline's ``[pp, ...]`` stage stack, an
+expert stack ``[ep, ...]``, or ``[pp, tp, ...]``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -125,3 +136,44 @@ def resnet_from_jax_params(params: Mapping, batch_stats: Mapping
                 for k, v in _resnet_leaves(tree).items()}
 
     return tensors(params), tensors(batch_stats)
+
+
+def axis_stack_from_jax(tree, layout, axes: Union[str, Sequence[str]] = "pp"):
+    """A leaf (or a dict of leaves) whose leading dims are the sizes of the
+    mesh ``axes``, in order -> rank-stacked ``[p, ...]``: rank r gets the
+    entry at its coordinates along ``axes`` (the same on every rank of the
+    other axes)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if isinstance(tree, Mapping):
+        return {k: axis_stack_from_jax(v, layout, axes) for k, v in tree.items()}
+    value = np.asarray(tree)
+    sizes = tuple(layout.size(a) for a in axes)
+    if value.shape[:len(axes)] != sizes:
+        raise ValueError(f"leading dims {value.shape[:len(axes)]} are not the sizes {sizes} "
+                         f"of axes {axes}")
+    coords = tuple(layout.axis_index(a) for a in axes)
+    return torch.from_numpy(np.ascontiguousarray(value[coords]))
+
+
+def mplinear_from_jax(leaves: Mapping, layout, axis: str = "tp") -> Dict[str, torch.Tensor]:
+    """flax ``MPLinear``'s ``{"kernel", "bias"}`` -> the port's
+    ``MPLinear`` ``state_dict``. The kernel is the full ``[in, features]``
+    (cut into ``layout.size(axis)`` shards over the input features, rank r
+    taking the shard of its ``axis`` coordinate) or the per-device shards
+    ``[p, in / tp, features]`` as they are; the bias ``[features]`` is
+    given to every rank."""
+    kernel = np.asarray(leaves["kernel"])
+    tp, p = layout.size(axis), layout.num_ranks
+    if kernel.ndim == 2:
+        if kernel.shape[0] % tp:
+            raise ValueError(f"MPLinear kernel {kernel.shape}: in not divisible by {axis}={tp}")
+        shards = kernel.reshape(tp, kernel.shape[0] // tp, kernel.shape[1])
+        kernel = np.asarray(axis_stack_from_jax(shards, layout, axis))
+    elif kernel.ndim != 3 or kernel.shape[0] != p:
+        raise ValueError(f"MPLinear kernel {kernel.shape}: want [in, features] or "
+                         f"[{p}, in / {tp}, features]")
+    out = {"kernel": torch.from_numpy(np.array(kernel, order="C"))}
+    if "bias" in leaves:
+        bias = np.asarray(leaves["bias"])
+        out["bias"] = torch.from_numpy(np.array(np.broadcast_to(bias, (p,) + bias.shape[-1:])))
+    return out

@@ -17,11 +17,20 @@ the port's counterpart of a rank-stacked pytree.
 - :func:`check_with_allreduce` — the replica-consistency invariant
   (``init.lua:372-395``).
 
+- the in-graph variants, the syncs a strategy's step makes over one
+  named axis of a :class:`~torchmpi_tpu_torch.parallel.MeshLayout`
+  (``nn/__init__.py:467-565``, psums inside ``shard_map`` in JAX):
+  :func:`in_graph_synchronize_gradients` (one
+  :func:`~torchmpi_tpu_torch.parallel.axis_psum`, the grouped ring
+  kernel K3, a leaf), ``_flat`` (one a dtype), ``_bucketed`` (one a
+  bucket and dtype; a compressed wire through the plain ring,
+  ``collectives.primitives.ring_allreduce(wire_dtype=)``, as in JAX) and
+  :func:`in_graph_synchronize_parameters` (a masked psum from ``root``).
+  They call the kernel wrapper directly, not the selector; the engine's
+  own sync is the eager path above.
+
 Leaves are taken in sorted-name order, the order in which
 ``jax.tree_util`` flattens a dict, so the buckets are the JAX package's.
-The in-graph variants (``in_graph_*``, psums inside a jitted step) have
-no torch counterpart: the engine runs the eager path (ROADMAP, North
-star).
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ import torch
 
 from .. import collectives, constants
 from ..collectives import eager
+from ..collectives import primitives as _prim
+from ..collectives.axis import axis_groups, axis_psum, axis_rank, from_axis_groups
 from ..ops.ring_kernels import row_scale
 from ..runtime.communicator import Communicator
 from ..runtime.handles import SyncHandle
@@ -287,6 +298,100 @@ class GradientBuckets:
                 out[name] = buf[:, off : off + n].reshape(shape)
                 off += n
         return out
+
+
+# ---------------------------------------------------------------------------
+# in-graph variants: the syncs over one named axis of a strategy's mesh
+# ---------------------------------------------------------------------------
+
+
+def in_graph_synchronize_gradients(grads: Tree, layout, axis: str = "mpi",
+                                   average: bool = True) -> Tree:
+    """Sum every rank-stacked leaf over ``layout``'s ``axis``, one
+    :func:`~torchmpi_tpu_torch.parallel.axis_psum` (K3) a leaf, and divide
+    by the axis size when ``average`` (``nn/__init__.py:467``)."""
+    n = layout.size(axis)
+    summed = {k: axis_psum(g, layout, axis) for k, g in grads.items()}
+    return {k: g / n for k, g in summed.items()} if average else summed
+
+
+def _flat_sync(leaves: Dict[str, torch.Tensor], names: Sequence[str], sync_one: Callable,
+               out: Tree) -> None:
+    """Pack ``names``' rank-stacked leaves (one dtype) into one ``[p,
+    total]`` buffer, sync it, and cut the results back into ``out``."""
+    p = leaves[names[0]].shape[0]
+    buf = sync_one(torch.cat([leaves[k].reshape(p, -1) for k in names], dim=1))
+    off = 0
+    for k in names:
+        n = leaves[k][0].numel()
+        out[k] = buf[:, off:off + n].reshape(leaves[k].shape)
+        off += n
+
+
+def _axis_sync(layout, axis: str, average: bool, wire_dtype: Optional[str] = None) -> Callable:
+    """Sync one packed ``[p, n]`` buffer over ``axis``: the compressed-wire
+    ring where ``wire_dtype`` engages (the axis groups as the batched rings
+    of ``primitives.ring_allreduce``), else one ``axis_psum``; divided by
+    the axis size in the buffer's dtype when ``average``."""
+    size = layout.size(axis)
+
+    def sync_one(buf: torch.Tensor) -> torch.Tensor:
+        if _prim.wire_engages(wire_dtype, buf.dtype, buf.shape[1]):
+            rings = axis_groups(buf, layout, axis).transpose(0, 1)
+            out = _prim.ring_allreduce(rings, wire_dtype=wire_dtype, batched=True)
+            summed = from_axis_groups(out.transpose(0, 1), layout, axis)
+        else:
+            summed = axis_psum(buf, layout, axis)
+        return (summed / size).to(buf.dtype) if average else summed
+
+    return sync_one
+
+
+def in_graph_synchronize_gradients_flat(grads: Tree, layout, axis: str = "mpi",
+                                        average: bool = True) -> Tree:
+    """One :func:`~torchmpi_tpu_torch.parallel.axis_psum` over a flat
+    buffer per dtype instead of one a leaf (``nn/__init__.py:477``): the
+    same sums, O(#dtypes) launches; integer leaves stay exact."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for k in sorted(grads):
+        by_dtype.setdefault(grads[k].dtype, []).append(k)
+    out = dict(grads)
+    sync_one = _axis_sync(layout, axis, average)
+    for names in by_dtype.values():
+        _flat_sync(grads, names, sync_one, out)
+    return out
+
+
+def in_graph_synchronize_gradients_bucketed(grads: Tree, buckets: "GradientBuckets", layout,
+                                            axis: str = "mpi", average: bool = True,
+                                            wire_dtype: Optional[str] = None) -> Tree:
+    """One sync per bucket and dtype (``nn/__init__.py:506``): a flat
+    buffer each, through :func:`~torchmpi_tpu_torch.parallel.axis_psum`,
+    or, where ``wire_dtype`` ('bf16' | 'int8') engages (f32 buffers at or
+    above ``wire_quant_min_elements`` a rank), through the
+    compressed-wire ring of ``collectives.primitives.ring_allreduce``."""
+    out = dict(grads)
+    sync_one = _axis_sync(layout, axis, average, wire_dtype)
+    for b in range(buckets.num_buckets):
+        by_dtype: Dict[torch.dtype, list] = {}
+        for i in buckets.buckets[b]:
+            name = buckets.names[i]
+            by_dtype.setdefault(grads[name].dtype, []).append(name)
+        for names in by_dtype.values():
+            _flat_sync(grads, names, sync_one, out)
+    return out
+
+
+def in_graph_synchronize_parameters(params: Tree, layout, axis: str = "mpi",
+                                    root: int = 0) -> Tree:
+    """Every rank of an ``axis`` group gets the parameters of the group's
+    rank at coordinate ``root`` (``nn/__init__.py:544``): a psum of the
+    leaves masked to that rank."""
+    out = {}
+    for k, w in params.items():
+        mine = axis_rank(layout, axis, w.device, w.shape[1:]) == root
+        out[k] = axis_psum(torch.where(mine, w, torch.zeros_like(w)), layout, axis)
+    return out
 
 
 def check_with_allreduce(

@@ -1,6 +1,6 @@
 """Data utilities and the collectives tester of the port."""
 
-from .data import DistributedIterator, synthetic_imagenet, synthetic_mnist
+from .data import DistributedIterator, synthetic_imagenet, synthetic_mnist, synthetic_tokens
 from .tester import (
     BenchResult,
     bus_bytes,
@@ -20,4 +20,5 @@ __all__ = [
     "sweep_sizes",
     "synthetic_imagenet",
     "synthetic_mnist",
+    "synthetic_tokens",
 ]

@@ -1,7 +1,8 @@
 """Dataset and rank-partitioned batches for the port.
 
-Copies of ``torchmpi_tpu/utils/data.py``'s ``synthetic_mnist`` and
-``synthetic_imagenet`` (numpy only, same arrays for the same arguments)
+Copies of ``torchmpi_tpu/utils/data.py``'s ``synthetic_mnist``,
+``synthetic_imagenet`` and ``synthetic_tokens`` (numpy only, same arrays
+for the same arguments)
 and ``DistributedIterator``
 (``examples/mnist/makeiterator.lua``: the global batch is split evenly over
 the ranks, each rank drawing from its own contiguous shard). The iterator
@@ -89,6 +90,30 @@ def synthetic_imagenet(
     train = make(num_train, np.random.RandomState(seed + 1))
     test = make(num_test, np.random.RandomState(seed + 2))
     return train, test
+
+
+def synthetic_tokens(
+    num_seqs: int = 512,
+    seq_len: int = 1024,
+    vocab: int = 8192,
+    seed: int = 97,
+):
+    """Deterministic LM dataset: ``(tokens_in, tokens_target)`` int32 pairs
+    of shape ``[num_seqs, seq_len]`` where target[t] = in[t+1]. The stream
+    is an order-1 structured process (each token is a fixed affine map of
+    its predecessor plus occasional jumps), so a model genuinely reduces
+    loss by attending backwards — same zero-egress role as
+    ``synthetic_mnist``."""
+    rs = np.random.RandomState(seed)
+    raw = np.empty((num_seqs, seq_len + 1), np.int64)
+    raw[:, 0] = rs.randint(0, vocab, size=num_seqs)
+    jumps = rs.rand(num_seqs, seq_len) < 0.05
+    noise = rs.randint(0, vocab, size=(num_seqs, seq_len))
+    for t in range(seq_len):
+        step = (raw[:, t] * 31 + 17) % vocab
+        raw[:, t + 1] = np.where(jumps[:, t], noise[:, t], step)
+    tokens = raw.astype(np.int32)
+    return tokens[:, :-1], tokens[:, 1:]
 
 
 class DistributedIterator:
