@@ -196,19 +196,32 @@ and ``BF16_REL`` (bf16).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+# the tuning and calibration caches that start() reloads live in a
+# directory of this run alone (removed at exit): a persisted tuning or
+# calibration would change the routes, and so the launch counts, of every
+# phase
+_CACHES = Path(tempfile.mkdtemp(prefix="chip-smoke-caches-"))
+atexit.register(shutil.rmtree, _CACHES, True)
+os.environ["TORCHMPI_TPU_TUNING_CACHE"] = str(_CACHES / "autotune.json")
+os.environ["TORCHMPI_TPU_CALIBRATION_CACHE"] = str(_CACHES / "calibration.json")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -2403,9 +2416,10 @@ def phase_compiler(dev) -> dict:
        memo hit (``_count_hit``) and one K3 launch a step;
     2. plan stamps: 5 sync steps and 5 async int8 steps with telemetry
        and the flight recorder on: every entry completes, every
-       collective entry carries a ``plan_id``, one ``flat-kernel-full``
-       allreduce a sync step and an int8 ``flat-kernel`` plan for each
-       async step's bucket 0;
+       collective entry carries a ``plan_id`` (the handles' ``wait.*``
+       entries run no plan), one ``flat-kernel-full`` allreduce a sync
+       step and an int8 ``flat-kernel`` plan for each async step's
+       bucket 0;
     3. telemetry's cost: 30 sync steps with telemetry (and so the flight
        recorder) off and on, in turns (off, on, on, off), ms a step;
     4. the ring's pipeline depth: a ``ring``-backend allreduce at [8,
@@ -2467,13 +2481,17 @@ def phase_compiler(dev) -> dict:
         entries = async_entries
         require(all(e["status"] == flightrecorder.STATUS_COMPLETED for e in entries),
                 "compiler: a flight entry did not complete")
-        collectives = [e for e in entries if not e["op"].startswith(("fusion.", "engine."))]
+        # the handles' waits (the rank-local "handles" stream) run no plan
+        collectives = [e for e in entries if e["comm"] != "handles"
+                       and not e["op"].startswith(("fusion.", "engine."))]
         require(collectives and all(e["plan"] for e in collectives),
                 "compiler: a collective flight entry carries no plan_id")
         bucket0 = [e["plan"] for e in collectives if e["wire"] == "int8"]
         require(len(bucket0) == 5 and all(pl.startswith("flat-kernel-int8") for pl in bucket0),
                 f"compiler: async int8 bucket 0 plans {bucket0}")
-        out["stamps"] = {"async": sorted({(e["op"], e["plan"]) for e in collectives})}
+        out["stamps"] = {"async": sorted({(e["op"], e["plan"]) for e in collectives}),
+                         "async_waits": sorted({e["op"] for e in entries
+                                                if e["comm"] == "handles"})}
     finally:
         mpi.stop()
 
@@ -2495,7 +2513,8 @@ def phase_compiler(dev) -> dict:
             telemetry.disable()
         require(all(e["status"] == flightrecorder.STATUS_COMPLETED for e in entries),
                 "compiler: a sync flight entry did not complete")
-        collectives = [e for e in entries if not e["op"].startswith(("fusion.", "engine."))]
+        collectives = [e for e in entries if e["comm"] != "handles"
+                       and not e["op"].startswith(("fusion.", "engine."))]
         require(all(e["plan"] for e in collectives),
                 "compiler: a sync collective flight entry carries no plan_id")
         allreduces = [e["plan"] for e in collectives if e["op"] == "allreduce"]
@@ -3252,6 +3271,490 @@ def phase_engine(dev) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# observability beyond the core (--observe): the autotuner on the card, the
+# tuning's reload, the live plane, the analyzer and the measured calibration
+# ---------------------------------------------------------------------------
+
+OBSERVE_SYNC_STEPS = 20  # config 1's sync steps with telemetry and the live plane on
+OBSERVE_SCHED_REPS = 10  # config 2's scheduled int8 syncs beside them
+OBSERVE_CAND_REPS = 5  # dispatches of each feasible candidate plan the calibration prices
+OBSERVE_TURN_STEPS = 30  # MNIST sync steps a turn, A11 off and on
+OBSERVE_WATCHDOG_S = 30.0  # the watchdog's timeout while armed: no step comes near it
+OBSERVE_LIVE_S = 0.1  # the live exporter's interval while armed
+TUNERS = ("tune_allreduce_cutoff", "tune_broadcast_cutoff", "tune_tree_pipeline_switch",
+          "tune_chunk_size", "tune_ring_implementation", "tune_wire_dtype", "tune_plan",
+          "tune_pipeline_depth", "tune_fusion_threshold", "tune_ps_chunk_bytes")
+
+
+def kernel_allreduce(n: int, wire: str, impl: str) -> str:
+    """The kernel an allreduce of ``n`` f32 elements a rank launches on
+    the kernel backend: K4 where the compressed wire engages, else K5
+    under 'kernel_bidir', else K3."""
+    if wire in ("int8", "bf16") and n >= constants.get("wire_quant_min_elements"):
+        return f"ring_allreduce_quant_{wire}"
+    return "ring_allreduce_bidir" if impl == "kernel_bidir" else "ring_allreduce"
+
+
+def fusion_dispatches(sizes, cap: int, min_tensors: int) -> list:
+    """The per-rank widths a ``FusionBuffer`` dispatches for ``sizes``
+    submitted in order then ``flush_all``: one at a time when ``cap`` is
+    0; else a group flushes when its pending bytes reach ``cap``, as one
+    fused dispatch of at least ``min_tensors`` tensors or one by one."""
+    if cap <= 0:
+        return list(sizes)
+    out, pend = [], []
+
+    def flush():
+        out.extend([sum(pend)] if len(pend) >= min_tensors else pend)
+        pend.clear()
+
+    for n in sizes:
+        pend.append(n)
+        if sum(pend) * 4 >= cap:
+            flush()
+    if pend:
+        flush()
+    return out
+
+
+def tuner_expected(name: str, kw: dict) -> dict:
+    """The launches tuner ``name`` makes on the card with the arguments
+    ``kw``, worked out from its loops and the constants as it starts: a
+    measured configuration of ``run_one_config`` makes warmup + timed + 2
+    calls (the checked first call, the warm-up, one more, the timed ones),
+    a plan or a fusion candidate warmup + timed; the ``ring`` and vendor
+    paths launch nothing, the kernel backend's allreduce one K3, K4 or K5
+    (:func:`kernel_allreduce`), its broadcast one K7 above
+    ``broadcast_size_tree_based_cuda`` bytes and the tree at or below (the
+    ``_cuda`` column, on the card)."""
+    from torchmpi_tpu_torch.collectives import eager
+    from torchmpi_tpu_torch.schedule import generators
+    from torchmpi_tpu_torch.schedule.topology import Topology
+    from torchmpi_tpu_torch.utils import autotune
+
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    if name == "tune_ps_chunk_bytes":
+        return want
+    impl, wire = constants.get("ring_implementation"), constants.get("wire_dtype")
+    comm = mpi.current_communicator()
+    kernel = autotune._custom_backend(comm) == "kernel"
+    suffix = constants.platform_suffix(comm.device.type)
+    calls = kw["warmup"] + kw["timed"] + 2
+    laps = kw["warmup"] + kw["timed"]
+    if name in ("tune_allreduce_cutoff", "tune_broadcast_cutoff", "tune_tree_pipeline_switch"):
+        for n in sweep_sizes(kw["min_pow"], kw["max_pow"], jitter_seed=None):
+            if not kernel:
+                continue
+            if name == "tune_allreduce_cutoff":
+                want[kernel_allreduce(n, wire, impl)] += calls
+            elif name == "tune_tree_pipeline_switch" or \
+                    n * 4 > constants.get(f"broadcast_size_tree_based_{suffix}"):
+                want["ring_broadcast"] += calls  # the tree pinned launches none
+    elif name == "tune_ring_implementation":
+        for candidate in ("kernel", "kernel_bidir"):
+            want[kernel_allreduce(kw["nelem"], wire, candidate)] += calls
+    elif name == "tune_wire_dtype" and kernel:
+        for w in ("full", "bf16", "int8"):
+            want[kernel_allreduce(kw["nelem"], w, impl)] += calls
+    elif name == "tune_plan" and kernel:
+        w = eager.resolve_wire_dtype("allreduce", kw["nelem"], torch.float32, None)
+        gens = {c.plan.generator for c in generators.candidate_plans(
+            "allreduce", kw["nelem"], 4, Topology.from_communicator(comm), "kernel",
+            wire=w, route_small=True) if c.structural}
+        require(gens == {"flat"}, f"tune_plan on one island: families {sorted(gens)}")
+        want[kernel_allreduce(kw["nelem"], w, impl)] += laps
+    elif name == "tune_fusion_threshold":
+        for cap in kw["candidates"]:
+            for n in fusion_dispatches(kw["leaf_sizes"] or autotune.LENET_LEAF_SIZES, cap,
+                                       max(1, constants.get("fusion_min_tensors"))):
+                if n > constants.get(f"small_allreduce_size_{suffix}"):
+                    want[kernel_allreduce(n, wire, impl)] += laps
+    return want
+
+
+def observe_tune(dev) -> tuple:
+    """(a): ``tune_all(quick=True)`` at p=8, each tuner's launches counted
+    (0 just before, read just after) and held to :func:`tuner_expected`,
+    every measured configuration's µs and correctness; then (b):
+    ``save_tuning``, ``stop()``, the constants back at their defaults,
+    ``start()``: the tuned constants and plan overrides come back. The
+    saved tuning is then deleted, so later ``start()`` calls keep the
+    defaults."""
+    import inspect
+
+    from torchmpi_tpu_torch.schedule import compiler as sched
+    from torchmpi_tpu_torch.utils import autotune
+
+    defaults = constants.snapshot()
+    rows, runs, current = {}, {}, [None]
+    real_roc = autotune.run_one_config
+    real = {name: getattr(autotune, name) for name in TUNERS}
+
+    def roc(op, nelem, comm, backend=None, **kw):
+        res = real_roc(op, nelem, comm, backend=backend, **kw)
+        rows[current[0]]["configs"].append(
+            {"op": op, "backend": backend, "nelem": nelem, "us": res.mean_us,
+             "correct": res.correct, "ring_implementation": constants.get("ring_implementation"),
+             "wire_dtype": constants.get("wire_dtype")})
+        return res
+
+    def wrap(name):
+        def tuner(*a, **k):
+            kw = inspect.signature(real[name]).bind(*a, **k)
+            kw.apply_defaults()
+            want = tuner_expected(name, dict(kw.arguments))
+            current[0] = name
+            rows[name] = {"configs": []}
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            try:
+                out = real[name](*a, **k)
+            except NotImplementedError as exc:
+                rows[name]["raised"] = str(exc)
+                raise
+            finally:
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                runs[f"observe_{name}"] = counts
+                rows[name]["launches"] = {k: v for k, v in counts.items() if v}
+                require(counts == want, f"observe {name}: launches {counts} != {want}")
+            rows[name].update(chosen=out[0], results=[list(r) for r in out[1]])
+            return out
+        return tuner
+
+    mpi.start(ranks=P)
+    try:
+        autotune.run_one_config = roc
+        for name in TUNERS:
+            setattr(autotune, name, wrap(name))
+        t0 = time.perf_counter()
+        tuned = autotune.tune_all(quick=True)
+        tune_s = time.perf_counter() - t0
+    finally:
+        autotune.run_one_config = real_roc
+        for name, fn in real.items():
+            setattr(autotune, name, fn)
+    for name, row in rows.items():
+        bad = [c for c in row["configs"] if not c["correct"]]
+        require(not bad, f"observe {name}: incorrect runs {bad}")
+        # a plan, depth or fusion candidate that failed reads (value, None, why)
+        bad = [r for r in row.get("results", []) if r[1] is None]
+        require(not bad, f"observe {name}: candidates failed {bad}")
+    require("ROADMAP A13" in str(tuned["ps_chunk_bytes"]),
+            f"observe: tune_all's ps_chunk_bytes {tuned['ps_chunk_bytes']!r}")
+    names = [t.format(s=constants.platform_suffix(dev.type)) for t in autotune._TUNABLE]
+    tuned_consts = {n: constants.get(n) for n in names}
+    overrides = dict(sched.plan_overrides())
+    try:
+        path = autotune.save_tuning()
+    finally:
+        mpi.stop()
+    for name, value in defaults.items():
+        constants.set(name, value)
+    sched.clear_plan_overrides()
+    mpi.start(ranks=P)
+    try:
+        reloaded = {n: constants.get(n) for n in names}
+        require(reloaded == tuned_consts, f"observe: start() reloaded {reloaded} != {tuned_consts}")
+        require(sched.plan_overrides() == overrides,
+                f"observe: start() reloaded plan overrides {sched.plan_overrides()} != {overrides}")
+    finally:
+        mpi.stop()
+        # every later start() of this run reloads the defaults
+        path.unlink()
+    line = {"tune_all": tuned, "tune_s": tune_s, "tuners": rows, "cache": str(path),
+            "reloaded": {n: {"tuned": tuned_consts[n], "default": defaults[n]} for n in names},
+            "plan_overrides": overrides}
+    return runs, line
+
+
+def wait_frames(agg, more: int = 2, timeout: float = 10.0) -> None:
+    """Wait until ``agg`` has taken ``more`` frames after this call."""
+    mark = agg.frames_total
+    deadline = time.time() + timeout
+    while agg.frames_total < mark + more and time.time() < deadline:
+        time.sleep(0.02)
+    require(agg.frames_total >= mark + more, f"observe: the aggregator took {agg.frames_total - mark} "
+            f"frames in {timeout} s")
+
+
+def scrape(agg, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{agg.http_port}{path}", timeout=10) as r:
+        return json.loads(r.read().decode())
+
+
+@contextlib.contextmanager
+def a11_armed(agg):
+    """Telemetry and the flight recorder on, the hang watchdog armed
+    (``OBSERVE_WATCHDOG_S``) and a live exporter streaming to ``agg``;
+    all of it off again after the block."""
+    from torchmpi_tpu_torch.telemetry import flightrecorder, live, watchdog
+
+    mpi.telemetry.enable()
+    wd = watchdog.start_watchdog(OBSERVE_WATCHDOG_S, interval=1.0)
+    live.start_exporter(("127.0.0.1", agg.ingest_port), rank=0)
+    try:
+        yield wd
+    finally:
+        live.stop_exporter()
+        watchdog.stop_watchdog()
+        mpi.telemetry.disable()
+        flightrecorder.disable()
+
+
+def observe_live(dev, agg, root: Path) -> tuple:
+    """(c): config 1's sync steps and config 2's scheduled int8 sync with
+    telemetry, the flight recorder, the watchdog and a live exporter on,
+    streaming to ``agg``: exact launches, the verdict ``clean`` on
+    ``/verdicts`` and ``/health``, the int8 bucket's wire bytes, the
+    analyzer on the dump (no desync, a critical path, an overlap ledger).
+    Returns the counted runs, the line's part and the flight entries."""
+    from torchmpi_tpu_torch.telemetry import analyze, flightrecorder
+    from torchmpi_tpu_torch.utils import tracing
+
+    runs, out = {}, {}
+    telemetry = mpi.telemetry
+    telemetry.reset()
+    tracing.wire_stats.reset()
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        engine = mnist_engine(comm, "sync", "full")
+        batches = mnist_batches(comm, OBSERVE_SYNC_STEPS)
+        params = init_params(LeNet(), seed=0)
+        bkts = mpinn.GradientBuckets(params, 4)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        grads = {k: torch.randn((P,) + tuple(v.shape), generator=gen, device=dev)
+                 for k, v in params.items()}
+        with a11_armed(agg) as wd:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            for b in batches:
+                engine.step(b)
+            torch.cuda.synchronize()
+            runs["observe_config1"] = ops.launch_counts()
+            ops.reset_launch_counts()
+            for _ in range(OBSERVE_SCHED_REPS):
+                bkts.sync_scheduled(grads, comm=comm, wire_dtype="int8", schedule="reverse")
+            torch.cuda.synchronize()
+            runs["observe_config2_sched"] = ops.launch_counts()
+            wait_frames(agg)
+            health, verdicts = scrape(agg, "/health"), scrape(agg, "/verdicts")
+            entries = flightrecorder.recorder.entries()
+            require(not wd.hang_reports, f"observe: the watchdog reported {wd.hang_reports}")
+            telemetry.dump(root / "telemetry_rank_0.json")
+        wire = tracing.wire_stats.snapshot()
+    finally:
+        mpi.stop()
+    require(runs["observe_config1"] == counts_want(
+        ring_allreduce=OBSERVE_SYNC_STEPS,
+        accumulate=OBSERVE_SYNC_STEPS * list_launches(LENET_LEAVES)),
+        f"observe: config 1 launches {runs['observe_config1']}")
+    require(runs["observe_config2_sched"] == counts_want(
+        ring_allreduce_quant_int8=OBSERVE_SCHED_REPS),
+        f"observe: config 2 scheduled launches {runs['observe_config2_sched']}")
+    require(verdicts["verdict"] == "clean", f"observe: live verdict {verdicts['verdict']} "
+            f"({verdicts.get('summary')})")
+    require("0" in health["ranks"], f"observe: /health ranks {list(health['ranks'])}")
+    block = constants.get("wire_quant_block_size")
+    want = (OBSERVE_SCHED_REPS, OBSERVE_SCHED_REPS * BUCKET0 * 4,
+            OBSERVE_SCHED_REPS * primitives.wire_encoded_bytes(BUCKET0, 4, "int8", block))
+    require(tuple(wire["by_format"].get("allreduce:int8", ())) == want,
+            f"observe: int8 wire bytes {wire['by_format']} != {want}")
+    report = analyze.analyze(root)
+    require(report["desync"]["status"] == "none", f"observe: analyzer desync {report['desync']}")
+    require(report["critical_path"].get("ranks"), "observe: the analyzer found no critical path")
+    require(report["overlap"]["plans"], "observe: the analyzer found no overlap ledger")
+    waits = [e for e in entries if e["comm"] == "handles"]
+    out.update(
+        verdict=verdicts["verdict"], summary=verdicts.get("summary"),
+        health_rank0={k: v for k, v in health["ranks"]["0"].items()
+                      if k in ("age_s", "seq_high_water", "frames", "step_p50_ms")},
+        frames=agg.frames_total, entries=len(entries), wait_entries=len(waits),
+        wire_stats=wire, critical_path={k: report["critical_path"].get(k) for k in
+                                            ("fleet_buckets_us", "fleet_dominant", "coverage")},
+        overlap=report["overlap"]["plans"], desync=report["desync"]["status"])
+    return runs, out, entries
+
+
+def select_choices(requests, backends) -> dict:
+    """The plan ``select_plan`` picks for each (request, backend):
+    ``requests`` maps a name to ``(comm, nelem)``."""
+    from torchmpi_tpu_torch.collectives import eager
+    from torchmpi_tpu_torch.schedule import select_plan
+    from torchmpi_tpu_torch.schedule.topology import Topology
+
+    out = {}
+    for name, (c, n) in requests.items():
+        for backend in backends:
+            wire = eager.resolve_wire_dtype("allreduce", n, torch.float32, None)
+            plan, _ = select_plan("allreduce", n, 4, Topology.from_communicator(c), backend,
+                                  wire, True, comm=c)
+            out[f"{name}/{backend}"] = plan.plan_id
+    return out
+
+
+def candidate_sweep(requests, backends) -> list:
+    """Every feasible candidate plan of each (request, backend), dispatched
+    ``OBSERVE_CAND_REPS`` times on the card (depth pinned through
+    ``plan_pipeline_depth``) with the flight recorder on; returns the flight
+    entries and the candidates the pin did not reproduce."""
+    from torchmpi_tpu_torch.collectives import eager
+    from torchmpi_tpu_torch.schedule import candidate_plans, compile_collective
+    from torchmpi_tpu_torch.schedule import compiler as sched
+    from torchmpi_tpu_torch.schedule.topology import Topology
+    from torchmpi_tpu_torch.telemetry import flightrecorder
+
+    unpinned = []
+    flightrecorder.recorder.reset()
+    flightrecorder.enable()
+    try:
+        for name, (c, n) in requests.items():
+            x = torch.ones((P, n), device=c.device)
+            for backend in backends:
+                wire = eager.resolve_wire_dtype("allreduce", n, torch.float32, None)
+                cands = candidate_plans("allreduce", n, 4, Topology.from_communicator(c),
+                                        backend, wire=wire, route_small=True)
+                # known to plan_by_id, so the calibration prices each one
+                sched._register_plans(cands)
+                for cand in cands:
+                    if not cand.feasible:
+                        continue
+                    plan = cand.plan
+                    with constants_set({"plan_pipeline_depth": max(1, plan.pipeline)}):
+                        ep = compile_collective("allreduce", (P, n), torch.float32, c,
+                                                backend=plan.backend, generator=plan.generator,
+                                                impl=plan.impl or plan.backend, wire_override=wire)
+                        if ep.plan_id != plan.plan_id:
+                            # a candidate the pin does not reproduce stays unmeasured
+                            unpinned.append([plan.plan_id, ep.plan_id])
+                            continue
+                        for _ in range(OBSERVE_CAND_REPS):
+                            out = ep.execute(x)
+                    torch.cuda.synchronize()
+                    require(bool((out == P).all()), f"observe: candidate {plan.plan_id} summed wrong")
+        return flightrecorder.recorder.entries(), unpinned
+    finally:
+        flightrecorder.disable()
+
+
+def observe_calibrate(entries: list) -> dict:
+    """(d): the measured calibration from (c)'s flight entries, then from
+    those and a sweep of every feasible candidate of config 1's flush
+    ([8, 857738]) and config 5's buckets (on its 2 hosts of 4), on the
+    ``kernel`` and ``ring`` backends: the modeled against the measured µs
+    of every plan, and the plan ``select_plan`` picks for each request
+    before and after. The dispatch entries complete when the host has
+    issued the work, so the samples price the host's dispatch."""
+    from torchmpi_tpu_torch import schedule
+    from torchmpi_tpu_torch.telemetry import calibrate
+
+    out = {}
+    backends = ("kernel", "ring")
+    schedule.clear_calibration()
+    mpi.start(ranks=P)
+    try:
+        flat = mpi.current_communicator()
+        mpi.push_communicator(lambda r: f"host{r // CONFIG5_I}", name="hosts")  # the twin's
+        hosts = mpi.current_communicator()
+        requests = {"config1_flush": (flat, LENET_PARAMS)}
+        requests.update({f"config5_bucket{i}": (hosts, n) for i, n in enumerate(CONFIG5_BUCKETS)})
+        before = select_choices(requests, backends)
+        stages = {}
+        store = calibrate.samples_from_entries(entries)
+        stages["c_entries"] = schedule.calibrate(store)
+        after_c = select_choices(requests, backends)
+        sweep, out["unpinned"] = candidate_sweep(requests, backends)
+        calibrate.samples_from_entries(sweep, store)
+        stages["c_and_sweep"] = schedule.calibrate(store)
+        after = select_choices(requests, backends)
+    finally:
+        mpi.stop()
+        schedule.clear_calibration()
+    for stage, res in stages.items():
+        out[stage] = {
+            "report": res["report"], "applied": res["applied"],
+            "plans": {key: {k: row.get(k) for k in ("us", "n", "modeled_us", "fitted_us")}
+                      for key, row in res["table"].items()}}
+    out["choices"] = {req: {"analytic": before[req], "calibrated_c": after_c[req],
+                            "calibrated_sweep": after[req],
+                            "changed": before[req] != after[req]} for req in before}
+    out["note"] = ("dispatch entries complete when the host has issued the work: the samples "
+                   "price the host's dispatch, not the card's time")
+    return out
+
+
+def observe_turns(dev, agg) -> dict:
+    """(e): the MNIST sync step (config 1) with A11 off and with every
+    piece armed (:func:`a11_armed`), ``OBSERVE_TURN_STEPS`` steps a turn,
+    in turns (off, on, on, off): ms a step."""
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        engine = mnist_engine(comm, "sync", "full")
+        batches = mnist_batches(comm, OBSERVE_TURN_STEPS)
+
+        def step_ms(on: bool) -> float:
+            with a11_armed(agg) if on else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in batches:
+                    engine.step(b)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+        step_ms(False)  # warm
+        return {"turns_ms": [("off", step_ms(False)), ("on", step_ms(True)),
+                             ("on", step_ms(True)), ("off", step_ms(False))],
+                "steps": len(batches)}
+    finally:
+        mpi.stop()
+
+
+def phase_observe(dev) -> dict:
+    """Observability beyond the core on the card ((a)-(e)): the autotuner
+    (:func:`observe_tune`), the live plane and the analyzer
+    (:func:`observe_live`), the measured calibration
+    (:func:`observe_calibrate`) and A11's cost on the MNIST sync step
+    (:func:`observe_turns`). The constants, plan overrides and calibration
+    are restored when the phase ends; the dump lives in a temporary
+    directory, removed at the end. One ``{"observe": ...}`` line; returns
+    each counted run's launch counts."""
+    from torchmpi_tpu_torch import schedule
+    from torchmpi_tpu_torch.schedule import compiler as sched
+    from torchmpi_tpu_torch.telemetry import live
+
+    before = constants.snapshot()
+    overrides = dict(sched.plan_overrides())
+    root = Path(tempfile.mkdtemp(prefix="observe-"))
+    agg = live.FleetAggregator()
+    line = {}
+    try:
+        runs, line["tune"] = observe_tune(dev)
+        for name, value in before.items():
+            constants.set(name, value)
+        sched.clear_plan_overrides()
+        constants.set("telemetry_live_interval_s", OBSERVE_LIVE_S)
+        agg.serve()
+        live_runs, line["live"], entries = observe_live(dev, agg, root)
+        runs.update(live_runs)
+        line["calibration"] = observe_calibrate(entries)
+        line["a11_cost"] = observe_turns(dev, agg)
+    finally:
+        agg.close()
+        shutil.rmtree(root, ignore_errors=True)
+        for name, value in before.items():
+            constants.set(name, value)
+        sched.clear_plan_overrides()
+        sched.apply_plan_overrides(overrides)
+        schedule.clear_calibration()
+    print(json.dumps({"observe": {**line, "p": P, "card": card()}}, default=str))
+    return runs
+
+
 def phase_profile(mode: str, wire: str) -> None:
     """Where a main-path step's time goes: ``torch.profiler`` over 5 steps
     after 3 warm-up steps, device time by kernel and the share of the
@@ -3913,6 +4416,12 @@ def main(argv=None) -> None:
              "bf16 and remat sp LM, the LM through the engine; the {\"parallel\"} line), after "
              "the build; prints no result line")
     parser.add_argument(
+        "--observe", action="store_true",
+        help="only the observability phase (tune_all with exact launches, the tuning's reload, "
+             "the live plane and the analyzer on configs 1 and 2, the measured calibration, "
+             "A11's cost on the sync step; the {\"observe\"} line), after the build; prints no "
+             "result line")
+    parser.add_argument(
         "--compiler", action="store_true",
         help="only the schedule compiler's phase (warm plans after precompile, plan stamps, "
              "telemetry's cost, the ring's pipeline depth) and the async issue line, after the "
@@ -3957,6 +4466,9 @@ def main(argv=None) -> None:
     if args.parallel:
         phase_parallel(dev)
         return
+    if args.observe:
+        phase_observe(dev)
+        return
     errs = phase_kernels(dev)
     trainer = phase_trainer(dev)
     runs = {path: run["counts"] for path, run in trainer.items()}
@@ -3973,6 +4485,7 @@ def main(argv=None) -> None:
     runs.update(phase_resnet(dev, trainer["sync"]))
     runs.update(phase_sharded(dev))
     runs.update(phase_engine(dev))
+    runs.update(phase_observe(dev))
     runs.update(phase_ps(dev))
     phase_ps_vs_cpu(dev)
     phase_ps_throughput()

@@ -341,6 +341,36 @@ def test_runtime_and_scalar_names_are_exported(name):
     assert hasattr(tmpi, name) and name in tmpi.__all__
 
 
+# the observability surface: the schedule's calibration entry points, the
+# autotuner, and the telemetry modules beyond the core
+OBSERVE_NAMES = [("schedule", "calibrate"), ("schedule", "load_calibration"),
+                 ("utils", "autotune"), ("telemetry", "analyze"), ("telemetry", "calibrate"),
+                 ("telemetry", "criticalpath"), ("telemetry", "live"), ("telemetry", "top"),
+                 ("telemetry", "watchdog")]
+
+
+@pytest.mark.parametrize("pkg,name", OBSERVE_NAMES)
+def test_observability_names_are_exported(pkg, name):
+    import importlib
+
+    jmod = importlib.import_module(f"torchmpi_tpu.{pkg}")
+    tmod = importlib.import_module(f"torchmpi_tpu_torch.{pkg}")
+    if pkg in ("telemetry", "utils"):
+        # a module of the package in both, with the same public functions
+        # (``top`` is imported by its CLI, the JAX ``autotune`` by start())
+        jsub = importlib.import_module(f"torchmpi_tpu.{pkg}.{name}")
+        tsub = importlib.import_module(f"torchmpi_tpu_torch.{pkg}.{name}")
+        assert {n for n in vars(jsub) if not n.startswith("_") and callable(vars(jsub)[n])
+                and getattr(vars(jsub)[n], "__module__", "") == jsub.__name__} == \
+            {n for n in vars(tsub) if not n.startswith("_") and callable(vars(tsub)[n])
+             and getattr(vars(tsub)[n], "__module__", "") == tsub.__name__}
+        if pkg == "utils":
+            assert tmod.autotune is tsub and name in tmod.__all__
+        return
+    assert hasattr(jmod, name) and hasattr(tmod, name)
+    assert name in jmod.__all__ and name in tmod.__all__
+
+
 def test_every_reference_name_is_exported():
     missing = {n for n in jmpi.__all__ if n not in tmpi.__all__ or not hasattr(tmpi, n)}
     assert missing == {"pallas"}

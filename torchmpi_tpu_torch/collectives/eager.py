@@ -33,6 +33,7 @@ and :func:`run_tree_hierarchical_allreduce` pin them.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from collections import OrderedDict
@@ -131,6 +132,11 @@ def _dispatch(fn, x, op: str, backend: str, wire: str, nelem: int,
 
 class CollectiveArgumentError(ValueError):
     pass
+
+
+class PlanNotLoweredError(CollectiveArgumentError):
+    """A structurally possible plan of a family the port does not lower
+    (the algebra-synthesized ones, ROADMAP A8)."""
 
 
 def _check_rank_stacked(x: torch.Tensor, comm: Communicator) -> None:
@@ -277,6 +283,28 @@ def resolve_wire_dtype(op: str, nelem: int, dtype: torch.dtype,
     if nelem < constants.get("wire_quant_min_elements"):
         return "full"
     return wire
+
+
+def _wire_recorder(op: str, transport: str, routing: str, nelem: int,
+                   dtype: torch.dtype, wire: str):
+    """The ``utils.tracing.wire_stats`` record each execute of a plan
+    makes (``eager.py:552``), or None: a wire op carried by a ring or
+    kernel transport records its per-rank logical payload bytes against
+    the bytes its encoding puts on the wire per hop. The staged and tree
+    lowerings always carry their intra phase on a ring. The bytes are
+    worked out once, when the plan is bound (a constants change rebinds
+    it), so an execute pays one locked counter update."""
+    if op not in _WIRE_OPS or not (
+        transport in ("ring", "kernel") or routing in ("staged", "tree")
+    ):
+        return None
+    from ..utils import tracing
+
+    itemsize = dtype.itemsize
+    block = constants.get("wire_quant_block_size")
+    wire_bytes = prim.wire_encoded_bytes(nelem, itemsize, wire, block)
+    return functools.partial(tracing.wire_stats.record, op, wire, nelem * itemsize,
+                             wire_bytes)
 
 
 def ring_tuning(platform: str) -> Tuple[int, int, int]:
@@ -655,6 +683,8 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, backend: str = "xla"
     if cuda and not _telemetry.enabled() and not _flight.enabled():
         ep = _issue_route(op, x, comm, backend, root, src, dst, route_small, wire_dtype)
         if ep is not None:
+            if ep.record_wire is not None:
+                ep.record_wire()
             side = _async_side(comm)
             done = torch.cuda.Event()
             h = SyncHandle(_issue.issue_async(x, side.stream, side.order, done, ep.issue), done)

@@ -278,7 +278,8 @@ class _Constants:
     # overrides the analytic pick. The values are the JAX package's model
     # units, kept so that the port's plan choices equal its compiler's;
     # they are not measurements of any card (the virtual ranks of one
-    # device share no link), and calibrating them is ROADMAP A11.
+    # device share no link); schedule.calibrate() replaces them, plan by
+    # plan, with dispatch times measured on the card.
     plan_cost_alpha_ici_us: float = 1.0
     plan_cost_beta_ici_us_per_mib: float = 10.0
     plan_cost_alpha_dcn_us: float = 25.0

@@ -48,6 +48,10 @@ class KernelBuildError(RuntimeError):
     pass
 
 
+class KernelResultError(RuntimeError):
+    """A hand-written kernel launched on the card and gave a wrong result."""
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else
     ``/usr/local/cuda/bin/nvcc``, else ``nvcc`` on the PATH."""

@@ -92,6 +92,7 @@ def start(
     custom_communicator_init: Optional[Callable[[], None]] = None,
     collective_communicator: Optional[Tuple[int, int]] = None,
     precompile_collectives: Optional[Sequence] = None,
+    load_tuned_constants: bool = True,
     **constant_overrides,
 ) -> None:
     """Initialise the runtime (``MPI.start``, ``torchmpi/init.lua:31-100``).
@@ -108,13 +109,23 @@ def start(
       :func:`~torchmpi_tpu_torch.collectives.eager.precompile`) whose plans
       are compiled and pinned before ``start()`` returns, against the
       communicator the collectives will use, so step 1 of training plans
-      no collective.
+      no collective. Runs after the tuned constants load.
+    - ``load_tuned_constants`` — re-apply the autotuner's persisted
+      constants and plan overrides for this (device type, world size)
+      (:func:`~torchmpi_tpu_torch.utils.autotune.load_tuning`) and the
+      persisted cost-model calibration
+      (:func:`~torchmpi_tpu_torch.schedule.load_calibration`), each
+      best-effort, unless the constants are frozen.
     - ``**constant_overrides`` — any :mod:`~torchmpi_tpu_torch.constants`
       knob by name (``start(wire_dtype="int8")``), set after the
-      ``TORCHMPI_TPU_CONSTANTS`` overrides, so an explicit one wins. An
-      unknown name raises ``KeyError`` before any state changes; the
-      overrides outlive a failed or stopped runtime, as any
-      ``constants.set`` does.
+      ``TORCHMPI_TPU_CONSTANTS`` overrides, and set again after the tuned
+      constants load, so an explicit one always wins. An unknown name
+      raises ``KeyError`` before any state changes; the overrides outlive
+      a failed or stopped runtime, as any ``constants.set`` does.
+
+    ``start()`` also records the clock-sync triple the offline analyzer
+    aligns dumps with, and arms the hang watchdog when
+    ``watchdog_timeout_seconds`` is set (``stop()`` stops it).
     """
     global _stack
     for name in constant_overrides:
@@ -139,10 +150,48 @@ def start(
             )
         _stack = CommunicatorStack(Communicator(range(ranks), dev, name="global"))
     try:
+        import socket
+
+        from . import telemetry
+
+        telemetry.record_clock_sync(
+            process_index=0, process_count=1,
+            rank=int(os.environ.get("TORCHMPI_TPU_PROCESS_ID", 0)),
+            host=socket.gethostname(),
+        )
+        if constants.get("watchdog_timeout_seconds") > 0:
+            from .telemetry.watchdog import start_watchdog
+
+            start_watchdog(
+                float(constants.get("watchdog_timeout_seconds")),
+                interval=float(constants.get("watchdog_interval_seconds")),
+            )
         if custom_communicator_init is not None:
             custom_communicator_init()
         if collective_communicator is not None:
             _stack.set_span(*collective_communicator)
+        if load_tuned_constants and not constants.constants_frozen():
+            # the measured routing constants and plan winners survive
+            # restarts (c_api.h:93-95's autotuner, made durable); a bad
+            # cache is skipped, the defaults are always safe
+            try:
+                from .utils.autotune import load_tuning
+
+                load_tuning(comm=_stack.current, apply=True)
+            except Exception:
+                pass
+            # the measured cost-model calibration re-applies alike
+            try:
+                from .schedule import load_calibration
+
+                load_calibration()
+            except Exception:
+                pass
+            # the environment's and the explicit overrides beat the
+            # persisted tuned values (explicit last: it wins over both)
+            _apply_env_constants()
+            for name, value in constant_overrides.items():
+                constants.set(name, value)
         if precompile_collectives:
             from .collectives.eager import precompile
 
@@ -168,12 +217,17 @@ def stop() -> None:
     from .runtime.handles import sync_all
     from .runtime.pools import shutdown_all
 
+    from .telemetry.watchdog import stop_watchdog
+
     sync_all()
     free_all()
     if _stack is not None:
         for level in range(_stack.depth):
             free_collective_resources(_stack.at(level))
     shutdown_all()
+    # the start()-scoped watchdog; one armed from the environment lives
+    # as long as the process
+    stop_watchdog(only_source="constants")
     with _lock:
         _stack = None
 

@@ -32,8 +32,9 @@ Its differences from the JAX compiler:
 - :meth:`ExecutablePlan.execute` places nothing (the virtual ranks live
   on ``comm.device`` already) and passes a CUDA ``stream`` on to the
   kernels, and :attr:`ExecutablePlan.issue` names the warm async
-  allreduces that the C++ issue path (``ops/issue.py``) can take;
-- the wire-byte counters of ``utils.tracing`` are not ported (A11)."""
+  allreduces that the C++ issue path (``ops/issue.py``) can take, which
+  records the plan's wire bytes as :meth:`ExecutablePlan.execute` does
+  (``record_wire``: ``utils.tracing.wire_stats``)."""
 
 from __future__ import annotations
 
@@ -419,11 +420,15 @@ class ExecutablePlan:
     ``plan_id``. ``takes_stream``: the function launches a kernel and
     takes ``stream=``. ``issue``: the route of the C++ async issue path
     (:func:`~torchmpi_tpu_torch.ops.issue.issue_async`) for a CUDA
-    allreduce it can carry, else None."""
+    allreduce it can carry, else None. ``record_wire``: what each execute
+    (and each C++ issue of the plan) records into
+    ``utils.tracing.wire_stats``, or None
+    (:func:`~torchmpi_tpu_torch.collectives.eager._wire_recorder`)."""
 
     __slots__ = (
         "plan", "plan_id", "fn", "comm", "op_label", "backend_label",
         "wire", "nelem", "dtype", "routing", "takes_stream", "issue",
+        "record_wire",
     )
 
     def __init__(self, plan: Plan, fn, comm, op_label: str,
@@ -441,13 +446,18 @@ class ExecutablePlan:
         self.routing = routing
         self.takes_stream = takes_stream
         self.issue = issue
+        self.record_wire = _eager()._wire_recorder(plan.op, backend_label, routing,
+                                                   nelem, dtype, wire)
 
     def execute(self, x, stream=None):
+        eager = _eager()
+        if self.record_wire is not None:
+            self.record_wire()
         fn = self.fn
         if stream is not None and self.takes_stream:
             def fn(a, _fn=self.fn):
                 return _fn(a, stream=stream)
-        return _eager()._dispatch(
+        return eager._dispatch(
             fn, x, self.op_label, self.backend_label, self.wire,
             self.nelem, comm=self.comm, payload=(tuple(x.shape), x.dtype),
             routing=self.routing, plan=self.plan_id,
@@ -464,7 +474,7 @@ class FusedExecutablePlan:
 
     __slots__ = (
         "plan", "plan_id", "fn", "comm", "backend_label", "wire", "ns",
-        "total", "dtype", "inner",
+        "total", "dtype", "inner", "record_wire",
     )
 
     def __init__(self, plan: Plan, fn, comm, backend_label: str, wire: str,
@@ -479,13 +489,19 @@ class FusedExecutablePlan:
         self.total = total
         self.dtype = dtype
         self.inner = inner
+        # a two-level routing records through its own plan's execute
+        self.record_wire = None if inner is not None else _eager()._wire_recorder(
+            plan.op, backend_label, "fused", total, dtype, wire)
 
     def execute(self, flats):
+        eager = _eager()
         if self.inner is not None:
             backend, route_small, wire_dtype = self.inner
-            return _eager().run(self.plan.op, self.fn(flats), self.comm, backend=backend,
-                                route_small=route_small, wire_dtype=wire_dtype)
-        return _eager()._dispatch(
+            return eager.run(self.plan.op, self.fn(flats), self.comm, backend=backend,
+                             route_small=route_small, wire_dtype=wire_dtype)
+        if self.record_wire is not None:
+            self.record_wire()
+        return eager._dispatch(
             self.fn, flats, self.plan.op, self.backend_label, self.wire,
             self.total, comm=self.comm, payload=(self.ns, self.dtype),
             routing="fused", plan=self.plan_id,
@@ -493,7 +509,7 @@ class FusedExecutablePlan:
 
 
 def _not_lowered(plan: Plan):
-    return _eager().CollectiveArgumentError(
+    return _eager().PlanNotLoweredError(
         f"plan {plan.plan_id} of the {plan.generator!r} family cannot run: "
         "the algebra-synthesized lowerings are not ported (ROADMAP A8)"
     )
@@ -663,8 +679,7 @@ def compile_fused(
 
         fn = lower.lower_fused_flat(comm, op, plan.backend, tuple(ns), dtype,
                                     wire, pipeline=plan.pipeline)
-        ep = FusedExecutablePlan(plan, fn, comm, plan.backend, wire, tuple(ns), total,
-                                 dtype)
+        ep = FusedExecutablePlan(plan, fn, comm, plan.backend, wire, tuple(ns), total, dtype)
     else:
         # a two-level routing: the pack, then the composition through
         # run() (its own plan and flight entry), as the JAX package

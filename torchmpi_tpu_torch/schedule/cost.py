@@ -176,21 +176,6 @@ _CALIBRATED: Dict[tuple, float] = {}
 _CAL_EPOCH = 0
 
 
-def split_key(key: str) -> Optional[dict]:
-    """Parse a calibration key ``op|comm|wire|b<bucket>|plan_id`` (the
-    JAX package's ``telemetry/calibrate.py:split_key``; the calibration
-    pipeline itself is ROADMAP A11); None for a malformed key."""
-    parts = key.split("|")
-    if len(parts) != 5 or not parts[3].startswith("b"):
-        return None
-    try:
-        bucket = int(parts[3][1:])
-    except ValueError:
-        return None
-    return {"op": parts[0], "comm": parts[1], "wire": parts[2],
-            "bucket": bucket, "plan_id": parts[4]}
-
-
 def set_calibration(table: Dict[str, dict]) -> int:
     """Apply a calibrated cost table (``telemetry.calibrate`` ``table``
     shape: ``"op|comm|wire|b<bucket>|plan_id" -> {"us": ...}``).
@@ -198,6 +183,8 @@ def set_calibration(table: Dict[str, dict]) -> int:
     Duplicate (op, bucket, wire, plan) keys from different comms merge
     by sample-weighted mean."""
     global _CAL_EPOCH
+    from ..telemetry.calibrate import split_key
+
     merged: Dict[tuple, list] = {}
     for key, row in (table or {}).items():
         parts = split_key(key)

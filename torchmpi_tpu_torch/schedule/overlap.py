@@ -21,8 +21,8 @@ time, not bits.
 
 Each scheduled flush records one flight-recorder sub-entry per bucket on
 the rank-local ``"chunks"`` stream, stamped ``plan=overlap-<schedule>:
-<tag>#<b>``, spanning dispatch to wait. The overlap ledger that reads
-them (``telemetry/criticalpath.py`` of the JAX package) is ROADMAP A11.
+<tag>#<b>``, spanning dispatch to wait, which the overlap ledger
+(:func:`~torchmpi_tpu_torch.telemetry.criticalpath.overlap_ledger`) reads.
 """
 
 from __future__ import annotations

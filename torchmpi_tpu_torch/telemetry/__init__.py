@@ -1,10 +1,13 @@
 """Unified telemetry: metrics registry, collective spans, trace export.
 
-The port of the core of ``torchmpi_tpu/telemetry``:
+The port of ``torchmpi_tpu/telemetry``:
 
 1. **Metrics** (:data:`metrics`): thread-safe labelled counters / gauges /
    fixed-bucket histograms, exported as a JSON snapshot and as Prometheus
-   text (:func:`prometheus_text`).
+   text (:func:`prometheus_text`). ``utils.tracing.wire_stats`` (the
+   logical-vs-wire byte accounting of the compressed wires, recorded by
+   every plan of a ring or kernel transport) is registered as a snapshot
+   collector, so every dump carries it.
 2. **Spans** (:func:`span`): a low-overhead timed-region context manager
    recording into a bounded ring buffer, exported as Chrome
    ``trace_event`` JSON loadable in Perfetto / chrome://tracing
@@ -14,7 +17,15 @@ The port of the core of ``torchmpi_tpu/telemetry``:
    journal of collectives, each stamped with its schedule plan's
    ``plan_id``.
 4. **Audit log** (:func:`audit`): a small bounded journal of discrete
-   decisions included in every snapshot.
+   decisions (autotuner knob choices, tuning-cache loads) included in
+   every snapshot.
+
+Beside the core: the hang watchdog (:mod:`.watchdog`) and the live
+telemetry plane (:mod:`.live`), armed from the environment at the end of
+this module; the offline analyzer (:mod:`.analyze`, ``python -m
+torchmpi_tpu_torch.telemetry.analyze DIR``), the causal critical path and
+overlap ledger (:mod:`.criticalpath`), the measured cost-model
+calibration (:mod:`.calibrate`) and the live console (:mod:`.top`).
 
 Gating: telemetry is OFF unless ``TORCHMPI_TPU_TELEMETRY`` is truthy or
 :func:`enable` is called. Instrumented hot paths pay exactly one branch
@@ -22,12 +33,8 @@ when disabled, and ``span()`` returns a shared no-op singleton — no
 allocation per disabled call. Setting ``TORCHMPI_TPU_TELEMETRY_DUMP`` to a
 path enables telemetry AND registers an atexit dump there.
 
-Not here yet (ROADMAP A11): the hang watchdog and the live telemetry
-plane, which the JAX package arms at the end of its ``__init__``, the
-``utils.tracing`` wire-byte collector, and the analysis modules
-(``analyze``, ``criticalpath``, ``calibrate``, ``top``).
-
-This package imports only the standard library.
+This package imports only the standard library (the ``wire_stats``
+collector imports ``utils.tracing`` when a snapshot is taken).
 """
 
 from __future__ import annotations
@@ -236,6 +243,22 @@ def reset() -> None:
         _audit.clear()
 
 
+# ---------------------------------------------------------------------------
+# wire_stats producer: the logical-vs-wire byte counters ride along in
+# every snapshot. Lazy import: tracing imports torch, which this package
+# does not need until a snapshot is taken inside a framework process.
+# ---------------------------------------------------------------------------
+
+
+def _wire_stats_collector() -> dict:
+    from ..utils import tracing
+
+    return tracing.wire_stats.snapshot()
+
+
+metrics.register_collector("wire_stats", _wire_stats_collector)
+
+
 # the flight recorder mirrors the master switch (one module-global read on
 # its hot path instead of a cross-module call)
 flightrecorder._sync_telemetry(_enabled)
@@ -309,3 +332,18 @@ if _DUMP_PATH:
     atexit.register(_dump_at_exit)
     _install_abnormal_exit_handlers(_DUMP_PATH)
 
+
+# hang watchdog: TORCHMPI_TPU_WATCHDOG=<seconds> arms it as soon as
+# telemetry loads, so even a hang during start() is caught (start() also
+# arms it when the watchdog_timeout_seconds constant is set)
+from . import watchdog  # noqa: E402 - needs the module fully initialized
+
+watchdog._maybe_start_from_env()
+
+# live telemetry plane: TORCHMPI_TPU_TELEMETRY_LIVE=host:port (standalone
+# socket exporter) or TORCHMPI_TPU_TELEMETRY_LIVE_VIA=heartbeat (frames
+# piggyback on an elastic member's coordinator heartbeat); armed at import
+# like the watchdog so streaming starts before start()
+from . import live  # noqa: E402 - needs the module fully initialized
+
+live._maybe_start_from_env()

@@ -1,5 +1,6 @@
-"""Data utilities and the collectives tester of the port."""
+"""Data utilities, the collectives tester and the autotuner of the port."""
 
+from . import autotune  # noqa: F401
 from .data import DistributedIterator, synthetic_imagenet, synthetic_mnist, synthetic_tokens
 from .tester import (
     BenchResult,
@@ -12,6 +13,7 @@ from .tester import (
 
 __all__ = [
     "BenchResult",
+    "autotune",
     "DistributedIterator",
     "bus_bytes",
     "run_matrix",

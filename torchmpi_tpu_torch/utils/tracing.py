@@ -14,9 +14,10 @@ The port of ``torchmpi_tpu/utils/tracing.py``. Reference analogs
   :func:`redirect_logs_per_process`;
 - ``torch.Timer`` benchmark timing (``tester.lua``) -> :class:`Timer`;
 - logical-vs-on-wire byte accounting for the compressed wires ->
-  :class:`WireByteCounters` and its process-global :data:`wire_stats`.
-  The port's dispatch does not record into it yet: the telemetry
-  collector that exports it is ROADMAP A11.
+  :class:`WireByteCounters` and its process-global :data:`wire_stats`,
+  which every plan of a ring or kernel transport records into
+  (``collectives.eager._wire_recorder``) and every telemetry snapshot
+  carries (the ``wire_stats`` collector).
 """
 
 from __future__ import annotations
