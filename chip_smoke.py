@@ -158,6 +158,20 @@ phase fails:
 11. times K3 'rs' against ``x.sum(0)`` in turns at [8, 2^23] and at the
    sharded path's largest packed flush, and K3 'ag' against expand-copy at
    its packed parameter gather (``{"rs_retime": ...}``);
+   then the streamed ResNet path (:func:`phase_streaming`:
+   ``resnet_allreduce.main`` with ``--streaming --input-workers 2`` at
+   the ResNet path's widths, two epochs of 8 steps: every batch the
+   engine received equal on the card, bit for bit, to ``source.gather``
+   of the pipeline's indices, every step's loss equal bit for bit to the
+   same engine's on a plain iterator of those host batches, the launches
+   of :func:`resnet_expected`, the resident run beside it; the
+   ``{"streaming": ...}`` line) and the serving path
+   (:func:`phase_serve`: config 1's LeNet in a ParameterServer over the
+   p=8 ranks, an InferenceServer answering 64-image requests at QoS 0-2
+   from four threads while a downpour trainer publishes 48 scaled 'add'
+   sends; every reply the forward of one published version bit for bit,
+   then of ``ps.receive()``, swaps >= 2, QoS 0 shed at pending 4, K2
+   launched 8 a send; the ``{"serve": ...}`` line);
    then times each kernel, its plain version and,
    where there is one, a
    PyTorch call computing the same function with CUDA events at the main
@@ -179,7 +193,9 @@ step 8's ResNet phase alone; ``--sharded`` the build, step 8's sharded
 path and step 11's retime; ``--compiler`` the build, the schedule
 compiler's phase and the async issue line; ``--hier`` the build and the
 two-level phase; ``--engine`` the build and the engine phase;
-``--parallel`` the build and the parallel phase.
+``--parallel`` the build and the parallel phase; ``--streaming`` the
+build and the streamed ResNet phase; ``--serve`` the build and the
+serving phase.
 ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
@@ -208,6 +224,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from functools import partial
 from pathlib import Path
@@ -230,11 +247,13 @@ import torchmpi_tpu_torch as mpi  # noqa: E402
 from torchmpi_tpu_torch import constants  # noqa: E402
 from torchmpi_tpu_torch import nn as mpinn  # noqa: E402
 from torchmpi_tpu_torch import ops  # noqa: E402
+from torchmpi_tpu_torch import telemetry  # noqa: E402
 from torchmpi_tpu_torch.collectives import primitives  # noqa: E402
 from torchmpi_tpu_torch.engine import SGD, AllReduceSGDEngine  # noqa: E402
 from torchmpi_tpu_torch.examples import long_context  # noqa: E402
 from torchmpi_tpu_torch.examples import mnist_sequential  # noqa: E402
 from torchmpi_tpu_torch.examples import mnist_parameterserver as ps_example  # noqa: E402
+from torchmpi_tpu_torch.examples import resnet_allreduce  # noqa: E402
 from torchmpi_tpu_torch.models import (  # noqa: E402
     BottleneckBlock,
     LeNet,
@@ -254,7 +273,10 @@ from torchmpi_tpu_torch.models import (  # noqa: E402
 from torchmpi_tpu_torch.ops import _build  # noqa: E402
 from torchmpi_tpu_torch.ops.ring_kernels import NATIVE_DTYPES, bidir_chunk_elems  # noqa: E402
 from torchmpi_tpu_torch.parallel import ring_self_attention  # noqa: E402
+from torchmpi_tpu_torch.data import ArraySource  # noqa: E402
+from torchmpi_tpu_torch.parameterserver import ParameterServer  # noqa: E402
 from torchmpi_tpu_torch.parameterserver import server as ps_server  # noqa: E402
+from torchmpi_tpu_torch.serve import InferenceServer  # noqa: E402
 from torchmpi_tpu_torch.utils import (  # noqa: E402
     DistributedIterator,
     synthetic_imagenet,
@@ -394,6 +416,22 @@ ENGINE_TELEMETRY_STEPS = (2, 3)
 ENGINE_WINDOW = (3, 5)
 ENGINE_SCHED_REPS = 20
 CONFIG2_BUCKETS = (BUCKET0, LENET_PARAMS - BUCKET0)  # config 2's two buckets a rank
+# the streamed ResNet path (examples/resnet_allreduce.py --streaming): the
+# ResNet path's widths, two epochs of synthetic_imagenet(2048) (8 steps each;
+# the first warms up), two producer threads; the same example resident
+# beside it for img/s
+STREAM = dict(train=2048, epochs=2, workers=2)
+STREAM_ARGS = ["--model", "resnet50", "--classes", str(RESNET["classes"]),
+               "--image-size", str(RESNET["image"]), "--train", str(STREAM["train"]),
+               "--test", str(RESNET["test"]), "--per-rank-batch", str(RESNET["per_rank"]),
+               "--epochs", str(STREAM["epochs"]), "--lr", str(RESNET["lr"]),
+               "--momentum", str(RESNET["momentum"]), "--ranks", str(P)]
+# the serving path: config 1's LeNet flattened (LENET_PARAMS f32) in a
+# ParameterServer over the p=8 ranks; a downpour trainer publishes 48 scaled
+# 'add' sends of its gradients on 64 images; request threads send 64-image
+# payloads at QoS 0-2 while the refresher swaps every 5 ms
+SERVE = dict(sends=48, lr=0.05, batch=64, threads=4, payloads=4, min_requests=25,
+             refresh_s=0.005, budget=4)
 
 
 def require(cond: bool, what: str) -> None:
@@ -4359,6 +4397,278 @@ def launch_floor_ms() -> float:
     return time_ms(lambda: torch.cuda._sleep(0))
 
 
+def streamed_run(argv: list) -> dict:
+    """One run of the ResNet example, every launch count set to 0 just
+    before it and read just after; telemetry is switched on once the
+    engine is built (the engine's own step telemetry stays off) so the
+    pipeline's tm_input_* families are live. Keeps a device copy of every
+    batch the engine receives, every step's loss, the end time of each
+    epoch and the queue depth at each delivery."""
+    run = {"samples": [], "losses": [], "ends": [], "depths": []}
+    depth = telemetry.metrics.gauge("tm_input_queue_depth")
+    hooks = {
+        "on_start": lambda s: telemetry.enable(),
+        "on_sample": lambda s: (run["samples"].append(
+            (s["epoch"], [t.clone() for t in s["sample"]])), run["depths"].append(depth.value())),
+        "on_forward": lambda s: run["losses"].append(s["loss"].detach().clone()),
+        "on_end_epoch": lambda s: run["ends"].append(time.perf_counter()),
+    }
+    stall0 = (telemetry.metrics.counter("tm_input_producer_stall_seconds").total(),
+              telemetry.metrics.counter("tm_input_consumer_stall_seconds").total())
+    ops.reset_launch_counts()
+    try:
+        state, acc = resnet_allreduce.main(argv, hooks=hooks)
+        torch.cuda.synchronize()
+        run["counts"] = ops.launch_counts()
+    finally:
+        telemetry.disable()
+    run["producer_stall_s"] = (telemetry.metrics.counter("tm_input_producer_stall_seconds").total()
+                               - stall0[0])
+    run["consumer_stall_metric_s"] = (
+        telemetry.metrics.counter("tm_input_consumer_stall_seconds").total() - stall0[1])
+    run.update(state=state, acc=acc)
+    return run
+
+
+def phase_streaming(dev) -> dict:
+    """The streamed ResNet path (``resnet_allreduce.main([... '--streaming',
+    '--input-workers', '2'])``) at full width: every batch the engine
+    received, on the card, equal bit for bit to ``source.gather`` of the
+    pipeline's ``batch_indices`` on the host; every step's loss equal bit for
+    bit to the same engine's driven by a plain iterator of those host
+    batches in the same order; launches exact (:func:`resnet_expected`, as
+    the resident run's); the same example resident for img/s. Prints the
+    ``{"streaming"}`` line and returns the run's launch counts."""
+    streamed = streamed_run(STREAM_ARGS + ["--streaming", "--input-workers",
+                                           str(STREAM["workers"])])
+    state = streamed["state"]
+    pipe, engine = state["pipeline"], state["engine"]
+    steps_per_epoch = len(pipe)
+    require(state["t"] == STREAM["epochs"] * steps_per_epoch == len(streamed["samples"]),
+            f"streaming: {state['t']} steps, {len(streamed['samples'])} batches")
+    require(pipe.workers == STREAM["workers"], f"streaming: {pipe.workers} producers")
+    expected = resnet_expected(engine, state["t"])
+    require(streamed["counts"] == expected["counts"],
+            f"streaming: launches {streamed['counts']} != {expected['counts']}")
+    del engine, state["engine"]
+    (xtr, ytr), _ = synthetic_imagenet(num_train=STREAM["train"], num_test=RESNET["test"],
+                                       num_classes=RESNET["classes"], image_size=RESNET["image"])
+    src = ArraySource(xtr, ytr)
+    host = []
+    for i, (epoch, (xb, yb)) in enumerate(streamed["samples"]):
+        want = [torch.from_numpy(a) for a in src.gather(pipe.batch_indices(epoch, i % steps_per_epoch))]
+        require(xb.device.type == dev.type and torch.equal(bits(xb.cpu()), bits(want[0]))
+                and torch.equal(yb.cpu(), want[1]),
+                f"streaming: batch {i % steps_per_epoch} of epoch {epoch} differs from the host's")
+        host.append(want)
+    streamed["samples"].clear()
+    print(f"streaming: every one of {len(host)} streamed batches equals source.gather of its "
+          "indices bit for bit")
+
+    # the same engine on a plain iterator of the same host batches
+    mpi.start(ranks=P)
+    try:
+        engine = resnet_engine(ResNet50(num_classes=RESNET["classes"], device=dev),
+                               mpi.current_communicator(), "sync")
+        plain = []
+        engine.hooks["on_forward"] = lambda s: plain.append(s["loss"].detach().clone())
+        epochs = iter([host[:steps_per_epoch], host[steps_per_epoch:]])
+        engine.train(lambda: iter(next(epochs)), max_epochs=STREAM["epochs"])
+        torch.cuda.synchronize()
+        del engine
+    finally:
+        mpi.stop()
+    losses = [float(v) for v in streamed["losses"]]
+    require(len(plain) == len(losses)
+            and all(torch.equal(bits(a), bits(b)) for a, b in zip(streamed["losses"], plain)),
+            f"streaming: losses {losses} != the plain iterator's {[float(v) for v in plain]}")
+    require(all(np.isfinite(losses)), f"streaming: non-finite loss {losses}")
+    print(f"streaming: {len(losses)} step losses equal the plain iterator's bit for bit "
+          f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    torch.cuda.empty_cache()
+
+    resident = streamed_run(STREAM_ARGS)
+    rstate = resident["state"]
+    del rstate["engine"]
+    torch.cuda.empty_cache()
+    batch = P * RESNET["per_rank"]
+    steady = (STREAM["epochs"] - 1) * steps_per_epoch * batch
+    streamed_ips = steady / (streamed["ends"][-1] - streamed["ends"][0])
+    resident_ips = steady / sum(rstate["epoch_times"][1:])
+    depths = [d for d in streamed["depths"] if d is not None]
+    line = {
+        "model": "resnet50", "p": P, "per_rank_batch": RESNET["per_rank"],
+        "image": RESNET["image"], "classes": RESNET["classes"], "epochs": STREAM["epochs"],
+        "steps": state["t"], "input_workers": STREAM["workers"],
+        "prefetch": pipe.prefetch, "pinned": "pin_memory() per batch",
+        "img_per_s_per_chip": streamed_ips, "resident_img_per_s_per_chip": resident_ips,
+        "input_stall_s": state["input_stall"], "time_s": state["time"],
+        "consumer_stall_s": pipe.consumer_stall_s,
+        "consumer_stall_metric_s": streamed["consumer_stall_metric_s"],
+        "producer_stall_s": streamed["producer_stall_s"],
+        "mean_queue_depth": statistics.mean(depths) if depths else None,
+        "losses": losses, "launches": {k: v for k, v in streamed["counts"].items() if v},
+        "test_acc": streamed["acc"], "card": card(),
+    }
+    print(json.dumps({"streaming": line}))
+    return {"streaming_resnet": streamed["counts"]}
+
+
+def lenet_views(weights: torch.Tensor, shapes: list) -> dict:
+    """LeNet's parameters as views of the flat ``weights``."""
+    leaves = torch.split(weights, [math.prod(s) for _, s in shapes])
+    return {name: v.view(shape) for (name, shape), v in zip(shapes, leaves)}
+
+
+def lenet_fn(dev, shapes: list):
+    """``model_fn(weights, x)``: LeNet's forward on ``dev`` from the flat
+    ``weights``, ``x`` flat 28x28 images. Each thread runs its own module:
+    ``functional_call`` swaps a module's parameters while it runs, so
+    threads must not share one."""
+    local = threading.local()
+
+    def fn(weights, x):
+        if not hasattr(local, "model"):
+            local.model = LeNet().to(dev)
+        return torch.func.functional_call(local.model, lenet_views(weights, shapes),
+                                          (x.view(-1, 28 * 28),))
+
+    return fn
+
+
+def phase_serve(dev) -> dict:
+    """LeNet served under training: config 1's LeNet flattened in a
+    ParameterServer over the p=8 ranks on the card, an InferenceServer
+    answering with LeNet's forward from its snapshot while a downpour
+    trainer thread publishes ``SERVE['sends']`` scaled 'add' sends (K2 on
+    every shard) and request threads call ``handle``. Every ok reply must
+    equal, bit for bit, the forward of one published version (computed
+    from the host copies the trainer keeps: the plain K2 on the CPU, one
+    rounding as the card applies it); after the trainer stops and a last
+    ``refresh_once``, the forward of ``ps.receive()``, which must equal the
+    last version; swaps >= 2; a budget of 4 sheds QoS 0 at pending 4 while
+    QoS 2 is answered; K2 launched P a send, nothing else. Prints the
+    ``{"serve"}`` line and returns the run's launch counts."""
+    init = init_params(LeNet(), seed=0)
+    shapes = [(k, tuple(v.shape)) for k, v in init.items()]
+    flat = torch.cat([v.reshape(-1) for v in init.values()])
+    require(flat.numel() == LENET_PARAMS, f"serve: LeNet has {flat.numel()} parameters")
+    fn = lenet_fn(dev, shapes)
+    (xtr, ytr), (xte, _) = synthetic_mnist()
+    payloads = [np.ascontiguousarray(xte[i * SERVE["batch"]:(i + 1) * SERVE["batch"]])
+                for i in range(SERVE["payloads"])]
+    versions = [flat.clone()]
+    errors, replies, latencies = [], [], []
+    trained = threading.Event()
+    saved = {k: constants.get(k) for k in ("serve_refresh_interval_s", "serve_queue_budget")}
+    mpi.start(ranks=P)
+    constants.set("serve_refresh_interval_s", SERVE["refresh_s"])
+    try:
+        ps = ParameterServer(flat, comm=mpi.current_communicator())
+        srv = InferenceServer(fn, ps)
+        gen = torch.Generator().manual_seed(1)
+        loss_fn = make_loss_fn(LeNet().to(dev))  # the trainer's own module
+
+        def trainer():
+            try:
+                for _ in range(SERVE["sends"]):
+                    idx = torch.randint(0, len(xtr), (SERVE["batch"],), generator=gen)
+                    batch = (torch.from_numpy(xtr[idx.numpy()]).to(dev),
+                             torch.from_numpy(ytr[idx.numpy()]).long().to(dev))
+                    w = ps.receive(client=1).wait().requires_grad_()
+                    (grad,) = torch.autograd.grad(loss_fn(lenet_views(w, shapes), batch), w)
+                    ps.send(grad, rule="add", client=1, scale=-SERVE["lr"]).wait()
+                    versions.append(ops.scale_accumulate(versions[-1], grad.cpu(), -SERVE["lr"]))
+            except BaseException as e:  # noqa: BLE001 - reported by the main thread
+                errors.append(e)
+            finally:
+                trained.set()
+
+        def requests(seed):
+            r = np.random.RandomState(seed)
+            try:
+                n = 0
+                while not trained.is_set() or n < SERVE["min_requests"]:
+                    j, qos = int(r.randint(SERVE["payloads"])), int(r.randint(3))
+                    t0 = time.perf_counter()
+                    status, y = srv.handle("infer", qos, payloads[j].tobytes(), pending=0)
+                    latencies.append(time.perf_counter() - t0)
+                    replies.append((status, j, y))
+                    n += 1
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+
+        ops.reset_launch_counts()
+        srv.start()
+        threads = [threading.Thread(target=trainer)] + [
+            threading.Thread(target=requests, args=(s,)) for s in range(SERVE["threads"])]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        srv.stop()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        require(not errors, f"serve: a thread failed: {errors[:1]!r}")
+        expect_launches(counts, "serve", scale_accumulate=SERVE["sends"] * P)
+        last = ps.receive().wait().cpu()
+        require(torch.equal(bits(last), bits(versions[-1])),
+                "serve: the PS's weights differ from the host copies of the sends")
+        swaps_trained = srv.cache.swaps
+        srv.refresh_once()
+        want = [np.stack([fn(v.to(dev), torch.from_numpy(x).to(dev).reshape(-1)).cpu().numpy()
+                          for v in versions]) for x in payloads]
+        ok = [(j, y) for s, j, y in replies if s == "ok"]
+        require(len(ok) == len(replies), "serve: a request at pending 0 was shed")
+        versions_served = set()
+        for j, y in ok:
+            hit = np.flatnonzero((want[j].view(np.int32) == y.view(np.int32)).all(axis=(1, 2)))
+            require(hit.size > 0, "serve: a reply equals the forward of no published version")
+            versions_served.add(int(hit[-1]))
+        for j, x in enumerate(payloads):
+            status, y = srv.handle("infer", 2, x.tobytes(), pending=0)
+            require(status == "ok" and np.array_equal(y.view(np.int32), want[j][-1].view(np.int32)),
+                    "serve: after the last refresh a reply is not the forward of ps.receive()")
+        require(swaps_trained >= 2, f"serve: {swaps_trained} swaps under training")
+        constants.set("serve_queue_budget", SERVE["budget"])
+        retry = constants.get("serve_shed_retry_ms")
+        shed = srv.handle("infer", 0, payloads[0].tobytes(), pending=SERVE["budget"])
+        top = srv.handle("infer", 2, payloads[0].tobytes(), pending=SERVE["budget"])
+        require(shed == (f"shed:{retry}", None), f"serve: QoS 0 at pending 4 got {shed[0]}")
+        require(top[0] == "ok" and np.array_equal(top[1], want[0][-1]),
+                f"serve: QoS 2 at pending 4 got {top[0]}")
+        alone = []  # one thread, no trainer: the request path's own time
+        for _ in range(50):
+            t0 = time.perf_counter()
+            srv.handle("infer", 2, payloads[0].tobytes(), pending=0)
+            alone.append(time.perf_counter() - t0)
+        lat = sorted(latencies)
+        line = {
+            "model": "lenet", "params": LENET_PARAMS, "p": P, "sends": SERVE["sends"],
+            "lr": SERVE["lr"], "payload_images": SERVE["batch"], "threads": SERVE["threads"],
+            "requests": len(ok), "requests_per_s": len(ok) / wall, "wall_s": wall,
+            "handle_p50_ms": lat[len(lat) // 2] * 1e3,
+            "handle_p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
+            "handle_alone_p50_ms": statistics.median(alone) * 1e3,
+            "swaps": swaps_trained, "versions_served": len(versions_served),
+            "shed": srv.shed, "launches": {k: v for k, v in counts.items() if v},
+            "card": card(),
+        }
+        print(f"serve: {len(ok)} replies during {SERVE['sends']} sends, each the forward of one "
+              f"of {len(versions)} published versions bit for bit ({len(versions_served)} "
+              f"distinct), then of ps.receive(); QoS 0 shed at pending {SERVE['budget']} "
+              f"({shed[0]}), QoS 2 answered")
+        print(json.dumps({"serve": line}))
+        ps.free()
+    finally:
+        mpi.stop()
+        for k, v in saved.items():
+            constants.set(k, v)
+    return {"serve_ps": counts}
+
+
 def phase_timing(dev, runs: dict, errs: dict) -> None:
     """Time every kernel (:func:`timing_rows`, :func:`time_rows`) and print
     the ``{"kernels": [...]}`` line."""
@@ -4422,6 +4732,15 @@ def main(argv=None) -> None:
              "A11's cost on the sync step; the {\"observe\"} line), after the build; prints no "
              "result line")
     parser.add_argument(
+        "--streaming", action="store_true",
+        help="only the streamed ResNet-50 phase (the example's --streaming against source.gather "
+             "and a plain iterator, exact launches, the resident run beside it; the "
+             "{\"streaming\"} line), after the build; prints no result line")
+    parser.add_argument(
+        "--serve", action="store_true",
+        help="only the serving phase (LeNet served from the parameter server while a downpour "
+             "trainer publishes; the {\"serve\"} line), after the build; prints no result line")
+    parser.add_argument(
         "--compiler", action="store_true",
         help="only the schedule compiler's phase (warm plans after precompile, plan stamps, "
              "telemetry's cost, the ring's pipeline depth) and the async issue line, after the "
@@ -4469,6 +4788,12 @@ def main(argv=None) -> None:
     if args.observe:
         phase_observe(dev)
         return
+    if args.streaming:
+        phase_streaming(dev)
+        return
+    if args.serve:
+        phase_serve(dev)
+        return
     errs = phase_kernels(dev)
     trainer = phase_trainer(dev)
     runs = {path: run["counts"] for path, run in trainer.items()}
@@ -4494,6 +4819,8 @@ def main(argv=None) -> None:
     phase_profile_lm(dev, lm_stats)
     phase_profile_ps()
     phase_rs_retime(dev)
+    runs.update(phase_streaming(dev))
+    runs.update(phase_serve(dev))
     phase_timing(dev, runs, errs)
     print(json.dumps({
         "ok": True,

@@ -398,13 +398,27 @@ def test_sequential_twin_matches_the_jax_example():
 @pytest.mark.parametrize("flag", [["--streaming"], ["--input-workers", "2"],
                                   ["--fsdp", "--streaming"], ["--accum-steps", "2", "--streaming"]])
 def test_resnet_example_rejects_unported_flags(flag, capsys):
+    """The flags that waited for the streaming input pipeline are ported:
+    none is rejected any more. ``--streaming`` trains through an
+    ``InputPipeline`` (under fsdp and accumulation too), one epoch of its
+    batches; ``--input-workers`` alone leaves the resident path as it is."""
     from torchmpi_tpu_torch.examples import resnet_allreduce
 
-    with pytest.raises(SystemExit) as e:
-        resnet_allreduce.main(["--device", "cpu"] + flag)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err and "A12" in err
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # beside other test processes on the same cores
+    try:
+        state, acc = resnet_allreduce.main(
+            ["--device", "cpu", "--ranks", "2", "--model", "resnet18", "--classes", "8",
+             "--image-size", "16", "--train", "32", "--test", "16", "--per-rank-batch", "4",
+             "--epochs", "1"] + flag)
+    finally:
+        torch.set_num_threads(threads)
+    assert ("pipeline" in state) == ("--streaming" in flag)
+    if "pipeline" in state:
+        assert state["t"] == len(state["pipeline"]) == 4
+        assert state["input_stall"] >= state["pipeline"].consumer_stall_s
+    assert np.isfinite(state["losses"]).all() and 0.0 <= acc <= 1.0
+    assert "streaming input" in capsys.readouterr().out or "--streaming" not in flag
 
 
 @pytest.mark.parametrize("mode", ["sync", "async"])

@@ -371,6 +371,23 @@ def test_observability_names_are_exported(pkg, name):
     assert name in jmod.__all__ and name in tmod.__all__
 
 
+@pytest.mark.parametrize("pkg", ["data", "serve", "analysis"])
+def test_input_serving_and_lint_packages_match_jax(pkg):
+    """The streaming input pipeline, the serving tier and tpu-lint: the
+    same public names as the JAX sub-packages; ``mpi.data`` is an
+    attribute of the package, as in JAX."""
+    import importlib
+
+    jmod = importlib.import_module(f"torchmpi_tpu.{pkg}")
+    tmod = importlib.import_module(f"torchmpi_tpu_torch.{pkg}")
+    public = lambda m: sorted(getattr(m, "__all__", None)  # noqa: E731
+                              or [n for n in vars(m) if not n.startswith("_")
+                                  and not isinstance(vars(m)[n], type(m))
+                                  and n not in ("annotations",)])
+    assert public(tmod) == public(jmod)
+    assert hasattr(jmpi, "data") and tmpi.data is importlib.import_module("torchmpi_tpu_torch.data")
+
+
 def test_every_reference_name_is_exported():
     missing = {n for n in jmpi.__all__ if n not in tmpi.__all__ or not hasattr(tmpi, n)}
     assert missing == {"pallas"}

@@ -29,6 +29,10 @@ flight-recorder entries, each stamped with the plan's ``plan_id``.
 ``mpi.parameterserver`` shards tensors over the ranks on the same device
 and runs the Downpour, EASGD and DSGD schedules
 (``python -m torchmpi_tpu_torch.examples.mnist_parameterserver``).
+``mpi.data.InputPipeline`` streams rank-stacked batches through pinned
+memory and a copy stream, ``torchmpi_tpu_torch.serve`` answers inference
+requests from the parameter server's weights while it trains, and
+``python -m torchmpi_tpu_torch.analysis`` is the package's tpu-lint.
 
 The package imports ``torch`` and never ``jax`` or ``torchmpi_tpu``.
 """
@@ -79,7 +83,7 @@ from .runtime_state import (
 
 # subpackages as attributes, as the reference's ``mpi.engine`` etc.; last,
 # since each imports from the modules above
-from . import engine, parallel, utils  # noqa: E402
+from . import data, engine, parallel, utils  # noqa: E402
 
 __version__ = "0.5.0"
 

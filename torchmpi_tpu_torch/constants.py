@@ -104,8 +104,10 @@ class _Constants:
     # Donate input buffers to eager collectives (strict in-place semantics,
     # like the reference's inplace collective variants). Off by default:
     # JAX users expect value semantics, and donation invalidates reuse of
-    # the input array.
-    donate_eager_buffers: bool = False
+    # the input array. The port reads it nowhere: PyTorch has no buffer
+    # donation, and the knob stays so the JAX package's start() calls run
+    # unchanged.
+    donate_eager_buffers: bool = False  # tpu-lint: disable=knob-unread
 
     # --- wire format for the bandwidth-path reductions (EQuARX-style) ---
     # Default on-wire encoding for ring allreduce / reduce-scatter of

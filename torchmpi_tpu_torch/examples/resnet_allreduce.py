@@ -10,7 +10,11 @@ the first parameter sync (102 MB a rank for ResNet-50) takes the
 ring-broadcast kernel, the momentum step the scale-accumulate kernel and
 the update the accumulate kernel; the ranks' gradients are computed one
 rank after another (``rank_map='loop'``). ``synthetic_imagenet`` is
-staged on the card once (``train_resident``). Prints per-epoch img/s, the
+staged on the card once (``train_resident``), or with ``--streaming``
+streamed by ``data.InputPipeline``: ``--input-workers`` host threads
+gather (and under ``--bf16`` cast) each rank-stacked batch into pinned
+memory, and its copy to the card runs on a copy stream while the step
+before it trains (``engine.train``). Prints per-epoch img/s, the
 throughput and MFU against the card's f32 (``--bf16``: bf16) peak by the
 analytic FLOP count, checks replica consistency of the parameters and the
 statistics, and evaluates the test accuracy over the ranks.
@@ -23,11 +27,9 @@ reduce-scatter kernel) before the momentum step and the update run on the
 shards; the replica check then runs on the gathered parameters.
 ``--accum-steps N`` cuts each step's per-rank batch into N microbatches
 whose gradients are summed before one collective and one update.
-``--streaming`` / ``--input-workers`` (ROADMAP A12) are not ported yet:
-the parser rejects them instead of ignoring them.
 
 Run:  python -m torchmpi_tpu_torch.examples.resnet_allreduce [--mode async]
-      [--fsdp] [--accum-steps 4]
+      [--fsdp] [--accum-steps 4] [--streaming --input-workers 2]
       (ResNet-50, 224 px, 8 ranks, per-rank batch 32 on the card)
       python -m torchmpi_tpu_torch.examples.resnet_allreduce --device cpu
       --ranks 2 --model resnet18 --classes 8 --image-size 16 --train 32
@@ -37,18 +39,16 @@ Run:  python -m torchmpi_tpu_torch.examples.resnet_allreduce [--mode async]
 from __future__ import annotations
 
 import argparse
-from typing import Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-# flags of the JAX example that wait for a later slice
-_UNPORTED = {
-    "streaming": "--streaming waits for the streaming input pipeline (ROADMAP A12)",
-    "input_workers": "--input-workers waits for the streaming input pipeline (ROADMAP A12)",
-}
 
-
-def main(argv: Optional[Sequence[str]] = None):
+def main(argv: Optional[Sequence[str]] = None,
+         hooks: Optional[Dict[str, Callable]] = None):
+    """Train and return ``(state, test accuracy)``; ``hooks`` are the
+    engine's (``on_sample``, ``on_forward``, ...). With ``--streaming``
+    ``state['pipeline']`` is the run's :class:`InputPipeline`."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="resnet50", choices=["resnet18", "resnet50"])
     ap.add_argument("--classes", type=int, default=1000)
@@ -68,13 +68,12 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="ZeRO-3: shard params + optimizer state over the ranks")
     ap.add_argument("--accum-steps", type=int, default=1,
                     help="gradient accumulation microbatches per step")
-    ap.add_argument("--streaming", action="store_true", help="not ported (ROADMAP A12)")
-    ap.add_argument("--input-workers", type=int, default=0, help="not ported (ROADMAP A12)")
+    ap.add_argument("--streaming", action="store_true",
+                    help="stream batches through data.InputPipeline instead of "
+                    "staging the dataset on the device")
+    ap.add_argument("--input-workers", type=int, default=0,
+                    help="producer threads for --streaming (0: the input_workers constant)")
     args = ap.parse_args(argv)
-    given = {"streaming": args.streaming, "input_workers": args.input_workers != 0}
-    for flag, why in _UNPORTED.items():
-        if given[flag]:
-            ap.error(why)
 
     import torchmpi_tpu_torch as mpi
     from torchmpi_tpu_torch import nn as mpinn
@@ -122,6 +121,7 @@ def main(argv: Optional[Sequence[str]] = None):
             param_sharding="fsdp" if args.fsdp else "replicated",
             accum_steps=args.accum_steps,
             flops_per_sample=flops_per_sample,
+            hooks=hooks,
         )
         print(f"[resnet] param_sharding {engine.param_sharding}, accum_steps {args.accum_steps}")
 
@@ -130,15 +130,32 @@ def main(argv: Optional[Sequence[str]] = None):
             print(f"[resnet] epoch {epoch}: loss {loss:.4f}  {secs:.2f}s  {ips:,.0f} img/s "
                   f"({ips:,.0f}/chip: {p} virtual ranks on 1 card)")
 
-        state = engine.train_resident(xtr, ytr, args.per_rank_batch, max_epochs=args.epochs,
-                                      image_dtype=dtype if args.bf16 else None,
-                                      epoch_callback=log_epoch)
+        if args.streaming:
+            from torchmpi_tpu_torch.data import InputPipeline
+
+            pipe = InputPipeline(
+                (xtr, ytr), batch_size=args.per_rank_batch * p, num_ranks=p,
+                device=comm.device, workers=args.input_workers or None,
+                # the resident path's image_dtype cast, on the producer threads
+                transform=((lambda xb, yb: (torch.from_numpy(xb).to(dtype), yb))
+                           if args.bf16 else None))
+            state = engine.train(pipe, max_epochs=args.epochs)
+            state["pipeline"] = pipe
+            print(f"[resnet] streaming input: {len(pipe)} batches/epoch, input stall "
+                  f"{state['input_stall']:.3f}s (the pipeline's consumer stall "
+                  f"{pipe.consumer_stall_s:.3f}s)")
+        else:
+            state = engine.train_resident(xtr, ytr, args.per_rank_batch, max_epochs=args.epochs,
+                                          image_dtype=dtype if args.bf16 else None,
+                                          epoch_callback=log_epoch)
         ips = state["samples"] / max(state["time"], 1e-9)
         name = torch.cuda.get_device_name(comm.device) if comm.device.type == "cuda" else None
         achieved, frac = mfu(ips, flops_per_sample, name, "bfloat16" if args.bf16 else "float32")
+        busy = max(state["time"] - state.get("input_stall", 0.0), 1e-9)
         print(f"[resnet] throughput {ips:,.0f} img/s ({ips:,.0f}/chip), "
               f"{achieved / 1e12:.3f} TFLOP/s/chip"
-              + (f", MFU {frac:.1%}" if frac is not None else " (no peak for this device: MFU n/a)"))
+              + (f", MFU {frac * state['time'] / busy:.1%} (incl. input stall {frac:.1%})"
+                 if frac is not None else " (no peak for this device: MFU n/a)"))
         # replica consistency of the parameters and the batch statistics
         mpinn.check_with_allreduce(engine.gathered_params(), comm)
         mpinn.check_with_allreduce(engine.model_state, comm)

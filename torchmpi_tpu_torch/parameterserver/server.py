@@ -33,6 +33,12 @@ that touches its shards is enqueued there in order:
   assembles the tensor there, and the receive's handle makes the caller's
   stream wait on the event recorded after it.
 
+A send and a fetch each post to every server's mailbox under one lock
+(``_Instance.post_all``), so a fetch assembles one version of the whole
+tensor, never shards of two (the serving tier's snapshots rely on it).
+``receive``/``prefetch`` take the JAX package's ``read_policy``; with no
+replica chain in one process it routes nothing.
+
 Waiting for a later PR (ROADMAP A7, A13): owners in another process (the
 socket transport), replication chains and ``reform``, the shm lane, delta
 fetches and the native store. A communicator whose ranks span processes
@@ -165,6 +171,9 @@ class _Instance:
         self.versions: List[int] = [0] * size
         self.mailboxes: List[deque] = [deque() for _ in range(size)]
         self.locks = [threading.Lock() for _ in range(size)]
+        # held while one send or receive posts to every mailbox (see
+        # post_all)
+        self.post_lock = threading.Lock()
         self.freed = False
 
     def apply_rule(self, r: int, rule: str, payload: torch.Tensor,
@@ -185,6 +194,18 @@ class _Instance:
                     msg.reply.set_exception(RuntimeError("parameter server freed"))
                 return
             self.mailboxes[server_rank].append(msg)
+
+    def post_all(self, msgs: List[_Message]) -> None:
+        """Post ``msgs[r]`` to server ``r``, for every r, with no other
+        send's or receive's posts between them: every mailbox then holds
+        sends and fetches in one order, so a fetch assembles the state
+        after one prefix of the applied sends, the same on every shard.
+        The JAX package posts shard by shard, and a fetch racing a send
+        may mix the versions of shards there; the serving tier's
+        snapshots are whole versions here."""
+        with self.post_lock:
+            for r, msg in enumerate(msgs):
+                self.post(r, msg)
 
     def serve_once(self) -> bool:
         """Drain every mailbox once; returns True if any work was done
@@ -336,6 +357,12 @@ def _timeout() -> Optional[float]:
     return constants.get("deadlock_timeout_seconds") or None
 
 
+def _resolve_read_policy(read_policy: Optional[str]) -> str:
+    """A fetch's read policy: ``read_policy``, else the ``ps_read_policy``
+    knob (``Transport.trigger``'s resolution in the JAX package)."""
+    return str(read_policy or constants.get("ps_read_policy"))
+
+
 class ParameterServer:
     """One sharded tensor distributed over a communicator's ranks, its
     shards on the communicator's device.
@@ -406,12 +433,10 @@ class ParameterServer:
         msg_scale = scale if fused else None
 
         def do_send():
-            events = []
-            for r in range(inst.size):
-                msg = _Message("update", client=client, rule=rule, payload=payloads[r],
+            events = [_Message("update", client=client, rule=rule, payload=payloads[r],
                                scale=msg_scale, ready=ready, done=threading.Event())
-                inst.post(r, msg)
-                events.append(msg)
+                      for r in range(inst.size)]
+            inst.post_all(events)
             timeout = _timeout()
             for msg in events:
                 if not msg.done.wait(timeout):
@@ -427,11 +452,20 @@ class ParameterServer:
 
         return SyncHandle(future=_submit_bounded(do_send))
 
-    def receive(self, client: int = 0) -> SyncHandle:
+    def receive(self, client: int = 0, read_policy: Optional[str] = None) -> SyncHandle:
         """Fetch the full tensor: trigger every server, assemble the shards
         (``clientReceive``, ``parameterserver.cpp:356-400``); ``wait()``
-        returns it on the communicator's device. A fetch already in flight
-        for ``client`` (see :meth:`prefetch`) is consumed first."""
+        returns it on the communicator's device, a tensor of its own that
+        later sends leave as it is. A fetch already in flight for
+        ``client`` (see :meth:`prefetch`) is consumed first.
+
+        ``read_policy`` overrides the ``ps_read_policy`` knob for this
+        fetch (``owner``/``replica``/``adaptive``; any other value reads as
+        ``owner``, as in the JAX package). It routes a fetch over a shard's
+        replica chain; every shard of the port's parameter server is in
+        this process, with no chain, so the policy routes nothing until
+        the socket transport lands (ROADMAP A13)."""
+        _resolve_read_policy(read_policy)  # resolved as in JAX; routes nothing yet
         if self._inst.freed:
             raise RuntimeError("parameter server already freed")
         with self._prefetch_lock:
@@ -440,11 +474,13 @@ class ParameterServer:
                 return q.popleft()
         return self._issue_receive(client)
 
-    def prefetch(self, client: int = 0, depth: int = 2) -> SyncHandle:
+    def prefetch(self, client: int = 0, depth: int = 2,
+                 read_policy: Optional[str] = None) -> SyncHandle:
         """Start the next :meth:`receive` now, double-buffered per client:
         at most ``depth`` fetches outstanding (further calls return the
         oldest queued handle). The next ``receive(client)`` consumes the
-        oldest in-flight fetch."""
+        oldest in-flight fetch. ``read_policy`` as in :meth:`receive`."""
+        _resolve_read_policy(read_policy)  # resolved as in JAX; routes nothing yet
         if self._inst.freed:
             raise RuntimeError("parameter server already freed")
         with self._prefetch_lock:
@@ -461,11 +497,8 @@ class ParameterServer:
 
         def do_receive():
             wcode = _wire.resolve_ps_wire(inst.dtype)
-            replies = []
-            for r in range(inst.size):
-                f: Future = Future()
-                inst.post(r, _Message("trigger", client=client, reply=f))
-                replies.append(f)
+            replies = [Future() for _ in range(inst.size)]
+            inst.post_all([_Message("trigger", client=client, reply=f) for f in replies])
             timeout = _timeout()
             shards = []
             for f in replies:
