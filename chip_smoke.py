@@ -171,7 +171,22 @@ phase fails:
    from four threads while a downpour trainer publishes 48 scaled 'add'
    sends; every reply the forward of one published version bit for bit,
    then of ``ps.receive()``, swaps >= 2, QoS 0 shed at pending 4, K2
-   launched 8 a send; the ``{"serve": ...}`` line);
+   launched 8 a send; the ``{"serve": ...}`` line); then the
+   algebra-synthesized lowerings (:func:`phase_synth`: halve, torus and
+   stripe pinned on the ``ring`` and ``kernel`` backends for each wire at
+   config 5's bucket widths and an odd width, on the card against the
+   CPU bit for bit with no hand-kernel launch; the exact payload against
+   flat K3 and the sum; each family at [8, 2^23] beside flat K3 and
+   ``hier``; config 5's twin under ``use_plan_synthesis`` and under
+   overrides pinning torus and stripe: falling losses within
+   ``SYNTH_LOSS_RTOL`` of the ``hier`` run's, each bucket's plan the CPU
+   port's, bucket allreduces bit for bit the CPU's, exact launches; the
+   ``{"synth": ...}`` line) and a supervised rollback
+   (:func:`phase_supervise`: LeNet's sync engine with a live aggregator
+   and a ``RecoverySupervisor``; a held async K3 gives the ``hang``
+   verdict, failed evictions escalate to a rollback from the last
+   checkpoint, and the run ends bit for bit on a clean run's; the
+   ``{"supervise": ...}`` line);
    then times each kernel, its plain version and,
    where there is one, a
    PyTorch call computing the same function with CUDA events at the main
@@ -195,7 +210,8 @@ compiler's phase and the async issue line; ``--hier`` the build and the
 two-level phase; ``--engine`` the build and the engine phase;
 ``--parallel`` the build and the parallel phase; ``--streaming`` the
 build and the streamed ResNet phase; ``--serve`` the build and the
-serving phase.
+serving phase; ``--synth`` the build and the synthesized lowerings'
+phase; ``--supervise`` the build and the supervised rollback.
 ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
@@ -2761,8 +2777,12 @@ def config5_run(backend: str) -> dict:
         mpi.stop = real_stop
     plans = sorted({(ent[1].op_label, ent[1].plan_id) for key, ent in memo.items()
                     if key[0] == "_plan"})
+    # each gradient bucket's plan: the allreduces of config 5's bucket widths
+    buckets = {key[2][1]: (ent[1].op_label, ent[1].plan_id) for key, ent in memo.items()
+               if key[0] == "_plan" and key[1] == "allreduce" and len(key[2]) == 2
+               and key[2][1] in CONFIG5_BUCKETS}
     return dict(losses=losses, acc=acc, hier_used=hier_used, samples_per_s_chip=sps,
-                counts=counts, plans=plans)
+                counts=counts, plans=plans, buckets=buckets)
 
 
 def config5_expected(run: dict, backend: str) -> dict:
@@ -4669,6 +4689,409 @@ def phase_serve(dev) -> dict:
     return {"serve_ps": counts}
 
 
+# --- the algebra-synthesized lowerings (config 5 through halve, torus and
+# stripe) and the supervised rollback -------------------------------------------
+SYNTH_FAMILIES = ("halve~synth", "torus~synth", "stripe~synth")
+SYNTH_WIDTHS = CONFIG5_BUCKETS + (HIER_N,)  # config 5's buckets and an odd width
+SYNTH_LOSS_RTOL = 1e-3  # a synthesized run's test losses against the hier run's
+SYNTH_CAPTURED = 6  # bucket allreduces of each synthesized run held card against CPU
+
+
+def synth_comm(dev, family: str):
+    """The communicator a family runs on: the flat one for the halving
+    exchange, config 5's 2 hosts of 4 for the torus and the stripe."""
+    from torchmpi_tpu_torch.runtime.communicator import Communicator
+
+    if family == "halve~synth":
+        return Communicator(range(P), dev)
+    return two_level(dev, lambda r: f"host{r // CONFIG5_I}")
+
+
+def pinned_synth(family: str, comm, backend: str, wire: str):
+    from torchmpi_tpu_torch.schedule import compiler as sched
+
+    return lambda x: sched.compile_collective(
+        "allreduce", tuple(x.shape), x.dtype, comm, backend=backend, generator=family,
+        wire_override=wire).execute(x)
+
+
+def exact_payload(n: int, dev, blk: int = 256) -> torch.Tensor:
+    """``tests/test_algebra.py``'s exact payload: rank r nonzero only on
+    the blocks ``block_idx % p == r``, +-1 a block (every position has one
+    contributor, every quantize block's max is 0 or 1)."""
+    idx = torch.arange(n, device=dev)
+    signs = torch.where((idx // blk) % 2 == 0, 1.0, -1.0)
+    return torch.stack([torch.where((idx // blk) % P == r, signs, 0.0) for r in range(P)])
+
+
+def check_synth(dev) -> dict:
+    """Each family pinned (``compile_collective(generator=...)``) on the
+    ``ring`` and ``kernel`` backends, for each wire, at config 5's three
+    bucket widths and ``HIER_N``, on a seeded f32 payload, with the
+    default ``wire_quant_min_elements`` and with 1 (every hop encoded):
+    bit for bit the same plan on the CPU, and no hand-kernel launch. Then
+    the exact payload: each family equal to flat K3 and to the exact sum
+    under every wire. Returns the number of comparisons."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    checks = 0
+    with cuda_columns_on_cpu():
+        for family in SYNTH_FAMILIES:
+            gcomm, ccomm = synth_comm(dev, family), synth_comm("cpu", family)
+            for cutoff in (constants.get("wire_quant_min_elements"), 1):
+                with constants_set({"wire_quant_min_elements": cutoff}):
+                    for n in SYNTH_WIDTHS:
+                        x = rand((P, n), torch.float32, gen, dev)
+                        for wire in ("full", "bf16", "int8"):
+                            want = pinned_synth(family, ccomm, "ring", wire)(x.cpu())
+                            for backend in ("ring", "kernel"):
+                                ops.reset_launch_counts()
+                                got = pinned_synth(family, gcomm, backend, wire)(x)
+                                torch.cuda.synchronize()
+                                what = f"synth {family} {backend} {wire} [{P}, {n}] cutoff {cutoff}"
+                                require(not any(ops.launch_counts().values()),
+                                        f"{what}: launched {ops.launch_counts()}")
+                                require(torch.equal(bits(got.cpu()), bits(want)),
+                                        f"{what}: card != CPU "
+                                        f"({float((got.cpu() - want).abs().max())})")
+                                checks += 1
+            x = exact_payload(1 << 12, dev)
+            total = x.sum(0, keepdim=True).expand_as(x)
+            flat = ops.ring_allreduce(x)
+            with constants_set({"wire_quant_min_elements": 1}):
+                for wire in ("full", "bf16", "int8"):
+                    got = pinned_synth(family, gcomm, "kernel", wire)(x)
+                    require(torch.equal(got, total) and torch.equal(bits(got), bits(flat)),
+                            f"synth {family} {wire}: the exact payload's sum differs")
+                    checks += 1
+    print(f"synth: {checks} synthesized allreduces on the card equal the CPU's (or the exact "
+          "sum and flat K3), no hand kernel launched")
+    return checks
+
+
+def synth_times(dev) -> dict:
+    """Each family at [8, 2^23] f32, the full wire, beside flat K3 and the
+    ``hier`` plan (kernel intra phase) on the same communicator, by
+    :func:`time_ms` over rotated inputs, and one call of each with its
+    launches counted."""
+    from torchmpi_tpu_torch.collectives import eager
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def timed(fn):
+        return time_ms(rotating(fn, lambda: (torch.randn((P, N23), generator=gen, device=dev),),
+                                P * N23 * 4))
+
+    hosts = synth_comm(dev, "torus~synth")
+    out = {"shape": [P, N23], "wire": "full", "groups": f"{CONFIG5_G}x{CONFIG5_I}",
+           "flat_k3_ms": timed(ops.ring_allreduce),
+           "hier_kernel_ms": timed(lambda x: eager.run_hierarchical_allreduce(
+               x, hosts, impl="kernel")),
+           "bound_ms": 2 * P * N23 * 4 / HBM_BYTES_PER_S * 1e3, "launches": {}}
+    x = torch.randn((P, N23), generator=gen, device=dev)
+    for family in SYNTH_FAMILIES:
+        fn = pinned_synth(family, synth_comm(dev, family), "kernel", "full")
+        out[f"{family.split('~')[0]}_ms"] = timed(fn)
+        ops.reset_launch_counts()
+        fn(x)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        require(not any(counts.values()), f"synth {family} at 2^23: launched {counts}")
+        out["launches"][family] = sum(counts.values())
+    return out
+
+
+@contextlib.contextmanager
+def captured_synth(limit: int):
+    """The first ``limit`` executes of a synthesized plan inside the
+    block: (generator, wire, input copy, output)."""
+    from torchmpi_tpu_torch.schedule import compiler as sched
+
+    seen = []
+    real = sched.ExecutablePlan.execute
+
+    def execute(self, x, stream=None):
+        out = real(self, x, stream)
+        if self.routing == "synth" and len(seen) < limit:
+            seen.append((self.plan.generator, self.wire, x.clone(), out))
+        return out
+
+    sched.ExecutablePlan.execute = execute
+    try:
+        yield seen
+    finally:
+        sched.ExecutablePlan.execute = real
+
+
+def config5_synth(dev, hier: dict, overrides: dict) -> dict:
+    """Config 5's twin at its defaults on ``kernel`` with
+    ``use_plan_synthesis`` on and ``overrides`` (bucket width ->
+    generator) as plan overrides: falling losses within
+    ``SYNTH_LOSS_RTOL`` of the ``hier`` run's, each bucket's plan the one
+    the CPU port chooses, exact launches (K3 a step for each bucket left
+    on a non-synthesized plan, one K7), and the first ``SYNTH_CAPTURED``
+    bucket allreduces held bit for bit against the same plans on the
+    CPU."""
+    from torchmpi_tpu_torch.schedule import compiler as sched
+    from torchmpi_tpu_torch.schedule.topology import Topology
+
+    cpu_hosts = synth_comm("cpu", "torus~synth")
+    try:
+        # the overrides under the card's topology and the CPU's (the
+        # fingerprint names the platform)
+        for comm in (synth_comm(dev, "torus~synth"), cpu_hosts):
+            fp = Topology.from_communicator(comm).fingerprint()
+            for n, family in overrides.items():
+                sched.set_plan_override(sched.override_key(
+                    "allreduce", fp, sched.payload_bucket(n * 4), "full"), family)
+        with constants_set({"use_plan_synthesis": True}), captured_synth(SYNTH_CAPTURED) as seen:
+            run = config5_run("kernel")
+        # the CPU port's choice for each bucket: the same request, the
+        # card's routing constants
+        with cuda_columns_on_cpu(), constants_set({"use_plan_synthesis": True,
+                                                   "small_allreduce_size_cpu": 1}):
+            for n, (label, plan_id) in sorted(run["buckets"].items()):
+                ep = sched.compile_collective("allreduce", (P, n), torch.float32, cpu_hosts,
+                                              backend="kernel")
+                require((ep.op_label, ep.plan_id.split(":")[0]) == (label, plan_id.split(":")[0]),
+                        f"config 5 synth {overrides}: bucket {n} ran {plan_id}, the CPU port "
+                        f"chooses {ep.plan_id}")
+            require(len(seen) == SYNTH_CAPTURED, f"config 5 synth: {len(seen)} synthesized calls")
+            for family, wire, x, out in seen:
+                want = sched.compile_collective(
+                    "allreduce", tuple(x.shape), torch.float32, cpu_hosts, backend="kernel",
+                    generator=family, wire_override=wire).execute(x.cpu())
+                require(torch.equal(bits(out.cpu()), bits(want)),
+                        f"config 5 {family} [{tuple(x.shape)}]: card != CPU")
+    finally:
+        sched.clear_plan_overrides()
+    losses, what = run["losses"], f"config 5 synth {overrides or 'chosen'}"
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"{what}: test losses {losses} do not fall")
+    for a, b in zip(losses, hier["losses"]):
+        require(abs(a - b) <= SYNTH_LOSS_RTOL * abs(b),
+                f"{what}: losses {losses}, the hier run's {hier['losses']}")
+    synth_buckets = sum(1 for label, _ in run["buckets"].values()
+                        if label in ("halve_allreduce", "torus_allreduce", "striped_allreduce"))
+    require(len(run["buckets"]) == CONFIG5["blocks"], f"{what}: buckets {run['buckets']}")
+    expected = dict.fromkeys(run["counts"], 0)
+    expected["ring_allreduce"] = CONFIG5_STEPS * (CONFIG5["blocks"] - synth_buckets)
+    expected["ring_broadcast"] = 1
+    require(run["counts"] == expected, f"{what}: launches {run['counts']}, expected {expected}")
+    return {"plans": {str(n): plan_id for n, (_, plan_id) in sorted(run["buckets"].items())},
+            "losses": losses, "acc": run["acc"], "samples_per_s_chip": run["samples_per_s_chip"],
+            "launches": {k: v for k, v in run["counts"].items() if v},
+            "captured_bitwise": len(seen), "counts": run["counts"]}
+
+
+def phase_synth(dev) -> dict:
+    """The algebra-synthesized lowerings on the card (p = 8; halve on the
+    flat communicator, torus and stripe on config 5's 2 hosts of 4):
+
+    1. :func:`check_synth`, each family on the card against the CPU;
+    2. :func:`synth_times`, each family at [8, 2^23] beside flat K3 and
+       ``hier``;
+    3. config 5's twin on ``kernel`` with ``hier`` (the default), then with
+       ``use_plan_synthesis`` on (:func:`config5_synth`), then with every
+       bucket pinned to ``torus~synth`` and to ``stripe~synth`` by plan
+       overrides.
+
+    Restores the constants and overrides; prints one ``{"synth": ...}``
+    line and returns the runs' launch counts."""
+    checks = check_synth(dev)
+    times = synth_times(dev)
+    hier = config5_run("kernel")
+    require(hier["counts"] == config5_expected(hier, "kernel"),
+            f"config 5 hier: launches {hier['counts']}")
+    runs = {"chosen": config5_synth(dev, hier, {})}
+    for family in ("torus~synth", "stripe~synth"):
+        runs[family] = config5_synth(dev, hier, dict.fromkeys(CONFIG5_BUCKETS, family))
+    runs["hier"] = {"plans": {str(n): plan_id for n, (_, plan_id) in sorted(hier["buckets"].items())},
+                    "losses": hier["losses"], "acc": hier["acc"],
+                    "samples_per_s_chip": hier["samples_per_s_chip"],
+                    "launches": {k: v for k, v in hier["counts"].items() if v},
+                    "counts": hier["counts"]}
+    counts = {f"synth_{name}": run.pop("counts") for name, run in runs.items()}
+    print(json.dumps({"synth": {"checks": checks, "times_at": times, "config5": runs,
+                                "loss_rtol": SYNTH_LOSS_RTOL, "steps": CONFIG5_STEPS,
+                                "card": card()}}))
+    return counts
+
+
+SUPERVISE = dict(steps=12, checkpoint_every=4, fault_step=6, hang_after_s=0.25, hold_s=4.0,
+                 live_interval_s=0.05)
+SUPERVISE_KNOBS = {"supervisor_hysteresis_windows": 2, "supervisor_max_retries": 2,
+                   "supervisor_backoff_base_s": 0.02, "supervisor_backoff_cap_s": 0.05}
+
+
+class SmokeActuator:
+    """The harness's actuator (the package has none in one process):
+    ``evict`` cannot shrink a live world here (``engine.resize`` is ROADMAP
+    A10's rest) and returns False; ``rollback`` restores a fresh engine
+    from the registry's last checkpoint and returns True."""
+
+    def __init__(self, make, holder: dict):
+        self.make, self.holder, self.calls = make, holder, []
+
+    def evict(self, ranks, reason):
+        self.calls.append(("evict", list(ranks), reason))
+        return False
+
+    def grow(self, reason):
+        self.calls.append(("grow", [], reason))
+        return False
+
+    def rollback(self, reason):
+        from torchmpi_tpu_torch.supervise import last_checkpoint
+
+        self.calls.append(("rollback", [], reason))
+        self.holder["engine"].flush_checkpoint()
+        rec = last_checkpoint()
+        fresh = self.make()
+        meta = ckpt.restore_engine_sharded(rec["path"], fresh)
+        self.holder.update(engine=fresh, step=int(meta["step"]), restored=int(meta["step"]))
+        return True
+
+
+def phase_supervise(dev) -> dict:
+    """A supervised rollback of a real engine: config 1's LeNet on the sync
+    engine over p = 8 (batch 336, lr 0.2), ``checkpoint_every`` registering
+    each save in the checkpoint registry, a live exporter streaming to a
+    ``FleetAggregator`` (``hang_after_s``) with a ``RecoverySupervisor``
+    attached, and ``sup.observe(agg.evaluate())`` after each step. At
+    ``fault_step`` an async K3 allreduce of LeNet's gradient width is
+    queued on the communicator's side stream behind a ``hold_s`` spin
+    kernel and a thread waits its handle: the handle's ``wait.arrays``
+    flight entry stays issued past ``hang_after_s`` (the dispatch entry
+    closes at issue), the ``hang`` verdict. The job is wedged there, so
+    the harness takes no step, only windows ``live_interval_s`` apart,
+    until the supervisor acts. The harness's actuator fails every
+    eviction, so the ladder escalates to the rollback, which restores the
+    last checkpoint; the run trains on to the final step, its losses and
+    state bit for bit a clean run's, its launches exact (one K3 and one
+    K1 list call a step run, and the held K3). ``/actions`` and
+    ``/metrics`` are scraped. Prints one ``{"supervise": ...}`` line."""
+    import shutil
+    import urllib.request
+
+    from torchmpi_tpu_torch.collectives import eager
+    from torchmpi_tpu_torch.supervise import RecoverySupervisor, checkpoints
+    from torchmpi_tpu_torch.telemetry import flightrecorder, live
+
+    cfg = SUPERVISE
+    (xtr, ytr), _ = synthetic_mnist()
+    model = LeNet()
+    root = ENGINE_CKPT_ROOT / "supervise"
+    shutil.rmtree(root, ignore_errors=True)
+    prior_state = os.environ.get(checkpoints.STATE_ENV)
+    os.environ[checkpoints.STATE_ENV] = str(root / "last_checkpoint.json")
+    checkpoints._reset_for_tests()
+    agg = live.FleetAggregator(mark_dir=root / "marks", hang_after_s=cfg["hang_after_s"])
+    agg.serve()
+    mpi.start(ranks=P)
+    try:
+        comm = mpi.current_communicator()
+        it = DistributedIterator(xtr, ytr, BATCH, P, device=dev)
+        batches = [b for _, b in zip(range(cfg["steps"]), iter(it))]
+
+        def make():
+            return AllReduceSGDEngine(make_loss_fn(model), init_params(model, seed=0), lr=LR,
+                                      comm=comm)
+
+        clean = make()
+        clean_losses = [float(clean.step(b)) for b in batches]
+        torch.cuda.synchronize()
+        with constants_set({**SUPERVISE_KNOBS,
+                            "telemetry_live_interval_s": cfg["live_interval_s"]}):
+            holder = {"engine": make(), "step": 0}
+            holder["engine"].checkpoint_every(cfg["checkpoint_every"], root / "ck")
+            act = SmokeActuator(make, holder)
+            sup = RecoverySupervisor(act, seed=0)
+            agg.attach_supervisor(sup)
+            live.start_exporter(("127.0.0.1", agg.ingest_port), rank=0)
+            losses, windows, observe_s, steps_run = {}, [], [], 0
+            held = waiter = t_fault = None
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            deadline = time.time() + 60.0
+            while holder["step"] < cfg["steps"] and time.time() < deadline:
+                if holder["step"] == cfg["fault_step"] and held is None:
+                    side = eager._async_side(comm)
+                    with torch.cuda.stream(side.stream):
+                        torch.cuda._sleep(int(cfg["hold_s"] * 1.98e9))
+                    x = torch.ones((P, LENET_PARAMS), device=dev)
+                    held = eager.run_async("allreduce", x, comm, backend="kernel")
+                    waiter = threading.Thread(target=held.wait, daemon=True)
+                    waiter.start()
+                    t_fault = time.time()
+                if held is not None and not sup.rolled_back:
+                    time.sleep(cfg["live_interval_s"])  # wedged: a window, no step
+                else:
+                    step = holder["step"]
+                    losses[step] = float(holder["engine"].step(batches[step]))
+                    steps_run += 1
+                    holder["step"] = step + 1
+                t0 = time.perf_counter()
+                doc = agg.evaluate()
+                acted = sup.observe(doc)
+                observe_s.append(time.perf_counter() - t0)
+                if t_fault is not None and not any(
+                        "rollback" in w["actions"] for w in windows):
+                    windows.append({"t_s": round(time.time() - t_fault, 4),
+                                    "verdict": doc["verdict"],
+                                    "actions": [e["action"] for e in acted]})
+            waiter.join(timeout=30.0)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            wait_frames(agg)
+            verdict_after = agg.evaluate()["verdict"]
+            acts = scrape(agg, "/actions")
+            with urllib.request.urlopen(f"http://127.0.0.1:{agg.http_port}/metrics",
+                                        timeout=10) as r:
+                prom = r.read().decode()
+            final = holder["engine"]
+            live.stop_exporter()
+    finally:
+        mpi.stop()
+        flightrecorder.disable()
+        agg.close()
+        if prior_state is None:
+            os.environ.pop(checkpoints.STATE_ENV, None)
+        else:
+            os.environ[checkpoints.STATE_ENV] = prior_state
+        checkpoints._reset_for_tests()
+        shutil.rmtree(root, ignore_errors=True)
+    journal = sup.journal
+    actions = [e["action"] for e in journal]
+    require(sup.rolled_back and actions == ["evict-shrink"] * SUPERVISE_KNOBS[
+        "supervisor_max_retries"] + ["rollback"], f"supervise: journal {journal}")
+    require(all(e["verdict"] == "hang" for e in journal), f"supervise: journal {journal}")
+    require(not waiter.is_alive(), "supervise: the held allreduce never completed")
+    got = [losses[i] for i in range(cfg["steps"])]
+    require(got == clean_losses, f"supervise: losses {got} != the clean run's {clean_losses}")
+    require(same_bits(live_state(final), live_state(clean)),
+            "supervise: the recovered state differs from the clean run's")
+    require(counts == counts_want(ring_allreduce=steps_run + 1,
+                                  accumulate=steps_run * list_launches(LENET_LEAVES)),
+            f"supervise: launches {counts} for {steps_run} steps and the held K3")
+    require(acts["rolled_back"] and [e["action"] for e in acts["journal"]] == actions,
+            f"supervise: /actions {acts}")
+    require("tm_supervisor_rolled_back 1" in prom and
+            'tm_supervisor_actions_total{action="rollback",result="applied"} 1' in prom,
+            "supervise: /metrics lacks the tm_supervisor lines")
+    out = {"cause": "an async K3 allreduce held behind a spin kernel on the side stream: its "
+                    "handle's wait.arrays flight entry issued past hang_after_s (the dispatch "
+                    "entry closes at issue)",
+           "journal": journal, "actuator_calls": act.calls,
+           "restored_step": holder["restored"], "windows_fault_to_rollback": windows,
+           "steps_run": steps_run, "launches": {k: v for k, v in counts.items() if v},
+           "observe_s": {"n": len(observe_s), "median": statistics.median(observe_s),
+                         "max": max(observe_s)},
+           "verdict_after_the_hold": verdict_after, "losses": got, "bitwise": True,
+           **cfg, "knobs": SUPERVISE_KNOBS, "card": card()}
+    print(json.dumps({"supervise": out}))
+    return {"supervise": counts}
+
+
 def phase_timing(dev, runs: dict, errs: dict) -> None:
     """Time every kernel (:func:`timing_rows`, :func:`time_rows`) and print
     the ``{"kernels": [...]}`` line."""
@@ -4741,6 +5164,16 @@ def main(argv=None) -> None:
         help="only the serving phase (LeNet served from the parameter server while a downpour "
              "trainer publishes; the {\"serve\"} line), after the build; prints no result line")
     parser.add_argument(
+        "--synth", action="store_true",
+        help="only the synthesized lowerings' phase (halve, torus and stripe on the card against "
+             "the CPU, timed at 2^23, config 5 trained through them; the {\"synth\"} line), "
+             "after the build; prints no result line")
+    parser.add_argument(
+        "--supervise", action="store_true",
+        help="only the supervised rollback (LeNet's sync engine, a held allreduce's hang "
+             "verdict, the supervisor's evictions and rollback; the {\"supervise\"} line), "
+             "after the build; prints no result line")
+    parser.add_argument(
         "--compiler", action="store_true",
         help="only the schedule compiler's phase (warm plans after precompile, plan stamps, "
              "telemetry's cost, the ring's pipeline depth) and the async issue line, after the "
@@ -4794,6 +5227,12 @@ def main(argv=None) -> None:
     if args.serve:
         phase_serve(dev)
         return
+    if args.synth:
+        phase_synth(dev)
+        return
+    if args.supervise:
+        phase_supervise(dev)
+        return
     errs = phase_kernels(dev)
     trainer = phase_trainer(dev)
     runs = {path: run["counts"] for path, run in trainer.items()}
@@ -4821,6 +5260,8 @@ def main(argv=None) -> None:
     phase_rs_retime(dev)
     runs.update(phase_streaming(dev))
     runs.update(phase_serve(dev))
+    runs.update(phase_synth(dev))
+    runs.update(phase_supervise(dev))
     phase_timing(dev, runs, errs)
     print(json.dumps({
         "ok": True,

@@ -172,7 +172,7 @@ def test_rule_table_and_entry_points_match_jax():
 # ---------------------------------------------------------------------------
 
 A7_A13 = "A7+A13"  # the socket transport, replication, the shm lane, the native store
-A10 = "A10"  # elastic membership and the supervisor
+A10 = "A10's rest"  # elastic membership (reshard/elastic.py, launch.py)
 SIM = "sim/"  # A12's simulator, which waits for A13
 
 #: knobs the port's tree reads nowhere yet, with the ROADMAP item they wait for
@@ -189,17 +189,6 @@ UNREAD_KNOBS = {
     "ps_shm_spin_limit": A7_A13,
     "elastic_heartbeat_seconds": A10,
     "elastic_barrier_timeout_s": A10,
-    "supervisor_hysteresis_windows": A10,
-    "supervisor_max_retries": A10,
-    "supervisor_backoff_base_s": A10,
-    "supervisor_backoff_cap_s": A10,
-    "supervisor_quarantine_cooldown_s": A10,
-    "supervisor_grow_back": A10,
-    "supervisor_scale_up_hysteresis": A10,
-    "supervisor_scale_down_hysteresis": A10,
-    "supervisor_scale_cooldown_s": A10,
-    "supervisor_scale_max_world": A10,
-    "supervisor_scale_min_world": A10,
     "sim_step_seconds": SIM,
     "sim_jitter_pct": SIM,
     "sim_control_rtt_us": SIM,

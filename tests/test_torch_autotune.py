@@ -14,8 +14,9 @@ on the CPU at p = 8.
   keeps that reason under its key.
 - No tuner steps past a broken kernel: on a CUDA communicator a kernel
   candidate that sums wrong raises, ``tune_all`` then restores what it
-  found and persists nothing, and ``tune_plan`` skips only the families
-  the port does not lower.
+  found and persists nothing; ``tune_plan`` races the synthesized
+  families as the JAX tuner does, reports one that sums wrong
+  ``incorrect`` and lets one that raises propagate.
 
 Each cache is pointed at ``tmp_path``.
 """
@@ -230,19 +231,26 @@ def test_tune_all_restores_and_persists_nothing_when_a_tuner_fails(monkeypatch):
     assert not autotune._cache_path().exists()
 
 
-def test_tune_plan_skips_only_the_families_not_lowered(monkeypatch):
+def test_tune_plan_races_the_synthesized_families(monkeypatch):
     _start_both(True)
+    for c in (constants, jconstants):
+        c.set("use_plan_synthesis", True)
+    _, results = autotune.tune_plan(nelem=1 << 12, warmup=0, timed=1, apply=False)
+    _, jresults = jautotune.tune_plan(nelem=1 << 12, warmup=0, timed=1, apply=False)
+    assert _candidates(results) == _candidates(jresults)
+    assert {r[0] for r in results if r[1] is not None} >= {"flat", "hier", "torus~synth",
+                                                             "stripe~synth"}
     real = sched.compile_collective
 
-    def unlowered(op, shape, dtype, comm, generator=None, **kw):
-        if generator == "hier":
-            raise sched._not_lowered(SimpleNamespace(plan_id="p", generator="hier"))
-        return real(op, shape, dtype, comm, generator=generator, **kw)
+    def wrong_torus(op, shape, dtype, comm, generator=None, **kw):
+        ep = real(op, shape, dtype, comm, generator=generator, **kw)
+        if generator != "torus~synth":
+            return ep
+        return SimpleNamespace(execute=lambda x: torch.zeros_like(x))
 
-    monkeypatch.setattr(sched, "compile_collective", unlowered)
+    monkeypatch.setattr(sched, "compile_collective", wrong_torus)
     _, results = autotune.tune_plan(nelem=1 << 12, warmup=0, timed=1, apply=False)
-    assert ("hier", None, "PlanNotLoweredError") in results
-    assert {r[0] for r in results if r[1] is not None} >= {"flat", "staged"}
+    assert ("torus~synth", None, "incorrect") in results
 
     def broken(*a, **k):
         raise RuntimeError("launch failed")

@@ -13,8 +13,9 @@ arithmetic on the same constants.
 On a two-level communicator both compilers choose the hierarchical,
 staged or tree families where the JAX gates send a request there
 (``TWO_LEVEL_DIFFERENCES`` lists the cases, which once chose apart), and
-the port's result equals JAX's. The algebra-synthesized families are not
-lowered in the port: a pinned one is refused.
+the port's result equals JAX's. A pinned algebra-synthesized family runs
+and equals JAX's lowering (``tests/test_torch_synth.py`` holds every
+family, wire and width).
 
 Results of live collectives: the ``ring`` backend keeps the JAX ring's
 order of adds, so its f32 results are bitwise equal at every pipeline
@@ -40,7 +41,7 @@ from torchmpi_tpu.schedule import generators as jgen
 from torchmpi_tpu.schedule import pipeline as jpipeline
 from torchmpi_tpu.schedule import topology as jtopology
 from torchmpi_tpu_torch import constants, ops, schedule, telemetry
-from torchmpi_tpu_torch.collectives import CollectiveArgumentError, eager
+from torchmpi_tpu_torch.collectives import eager
 from torchmpi_tpu_torch.schedule import algebra, compiler as sched, cost, generators, pipeline
 from torchmpi_tpu_torch.schedule import topology
 from torchmpi_tpu_torch.telemetry import flightrecorder as flight
@@ -402,7 +403,7 @@ def test_explain_cli_main(capsys):
     assert main(["--explain", "op=broadcast", "bytes=1M", "groups=1+3+4"]) == 0
     out = capsys.readouterr().out
     chosen = next(line for line in out.splitlines() if line.startswith("CHOSEN"))
-    assert ": tree-ring-full" in chosen and generators.A8_REASON not in out
+    assert ": tree-ring-full" in chosen and "~synth" not in out
     assert main(["--explain", "op=allreduce", "bytes=64M", "groups=8", "backend=ring",
                  "platform=cpu"]) == 0
     assert "pipeline: depth 2" in capsys.readouterr().out
@@ -440,10 +441,10 @@ KEYS = {"cartesian": lambda r: str(r % 2), "ragged": lambda r: "a" if r == 0 els
 
 
 @pytest.mark.parametrize("op,keys,consts,backend,jax_family", TWO_LEVEL_DIFFERENCES)
-def test_two_level_chooses_flat_with_the_a8_reason(op, keys, consts, backend, jax_family):
-    """The port chooses the JAX family with the same decision, no
-    candidate of it carries the A8 reason, ``explain`` chooses it, and
-    the integer result equals JAX's exactly."""
+def test_two_level_chooses_the_jax_family(op, keys, consts, backend, jax_family):
+    """The port chooses the JAX family with the same decision and the
+    same candidates' feasibility, ``explain`` chooses it, and the integer
+    result equals JAX's exactly."""
     from torchmpi_tpu.ops import ring_kernels as jrk
 
     tmpi.start(ranks=8, device="cpu")
@@ -462,7 +463,11 @@ def test_two_level_chooses_flat_with_the_a8_reason(op, keys, consts, backend, ja
     assert (ep.op_label, ep.routing) == (jep.op_label, jep.routing)
     topo = topology.Topology.from_communicator(tcomm)
     cands = generators.candidate_plans(op, math.prod(shape[1:]), 4, topo, backend)
-    assert not any(c.reason == generators.A8_REASON for c in cands)
+    jcands = jgen.candidate_plans(op, math.prod(shape[1:]), 4,
+                                  jtopology.Topology.from_communicator(jcomm),
+                                  JAX_BACKEND[backend])
+    assert [(decision(c.plan, True), c.feasible, c.reason) for c in cands] == \
+        [(decision(c.plan, False), c.feasible, c.reason) for c in jcands]
     text = schedule.explain(op=op, nbytes=4 * math.prod(shape[1:]), topo=topo, backend=backend)
     chosen = next(line for line in text.splitlines() if line.startswith("CHOSEN"))
     assert f": {jax_family}-" in chosen
@@ -476,12 +481,22 @@ def test_two_level_chooses_flat_with_the_a8_reason(op, keys, consts, backend, ja
     assert np.array_equal(got.numpy(), want)
 
 
-def test_a_pinned_two_level_family_is_refused():
-    """A pinned synthesized two-level family (the torus) is refused: its
-    lowering is not ported."""
-    tmpi.start(ranks=8, device="cpu")
+def test_a_pinned_torus_runs_and_equals_jax():
+    """A pinned synthesized two-level family (the torus) runs, with the
+    JAX labels, and its f32 result equals the JAX lowering's bit for
+    bit."""
+    _start_both()
     tmpi.push_communicator(KEYS["cartesian"], name="two")
-    comm = tmpi.current_communicator()
-    with pytest.raises(CollectiveArgumentError, match="ROADMAP A8"):
-        sched.compile_collective("allreduce", (8, 4096), torch.float32, comm,
-                                 generator="torus~synth", impl="ring")
+    jmpi.push_communicator(KEYS["cartesian"], name="two")
+    tcomm, jcomm = tmpi.current_communicator(), jmpi.current_communicator()
+    ep = sched.compile_collective("allreduce", (8, 4096), torch.float32, tcomm,
+                                  generator="torus~synth", impl="ring")
+    jep = jsched.compile_collective("allreduce", (8, 4096), jnp.float32, jcomm,
+                                    generator="torus~synth", impl="ring")
+    _same_plan(ep.plan, jep.plan)
+    assert (ep.op_label, ep.backend_label, ep.routing) == (
+        jep.op_label, jep.backend_label, jep.routing) == ("torus_allreduce", "ring", "synth")
+    x = np.random.RandomState(2).randn(8, 4096).astype(np.float32)
+    got = ep.execute(torch.from_numpy(x)).numpy()
+    want = np.asarray(jep.execute(jnp.asarray(x)))
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))

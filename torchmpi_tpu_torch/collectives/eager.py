@@ -134,11 +134,6 @@ class CollectiveArgumentError(ValueError):
     pass
 
 
-class PlanNotLoweredError(CollectiveArgumentError):
-    """A structurally possible plan of a family the port does not lower
-    (the algebra-synthesized ones, ROADMAP A8)."""
-
-
 def _check_rank_stacked(x: torch.Tensor, comm: Communicator) -> None:
     if x.ndim < 1 or x.shape[0] != comm.size:
         raise CollectiveArgumentError(

@@ -16,10 +16,12 @@ run per device under ``shard_map``; these take the rank-stacked tensor
   layout (``_flatten_pad``, the byte-bounded segments, the pipeline
   segments), so a float sum starts at the same rank and adds in the same
   order as in the JAX ring. The ring is plain PyTorch, the part XLA did;
-  it is not a kernel (the ``kernel`` backend is ``ops``). ``ring_allreduce``
-  and ``ring_reduce`` also run B independent rings at once
-  (``batched=True``, ``[p, B, ...]``), one level of a two-level
-  communicator, each ring as the JAX ring over one mesh axis.
+  it is not a kernel (the ``kernel`` backend is ``ops``). ``ring_allreduce``,
+  ``ring_reduce``, ``ring_reduce_scatter`` and ``ring_allgather`` also run
+  B independent rings at once (``batched=True``, ``[p, B, ...]``), one
+  level of a two-level communicator, each ring as the JAX ring over one
+  mesh axis. :func:`exchange` is one ``ppermute`` over any rank
+  permutation, with the wire (the recursive-halving exchange's hop).
 - **The wire codec** (EQuARX-style, arXiv:2506.17615): the rings may ship
   each hop as int8 with one f32 scale per block, or as a bf16 cast, and sum
   in f32. Callers opt in through ``wire_dtype=`` or the ``wire_dtype``
@@ -50,13 +52,14 @@ _SCALE_FLOOR = float(SCALE_FLOOR)
 # ---------------------------------------------------------------------------
 
 
-def _block_dim(x: torch.Tensor, dim: int) -> int:
+def _block_dim(x: torch.Tensor, dim: int, lead: int = 1) -> int:
     """``dim`` of a rank's block (negative counts from the end) as a dim of
-    the rank-stacked ``x``."""
-    nd = x.ndim - 1
+    the rank-stacked ``x``, whose block follows ``lead`` leading axes (the
+    rank axis, and the ring axis of a batched ring)."""
+    nd = x.ndim - lead
     if not -nd <= dim < nd:
         raise ValueError(f"dim {dim} out of range for blocks of {nd} dims")
-    return dim % nd + 1
+    return dim % nd + lead
 
 
 def allreduce(x: torch.Tensor) -> torch.Tensor:
@@ -196,6 +199,20 @@ def _hop(buf: torch.Tensor, wire: Optional[str], block: int,
     each rank installs (:func:`wire_transfer`). Each rank's message is
     encoded on its own, so encoding before the shift is encoding after."""
     return wire_transfer(_shift(buf), wire, block, local)
+
+
+def exchange(buf: torch.Tensor, perm, wire: Optional[str], block: int,
+             local: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One exchange over a permutation of the ranks (``lax.ppermute(buf,
+    perm)``, under a wire ``_wire_send_recv``, ``primitives.py:141``):
+    ``perm`` holds a ``(src, dst)`` pair for every rank, and rank ``dst``
+    receives rank ``src``'s message (``buf[src]``, ``[p, ..., m]``);
+    returns what each rank installs (:func:`wire_transfer`: the decoded
+    message or, given the receiver's ``local`` partial, ``local +
+    decoded``, rounded once)."""
+    src_of = {int(d): int(s) for s, d in perm}
+    idx = torch.tensor([src_of[r] for r in range(buf.shape[0])], device=buf.device)
+    return wire_transfer(buf.index_select(0, idx), wire, block, local)
 
 
 # ---------------------------------------------------------------------------
@@ -351,27 +368,35 @@ def ring_reduce_scatter(
     dim: int = -1,
     wire_dtype: Optional[str] = None,
     wire_block: Optional[int] = None,
+    batched: bool = False,
 ) -> torch.Tensor:
     """Reduce-scatter over ``dim`` of each rank's block as the (p-1)-step
     reduce-scatter phase of the ring (``ring_reduce_scatter``,
     ``primitives.py:518``): rank r gets slice r of the sum. The schedule is
     shifted one slot from the allreduce's, so slice s's sum starts at rank
-    s + 1 and ends at rank s. ``wire_dtype`` encodes every hop and sums in
-    f32, as :func:`ring_allreduce`."""
+    s + 1 and ends at rank s. ``wire_dtype`` encodes every hop (each
+    slice in blocks from its own start) and sums in f32, as
+    :func:`ring_allreduce`.
+
+    ``batched``: ``x`` is ``[p, B, ...]``, B independent rings of p ranks
+    (ring b over ``x[:, b]``, ``dim`` a dim of ``x[r, b]``), each with the
+    shifted schedule and the wire of one JAX ring over its own payload."""
     p = x.shape[0]
     if p == 1:
         return x
-    d = _block_dim(x, dim)
+    body = 2 if batched else 1
+    d = _block_dim(x, dim, body)
     if x.shape[d] % p:
         raise ValueError(
-            f"reduce_scatter dim {d - 1} ({x.shape[d]}) must be divisible by "
+            f"reduce_scatter dim {d - body} ({x.shape[d]}) must be divisible by "
             f"the axis size ({p})"
         )
-    moved = x.movedim(d, 1)
-    rest = tuple(moved.shape[2:])
-    ch = moved.reshape(p, p, -1).clone()  # [rank, slice, slice elements]
+    moved = x.movedim(d, body)
+    rings = x.shape[1] if batched else 1
+    rest = tuple(moved.shape[body + 1:])
+    ch = moved.reshape(p, rings, p, -1).clone()  # [rank, ring, slice, slice elements]
     wire, block = None, 0
-    if wire_engages(wire_dtype, x.dtype, x[0].numel()):
+    if wire_engages(wire_dtype, x.dtype, math.prod(x.shape[body:])):
         from .. import constants
 
         wire = wire_dtype
@@ -379,19 +404,20 @@ def ring_reduce_scatter(
     ranks = torch.arange(p, device=x.device)
     for s in range(p - 1):
         send, recv = (ranks - s - 1) % p, (ranks - s - 2) % p
-        ch[ranks, recv] = _hop(ch[ranks, send], wire, block, ch[ranks, recv])
-    mine = ch[ranks, ranks].reshape((p, moved.shape[1] // p) + rest)
-    return mine.movedim(1, d)
+        ch[ranks, :, recv] = _hop(ch[ranks, :, send], wire, block, ch[ranks, :, recv])
+    mine = ch[ranks, :, ranks].reshape(tuple(moved.shape[:body]) + (moved.shape[body] // p,) + rest)
+    return mine.movedim(body, d)
 
 
-def ring_allgather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def ring_allgather(x: torch.Tensor, dim: int = -1, batched: bool = False) -> torch.Tensor:
     """Allgather as p-1 ring forwarding steps (``ring_allgather``,
     ``primitives.py:603``): every rank gets all blocks concatenated along
-    ``dim`` of the block, in rank order."""
+    ``dim`` of the block, in rank order. ``batched``: ``x`` is ``[p, B,
+    ...]``, B independent rings (ring b over ``x[:, b]``)."""
     p = x.shape[0]
     if p == 1:
         return x
-    d = _block_dim(x, dim)
+    d = _block_dim(x, dim, 2 if batched else 1)
     ranks = torch.arange(p, device=x.device)
     out = torch.empty((p, p) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     out[ranks, ranks] = x

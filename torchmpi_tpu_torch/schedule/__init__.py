@@ -11,9 +11,8 @@ payload bucket, wire, constants.version())``, and lowered onto the
 port's executors (the CUDA ring kernels, the ``ring`` backend, the
 vendor path), so numerics and launches are unchanged.
 
-The port lowers the flat, hierarchical, staged and tree families; the
-algebra-synthesized ones are priced and shown by :func:`explain` with the
-reason ``synthesized lowering not ported (ROADMAP A8)``. The bucket overlap
+The port lowers every family: flat, hierarchical, staged, tree and, under
+``use_plan_synthesis``, the algebra-synthesized ones. The bucket overlap
 scheduler is :mod:`.overlap`.
 
 Public surface:
@@ -76,7 +75,6 @@ from .cost import (  # noqa: F401
     set_calibration,
 )
 from .generators import (  # noqa: F401
-    A8_REASON,
     GENERATORS,
     HIER_OPS,
     PIPELINE_OPS,
@@ -146,7 +144,7 @@ __all__ = [
     "Plan", "Step", "STEP_KINDS", "Topology", "prioritized",
     "compile_collective", "compile_fused", "explain",
     "candidate_plans", "Candidate", "GENERATORS", "HIER_OPS", "TREE_OPS",
-    "PIPELINE_OPS", "PIPELINE_STAGES", "A8_REASON", "pipelined_variant",
+    "PIPELINE_OPS", "PIPELINE_STAGES", "pipelined_variant",
     "pipeline_stage_us", "pipeline_timeline",
     "ChunkPipeline", "depth_candidates", "split_spans",
     "estimate_us", "cost_breakdown",

@@ -7,8 +7,7 @@ table. The port of ``torchmpi_tpu/schedule/__main__.py``: the kernel
 backend is named ``kernel``, the platform defaults to ``cuda`` and the
 groups to one card's eight virtual ranks; a two-level request shows the
 hierarchical, staged or tree plan the JAX package's CLI shows, and
-``--families synth`` the synthesized candidates, marked ``synthesized
-lowering not ported (ROADMAP A8)``.
+``--families synth`` the synthesized candidates with their derivations.
 
 Examples::
 

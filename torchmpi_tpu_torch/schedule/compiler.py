@@ -26,9 +26,8 @@ Its differences from the JAX compiler:
 - the kernel backend is named ``kernel`` (the JAX package's ``pallas``);
 - the memo and cache keys carry ``constants.version()``, the port's
   counter of constant changes (the JAX ``generation()``);
-- ``_bind`` lowers the flat, hierarchical, staged and tree families; the
-  algebra-synthesized ones (``~synth``) are not ported (ROADMAP A8), and
-  the port's ``candidate_plans`` never lets selection choose them;
+- ``_bind`` lowers every family: flat, hierarchical, staged, tree and the
+  algebra-synthesized ones (``~synth``), with the JAX labels;
 - :meth:`ExecutablePlan.execute` places nothing (the virtual ranks live
   on ``comm.device`` already) and passes a CUDA ``stream`` on to the
   kernels, and :attr:`ExecutablePlan.issue` names the warm async
@@ -508,20 +507,16 @@ class FusedExecutablePlan:
         )
 
 
-def _not_lowered(plan: Plan):
-    return _eager().PlanNotLoweredError(
-        f"plan {plan.plan_id} of the {plan.generator!r} family cannot run: "
-        "the algebra-synthesized lowerings are not ported (ROADMAP A8)"
-    )
-
-
 def _bind(plan: Plan, comm, shape: Tuple[int, ...], dtype, wire: str,
           root: int, src: int, dst: int) -> ExecutablePlan:
     """Bind ``plan`` to its lowering (``compiler.py:531``), with the JAX
     package's labels: the op label ``hier_allreduce``, ``hier_{op}``,
-    ``staged_allreduce``, ``tree_hier_allreduce`` or ``tree_broadcast``
-    and the routing ``hier``, ``staged`` or ``tree`` of the flight entries
-    and spans, the backend label the plan's intra transport."""
+    ``staged_allreduce``, ``tree_hier_allreduce``, ``tree_broadcast``,
+    ``halve_allreduce``, ``torus_allreduce`` or ``striped_allreduce`` and
+    the routing ``hier``, ``staged``, ``tree`` or ``synth`` of the flight
+    entries and spans, the backend label the plan's intra transport
+    (``ring`` for the synthesized families, whose exchanges and rings are
+    the ``ring`` backend's on any request backend)."""
     from . import lower
 
     op = plan.op
@@ -536,7 +531,17 @@ def _bind(plan: Plan, comm, shape: Tuple[int, ...], dtype, wire: str,
             takes_stream, lower.issue_route(comm, op, plan.backend, shape, dtype, wire),
         )
     if plan.generator in _algebra.SYNTH_GENERATORS:
-        raise _not_lowered(plan)
+        if plan.generator == "halve~synth":
+            fn, _ = lower.lower_halve_allreduce(comm, shape, dtype, wire)
+            label = "halve_allreduce"
+        elif plan.generator == "torus~synth":
+            fn, _ = lower.lower_torus_allreduce(comm, shape, dtype, wire, pipeline=plan.pipeline)
+            label = "torus_allreduce"
+        else:
+            fn, _ = lower.lower_striped_allreduce(comm, shape, dtype, wire,
+                                                  pipeline=plan.pipeline)
+            label = "striped_allreduce"
+        return ExecutablePlan(plan, fn, comm, label, "ring", wire, nelem, dtype, "synth")
     impl = plan.impl or plan.backend
     if plan.generator == "hier":
         if op == "allreduce":

@@ -42,12 +42,8 @@ recursive-halving RS + recursive-doubling AG for power-of-two axes,
 This module is jax-free: candidates can be generated offline.
 
 The port's copy names the hand-written kernel backend ``kernel`` where
-the JAX package says ``pallas`` (``collectives/selector.py``). It lowers
-the flat, hierarchical, staged and tree families (``schedule/lower.py``)
-but not the algebra-synthesized ones: a ``~synth`` candidate that the
-gates would admit is marked infeasible with the reason
-:data:`A8_REASON`, so selection never takes it and ``explain`` says why
-(ROADMAP A8).
+the JAX package says ``pallas`` (``collectives/selector.py``); every
+family it generates is lowered (``schedule/lower.py``).
 """
 
 from __future__ import annotations
@@ -87,9 +83,6 @@ HIER_OPS = ("allreduce", "broadcast", "reduce", "allgather")
 #: ops the ragged tree composition covers (allreduce = legacy binomial;
 #: broadcast = new capability the old router could not express)
 TREE_OPS = ("allreduce", "broadcast")
-
-#: why an algebra-synthesized family is not chosen
-A8_REASON = "synthesized lowering not ported (ROADMAP A8)"
 
 #: ops with an autotuned latency-path crossover constant
 _CUTOFF_OPS = ("allreduce", "broadcast")
@@ -421,8 +414,6 @@ def candidate_plans(
     def add(plan: Plan, feasible: bool, reason: str = "",
             structural: bool = True) -> None:
         cost = _cost.estimate_us(plan) if plan.steps or feasible else None
-        if feasible and _algebra.is_synthesized(plan.generator):
-            feasible, reason = False, A8_REASON
         out.append(Candidate(
             plan=plan, cost_us=cost, feasible=feasible, reason=reason,
             structural=structural,

@@ -26,9 +26,17 @@ mesh axis of the one program it runs over the (inter, intra) mesh; K4,
 K5 and K6 still launch once per group on its ``[I, ...]`` slab
 (:func:`_per_group`). The ``ring`` backend runs all groups' rings at once
 (``primitives.ring_allreduce(batched=True)``) with the chunk layout and
-order of adds of one ring per group. The algebra-synthesized lowerings
-(halving, torus, striped; ``lower.py:770-940``) are not ported (ROADMAP
-A8).
+order of adds of one ring per group.
+
+The algebra-synthesized lowerings (:func:`lower_halve_allreduce`,
+``lower.py:770``; :func:`lower_torus_allreduce`, ``:855``;
+:func:`lower_striped_allreduce`, ``:899``) keep the JAX order of
+operations, so their f32 results equal the JAX lowerings' bit for bit on
+any payload. They run on the ``ring`` backend's plain exchanges and
+batched rings whatever the request's backend, as the JAX package runs
+them on its ppermute rings under ``pallas`` (label ``ring``): a
+synthesized plan launches no hand kernel. That is the JAX design, not a
+fallback.
 """
 
 from __future__ import annotations
@@ -142,6 +150,17 @@ def _inter_rings(fn, xg: torch.Tensor, G: int, I: int) -> torch.Tensor:
     return out.reshape((G * I,) + tuple(out.shape[2:]))
 
 
+def _batched_ring(comm, wire: Optional[str], depth: int):
+    """The ``ring`` backend's allreduce over B rings at once
+    (``primitives.ring_allreduce(batched=True)``) with the platform's ring
+    tuning, the wire and a pipeline depth: one level of a two-level
+    composition."""
+    minb, maxb, nbuf = _eager().ring_tuning(comm.device.type)
+    return lambda v: prim.ring_allreduce(
+        v, max_bytes_per_step=maxb, min_bytes_per_step=minb, num_buffers=nbuf,
+        wire_dtype=wire, pipeline_depth=depth, batched=True)
+
+
 def _intra_allreduce(n: int, dtype: torch.dtype, wire: Optional[str], G: int, I: int):
     """The intra allreduce of the G groups of I ranks of the group-major
     rows on the kernel backend (``_pallas_intra_ring``, ``lower.py:150``):
@@ -181,13 +200,6 @@ def lower_hier_allreduce(comm, impl: str, shape: Tuple, dtype, wire: str,
     to_groups, to_ranks, G, I = _group_major(comm)
     n = math.prod(shape[1:])
     wire_arg = None if wire == "full" else wire
-    minb, maxb, nbuf = _eager().ring_tuning(comm.device.type)
-
-    def ring(depth: int):
-        return lambda v: prim.ring_allreduce(
-            v, max_bytes_per_step=maxb, min_bytes_per_step=minb, num_buffers=nbuf,
-            wire_dtype=wire_arg, pipeline_depth=depth, batched=True,
-        )
 
     if impl == "xla":
         def levels(xg, stream=None):
@@ -195,16 +207,17 @@ def lower_hier_allreduce(comm, impl: str, shape: Tuple, dtype, wire: str,
             total = v.sum(1, dtype=xg.dtype).sum(0, dtype=xg.dtype)
             return total.expand(G * I, -1).reshape(xg.shape)
     elif impl == "ring":
-        depth = int(pipeline)
+        ring = _batched_ring(comm, wire_arg, int(pipeline))
 
         def levels(xg, stream=None):
-            return _inter_rings(ring(depth), _intra_rings(ring(depth), xg, G, I), G, I)
+            return _inter_rings(ring, _intra_rings(ring, xg, G, I), G, I)
     else:
         intra = _intra_allreduce(n, dtype, wire_arg, G, I)
+        inter = _batched_ring(comm, wire_arg, 1)
 
         def levels(xg, stream=None):
             kw = {} if stream is None else {"stream": stream}
-            return _inter_rings(ring(1), intra(xg, **kw), G, I)
+            return _inter_rings(inter, intra(xg, **kw), G, I)
 
     def fn(x, stream=None):
         return to_ranks(levels(to_groups(x), stream)).contiguous()
@@ -337,15 +350,134 @@ def run_staged_hierarchical_allreduce(x: torch.Tensor, comm, intra_impl: str = "
         kw = {} if stream is None else {"stream": stream}
         reduced = _intra_allreduce(n, x.dtype, wire_arg, G, I)(xg, **kw)
     else:
-        minb, maxb, nbuf = _eager().ring_tuning(comm.device.type)
-        reduced = _intra_rings(lambda v: prim.ring_allreduce(
-            v, max_bytes_per_step=maxb, min_bytes_per_step=minb, num_buffers=nbuf,
-            wire_dtype=wire_arg, pipeline_depth=int(pipeline), batched=True), xg, G, I)
+        reduced = _intra_rings(_batched_ring(comm, wire_arg, int(pipeline)), xg, G, I)
     host = reduced[::I].cpu()  # the group representatives: each group's first row
     total = host[0].clone()
     for row in host[1:]:
         total += row
     return total.to(comm.device).expand(x.shape).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# algebra-synthesized compositions (schedule/algebra.py's enumerator)
+# ---------------------------------------------------------------------------
+
+
+def _pad_flat(flat: torch.Tensor, unit: int) -> Tuple[torch.Tensor, int]:
+    """Every rank's flat row of ``flat`` (``[p, n]``) zero-padded to a
+    multiple of ``unit`` (``lower.py:755``; zeros quantize and sum
+    exactly, so the padding never perturbs a reduced value). Returns
+    ``(padded, n)``."""
+    n = flat.shape[1]
+    unit = max(1, unit)
+    return torch.nn.functional.pad(flat, (0, -(-n // unit) * unit - n)), n
+
+
+def _xor_perm(p: int, d: int) -> list:
+    return [(i, i ^ d) for i in range(p)]
+
+
+def lower_halve_allreduce(comm, shape: Tuple, dtype, wire: str):
+    """Recursive-halving reduce-scatter, then recursive-doubling allgather
+    over the flat communicator, the ``halve~synth`` plan (``lower.py:770``,
+    ``[halve.rs ; halve.ag]``): log2(p) exchange rounds each way. At
+    halving distance ``d = p/2 .. 1`` rank r sends the half it does not
+    keep to rank ``r xor d`` (``(r & d) == 0`` keeps the lower half) and
+    adds the partner's half into the one it keeps; the doubling rounds
+    run ``d = 1 .. p/2`` and glue the received segment before or after
+    their own, in index order. Each rank's payload is zero-padded to a
+    multiple of ``p*block`` under a compressed wire (else of p), so every
+    exchanged segment is whole blocks; each hop encodes the whole segment
+    from its start and a halving hop's decode-and-add rounds once
+    (:func:`~torchmpi_tpu_torch.collectives.primitives.exchange`). As the
+    tree lowering, an integer payload ships verbatim. Needs a power-of-two
+    world, where the enumerator admits the plan. Returns ``(fn,
+    takes_stream)``."""
+    p = comm.size
+    if p < 2 or p & (p - 1):
+        raise ValueError(f"recursive halving needs a power-of-two world, got {p}")
+    rounds = p.bit_length() - 1
+    wire_arg = None if wire == "full" or dtype != torch.float32 else wire
+    block = constants.get("wire_quant_block_size")
+    n = math.prod(shape[1:])
+
+    def fn(x, stream=None):
+        ranks = torch.arange(p, device=x.device)
+        buf, _ = _pad_flat(x.reshape(p, n), p * block if wire_arg else p)
+        for k in range(rounds):  # halving RS: d = p/2 .. 1
+            d = p >> (k + 1)
+            half = buf.shape[1] // 2
+            keep_lower = ((ranks & d) == 0)[:, None]
+            lower, upper = buf[:, :half], buf[:, half:]
+            sent = torch.where(keep_lower, upper, lower)
+            kept = torch.where(keep_lower, lower, upper)
+            buf = prim.exchange(sent, _xor_perm(p, d), wire_arg, block, local=kept)
+        for k in range(rounds):  # doubling AG: d = 1 .. p/2
+            d = 1 << k
+            recv = prim.exchange(buf, _xor_perm(p, d), wire_arg, block)
+            keep_lower = ((ranks & d) == 0)[:, None]
+            buf = torch.where(keep_lower, torch.cat([buf, recv], 1), torch.cat([recv, buf], 1))
+        return buf[:, :n].reshape(x.shape).contiguous()
+
+    return fn, False
+
+
+def lower_torus_allreduce(comm, shape: Tuple, dtype, wire: str, pipeline: int = 1):
+    """2D torus allreduce on a cartesian communicator, the ``torus~synth``
+    plan (``lower.py:855``, ``[scatter.ring(intra) ; ring(inter) ;
+    gather.ring(intra)]``): on the group-major rows, each rank's payload
+    zero-padded to a multiple of ``s*block`` under a compressed wire (else
+    of s, the intra size), the batched reduce-scatter over every intra
+    ring (the wire on each hop), the batched ring allreduce of each 1/s
+    shard over every inter ring (the ring tuning, the wire and the plan's
+    pipeline depth), and the batched allgather over every intra ring.
+    Returns ``(fn, takes_stream)``."""
+    to_groups, to_ranks, G, I = _group_major(comm)
+    wire_arg = None if wire == "full" else wire
+    block = constants.get("wire_quant_block_size")
+    ring = _batched_ring(comm, wire_arg, int(pipeline))
+    n = math.prod(shape[1:])
+
+    def scatter(v):
+        return prim.ring_reduce_scatter(v, dim=-1, wire_dtype=wire_arg, wire_block=block,
+                                        batched=True)
+
+    def gather(v):
+        return prim.ring_allgather(v, dim=-1, batched=True)
+
+    def fn(x, stream=None):
+        flat, _ = _pad_flat(to_groups(x).reshape(G * I, n), I * block if wire_arg else I)
+        shard = _inter_rings(ring, _intra_rings(scatter, flat, G, I), G, I)
+        full = _intra_rings(gather, shard, G, I)
+        return to_ranks(full[:, :n]).reshape(x.shape).contiguous()
+
+    return fn, False
+
+
+def lower_striped_allreduce(comm, shape: Tuple, dtype, wire: str, pipeline: int = 1):
+    """Striped allreduce on a cartesian communicator, the ``stripe~synth``
+    plan (``lower.py:899``, ``stripe(2)∘[[ring(intra) ; ring(inter)] ||
+    [ring(inter) ; ring(intra)]]``): each rank's payload zero-padded to a
+    multiple of ``2*block`` under a compressed wire (else of 2) and cut in
+    halves; the lower half runs the batched intra rings, then the inter
+    rings, the upper half the inter rings, then the intra rings, so the
+    two fabrics' phases run in opposite order. Every ring takes the ring
+    tuning, the wire and the plan's pipeline depth, as the hierarchical
+    lowering's. Returns ``(fn, takes_stream)``."""
+    to_groups, to_ranks, G, I = _group_major(comm)
+    wire_arg = None if wire == "full" else wire
+    block = constants.get("wire_quant_block_size")
+    ring = _batched_ring(comm, wire_arg, int(pipeline))
+    n = math.prod(shape[1:])
+
+    def fn(x, stream=None):
+        flat, _ = _pad_flat(to_groups(x).reshape(G * I, n), 2 * block if wire_arg else 2)
+        half = flat.shape[1] // 2
+        lo = _inter_rings(ring, _intra_rings(ring, flat[:, :half], G, I), G, I)
+        hi = _intra_rings(ring, _inter_rings(ring, flat[:, half:], G, I), G, I)
+        return to_ranks(torch.cat([lo, hi], 1)[:, :n]).reshape(x.shape).contiguous()
+
+    return fn, False
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ single fact:
   ``checkpoint_every``) after a save PUBLISHES (the atomic pointer
   swung, the artifact is readable). Records the fact in-process and,
   when ``TORCHMPI_TPU_CHECKPOINT_STATE`` names a file, mirrors it there
-  atomically: the same variable as the JAX package's, so a launcher's
-  supervisor (ROADMAP A10) and a relaunched worker read one file.
+  atomically: the same variable as the JAX package's, so a supervisor
+  in another process and a relaunched worker read one file.
 - :func:`last_checkpoint` — the newest registered record (in-process
   first, the shared state file as fallback), or None.
 - :func:`describe_last` — the human/exception fragment that names the

@@ -456,8 +456,9 @@ class FleetAggregator:
         self._busy_rates: Dict[str, float] = {}
 
     def attach_supervisor(self, supervisor) -> None:
-        """Expose a recovery supervisor (any object with the JAX
-        ``supervise.RecoverySupervisor``'s surface) on the
+        """Expose a recovery supervisor (a
+        :class:`~torchmpi_tpu_torch.supervise.RecoverySupervisor`, or any
+        object with its ``actions_doc`` and ``prometheus_lines``) on the
         scrape surface (``/actions`` + ``tm_supervisor_*`` metrics).
         The supervisor's observe loop stays outside: whoever owns the
         cadence (launcher thread, simulator tick) feeds it verdicts."""

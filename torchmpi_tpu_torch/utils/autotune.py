@@ -451,14 +451,14 @@ def tune_plan(
     apply: bool = True,
 ) -> Tuple[str, List]:
     """Measured candidate-plan search: run every *structurally possible*
-    schedule family (flat / hier / staged / tree) the compiler generates
-    for a large ``op`` on THIS communicator's declared topology, and
-    persist the winner as a plan override for its plan-cache key
+    schedule family (flat / hier / staged / tree, and the synthesized
+    families under ``use_plan_synthesis``) the compiler generates for a
+    large ``op`` on THIS communicator's declared topology, and persist the
+    winner as a plan override for its plan-cache key
     (``set_plan_override``, keyed like the plan cache: op, topology
     fingerprint, payload bucket, wire), saved in the tuning cache and
-    re-applied by ``start()``. A family the port does not lower (the
-    synthesized ones, ROADMAP A8) is reported in the results and skipped;
-    one that raises when it runs propagates, and one that sums wrong is
+    re-applied by ``start()``. A family that raises when it runs
+    propagates (the JAX tuner skips it), and one that sums wrong is
     reported ``incorrect``, or on the card's kernel backend raises
     :class:`KernelResultError`."""
     comm = _comm(comm)
@@ -488,14 +488,10 @@ def tune_plan(
         if gen in measured:
             continue  # vendor + custom flat candidates share one generator
         measured.add(gen)
-        try:
-            ep = _sched.compile_collective(
-                op, (p, nelem), torch.float32, comm,
-                generator=gen, impl=backend, wire_override=wire,
-            )
-        except eager.PlanNotLoweredError as exc:
-            results.append((gen, None, type(exc).__name__))
-            continue
+        ep = _sched.compile_collective(
+            op, (p, nelem), torch.float32, comm,
+            generator=gen, impl=backend, wire_override=wire,
+        )
         out, laps = _timed_laps(lambda: ep.execute(x), comm.device, warmup, timed)
         if not _all_equal(out, float(p)):
             _require_kernel_ok(comm, backend, False, f"the {gen!r} plan")
