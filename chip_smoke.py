@@ -5092,12 +5092,386 @@ def phase_supervise(dev) -> dict:
     return {"supervise": counts}
 
 
-def phase_timing(dev, runs: dict, errs: dict) -> None:
+# ---------------------------------------------------------------------------
+# ranks in two processes on the card (--multiprocess): the cross-process K3
+# and K7 and config 1 trained by 2 processes x 4 ranks through the launcher
+# ---------------------------------------------------------------------------
+
+MP_PROCS, MP_RANKS = 2, P // 2  # processes, ranks a process: P in all
+MP_SIZES = (LENET_PARAMS, 1000003, 1025, 1)  # LeNet's flat, odd and ragged widths
+MP_ROOTS = (0, 5)  # a root in each process
+# run (a)'s losses against the one-process kernel run's: its first step
+# bit for bit (the first sync is a copy, so step 1 reads the same weights),
+# then the vendor path's sums differ from K3's in their last bits and LeNet
+# at lr 0.2 grows that (on the CPU 1e-7 at step 4, 0.64 at step 48; on the
+# card 5.1e-4 within 10 steps), so the first MP_CLOSE_STEPS steps are held
+# within MP_LOSS_RTOL and the rest reported; every step of (a) is held bit
+# for bit to the one-process run under the same span and path
+MP_LOSS_RTOL = 1e-3
+MP_CLOSE_STEPS = 10
+MP_CALLS = 50  # timed calls of the whole cross-process allreduce and of gloo's
+
+
+def mp_lenet(comm, rank_map: str = "loop") -> dict:
+    """Config 1 (LeNet, batch 336, lr 0.2, seed 0, two epochs of
+    ``synthetic_mnist``) on ``comm``'s ranks of this process, counts set
+    to 0 just before the engine (its first sync included) and read just
+    after: the step losses, the launches, the second epoch's global
+    samples/s."""
+    (xtr, ytr), _ = synthetic_mnist()
+    model = LeNet()
+    losses, epoch_t = [], {}
+
+    def on_start_epoch(s):
+        torch.cuda.synchronize()
+        epoch_t[s["epoch"]] = time.perf_counter()
+
+    def on_end_epoch(s):
+        torch.cuda.synchronize()
+        epoch_t[s["epoch"]] = time.perf_counter() - epoch_t[s["epoch"]]
+
+    ops.reset_launch_counts()
+    engine = AllReduceSGDEngine(
+        make_loss_fn(model), init_params(model, seed=0), lr=LR, comm=comm, rank_map=rank_map,
+        hooks={"on_update": lambda s: losses.append(s["loss"]),
+               "on_start_epoch": on_start_epoch, "on_end_epoch": on_end_epoch})
+    it = DistributedIterator(xtr, ytr, BATCH, P, device=comm.device)
+    state = engine.train(lambda: iter(it), max_epochs=2)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    mpinn.check_with_allreduce(engine.params, comm)
+    losses = [float(v) for v in losses]
+    # LeNet at lr 0.2 spikes now and then: the second epoch's mean is the
+    # gate, not the last steps
+    second = sum(losses[len(it):]) / (len(losses) - len(it))
+    require(all(math.isfinite(v) for v in losses) and second < losses[0],
+            f"config 1 on {comm.name}: loss did not fall: first step {losses[0]}, second "
+            f"epoch's mean {second} ({losses})")
+    return {"losses": losses, "counts": counts, "steps": state["t"],
+            "samples_per_s": len(it) * BATCH / epoch_t[1]}
+
+
+def mp_reference(vendor_span: bool) -> dict:
+    """A one-process p=8 run of config 1 with the rank map the processes
+    take: on the kernel backend (K3 a step, the first sync by the binomial
+    tree), what run (b) must equal bit for bit; or (``vendor_span``) under
+    run (a)'s per-node span (keys ``host<r // 4> ici group``) with the
+    selector's single-node allreduce and broadcast rows set to the vendor
+    path, as (a)'s multinode rows route it, what (a) must equal."""
+    from torchmpi_tpu_torch.collectives import selector
+
+    rows = selector.table["cuda"]["singlenode"]["sync"]
+    saved = {op: rows[op] for op in ("allreduce", "broadcast")}
+    mpi.start(ranks=P)
+    try:
+        if vendor_span:
+            mpi.push_communicator(lambda r: f"host{r // MP_RANKS} ici group",
+                                  name="per-node ici groups")
+            mpi.set_collective_span(0, 1)
+            for op in saved:
+                rows[op] = ["xla"]
+        return mp_lenet(mpi.current_communicator())
+    finally:
+        rows.update(saved)
+        mpi.stop()
+
+
+def mp_payload(n: int, dtype: torch.dtype, seed: int) -> torch.Tensor:
+    """The seeded [P, n] payload every process draws whole (on the CPU)."""
+    gen = torch.Generator().manual_seed(seed)
+    if dtype.is_floating_point:
+        return torch.randn((P, n), generator=gen).to(dtype)
+    info = torch.iinfo(dtype)
+    lo, hi = max(info.min, -8), min(info.max, 8)
+    return torch.randint(lo, hi + 1, (P, n), generator=gen).to(dtype)
+
+
+def mp_table(lane, s: int, n: int, dtype) -> list:
+    views = lane.views(s, (n,), dtype)
+    return [views[q][lane.index_of[r]] for r, q in enumerate(lane.procs)]
+
+
+def mp_check(dev, comm) -> dict:
+    """The cross-process K3 and K7 on the card against their plain
+    versions on the same slabs and against the one-process K3 and the
+    root's row, bit for bit, over the native dtypes, the sizes of
+    ``MP_SIZES`` and the roots of ``MP_ROOTS``; and the closed form."""
+    plane = mpi.runtime_state.plane()
+    lane = plane.lane(comm)
+    local, L = comm.local_ranks, comm.local_size
+    checks, err = 0, {"ring_allreduce_xproc": 0.0, "ring_broadcast_xproc": 0.0}
+    for dtype in NATIVE_DTYPES:
+        for i, n in enumerate(MP_SIZES):
+            full = mp_payload(n, dtype, 17 + i).to(dev)
+            s = lane.publish(full[local].contiguous(), n * full.element_size())
+            table = mp_table(lane, s, n, dtype)
+            got = ops.ring_allreduce_xproc(table, L)
+            plain = ops.ring_allreduce_xproc_plain(table, L)
+            err["ring_allreduce_xproc"] = max(err["ring_allreduce_xproc"],
+                                              float((got.double() - plain.double()).abs().max()))
+            require(torch.equal(bits(got), bits(plain)),
+                    f"cross-process K3 {dtype} n={n}: differs from its plain version")
+            require(torch.equal(bits(got), bits(ops.ring_allreduce(full)[local])),
+                    f"cross-process K3 {dtype} n={n}: differs from the one-process K3")
+            for root in MP_ROOTS:
+                src = table[root]
+                got7 = ops.ring_broadcast_xproc(src, L)
+                plain7 = ops.ring_broadcast_xproc_plain(src, L)
+                err["ring_broadcast_xproc"] = max(
+                    err["ring_broadcast_xproc"], float((got7.double() - plain7.double()).abs().max()))
+                require(torch.equal(bits(got7), bits(plain7))
+                        and torch.equal(bits(got7), bits(full[root].expand(L, n))),
+                        f"cross-process K7 {dtype} n={n} root={root}: wrong bytes")
+            lane.release()
+            checks += 1 + len(MP_ROOTS)
+    # the closed form through the collective: rank r gives r
+    x = torch.stack([torch.full((LENET_PARAMS,), float(r), device=dev) for r in local])
+    out = mpi.kernel.allreduce_tensor(x, comm=comm)
+    require(bool((out == P * (P - 1) / 2).all()), "cross-process K3: closed form")
+    torch.cuda.synchronize()
+    return {"checks": checks, "max_abs_err": err}
+
+
+def mp_time(dev, comm) -> dict:
+    """Times at [P, LENET_PARAMS] f32: the whole cross-process allreduce
+    (host protocol, staging copy, K3) per call with both processes in
+    step and the protocol's host time a call; then, in process 0 while
+    process 1 waits at the barrier, K3 and K7 alone and their plain
+    versions on rows rotated past the L2 (the two slots of the slabs and
+    two sets of local copies), and the staging copy; then gloo's
+    all_reduce of the same payload (each process's rows summed, the sum
+    all-reduced through host memory, copied back to its rows) and gloo's
+    broadcast of the root's row, both processes in step."""
+    import torch.distributed as dist
+
+    plane = mpi.runtime_state.plane()
+    lane = plane.lane(comm)
+    local, L, n = comm.local_ranks, comm.local_size, LENET_PARAMS
+    full = mp_payload(n, torch.float32, 5).to(dev)
+    x = full[local].contiguous()
+
+    def in_step(fn, calls: int = MP_CALLS) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        plane.barrier()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    proto0, calls0 = lane.protocol_s, lane.calls
+    call_ms = in_step(lambda: lane.allreduce(x))
+    protocol_us = (lane.protocol_s - proto0) / (lane.calls - calls0) * 1e6
+    tables = []
+    for _ in range(2):  # both slots hold every process's rows
+        s = lane.publish(x, n * 4)
+        tables.append(mp_table(lane, s, n, torch.float32))
+        lane.release()
+    torch.cuda.synchronize()
+    plane.barrier()
+    timed = {}
+    if plane.index == 0:
+        copies = max(2, -(-2 * L2_BYTES // (P * n * 4)))
+        tables += [[r.clone() for r in tables[0]] for _ in range(copies - 2)]
+        sets = itertools.cycle(tables)
+        roots = itertools.cycle([t[MP_ROOTS[1]] for t in tables])
+        srcs = itertools.cycle([x.clone() for _ in range(copies)])
+        dst = lane._view(lane.me, 0, L * n * 4, (L, n), torch.float32)
+        timed = {
+            "k3_ms": time_ms(lambda: ops.ring_allreduce_xproc(next(sets), L)),
+            "k3_plain_ms": time_ms(lambda: ops.ring_allreduce_xproc_plain(next(sets), L)),
+            "k7_ms": time_ms(lambda: ops.ring_broadcast_xproc(next(roots), L)),
+            "k7_plain_ms": time_ms(lambda: ops.ring_broadcast_xproc_plain(next(roots), L)),
+            "staging_ms": time_ms(lambda: dst.copy_(next(srcs))),
+        }
+        del tables, sets, roots, srcs, dst
+    torch.cuda.synchronize()
+    plane.barrier()
+
+    def gloo_allreduce():
+        t = x.sum(0).cpu()
+        dist.all_reduce(t)
+        return t.to(dev).expand(L, n).contiguous()
+
+    def gloo_broadcast():
+        owner = comm.process_of(MP_ROOTS[1])
+        t = x[local.index(MP_ROOTS[1])].cpu() if plane.index == owner else torch.empty(n)
+        dist.broadcast(t, src=owner)
+        return t.to(dev).expand(L, n).contiguous()
+
+    return {**timed, "call_ms": call_ms, "protocol_us": protocol_us,
+            "gloo_allreduce_ms": in_step(gloo_allreduce, 20),
+            "gloo_broadcast_ms": in_step(gloo_broadcast, 20)}
+
+
+def mp_run(ici: bool, prefer_kernel: bool) -> dict:
+    """One of the two runs of config 1 on the card across the processes:
+    (a) ``ici`` as the JAX package routes it, the per-node span and the
+    compiler's plan (the selector's multinode rows: the vendor path over
+    gloo); (b) the flat span with the selector's ``cuda.multinode.sync``
+    allreduce and broadcast rows set to prefer ``kernel`` (the
+    reference's user-editable collectiveSelector), so the gradients and
+    the first sync run the cross-process K3 and K7."""
+    from torchmpi_tpu_torch.collectives import selector
+
+    rows = selector.table["cuda"]["multinode"]["sync"]
+    saved = {op: rows[op] for op in ("allreduce", "broadcast")}
+    mpi.start(ranks=MP_RANKS, with_ici_groups=ici)
+    try:
+        if prefer_kernel:
+            for op in saved:
+                rows[op] = ["kernel", "ring", "xla"]
+        comm = mpi.current_communicator()
+        lane = mpi.runtime_state.plane().lane(comm)
+        proto0, calls0 = lane.protocol_s, lane.calls
+        run = mp_lenet(comm)
+        memo = comm.__dict__.get("_dispatch_memo", {})
+        run["plans"] = sorted({f"{ent[1].plan.generator}/{ent[1].plan.backend}"
+                               for ent in memo.values() if hasattr(ent[1], "plan")})
+        run["lane_calls"] = lane.calls - calls0
+        run["protocol_us"] = ((lane.protocol_s - proto0) / max(1, lane.calls - calls0) * 1e6)
+        run["span"] = list(mpi.stack().span)
+        return run
+    finally:
+        rows.update(saved)
+        mpi.stop()
+
+
+def mp_worker(out_dir: str) -> None:
+    """One process of ``--multiprocess`` (started by the launcher, which
+    gives the world): the kernel checks and times, then runs (a) and (b);
+    its results to ``out_dir/proc<i>.json``. Nothing is caught: a failure
+    fails the process, and the launcher the job."""
+    res = {}
+    mpi.start(ranks=MP_RANKS, with_ici_groups=False)
+    try:
+        comm = mpi.current_communicator()
+        dev = comm.device
+        require(comm.multiprocess and comm.size == P and comm.num_nodes() == MP_PROCS,
+                f"the launcher's world is {comm.size} ranks in {comm.num_nodes()} processes")
+        res["check"] = mp_check(dev, comm)
+        res["time"] = mp_time(dev, comm)
+        index = mpi.runtime_state.plane().index
+    finally:
+        mpi.stop()
+    res["a"] = mp_run(ici=True, prefer_kernel=False)
+    res["b"] = mp_run(ici=False, prefer_kernel=True)
+    Path(out_dir, f"proc{index}.json").write_text(json.dumps(res))
+    print(f"multiprocess worker {index} OK")
+
+
+def mp_expected(steps: int, kernel: bool) -> dict:
+    """A process's launches in a run of config 1: K1 a step, and in (b)
+    the cross-process K3 a step and K7 once (the first sync)."""
+    want = {name: 0 for name in ops.launch_counts()}
+    want["accumulate"] = steps * list_launches(LENET_LEAVES)
+    if kernel:
+        want["ring_allreduce_xproc"] = steps
+        want["ring_broadcast_xproc"] = 1
+    return want
+
+
+def phase_multiprocess(dev) -> tuple:
+    """``--multiprocess``: the one-process reference from the seed, then
+    the two workers through ``python -m torchmpi_tpu_torch.launch``
+    (their logs and results under ``_mp_logs/``), their results held
+    to the contract: the cross-process K3 and K7 bit for bit their plain
+    versions, run (b)'s losses bit for bit the one-process kernel run's,
+    run (a)'s bit for bit the one-process run under its span and path and
+    its first ``MP_CLOSE_STEPS`` within ``MP_LOSS_RTOL`` of the kernel
+    run's, exact launches. Prints the
+    ``{"multiprocess": ...}`` line; returns the runs' launches (summed
+    over the processes) and the two kernel rows of the kernels line."""
+    ref, ref_a = mp_reference(False), mp_reference(True)
+    root = Path(__file__).resolve().parent
+    logs = root / "_mp_logs"  # the workers' logs and results
+    for old in logs.glob("proc*.json"):
+        old.unlink()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchmpi_tpu_torch.launch", "--nproc", str(MP_PROCS),
+         "--log-dir", str(logs), str(Path(__file__).resolve()), "--", "--mp-worker", str(logs)],
+        cwd=str(root), timeout=600)
+    tails = "\n".join(f"--- {f.name}\n" + f.read_text()[-3000:]
+                      for f in sorted(logs.glob("rank_*.log")))
+    require(proc.returncode == 0, f"multiprocess workers failed ({proc.returncode}):\n{tails}")
+    res = [json.loads((logs / f"proc{i}.json").read_text()) for i in range(MP_PROCS)]
+    for i, r in enumerate(res):
+        steps = r["b"]["steps"]
+        require(steps == ref["steps"] == r["a"]["steps"], f"proc {i}: steps differ")
+        require(r["b"]["losses"] == ref["losses"],
+                f"proc {i}: run (b)'s losses differ from the one-process kernel run's: "
+                f"{r['b']['losses'][:4]} vs {ref['losses'][:4]}")
+        require(r["a"]["losses"] == ref_a["losses"],
+                f"proc {i}: run (a)'s losses differ from the one-process run under its span and "
+                f"path: {r['a']['losses'][:4]} vs {ref_a['losses'][:4]}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["a"]["losses"], ref["losses"])]
+        require(rel[0] == 0, f"proc {i}: run (a)'s first loss differs from the kernel run's")
+        close = max(rel[:MP_CLOSE_STEPS])
+        require(close <= MP_LOSS_RTOL,
+                f"proc {i}: run (a)'s first {MP_CLOSE_STEPS} losses {close} from the kernel run's")
+        r["a"]["rel_first"], r["a"]["rel_all"], r["a"]["rel_by_step"] = close, max(rel), rel
+        for run, kernel in (("a", False), ("b", True)):
+            want = mp_expected(steps, kernel)
+            require(r[run]["counts"] == want,
+                    f"proc {i} run ({run}): launches {r[run]['counts']} != {want}")
+    t = res[0]["time"]
+    n = LENET_PARAMS
+    rows = []
+    for name, rows_read, nbytes, ms, plain, lib, replaces in (
+            ("ring_allreduce_xproc", P, (P + MP_RANKS) * n * 4, t["k3_ms"], t["k3_plain_ms"],
+             t["gloo_allreduce_ms"], "torchmpi_tpu/ops/ring_kernels.py:201"),
+            ("ring_broadcast_xproc", 1, (1 + MP_RANKS) * n * 4, t["k7_ms"], t["k7_plain_ms"],
+             t["gloo_broadcast_ms"], "torchmpi_tpu/ops/ring_kernels.py:1282")):
+        bound_ms, bound_by = bound(nbytes, (P - 1) * n if "allreduce" in name else 0)
+        require(bound_ms <= ms, f"{name}: {ms} ms is under its bound {bound_ms} ms")
+        rows.append({
+            "name": name, "route": "cuda", "source": "torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            "replaces": replaces, "max_abs_err": max(r["check"]["max_abs_err"][name] for r in res),
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib, "library": "gloo across the processes",
+            "shape": [P, n], "dtype": "float32", "processes": MP_PROCS,
+            "one_launch": f"one process's: {rows_read} rows read, {MP_RANKS} written"})
+    summary = {
+        "processes": MP_PROCS, "ranks_per_process": MP_RANKS, "card": card(),
+        "checks": sum(r["check"]["checks"] for r in res),
+        "one_process": {"samples_per_s": ref["samples_per_s"], "steps": ref["steps"],
+                        "final_loss": ref["losses"][-1]},
+        "one_process_vendor_span": {"samples_per_s": ref_a["samples_per_s"]},
+        "a": {k: res[0]["a"][k] for k in ("samples_per_s", "plans", "span", "rel_first",
+                                          "rel_all", "rel_by_step", "lane_calls", "protocol_us")},
+        "a_bitwise_one_process_same_span": True,
+        "b": {k: res[0]["b"][k] for k in ("samples_per_s", "plans", "span", "lane_calls",
+                                          "protocol_us")},
+        "b_bitwise_one_process": True,
+        "k3": {"shape": [P, n], "ms": t["k3_ms"], "call_ms": t["call_ms"],
+               "protocol_us": t["protocol_us"], "staging_ms": t["staging_ms"],
+               # both processes' launches: each reads the P rows and writes its own
+               "job_bound_ms": MP_PROCS * (P + MP_RANKS) * n * 4 / HBM_BYTES_PER_S * 1e3,
+               # both processes' staging copies: each reads and writes its rows
+               "staging_bound_ms": MP_PROCS * 2 * MP_RANKS * n * 4 / HBM_BYTES_PER_S * 1e3,
+               "gloo_allreduce_ms": t["gloo_allreduce_ms"]},
+        "k7": {"ms": t["k7_ms"], "gloo_broadcast_ms": t["gloo_broadcast_ms"]},
+    }
+    print(json.dumps({"multiprocess": summary}))
+    runs = {f"mp_{run}": {k: sum(r[run]["counts"][k] for r in res) for k in res[0][run]["counts"]}
+            for run in ("a", "b")}
+    return runs, rows
+
+
+def phase_timing(dev, runs: dict, errs: dict, timed_rows=()) -> None:
     """Time every kernel (:func:`timing_rows`, :func:`time_rows`) and print
-    the ``{"kernels": [...]}`` line."""
+    the ``{"kernels": [...]}`` line, with ``timed_rows``, the rows timed
+    across processes (:func:`phase_multiprocess`), their launches summed
+    over ``runs`` as the others'."""
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = timing_rows(lambda *shape: torch.randn(shape, generator=gen, device=dev))
-    print(json.dumps({"kernels": time_rows(rows, runs, errs, launch_floor_ms())}))
+    out = time_rows(rows, runs, errs, launch_floor_ms())
+    for row in timed_rows:
+        by_path = {path: counts[row["name"]] for path, counts in runs.items()}
+        out.append({**row, "launches": sum(by_path.values()), "launches_by_path": by_path})
+    print(json.dumps({"kernels": out}))
 
 
 def quant_only(dev, check: bool) -> None:
@@ -5178,6 +5552,12 @@ def main(argv=None) -> None:
         help="only the schedule compiler's phase (warm plans after precompile, plan stamps, "
              "telemetry's cost, the ring's pipeline depth) and the async issue line, after the "
              "build; prints no result line")
+    parser.add_argument(
+        "--multiprocess", action="store_true",
+        help="only the multi-process phase (the cross-process K3 and K7 against their plain "
+             "versions, config 1 by 2 processes x 4 ranks through the launcher, runs (a) and "
+             "(b); the {\"multiprocess\"} line), after the build; prints no result line")
+    parser.add_argument("--mp-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one card")
@@ -5189,6 +5569,9 @@ def main(argv=None) -> None:
     # them from call to call)
     torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda", 0)
+    if args.mp_worker:
+        mp_worker(args.mp_worker)
+        return
     phase_device()
     if args.quant:
         quant_only(dev, args.quant == "check")
@@ -5233,6 +5616,9 @@ def main(argv=None) -> None:
     if args.supervise:
         phase_supervise(dev)
         return
+    if args.multiprocess:
+        phase_multiprocess(dev)
+        return
     errs = phase_kernels(dev)
     trainer = phase_trainer(dev)
     runs = {path: run["counts"] for path, run in trainer.items()}
@@ -5262,7 +5648,9 @@ def main(argv=None) -> None:
     runs.update(phase_serve(dev))
     runs.update(phase_synth(dev))
     runs.update(phase_supervise(dev))
-    phase_timing(dev, runs, errs)
+    mp_runs, mp_rows = phase_multiprocess(dev)
+    runs.update(mp_runs)
+    phase_timing(dev, runs, errs, mp_rows)
     print(json.dumps({
         "ok": True,
         "device": {

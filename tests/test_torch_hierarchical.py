@@ -458,11 +458,17 @@ def test_fused_flush_delegates_to_the_hierarchical_plan():
     assert plans == {"hier"}
 
 
-def test_staged_across_processes_is_refused(monkeypatch):
-    """The staged allreduce's multi-process branch (over the parameter
-    server's socket transport) is not ported: a communicator spanning
-    nodes raises, naming ROADMAP A13, where JAX would exchange blobs."""
-    tcomm, _ = _comms(KEYS["2x4"])
-    monkeypatch.setattr(tcomm, "num_nodes", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        eager.run_hierarchical_allreduce(torch.ones(P, 16), tcomm, impl="staged")
+def test_staged_across_processes_is_refused():
+    """The staged allreduce across processes runs when every intra group
+    lies in one process (``tests/test_torch_multiprocess.py``); over
+    groups that span processes it is not ported and raises, naming
+    ROADMAP A13's rest, where JAX would exchange the group sums of the
+    rows each process owns. Here process 0 of 2 holds ranks 0-3, and the
+    2x4 split's groups (``r % 2``) each span both processes."""
+    from torchmpi_tpu_torch.runtime.communicator import Communicator
+
+    tcomm = Communicator(range(P), torch.device("cpu"), keys=[KEYS["2x4"](r) for r in range(P)],
+                         processes=[r // (P // 2) for r in range(P)], process_index=0)
+    assert tcomm.multiprocess and tcomm.cartesian and tcomm.num_nodes() == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP A13's rest"):
+        eager.run_hierarchical_allreduce(torch.ones(P // 2, 16), tcomm, impl="staged")

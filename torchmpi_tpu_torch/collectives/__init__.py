@@ -8,9 +8,10 @@ pin a backend; ``async_`` holds the variants that return a
 :class:`~torchmpi_tpu_torch.runtime.handles.SyncHandle`, with its own
 ``async_.xla``, ``async_.ring`` and ``async_.kernel``. ``backend=`` on the
 top-level functions pins a backend too, which lets the CPU tests drive the
-kernel path through the plain versions. The scalar collectives cross
-processes and are the identity in one process, which holds every virtual
-rank.
+kernel path through the plain versions. In a job of several processes a
+rank-stacked tensor holds this process's rows only, and the scalar
+collectives and the barrier cross processes; in one process, which holds
+every virtual rank, the scalar collectives are the identity.
 """
 
 from __future__ import annotations
@@ -202,32 +203,67 @@ async_ = _AsyncNS()
 
 
 # --- scalar collectives (init.lua:125-134) ---------------------------------
-# They cross processes; one process holds every virtual rank (multi-process
-# ranks are ROADMAP A13), so each returns its input, as the JAX package's do
-# in one process (collectives/__init__.py:178-237).
+# They cross processes over the control plane's gloo group, with the JAX
+# package's semantics (collectives/__init__.py:176-237): every process
+# calls each one, and each returns its input in a one-process job, which
+# holds every virtual rank.
+def _gathered(value) -> Optional[list]:
+    """Every process's ``value`` in process order, or None in one
+    process."""
+    from .. import runtime_state
+
+    plane = runtime_state.plane()
+    return None if plane is None else plane.all_gather_object(value)
+
+
+def _process_index() -> int:
+    from .. import runtime_state
+
+    return runtime_state.plane().index
+
+
+def _sum(values, like):
+    """The sum of the processes' scalars in process order, as numpy sums
+    them, in ``like``'s type (ints stay ints)."""
+    import numpy as np
+
+    return type(like)(np.asarray(values).sum())
+
+
 def broadcast_scalar(value, root: int = 0):
     """``root``'s host scalar on every process."""
-    return value
+    values = _gathered(value)
+    return value if values is None else type(value)(values[root])
 
 
 def allreduce_scalar(value):
     """The sum of every process's host scalar."""
-    return value
+    values = _gathered(value)
+    return value if values is None else _sum(values, value)
 
 
 def reduce_scalar(value, root: int = 0):
     """The sum at process ``root``; every other process keeps its input."""
-    return value
+    values = _gathered(value)
+    if values is None or _process_index() != root:
+        return value
+    return _sum(values, value)
 
 
 def sendreceive_scalar(value, src: int, dst: int):
     """Process ``dst`` gets ``src``'s host scalar; the others keep theirs."""
-    return value
+    if src == dst:
+        return value
+    values = _gathered(value)
+    if values is None or _process_index() != dst:
+        return value
+    return type(value)(values[src])
 
 
 def barrier(comm=None) -> None:
     """Wait until every rank of ``comm`` (the current communicator by
-    default) has finished its queued work (:func:`~.eager.barrier`)."""
+    default) has finished its queued work, every process included
+    (:func:`~.eager.barrier`)."""
     eager.barrier(_current_comm(comm))
 
 

@@ -135,7 +135,17 @@ class CollectiveArgumentError(ValueError):
 
 
 def _check_rank_stacked(x: torch.Tensor, comm: Communicator) -> None:
-    if x.ndim < 1 or x.shape[0] != comm.size:
+    """The rank-stacked contract: the leading axis holds this process's
+    ranks of ``comm``, in rank order (every rank in one process; in a job
+    of several processes ``comm.local_size`` rows, the counterpart of a
+    JAX global array's addressable shards)."""
+    if x.ndim < 1 or x.shape[0] != comm.local_size:
+        if comm.multiprocess:
+            raise CollectiveArgumentError(
+                f"eager collectives expect a rank-stacked tensor with leading axis "
+                f"== this process's rank count ({comm.local_size} of the communicator's "
+                f"{comm.size}, ranks {comm.local_ranks}); got shape {tuple(x.shape)}"
+            )
         raise CollectiveArgumentError(
             f"eager collectives expect a rank-stacked tensor with leading axis "
             f"== comm.size ({comm.size}); got shape {tuple(x.shape)}"
@@ -238,11 +248,30 @@ def free_collective_resources(comm: Communicator) -> None:
 
 def barrier(comm: Communicator) -> None:
     """Device barrier over the communicator (``torch_mpi.cpp:270-280``,
-    ``eager.py:1052``): returns once every rank's queued work is done. The
-    virtual ranks share one device, so that is the device's work, the
-    async side stream's included."""
+    ``eager.py:1052``): returns once every rank's queued work is done. A
+    process's virtual ranks share one device, so that is the device's
+    work, the async side stream's included; across processes every
+    process then meets the others at the control plane's barrier."""
     if comm.device.type == "cuda":
         torch.cuda.synchronize(comm.device)
+    if comm.multiprocess:
+        _plane().barrier()
+
+
+def _plane():
+    """The control plane of the multi-process runtime."""
+    from .. import runtime_state
+
+    plane = runtime_state.plane()
+    if plane is None:
+        raise CollectiveArgumentError(
+            "a communicator spanning processes needs the runtime started with a "
+            "coordinator (start(coordinator_address=...) or the launcher)")
+    return plane
+
+
+# the collectives whose cross-process forms are ROADMAP A13's rest
+_XPROC_REST = ("allgather", "reducescatter", "alltoall", "sendreceive")
 
 
 def op_route(op: str, nelem: int, platform: str, requested: str = "ring") -> str:
@@ -435,6 +464,10 @@ def _validate(op: str, x: torch.Tensor, comm: Communicator, root: int,
     lifted) input."""
     if op not in _OPS:
         raise CollectiveArgumentError(f"unknown collective {op!r}")
+    if comm.multiprocess and op in _XPROC_REST:
+        from ..runtime.peers import rest
+
+        raise rest(f"{op}")
     _check_rank_stacked(x, comm)
     if wire_dtype not in (None, "full", "bf16", "int8"):
         # validated on every call: a typo must not pass silently because
@@ -478,11 +511,17 @@ def _compile(op: str, x: torch.Tensor, comm: Communicator, backend: str,
     if backend not in _BACKENDS:
         raise CollectiveArgumentError(f"unknown backend {backend!r}")
     ep = _sched.compile_collective(
-        op, tuple(x.shape), x.dtype, comm, backend=backend,
+        op, _global_shape(x, comm), x.dtype, comm, backend=backend,
         route_small=route_small, wire_dtype=wire_dtype, root=root, src=src,
         dst=dst,
     )
     return x, ep
+
+
+def _global_shape(x: torch.Tensor, comm: Communicator) -> tuple:
+    """The rank-stacked shape over every rank of ``comm``, which the
+    schedule compiler plans for (``x`` holds this process's rows)."""
+    return (comm.size,) + tuple(x.shape[1:])
 
 
 def run(
@@ -557,6 +596,10 @@ def run_allgatherv(blocks, comm: Communicator, backend: str = "xla") -> torch.Te
     rank order. The blocks travel padded to the largest size through the
     ``xla`` or ``ring`` allgather, and each rank keeps the valid prefixes.
     Returns ``[p, ..., sum(sizes)]`` on the communicator's device."""
+    if comm.multiprocess:
+        from ..runtime.peers import rest
+
+        raise rest("allgatherv")
     if len(blocks) != comm.size:
         raise CollectiveArgumentError(
             f"allgatherv expects {comm.size} blocks (one per rank), got {len(blocks)}"
@@ -670,6 +713,10 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, backend: str = "xla"
     # (kNumAsyncCollectivesInFlight, lib/constants.cpp:152-155) by waiting
     # the oldest first, as the reference's bounded queues block enqueue;
     # the table keeps the count, so under the bound this is one read
+    if comm.multiprocess:
+        from ..runtime.peers import rest
+
+        raise rest(f"the async {op}")
     limit = constants.get("num_async_collectives_in_flight")
     while handles.outstanding_kind("collective") >= limit:
         if not handles.wait_oldest("collective"):
@@ -770,7 +817,8 @@ def _precompile_dispatch(specs, comm: Communicator) -> int:
     warmed = 0
     for spec in specs:
         if isinstance(spec, dict) and "layout" in spec:
-            flats = [torch.zeros((comm.size, int(n)), dtype=spec["dtype"], device=comm.device)
+            flats = [torch.zeros((comm.local_size, int(n)), dtype=spec["dtype"],
+                                 device=comm.device)
                      for n in spec["layout"]]
             kw = {}
             if spec.get("wire_dtype") is not None:
@@ -790,6 +838,8 @@ def _precompile_dispatch(specs, comm: Communicator) -> int:
             root = 0
         if shape and shape[0] != comm.size:
             shape = (comm.size,) + shape
+        # this process's rows of it
+        shape = (comm.local_size,) + shape[1:]
         kw = {}
         if wire is not None and op in _WIRE_OPS:
             kw["wire_dtype"] = wire
@@ -825,7 +875,7 @@ def run_hierarchical_allreduce(x: torch.Tensor, comm: Communicator, impl: str = 
 
     generator, eff = ("staged", staged_intra) if impl == "staged" else ("hier", impl)
     ep = _sched.compile_collective(
-        "allreduce", tuple(x.shape), x.dtype, comm, generator=generator, impl=eff,
+        "allreduce", _global_shape(x, comm), x.dtype, comm, generator=generator, impl=eff,
         wire_override=wire,
     )
     return ep.execute(x.contiguous())
@@ -852,7 +902,7 @@ def run_hierarchical_collective(op: str, x: torch.Tensor, comm: Communicator, ro
     from ..schedule import compiler as _sched
 
     ep = _sched.compile_collective(
-        op, tuple(x.shape), x.dtype, comm, root=root, generator="hier", impl=ring_impl,
+        op, _global_shape(x, comm), x.dtype, comm, root=root, generator="hier", impl=ring_impl,
         wire_override="full",
     )
     return ep.execute(x.contiguous())
@@ -872,7 +922,7 @@ def run_tree_hierarchical_allreduce(x: torch.Tensor, comm: Communicator,
     from ..schedule import compiler as _sched
 
     ep = _sched.compile_collective(
-        "allreduce", tuple(x.shape), x.dtype, comm, generator="tree", impl="ring",
+        "allreduce", _global_shape(x, comm), x.dtype, comm, generator="tree", impl="ring",
         wire_override=wire,
     )
     return ep.execute(x.contiguous())
@@ -885,6 +935,10 @@ def run_group_broadcast(x: torch.Tensor, comm: Communicator, root: int = 0) -> t
     becomes its group root's row, one gather over the rank axis, for
     cartesian and ragged (tree) communicators alike."""
     _check_rank_stacked(x, comm)
+    if comm.multiprocess:
+        from ..runtime.peers import rest
+
+        raise rest("the group broadcast")
     groups: dict = {}
     for r in range(comm.size):
         m = comm.member(r)

@@ -179,7 +179,7 @@ class FusionBuffer:
             cap > 0
             and op in _FUSABLE
             and x.ndim >= 2
-            and x.shape[0] == p
+            and x.shape[0] == self.comm.local_size
             and not (op == "reducescatter" and (x.ndim != 2 or x.shape[-1] % p))
         )
         if not fusable:
@@ -190,7 +190,7 @@ class FusionBuffer:
         if group is None:
             group = self._groups[key] = _PendingGroup(self, key, op, x.dtype,
                                                       wire_dtype, backend)
-        idx = group.add(x if x.ndim == 2 else x.reshape(p, -1), x.shape)
+        idx = group.add(x if x.ndim == 2 else x.reshape(x.shape[0], -1), x.shape)
         h = FusionHandle(group, idx)
         handles.register(h, kind="fusion")
         if group.pending_bytes >= cap:

@@ -72,6 +72,22 @@
 //   written, G*(1+p)*row_bytes at 3.35 TB/s (for LeNet at p=8: 30.9 MB,
 //   9.2 us). Pure data movement.
 //
+// - The cross-process forms of K3 and K7 (ranks spread over several
+//   processes on one card, runtime/peers.py). Each process holds only its
+//   own ranks' rows and copies them into its slab, a cudaMalloc that every
+//   other process has mapped (csrc/peer.cpp). The kernel gets a table of p
+//   row pointers, one a rank, into those slabs, passed by value (p <= 32),
+//   and writes the process's own rows only. K3: the same chunk layout and
+//   order of adds as ring_sum above, so the sum is the one-process ring's
+//   on the same [p, n], bit for bit; every process reads all p rows, so p
+//   processes read P_proc times the rows (the ring's ownership of chunks,
+//   each process reducing its own and gathering the rest, is later work).
+//   Bound: p rows read and L rows written by each of the P_proc processes.
+//   K7: the broadcast kernel above with the root's row, in whichever slab
+//   it lies, as its source row and the process's L rows as its output.
+//   Neither kernel waits on another process: the host protocol of
+//   runtime/peers.py orders the copies with interprocess events.
+//
 // The launch shape (common.cuh shape_for). Every kernel here streams: it
 // is bound by bytes, and at the paths' small payloads by the launch and by
 // how many loads are in flight. So (1) the groups share one launch, which
@@ -350,6 +366,64 @@ inline int replicate(const void* src, long long src_group_bytes, void* out, int 
   return (int)cudaGetLastError();
 }
 
+// The p rank rows of the cross-process K3, one pointer a rank, each into
+// the slab of the process that owns it.
+constexpr int kMaxTableRows = 32;
+struct RowTable {
+  const void* row[kMaxTableRows];
+};
+
+// ring_sum over the rows of a table: vector v of rank rows started at rank
+// r, ((x_r + x_{r+1}) + ...) + x_{r+p-1}, ranks mod p.
+template <typename Op, int BYTES, int P>
+__device__ __forceinline__ Pack<typename Op::S, BYTES> table_sum(const RowTable& rows, int p,
+                                                               long long v, int r) {
+  using S = typename Op::S;
+  using R = typename RawOf<BYTES>::T;
+  Pack<S, BYTES> acc;
+  if constexpr (P > 0) {
+    Pack<S, BYTES> in[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int q = (r + k < P) ? r + k : r + k - P;
+      in[k].raw = static_cast<const R*>(rows.row[q])[v];
+    }
+    acc = in[0];
+#pragma unroll
+    for (int k = 1; k < P; ++k) add_into<Op, BYTES>(acc, in[k]);
+  } else {
+    acc.raw = static_cast<const R*>(rows.row[r])[v];
+#pragma unroll 4
+    for (int k = 1; k < p; ++k) {
+      r = (r + 1 == p) ? 0 : r + 1;
+      Pack<S, BYTES> in;
+      in.raw = static_cast<const R*>(rows.row[r])[v];
+      add_into<Op, BYTES>(acc, in);
+    }
+  }
+  return acc;
+}
+
+// The cross-process K3: every vector's ring sum over the table's p rows,
+// written to the `local` rows of out.
+template <typename Op, int BYTES, int P>
+__global__ void __launch_bounds__(256)
+    ring_allreduce_xproc_kernel(const __grid_constant__ RowTable rows,
+                                typename Op::S* __restrict__ out, int p, int local,
+                                long long row_vecs, long long chunk_vecs) {
+  using R = typename RawOf<BYTES>::T;
+  if constexpr (P > 0) p = P;
+  R* outr = reinterpret_cast<R*>(out);
+  const long long seg_vecs = chunk_vecs * p;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       v < row_vecs; v += stride) {
+    const int r = (int)((v % seg_vecs) / chunk_vecs);
+    const auto acc = table_sum<Op, BYTES, P>(rows, p, v, r);
+    for (int q = 0; q < local; ++q) outr[(long long)q * row_vecs + v] = acc.raw;
+  }
+}
+
 // Ranks per group of `rows` rows in `groups` groups, or 0 when they do not
 // split evenly (or more groups than a grid's y dimension takes).
 inline int group_size(int rows, int groups) {
@@ -494,4 +568,49 @@ extern "C" int tm_ring_broadcast(const void* x, void* out, int rows, int groups,
   const unsigned char* src =
       static_cast<const unsigned char*>(x) + (long long)root * row_bytes;
   return tmpi::replicate(src, (long long)p * row_bytes, out, p, row_bytes, groups, stream);
+}
+
+// The cross-process K3. rows: p device addresses, rank r's row of n
+// elements of `dtype` (each in the slab of the process that owns r); out:
+// [local, n] contiguous, every row the ring's sum, in tm_ring_allreduce's
+// chunk layout for a ring of p (chunk_elems, a multiple of 128).
+extern "C" int tm_ring_allreduce_xproc(const unsigned long long* rows, int p, void* out,
+                                       int local, int dtype, long long n,
+                                       long long chunk_elems, void* stream) {
+  using namespace tmpi;
+  const int itemsize = itemsize_of(dtype);
+  if (itemsize == 0 || p < 1 || p > kMaxTableRows || local < 1 || n < 0 ||
+      chunk_elems <= 0 || chunk_elems % 128) {
+    return (int)cudaErrorInvalidValue;
+  }
+  RowTable table = {};
+  int bytes = 16;
+  for (int r = 0; r < p; ++r) {
+    table.row[r] = reinterpret_cast<const void*>(rows[r]);
+    const int w = vector_bytes(itemsize, (unsigned long long)n * itemsize, table.row[r], out);
+    if (w < bytes) bytes = w;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool launched = with_reduce_type(dtype, bytes, [&](auto op, auto width) {
+    using Op = decltype(op);
+    using S = typename Op::S;
+    constexpr int kBytes = decltype(width)::value;
+    constexpr int kVW = kBytes / (int)sizeof(S);
+    const LaunchShape sh = shape_for(n / kVW, 1);
+    with_ranks(p, [&](auto ranks) {
+      ring_allreduce_xproc_kernel<Op, kBytes, decltype(ranks)::value>
+          <<<sh.grid, sh.threads, 0, s>>>(table, static_cast<S*>(out), p, local, n / kVW,
+                                          chunk_elems / kVW);
+    });
+  });
+  if (!launched) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The cross-process K7: the root's row_bytes at `src` (in the slab of the
+// process that owns the root) written to each of the `local` rows of out.
+extern "C" int tm_ring_broadcast_xproc(const void* src, void* out, int local,
+                                       long long row_bytes, void* stream) {
+  if (local < 1 || row_bytes < 0) return (int)cudaErrorInvalidValue;
+  return tmpi::replicate(src, row_bytes, out, local, row_bytes, 1, stream);
 }

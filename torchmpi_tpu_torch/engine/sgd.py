@@ -364,6 +364,10 @@ class AllReduceSGDEngine:
             )
         if rank_map not in ("vmap", "loop"):
             raise ValueError(f"rank_map must be 'vmap' or 'loop', got {rank_map!r}")
+        if comm.multiprocess and (sharded or mode == "async"):
+            from ..runtime.peers import rest
+
+            raise rest(f"the engine's {param_sharding if sharded else mode} mode")
         if wire_dtype is None:
             wire_dtype = constants.get("wire_dtype") if not sharded else "full"
         if wire_dtype in ("bf16", "int8") and sharded:
@@ -371,6 +375,10 @@ class AllReduceSGDEngine:
                 f"wire_dtype={wire_dtype!r} requires param_sharding='replicated' (the "
                 "sharded modes' reduce-scatter and allgather ship the full wire)"
             )
+        if comm.multiprocess and wire_dtype in ("bf16", "int8"):
+            from ..runtime.peers import rest
+
+            raise rest(f"the {wire_dtype} wire")
         self.wire_dtype = wire_dtype
         # a compressed wire needs the bucketed (flat-buffer) sync even in
         # sync mode; one bucket keeps sync mode's single collective
@@ -422,7 +430,7 @@ class AllReduceSGDEngine:
             torch.func.grad_and_value(self.loss_fn, has_aux=has_state))
 
     def _replicate(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        p = self.comm.size
+        p = self.comm.local_size
         return {k: v.detach().to(self.comm.device).unsqueeze(0).repeat((p,) + (1,) * v.ndim)
                 for k, v in tree.items()}
 
@@ -482,7 +490,8 @@ class AllReduceSGDEngine:
             return torch.func.vmap(fn)
 
         def loop(*args):
-            outs = [fn(*pytree.tree_map(lambda t, r=r: t[r], args)) for r in range(self.comm.size)]
+            outs = [fn(*pytree.tree_map(lambda t, r=r: t[r], args))
+                    for r in range(self.comm.local_size)]
             flat, spec = zip(*(pytree.tree_flatten(o) for o in outs))
             return pytree.tree_unflatten([torch.stack(leaves) for leaves in zip(*flat)], spec[0])
 
@@ -501,8 +510,14 @@ class AllReduceSGDEngine:
         every leaf has at least two dims and a leading axis of p; that is
         ambiguous for flat batches of exactly p samples whose every leaf
         is at least 2-D (one-hot labels ``[p, C]``), which
-        ``batch_format='flat'`` or ``'stacked'`` settles."""
-        p = self.comm.size
+        ``batch_format='flat'`` or ``'stacked'`` settles. In a job of
+        several processes each gets the global batch and keeps its own
+        ranks' rows (rank r's slice is the r-th ``B`` samples), or a
+        rank-stacked batch of its own ``[L, B, ...]`` rows as it is."""
+        comm = self.comm
+        p = comm.size
+        if comm.multiprocess:
+            return self._local_batch(batch)
         leaves, spec = pytree.tree_flatten(batch)
         leaves = [torch.as_tensor(t).to(self.comm.device) for t in leaves]
         if self.batch_format == "auto":
@@ -516,6 +531,33 @@ class AllReduceSGDEngine:
             leaves = [t.reshape((p, t.shape[0] // p) + t.shape[1:]) for t in leaves]
         return pytree.tree_unflatten(leaves, spec)
 
+    def _local_batch(self, batch):
+        """:meth:`_prepare_batch` in a job of several processes: this
+        process's ``[L, B, ...]`` rows of a global batch, flat or stacked
+        over every rank, or a batch of its own rows as it is."""
+        comm = self.comm
+        p, own = comm.size, comm.local_size
+        leaves, spec = pytree.tree_flatten(batch)
+        leaves = [torch.as_tensor(t) for t in leaves]
+
+        def lead(n):
+            return all(t.ndim >= 2 and t.shape[0] == n for t in leaves)
+
+        if self.batch_format != "flat" and lead(own):
+            rows = leaves
+        elif self.batch_format != "flat" and lead(p):
+            rows = [t[comm.local_ranks] for t in leaves]
+        elif self.batch_format == "stacked":
+            raise ValueError(f"stacked batch leaves {[tuple(t.shape) for t in leaves]} lead "
+                             f"with neither the {p} ranks nor this process's {own}")
+        else:
+            bad = [tuple(t.shape) for t in leaves if t.ndim < 1 or t.shape[0] % p]
+            if bad:
+                raise ValueError(f"flat batch leaves {bad} do not split over {p} ranks")
+            rows = [t.reshape((p, t.shape[0] // p) + t.shape[1:])[comm.local_ranks]
+                    for t in leaves]
+        return pytree.tree_unflatten([t.to(comm.device) for t in rows], spec)
+
     def _grads(self, params: Tree, state, batch) -> tuple:
         """``(grads, loss, new_state)`` of one (micro)batch: the ranks'
         gradients (under the sharded modes with a model state, the
@@ -523,10 +565,10 @@ class AllReduceSGDEngine:
         scalar, and the new state, not yet averaged."""
         if state is None:
             grads, losses = self._grad_fn(params, batch)
-            return grads, losses.mean(), None
+            return grads, self._rank_mean(losses), None
         if self.param_sharding == "replicated":
             grads, (losses, new_state) = self._grad_fn(params, state, batch)
-            return grads, losses.mean(), new_state
+            return grads, self._rank_mean(losses), new_state
         keys = list(params)
         leaves = [params[k].detach().requires_grad_() for k in keys]
         with torch.enable_grad():
@@ -534,6 +576,16 @@ class AllReduceSGDEngine:
             grads = torch.autograd.grad(loss, leaves)
         return (dict(zip(keys, grads)), loss.detach(),
                 {k: v.detach() for k, v in new_state.items()})
+
+    def _rank_mean(self, values: torch.Tensor) -> torch.Tensor:
+        """The mean of a per-rank ``[L]`` tensor over every rank: across
+        processes the ranks' values gathered from the slabs first, so the
+        mean is the one-process mean over the same ``[p]``."""
+        if self.comm.multiprocess:
+            from ..schedule.lower import gather_full
+
+            values = gather_full(self.comm, "ring", values.contiguous())
+        return values.mean()
 
     def _accumulated(self, params: Tree, batch) -> tuple:
         """:meth:`_grads` over ``accum_steps`` microbatches in turn: the
@@ -882,16 +934,19 @@ class AllReduceSGDEngine:
         the same batches (``sgd.py:1199-1241``). With telemetry each epoch
         is recorded as one ``engine.epoch``."""
         p, dev = self.comm.size, self.comm.device
+        local = self.comm.local_ranks
         xd, yd = self.stage_dataset(x, y, dtype=image_dtype)
         ns = xd.shape[0] // p
         nb = ns // per_rank_batch
         if nb == 0:
             raise ValueError(f"dataset shard of {ns} samples < per-rank batch {per_rank_batch}")
         xs, ys = xd.reshape((p, ns) + xd.shape[1:]), yd.reshape((p, ns) + yd.shape[1:])
-        rows = torch.arange(p, device=dev)[:, None]
+        if self.comm.multiprocess:  # this process's ranks' shards
+            xs, ys = xs[local], ys[local]
+        rows = torch.arange(len(local), device=dev)[:, None]
         gens = [torch.Generator().manual_seed(
             int(np.random.SeedSequence((seed, r)).generate_state(1, np.uint64)[0]))
-            for r in range(p)]
+            for r in local]
         state: Dict[str, Any] = {
             "engine": self, "epoch": 0, "t": 0, "training": True, "loss": None,
             "losses": [], "epoch_times": [], "samples": 0, "time": 0.0,
@@ -906,7 +961,7 @@ class AllReduceSGDEngine:
             if shuffle:
                 perm = torch.stack([torch.randperm(ns, generator=g) for g in gens]).to(dev)
             else:
-                perm = torch.arange(ns, device=dev).expand(p, ns)
+                perm = torch.arange(ns, device=dev).expand(len(local), ns)
             losses = []
             for i in range(nb):
                 idx = perm[:, i * per_rank_batch:(i + 1) * per_rank_batch]
@@ -982,6 +1037,8 @@ class AllReduceSGDEngine:
             raise ValueError(f"evaluation set of {len(x)} samples < {p} ranks")
         xd, yd = self._staged_eval(x, y)
         xs, ys = xd.reshape((p, -1) + xd.shape[1:]), yd.reshape(p, -1)
+        if self.comm.multiprocess:
+            xs, ys = xs[self.comm.local_ranks], ys[self.comm.local_ranks]
         params = self.gathered_params()
         if self.model_state is None:
             fn, args = (lambda prm, xb, yb: metric(apply_fn(prm, xb), yb)), (params,)
@@ -990,7 +1047,7 @@ class AllReduceSGDEngine:
             args = (params, self.model_state)
         with torch.no_grad():
             values = self._per_rank(fn)(*args, xs, ys)
-        return float(values.float().mean())
+        return float(self._rank_mean(values.float()))
 
     def collective_specs(self) -> List:
         """The gradient sync's collectives as declared specs for

@@ -61,7 +61,8 @@ def _comm(comm: Optional[Communicator]) -> Communicator:
 
 def _fused_apply(tree: Tree, p: int, sync_one: Callable) -> Tree:
     """Apply ``sync_one`` to one fused ``[p, total]`` buffer per dtype
-    (``nn/__init__.py:58``): O(#dtypes) collectives, integer leaves exact."""
+    (``nn/__init__.py:58``): O(#dtypes) collectives, integer leaves exact.
+    ``p`` is the leaves' rows: this process's ranks."""
     by_dtype: Dict[torch.dtype, list] = {}
     for name, leaf in tree.items():
         by_dtype.setdefault(leaf.dtype, []).append(name)
@@ -84,7 +85,8 @@ def synchronize_parameters(
     fused: bool = True,
 ) -> Tree:
     """Make every rank's parameters identical: broadcast from ``root`` or
-    allreduce and divide by size (``nn.lua:32-46``)."""
+    allreduce and divide by size (``nn.lua:32-46``). The leaves hold this
+    process's ranks' rows."""
     comm = _comm(comm)
     p = comm.size
 
@@ -94,7 +96,7 @@ def synchronize_parameters(
         return collectives.broadcast_tensor(buf, root=root, comm=comm)
 
     if fused:
-        return _fused_apply(params, p, sync_one)
+        return _fused_apply(params, comm.local_size, sync_one)
     return {k: sync_one(v) for k, v in params.items()}
 
 
@@ -132,7 +134,7 @@ def synchronize_gradients(
             }
             fb.flush_for(handles.values())
             return {k: finish(h.wait(), grads[k]) for k, h in handles.items()}
-        return _fused_apply(grads, p, lambda buf: finish(allreduce(buf), buf))
+        return _fused_apply(grads, comm.local_size, lambda buf: finish(allreduce(buf), buf))
     return {k: finish(allreduce(g), g) for k, g in grads.items()}
 
 
@@ -399,11 +401,13 @@ def check_with_allreduce(
 ) -> None:
     """Assert replicas are consistent: for each rank, the allreduced
     |mean| and |var| of its flattened parameters must equal size times its
-    own (``init.lua:387-394``). Cheap, and catches desync bugs early."""
+    own (``init.lua:387-394``). Cheap, and catches desync bugs early.
+    Across processes each checks its own ranks against the allreduce over
+    every process's."""
     comm = _comm(comm)
     p = comm.size
     buf = torch.cat(
-        [v.reshape(p, -1).to(torch.float32) for v in params.values()], dim=1
+        [v.reshape(comm.local_size, -1).to(torch.float32) for v in params.values()], dim=1
     )
     stats = torch.stack(
         [buf.mean(dim=1).abs(), buf.var(dim=1, correction=0).abs()], dim=1

@@ -10,6 +10,10 @@
   ``ops/ring_kernels.py:_ring_bidir_kernel``;
 - ``ring_broadcast`` (``csrc/ring_kernels.cu``) replaces
   ``ops/ring_kernels.py:_ring_broadcast_kernel``;
+- ``ring_allreduce_xproc`` and ``ring_broadcast_xproc`` (the same file)
+  are K3's allreduce and K7 across processes: they read the rank rows
+  from every process's slab (``runtime/peers.py``) and write the
+  process's own rows;
 - ``ring_allreduce_quant`` and ``ring_reduce_scatter_quant``
   (``csrc/ring_quant.cu``) replace ``ops/ring_kernels.py:_ring_quant_kernel``
   in its allreduce and 'rs' modes (int8 or bf16 on every hop);
@@ -61,8 +65,12 @@ from .ring_kernels import (
     ring_allreduce_plain,
     ring_allreduce_quant,
     ring_allreduce_quant_plain,
+    ring_allreduce_xproc,
+    ring_allreduce_xproc_plain,
     ring_broadcast,
     ring_broadcast_plain,
+    ring_broadcast_xproc,
+    ring_broadcast_xproc_plain,
     ring_reduce,
     ring_reduce_plain,
     ring_reduce_scatter,
@@ -98,12 +106,16 @@ __all__ = [
     "ring_allreduce_plain",
     "ring_allreduce_quant",
     "ring_allreduce_quant_plain",
+    "ring_allreduce_xproc",
+    "ring_allreduce_xproc_plain",
     "ring_attention_bwd",
     "ring_attention_bwd_plain",
     "ring_attention_fwd",
     "ring_attention_fwd_plain",
     "ring_broadcast",
     "ring_broadcast_plain",
+    "ring_broadcast_xproc",
+    "ring_broadcast_xproc_plain",
     "ring_reduce",
     "ring_reduce_plain",
     "ring_reduce_scatter",

@@ -30,8 +30,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("reduce_kernel", "ring_kernels", "ring_quant", "ring_attention")
-# Python extension modules (csrc/<name>.cpp, module tm_<name>)
-EXTENSIONS = ("issue",)
+# Python extension modules (csrc/<name>.cpp, module tm_<name>): the C++
+# async issue path and the cross-process slabs (runtime/peers.py)
+EXTENSIONS = ("issue", "peer")
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -67,6 +67,8 @@ launches = {
     "ring_allgather": 0,
     "ring_reduce": 0,
     "ring_allreduce_bidir": 0,
+    "ring_allreduce_xproc": 0,
+    "ring_broadcast_xproc": 0,
     **{f"{op}_{wire}": 0 for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant")
        for wire in WIRES},
 }
@@ -85,7 +87,14 @@ _SIGNATURES = {
     "tm_ring_reduce": [_PTR, _PTR, _INT, _INT, _LONG, _LONG, _INT, _PTR],
     # x, out, dtype, p, n, half, chunk_elems, stream
     "tm_ring_allreduce_bidir": [_PTR, _PTR, _INT, _INT, _LONG, _LONG, _LONG, _PTR],
+    # rows (p addresses), p, out, local, dtype, n, chunk_elems, stream
+    "tm_ring_allreduce_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT, _PTR, _INT, _INT,
+                                _LONG, _LONG, _PTR],
+    # src, out, local, row_bytes, stream
+    "tm_ring_broadcast_xproc": [_PTR, _PTR, _INT, _LONG, _PTR],
 }
+# the cross-process K3's row table (csrc/ring_kernels.cu kMaxTableRows)
+MAX_TABLE_ROWS = 32
 
 
 def _lib():
@@ -467,6 +476,95 @@ def ring_broadcast(x: torch.Tensor, root: int = 0, groups: int = 1,
         _launch("tm_ring_broadcast", x, x.data_ptr(), out.data_ptr(), x.shape[0], groups,
                 row_bytes, root, stream=stream)
         launches["ring_broadcast"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the cross-process forms: ranks spread over several processes on one card
+# (runtime/peers.py); the rows are read where they lie, in the slabs
+# ---------------------------------------------------------------------------
+
+
+def _check_table(rows, local: int, what: str) -> None:
+    if not rows or not 1 <= len(rows) <= MAX_TABLE_ROWS:
+        raise ValueError(f"{what} takes 1 to {MAX_TABLE_ROWS} rank rows, got {len(rows)}")
+    if local < 1:
+        raise ValueError(f"{what}: a process holds at least one rank, got {local}")
+    first = rows[0]
+    for r in rows:
+        if r.shape != first.shape or r.dtype != first.dtype or r.device != first.device:
+            raise ValueError(f"{what}: the rank rows differ in shape, dtype or device")
+        if not r.is_contiguous():
+            raise ValueError(f"{what} expects contiguous rank rows")
+
+
+def ring_allreduce_xproc_plain(rows, local: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_allreduce_xproc`: the p rank
+    rows stacked, the ring's sum in :func:`ring_allreduce`'s chunk layout
+    and order of adds for a ring of p, copied to ``local`` rows."""
+    _check_table(rows, local, "ring_allreduce_xproc")
+    x = torch.stack(list(rows))
+    if len(rows) == 1:
+        return x.expand((local,) + tuple(x.shape[1:])).contiguous()
+    out = ring_allreduce_plain(x)
+    return out[:1].expand((local,) + tuple(x.shape[1:])).contiguous()
+
+
+def ring_allreduce_xproc(rows, local: int, stream=None) -> torch.Tensor:
+    """Sum-allreduce over ranks held by several processes: ``rows`` are
+    the p rank rows in rank order (each a contiguous tensor where it lies:
+    this process's or a peer's mapped slab), and the result is
+    ``[local, ...]``, the process's own rows, each the ring's sum. The
+    sum is :func:`ring_allreduce`'s on the stacked rows, bit for bit (the
+    same chunk layout and order of adds). One launch of the cross-process
+    K3 (``ring_allreduce_pallas`` across processes, ``ring_kernels.py:
+    385``); the plain version for CPU rows. Natively reduced dtypes only:
+    the caller casts to :func:`carrier_dtype` before it publishes."""
+    first = rows[0]
+    if first.device.type == "cpu":
+        return ring_allreduce_xproc_plain(rows, local)
+    _check_table(rows, local, "ring_allreduce_xproc")
+    _check_cuda(first, "ring_allreduce_xproc")
+    if first.dtype not in NATIVE_DTYPES:
+        raise ValueError(f"ring_allreduce_xproc reduces {sorted(map(str, NATIVE_DTYPES))}, "
+                         f"not {first.dtype}")
+    p = len(rows)
+    out = torch.empty((local,) + tuple(first.shape), dtype=first.dtype, device=first.device)
+    n = first.numel()
+    if n:
+        table = (ctypes.c_ulonglong * p)(*[r.data_ptr() for r in rows])
+        _launch("tm_ring_allreduce_xproc", first, table, p, out.data_ptr(), local,
+                NATIVE_DTYPES[first.dtype], n, chunk_elems(n, p, first.dtype), stream=stream)
+        launches["ring_allreduce_xproc"] += 1
+    return out
+
+
+def ring_broadcast_xproc_plain(src: torch.Tensor, local: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_broadcast_xproc`: the root's
+    row copied to ``local`` rows."""
+    _check_table([src], local, "ring_broadcast_xproc")
+    return src[None].expand((local,) + tuple(src.shape)).contiguous()
+
+
+def ring_broadcast_xproc(src: torch.Tensor, local: int, stream=None) -> torch.Tensor:
+    """Broadcast across processes: ``src`` is the root rank's row where it
+    lies (this process's or a peer's mapped slab), the result ``[local,
+    ...]`` its bytes in each of the process's own rows. One launch of the
+    cross-process K7 (``ring_broadcast_pallas`` across processes,
+    ``ring_kernels.py:1386``); the plain version for a CPU row. Any dtype
+    but complex: the kernel copies bytes."""
+    if src.device.type == "cpu":
+        return ring_broadcast_xproc_plain(src, local)
+    _check_table([src], local, "ring_broadcast_xproc")
+    _check_cuda(src, "ring_broadcast_xproc")
+    if src.dtype.is_complex:
+        raise ValueError(f"ring_broadcast_xproc: complex dtypes are not supported ({src.dtype})")
+    out = torch.empty((local,) + tuple(src.shape), dtype=src.dtype, device=src.device)
+    row_bytes = src.numel() * src.element_size()
+    if row_bytes:
+        _launch("tm_ring_broadcast_xproc", src, src.data_ptr(), out.data_ptr(), local,
+                row_bytes, stream=stream)
+        launches["ring_broadcast_xproc"] += 1
     return out
 
 

@@ -5,7 +5,7 @@ The in-process data path honours the ``parameterserver_wire_dtype``
 precision (:mod:`.wire`) and supports client-side double-buffered prefetch
 (:meth:`ParameterServer.prefetch`, ``ps_prefetch``). The socket transport,
 its event loop, the shm lane, replication chains, delta fetches and
-``serve/`` wait for later slices (ROADMAP A7, A13)."""
+``serve/`` wait for later slices (ROADMAP A7's rest)."""
 
 from . import wire
 from .rules import UPDATE_RULES

@@ -39,7 +39,7 @@ tensor, never shards of two (the serving tier's snapshots rely on it).
 ``receive``/``prefetch`` take the JAX package's ``read_policy``; with no
 replica chain in one process it routes nothing.
 
-Waiting for a later PR (ROADMAP A7, A13): owners in another process (the
+Waiting for a later PR (ROADMAP A7's rest): owners in another process (the
 socket transport), replication chains and ``reform``, the shm lane, delta
 fetches and the native store. A communicator whose ranks span processes
 raises ``NotImplementedError``.
@@ -379,7 +379,7 @@ class ParameterServer:
         if comm.num_nodes() > 1:
             raise NotImplementedError(
                 "a parameter server over ranks in several processes needs the "
-                "socket transport (ROADMAP A13)"
+                "socket transport (ROADMAP A7's rest, over the processes of ROADMAP A13)"
             )
         self.comm = comm
         full = torch.as_tensor(initial_value)
@@ -464,7 +464,7 @@ class ParameterServer:
         ``owner``, as in the JAX package). It routes a fetch over a shard's
         replica chain; every shard of the port's parameter server is in
         this process, with no chain, so the policy routes nothing until
-        the socket transport lands (ROADMAP A13)."""
+        the socket transport lands (ROADMAP A7's rest)."""
         _resolve_read_policy(read_policy)  # resolved as in JAX; routes nothing yet
         if self._inst.freed:
             raise RuntimeError("parameter server already freed")

@@ -16,7 +16,7 @@ same f32 input:
 
 Shards stay f32 master copies: only the exchanged values are lossy. The
 chunk container and the frame encoding (``:197-347``) belong to the socket
-transport and wait for it (ROADMAP A13).
+transport and wait for it (ROADMAP A7's rest).
 """
 
 from __future__ import annotations

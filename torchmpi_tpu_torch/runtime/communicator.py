@@ -1,10 +1,13 @@
 """Hierarchical named communicator stack over virtual ranks on one device.
 
-The PyTorch port of ``torchmpi_tpu/runtime/communicator.py``. The JAX
-package is single-controller: its p ranks are p devices of one process,
-and eager collectives take rank-stacked ``[p, ...]`` arrays. Here the p
-ranks are *virtual*: they all live on one ``torch.device`` and a rank is
-an index into the leading axis of a rank-stacked tensor.
+The PyTorch port of ``torchmpi_tpu/runtime/communicator.py``. In the JAX
+package a rank is a device, and a process owns some of them (all in
+single-controller mode). Here the ranks are *virtual*: a process's ranks
+all live on one ``torch.device`` and a rank is an index into the leading
+axis of a rank-stacked tensor. Each rank knows the process that owns it
+(``processes``); a process passes and gets the rows of its own ranks only
+(:attr:`Communicator.local_ranks`, in rank order), the counterpart of a JAX
+global array's addressable shards. In one process every rank is local.
 
 Construction follows the reference (``lib/resources.cpp:187-350``) exactly
 as the JAX class does: stable-sort members by ``(key, rank)``, group equal
@@ -52,8 +55,14 @@ class Communicator:
         keys: Optional[Sequence[str]] = None,
         name: str = "global",
         cartesian: Optional[bool] = None,
+        processes: Optional[Sequence[int]] = None,
+        process_index: int = 0,
     ):
         ranks = [int(r) for r in ranks]
+        if processes is None:
+            processes = [int(process_index)] * len(ranks)
+        if len(processes) != len(ranks):
+            raise CommunicatorError(f"got {len(processes)} processes for {len(ranks)} ranks")
         if keys is None:
             keys = [""] * len(ranks)
         if len(keys) != len(ranks):
@@ -67,6 +76,10 @@ class Communicator:
         self.device = torch.device(device)
         self._ranks = ranks
         self._keys = keys
+        self._processes = [int(q) for q in processes]
+        self.process_index = int(process_index)
+        # positions owned by this process, in rank order
+        self._local = [r for r, q in enumerate(self._processes) if q == self.process_index]
 
         # Stable sort by (key, original rank) — resources.cpp:236-244.
         order = sorted(range(len(ranks)), key=lambda r: (keys[r], r))
@@ -128,10 +141,37 @@ class Communicator:
     def member(self, rank: int) -> _Member:
         return self._members[rank]
 
+    @property
+    def processes(self) -> List[int]:
+        """The process that owns each rank, by position."""
+        return list(self._processes)
+
+    def process_of(self, rank: int) -> int:
+        return self._processes[rank]
+
+    @property
+    def local_ranks(self) -> List[int]:
+        """The positions of this process's ranks, in rank order: the rows
+        of every rank-stacked tensor it passes to or gets from a
+        collective on this communicator."""
+        return list(self._local)
+
+    @property
+    def local_size(self) -> int:
+        """Rows of a rank-stacked tensor in this process."""
+        return len(self._local)
+
+    @property
+    def multiprocess(self) -> bool:
+        """True when the ranks span more than one process."""
+        return len(self._local) != len(self._ranks)
+
     def num_nodes(self) -> int:
-        """Distinct hosts spanned (``torch_mpi.cpp:321-350``): every
-        virtual rank lives in this process on one device, so one."""
-        return 1
+        """Distinct hosts spanned (``torch_mpi.cpp:321-350``), counted as
+        distinct processes, as the JAX communicator counts them
+        (``communicator.py:189``). Virtual hosts made by keys in one
+        process are one node."""
+        return len(set(self._processes))
 
     def describe(self) -> str:
         """Topology string (analog of the startup dump, init.lua:456-459)."""
@@ -141,9 +181,16 @@ class Communicator:
             f"{'cartesian' if self.cartesian else 'tree'} "
             f"device={self.device}"
         ]
+        if self.num_nodes() > 1:
+            lines[0] += (f" processes={self.num_nodes()} (this process "
+                         f"{self.process_index}: ranks {self._local})")
         for gi, g in enumerate(self._groups):
             ids = ",".join(str(self._ranks[r]) for r in g)
-            lines.append(f"  intra[{gi}] key={self._group_keys[gi]!r} ranks=[{ids}]")
+            line = f"  intra[{gi}] key={self._group_keys[gi]!r} ranks=[{ids}]"
+            if self.num_nodes() > 1:
+                procs = sorted({self._processes[r] for r in g})
+                line += f" processes={procs}"
+            lines.append(line)
         return "\n".join(lines)
 
     def __repr__(self) -> str:
@@ -238,4 +285,6 @@ def split_by_keys(
         key_list,
         name=name or f"{parent.name}/split",
         cartesian=cartesian,
+        processes=parent.processes,
+        process_index=parent.process_index,
     )

@@ -4,7 +4,12 @@ The port of ``torchmpi_tpu/runtime_state.py`` (``lib/torch_mpi.cpp:38-51``
 state plus the start/stop lifecycle of ``torch_mpi.cpp:233-306``). Where
 the JAX ``start()`` takes the process's devices as ranks, this one takes a
 rank count and one device: ``start(ranks=p)`` stands for the JAX test
-mesh's ``--cpu-mesh p`` virtual devices, all held on one CUDA card.
+mesh's ``--cpu-mesh p`` virtual devices, all held on one CUDA card. Given
+a coordinator (``start(coordinator_address=, num_processes=,
+process_id=)``, or the launcher's ``TORCHMPI_TPU_*`` environment),
+``ranks`` is the process's own rank count, the world is every process's
+ranks in process order, and the control plane and the slabs of
+``runtime/peers.py`` carry what crosses processes.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ from .runtime.communicator import (
 
 _lock = threading.Lock()
 _stack: Optional[CommunicatorStack] = None
+# the processes' control plane (runtime/peers.py) while a multi-process
+# runtime is started
+_plane = None
 
 
 class NotStartedError(RuntimeError):
@@ -93,13 +101,32 @@ def start(
     collective_communicator: Optional[Tuple[int, int]] = None,
     precompile_collectives: Optional[Sequence] = None,
     load_tuned_constants: bool = True,
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    with_ici_groups: bool = True,
     **constant_overrides,
 ) -> None:
     """Initialise the runtime (``MPI.start``, ``torchmpi/init.lua:31-100``).
 
-    - ``ranks`` — the number of virtual ranks (the JAX tests' and verify
-      recipe's 8-device CPU mesh by default).
-    - ``device`` — where every rank's tensors live; ``None`` is ``cuda:0``.
+    - ``ranks`` — the number of virtual ranks of this process (the JAX
+      tests' and verify recipe's 8-device CPU mesh by default); the
+      launcher's ``TORCHMPI_TPU_LOCAL_RANKS`` (``--cpu-devices K``) wins.
+    - ``device`` — where every rank's tensors live; ``None`` is ``cuda:0``
+      (``'cpu'`` under the launcher's ``TORCHMPI_TPU_FORCE_CPU``).
+    - ``coordinator_address``/``num_processes``/``process_id`` — a job of
+      several processes (``init.lua``'s ``MPI_Init``; the JAX package's
+      ``jax.distributed.initialize``): ``host:port`` of process 0, which
+      the control plane's gloo group meets at. Read from
+      ``TORCHMPI_TPU_COORDINATOR``, ``TORCHMPI_TPU_NUM_PROCESSES`` and
+      ``TORCHMPI_TPU_PROCESS_ID`` when the first is set (``python -m
+      torchmpi_tpu_torch.launch`` sets all three). The world is the sum of
+      every process's ``ranks``, process 0's first; a process's
+      rank-stacked tensors then hold its own rows only.
+    - ``with_ici_groups`` — in a job of several processes, push a
+      per-process level (keys ``host<process> ici group``) and set the
+      span to it and the level below (``initPerNodeCommunicators``,
+      ``init.lua:417-461``).
     - ``with_cartesian_communicator`` — cartesian vs tree mode, set
       *before* building communicators (``init.lua:61-65``).
     - ``custom_communicator_init`` — callback run right after start, in
@@ -134,29 +161,43 @@ def start(
                 f"start() got unknown constants override {name!r} "
                 "(see constants.snapshot() for valid knobs)"
             )
+    if os.environ.get("TORCHMPI_TPU_LOCAL_RANKS"):
+        ranks = int(os.environ["TORCHMPI_TPU_LOCAL_RANKS"])
+    if device is None and os.environ.get("TORCHMPI_TPU_FORCE_CPU", "").lower() in (
+            "1", "true", "yes", "on"):
+        device = "cpu"
     if ranks < 1:
         raise ValueError(f"start() needs at least one rank, got {ranks}")
+    coordinator_address, num_processes, process_id = _world_from_env(
+        coordinator_address, num_processes, process_id)
     dev = resolve_device(device)
     with _lock:
         if _stack is not None:
             raise RuntimeError("torchmpi_tpu_torch.start() called twice")
-        _apply_env_constants()
-        for name, value in constant_overrides.items():
-            constants.set(name, value)
-        prev_cartesian = constants.get("use_cartesian_communicator")
-        if with_cartesian_communicator is not None:
-            constants.set(
-                "use_cartesian_communicator", bool(with_cartesian_communicator)
-            )
-        _stack = CommunicatorStack(Communicator(range(ranks), dev, name="global"))
+    _apply_env_constants()
+    for name, value in constant_overrides.items():
+        constants.set(name, value)
+    prev_cartesian = constants.get("use_cartesian_communicator")
+    try:
+        root = _root_communicator(ranks, dev, coordinator_address, num_processes, process_id,
+                                  with_cartesian_communicator)
+        with _lock:
+            if _stack is not None:
+                raise RuntimeError("torchmpi_tpu_torch.start() called twice")
+            _stack = CommunicatorStack(root)
+    except BaseException:
+        _abandon_plane()
+        if not constants.constants_frozen():
+            constants.set("use_cartesian_communicator", prev_cartesian)
+        raise
     try:
         import socket
 
         from . import telemetry
 
         telemetry.record_clock_sync(
-            process_index=0, process_count=1,
-            rank=int(os.environ.get("TORCHMPI_TPU_PROCESS_ID", 0)),
+            process_index=root.process_index, process_count=root.num_nodes(),
+            rank=int(os.environ.get("TORCHMPI_TPU_PROCESS_ID", root.process_index)),
             host=socket.gethostname(),
         )
         if constants.get("watchdog_timeout_seconds") > 0:
@@ -168,6 +209,8 @@ def start(
             )
         if custom_communicator_init is not None:
             custom_communicator_init()
+        if with_ici_groups:
+            _init_per_node_communicators()
         if collective_communicator is not None:
             _stack.set_span(*collective_communicator)
         if load_tuned_constants and not constants.constants_frozen():
@@ -198,20 +241,109 @@ def start(
             precompile(precompile_collectives, comm=_stack.current)
     except BaseException:
         # roll back so a corrected retry of start() works, the cartesian
-        # constant set above included
+        # constant set above and the control plane included
         with _lock:
             _stack = None
             if not constants.constants_frozen():
                 constants.set("use_cartesian_communicator", prev_cartesian)
+        _abandon_plane()
         raise
+
+
+def _world_from_env(coordinator_address, num_processes, process_id):
+    """The job's ``(coordinator, processes, process id)``: the arguments,
+    else the launcher's environment (``runtime_state.py:149-185`` of the
+    JAX package, with its error text); ``(None, None, None)`` for one
+    process."""
+    if coordinator_address is None and "TORCHMPI_TPU_COORDINATOR" in os.environ:
+        coordinator_address = os.environ["TORCHMPI_TPU_COORDINATOR"]
+        try:
+            if num_processes is None:
+                num_processes = int(os.environ["TORCHMPI_TPU_NUM_PROCESSES"])
+            if process_id is None:
+                process_id = int(os.environ["TORCHMPI_TPU_PROCESS_ID"])
+        except KeyError as e:
+            raise ValueError(
+                "TORCHMPI_TPU_COORDINATOR is set but its companion "
+                f"variable {e.args[0]} is missing — export all three "
+                "(the launcher sets them together) or pass "
+                "coordinator_address/num_processes/process_id explicitly"
+            ) from None
+    if coordinator_address is None and (num_processes is not None or process_id is not None):
+        raise ValueError("num_processes/process_id require coordinator_address")
+    if coordinator_address is not None:
+        if not coordinator_address:
+            raise ValueError("coordinator_address must name host:port of process 0")
+        if num_processes is None or process_id is None:
+            raise ValueError("coordinator_address needs num_processes and process_id")
+        if not 0 <= int(process_id) < int(num_processes):
+            raise ValueError(f"process_id {process_id} outside [0, {num_processes})")
+    return coordinator_address, num_processes, process_id
+
+
+def _root_communicator(ranks: int, dev: torch.device, coordinator: Optional[str],
+                       num_processes: Optional[int], process_id: Optional[int],
+                       cartesian: Optional[bool]) -> Communicator:
+    """The global communicator: ``ranks`` ranks in one process, or every
+    process's ranks in process order over a new control plane. The
+    cartesian constant is set last, just before the communicator is
+    built (``init.lua:61-65``)."""
+    global _plane
+    processes, index = None, 0
+    if coordinator is not None and int(num_processes) > 1:
+        from .runtime.peers import ControlPlane
+
+        _plane = ControlPlane(coordinator, int(num_processes), int(process_id))
+        counts = _plane.all_gather_object((int(ranks), dev.type))
+        kinds = {kind for _, kind in counts}
+        if len(kinds) > 1:
+            raise RuntimeError(f"the processes' ranks live on different device types {kinds}")
+        processes = [q for q, (n, _) in enumerate(counts) for _ in range(n)]
+        index = _plane.index
+    if cartesian is not None:
+        constants.set("use_cartesian_communicator", bool(cartesian))
+    size = len(processes) if processes is not None else ranks
+    return Communicator(range(size), dev, name="global", processes=processes,
+                        process_index=index)
+
+
+def _abandon_plane() -> None:
+    global _plane
+    plane, _plane = _plane, None
+    if plane is not None:
+        plane.abandon()
+
+
+def _init_per_node_communicators() -> None:
+    """Push a per-process level and set the two-level span,
+    ``initPerNodeCommunicators`` (``init.lua:417-461``; the JAX package's
+    ``_init_per_node_communicators``, ``runtime_state.py:302-312``). In
+    one process the global communicator is already one node."""
+    root = _stack.at(0)
+    if root.num_nodes() <= 1:
+        return
+    keys = [f"host{root.process_of(r)} ici group" for r in range(root.size)]
+    level = _stack.push(split_by_keys(root, keys, name="per-node ici groups"))
+    # span (level-1, level): hierarchical collectives compose the per-node
+    # intra groups with the cross-node inter comm (init.lua:445-446)
+    _stack.set_span(max(0, level - 1), level)
+
+
+def plane():
+    """The control plane of a multi-process runtime (None in one
+    process)."""
+    return _plane
 
 
 def stop() -> None:
     """Teardown (``torchmpi_stop``, ``torch_mpi.cpp:282-306``): waits every
     outstanding async handle, frees every parameter server (stopping its
     polling thread), frees every stack level's collective resources,
-    shuts the offload pools down, then drops the communicator stack."""
-    global _stack
+    shuts the offload pools down, then drops the communicator stack. In a
+    job of several processes it then waits for the device's work, meets
+    every process at a barrier, unmaps the peers' slabs, frees its own and
+    tears the control plane down, in that order."""
+    global _stack, _plane
     from .collectives.eager import free_collective_resources
     from .parameterserver import free_all
     from .runtime.handles import sync_all
@@ -228,8 +360,15 @@ def stop() -> None:
     # the start()-scoped watchdog; one armed from the environment lives
     # as long as the process
     stop_watchdog(only_source="constants")
+    plane = _plane
+    if plane is not None:
+        if _stack is not None and _stack.at(0).device.type == "cuda":
+            torch.cuda.synchronize(_stack.at(0).device)
+        plane.barrier()
+        plane.close()
     with _lock:
         _stack = None
+        _plane = None
 
 
 def started() -> bool:
@@ -251,17 +390,20 @@ def current_communicator() -> Communicator:
 
 
 def rank() -> int:
-    """Rank of this process in the current communicator: one process owns
-    every virtual rank, so 0 (per-rank data is rank-stacked, as in the JAX
-    package's single-controller mode)."""
-    current_communicator()
-    return 0
+    """Rank of this process's first rank in the current communicator
+    (``runtime_state.py:367-387`` of the JAX package): 0 in one process,
+    which owns every virtual rank (per-rank data is rank-stacked, as in
+    the JAX package's single-controller mode); in a job of several
+    processes the global index of the process's first rank, so
+    ``offset = rank() * per_rank`` sharding works per process."""
+    local = current_communicator().local_ranks
+    return local[0] if local else 0
 
 
 def local_ranks() -> List[int]:
-    """The ranks of the current communicator this process owns: every
-    one, since one process holds all the virtual ranks."""
-    return list(range(current_communicator().size))
+    """The ranks of the current communicator this process owns, in rank
+    order: the rows of its rank-stacked tensors."""
+    return current_communicator().local_ranks
 
 
 def size() -> int:
@@ -270,8 +412,8 @@ def size() -> int:
 
 
 def num_processes() -> int:
-    """Processes in the job: one (multi-process ranks are ROADMAP A13)."""
-    return 1
+    """Processes in the job."""
+    return _plane.count if _plane is not None else 1
 
 
 def push_communicator(keys: KeySpec, name: Optional[str] = None) -> int:

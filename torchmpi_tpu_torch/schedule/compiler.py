@@ -521,6 +521,10 @@ def _bind(plan: Plan, comm, shape: Tuple[int, ...], dtype, wire: str,
 
     op = plan.op
     nelem = _nelem(shape)
+    if comm.multiprocess and wire != "full":
+        from ..runtime.peers import rest
+
+        raise rest(f"the {wire} wire")
     if plan.generator == "flat":
         fn, takes_stream = lower.lower_flat(
             comm, op, plan.backend, shape, dtype, wire, root, src, dst,
@@ -541,6 +545,8 @@ def _bind(plan: Plan, comm, shape: Tuple[int, ...], dtype, wire: str,
             fn, _ = lower.lower_striped_allreduce(comm, shape, dtype, wire,
                                                   pipeline=plan.pipeline)
             label = "striped_allreduce"
+        if comm.multiprocess:
+            fn = lower.across(comm, "ring", fn, False)
         return ExecutablePlan(plan, fn, comm, label, "ring", wire, nelem, dtype, "synth")
     impl = plan.impl or plan.backend
     if plan.generator == "hier":
@@ -564,9 +570,13 @@ def _bind(plan: Plan, comm, shape: Tuple[int, ...], dtype, wire: str,
     # tree
     if op == "allreduce":
         fn, _ = lower.lower_tree_allreduce(comm, shape, dtype, wire, pipeline=plan.pipeline)
+        if comm.multiprocess:
+            fn = lower.across(comm, "ring", fn, False)
         return ExecutablePlan(plan, fn, comm, "tree_hier_allreduce", "ring", wire, nelem,
                               dtype, "tree")
     fn, _ = lower.lower_tree_broadcast(comm, root, shape, dtype)
+    if comm.multiprocess:
+        fn = lower.across(comm, "ring", fn, False)
     return ExecutablePlan(plan, fn, comm, "tree_broadcast", impl, "full", nelem, dtype,
                           "tree")
 
@@ -676,6 +686,10 @@ def compile_fused(
     wire = "full"
     if eff in ("ring", "kernel"):
         wire = eager.resolve_wire_dtype(op, total, dtype, wire_dtype)
+    if comm.multiprocess and wire != "full":
+        from ..runtime.peers import rest
+
+        raise rest(f"the {wire} wire")
     plan, _cands = select_plan(
         op, total, dtype.itemsize, topo, eff, wire, route_small, comm=comm
     )

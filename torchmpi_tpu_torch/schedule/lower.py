@@ -70,6 +70,8 @@ def lower_flat(comm, op: str, backend: str, shape: Tuple, dtype, wire: str,
     nelem = math.prod(shape[1:])
     fn = _eager()._kernels(op, backend, nelem, dtype, comm.device.type, root,
                            src, dst, wire, pipeline=pipeline)
+    if comm.multiprocess:
+        return _across_flat(comm, op, backend, root, fn), backend != "xla"
     return fn, backend == "kernel"
 
 
@@ -92,7 +94,7 @@ def issue_route(comm, op: str, backend: str, shape: Tuple, dtype,
     (``(0, 0, 0, 0)``) or through K3 with the full wire and a dtype the
     kernel adds natively (``(1, dtype code, n, chunk elements)``, unless
     ``ring_implementation`` puts it on the bidirectional ring)."""
-    if op != "allreduce" or comm.device.type != "cuda" or comm.size < 2:
+    if op != "allreduce" or comm.device.type != "cuda" or comm.size < 2 or comm.multiprocess:
         return None
     if backend == "xla":
         return (0, 0, 0, 0)
@@ -200,6 +202,8 @@ def lower_hier_allreduce(comm, impl: str, shape: Tuple, dtype, wire: str,
     to_groups, to_ranks, G, I = _group_major(comm)
     n = math.prod(shape[1:])
     wire_arg = None if wire == "full" else wire
+    if comm.multiprocess and impl != "xla" and _process_aligned(comm):
+        return _across_hier_allreduce(comm, impl, n, dtype, wire_arg, int(pipeline)), True
 
     if impl == "xla":
         def levels(xg, stream=None):
@@ -222,6 +226,8 @@ def lower_hier_allreduce(comm, impl: str, shape: Tuple, dtype, wire: str,
     def fn(x, stream=None):
         return to_ranks(levels(to_groups(x), stream)).contiguous()
 
+    if comm.multiprocess:
+        return across(comm, impl, fn, impl == "kernel"), impl != "xla"
     return fn, impl == "kernel"
 
 
@@ -308,6 +314,8 @@ def lower_hier_collective(comm, op: str, root: int, ring_impl: str,
         out = to_ranks(levels(to_groups(x), kw))
         return (out if post is None else post(out)).contiguous()
 
+    if comm.multiprocess:
+        return across(comm, ring_impl, fn, kernel_intra), True
     return fn, kernel_intra
 
 
@@ -334,14 +342,12 @@ def run_staged_hierarchical_allreduce(x: torch.Tensor, comm, intra_impl: str = "
     3. the total copied back to every rank.
 
     The host hop is the designed transport of this path, not a fallback.
-    The JAX package's multi-process branch (``lower.py:472-523``, over
-    the parameter server's socket transport) is not ported: the port's
-    ranks live in one process (ROADMAP A13)."""
-    if comm.num_nodes() > 1:
-        raise NotImplementedError(
-            "the staged allreduce across processes (over the parameter server's "
-            "socket transport) is not ported (ROADMAP A13)"
-        )
+    Across processes (``lower.py:472-523``) each process runs step 1 on
+    its own groups, sums the representatives it owns from zeros, and the
+    partials meet over the control plane's gather, summed from zeros in
+    process order (:func:`_staged_across`)."""
+    if comm.multiprocess:
+        return _staged_across(x, comm, intra_impl, wire, pipeline, stream)
     to_groups, _, G, I = _group_major(comm)
     n = math.prod(x.shape[1:])
     wire_arg = None if wire == "full" else wire
@@ -355,6 +361,152 @@ def run_staged_hierarchical_allreduce(x: torch.Tensor, comm, intra_impl: str = "
     total = host[0].clone()
     for row in host[1:]:
         total += row
+    return total.to(comm.device).expand(x.shape).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# ranks in several processes (runtime/peers.py): a process holds its own
+# rows; the plan is the one-process plan of the whole [p, ...]
+# ---------------------------------------------------------------------------
+
+
+def _take_local(comm) -> Callable:
+    """The function that takes this process's rows out of a full
+    rank-stacked tensor."""
+    local = comm.local_ranks
+    if local == list(range(local[0], local[0] + len(local))):
+        a, b = local[0], local[0] + len(local)
+        return lambda full: full[a:b]
+    idx = torch.tensor(local, device=comm.device)
+    return lambda full: full.index_select(0, idx)
+
+
+def gather_full(comm, backend: str, x: torch.Tensor, stream=None) -> torch.Tensor:
+    """Every rank's rows of ``comm`` from every process: over the control
+    plane's gloo group on the vendor path (``xla``), else copied from the
+    peers' slabs (the ``ring`` backend's hop across processes)."""
+    from ..runtime import peers
+
+    plane = _eager()._plane()
+    if backend == "xla":
+        return peers.gather_rows_host(plane, comm, x)
+    return plane.lane(comm).gather(x, stream)
+
+
+def across(comm, backend: str, fn: Callable, takes_stream: bool) -> Callable:
+    """``fn``, a one-process lowering over the full ``[p, ...]``, run on
+    this process's rows: the full tensor gathered (:func:`gather_full`),
+    ``fn`` on it, this process's rows of the result. Every process runs
+    the same plan on the same rows, so its rows are the one-process
+    plan's, bit for bit."""
+    take = _take_local(comm)
+
+    def run(x, stream=None):
+        full = gather_full(comm, backend, x, stream)
+        out = fn(full, stream=stream) if takes_stream and stream is not None else fn(full)
+        return take(out).contiguous()
+
+    return run
+
+
+def _across_flat(comm, op: str, backend: str, root: int, fn: Callable) -> Callable:
+    """The flat function across processes: on the kernel backend the
+    allreduce is the cross-process K3 and the broadcast the cross-process
+    K7, which read the rows from the slabs where they lie (the broadcast
+    at any size: the binomial tree's hops have no counterpart when the
+    root's row is one read away); every other pair runs :func:`across`."""
+    if backend == "kernel" and op == "allreduce" and \
+            constants.get("ring_implementation") != "kernel_bidir":
+        return lambda x, stream=None: _eager()._plane().lane(comm).allreduce(x, stream)
+    if backend == "kernel" and op == "broadcast":
+        return lambda x, stream=None: _eager()._plane().lane(comm).broadcast(x, root, stream)
+    return across(comm, backend, fn, backend == "kernel")
+
+
+def _process_aligned(comm) -> bool:
+    """True when every intra group's ranks lie in one process (the
+    per-node level ``start()`` pushes, or finer splits of it)."""
+    return all(len({comm.process_of(r) for r in g}) == 1 for g in comm._groups)
+
+
+def _local_groups(comm):
+    """``(to_groups, to_ranks, G, I)`` of this process's rows: its intra
+    groups in group order, as :func:`_group_major` is for every rank."""
+    pos = {r: i for i, r in enumerate(comm.local_ranks)}
+    groups = [g for g in comm._groups if g[0] in pos]
+    perm = [pos[r] for g in groups for r in g]
+    G, I = len(groups), len(comm._groups[0])
+    if perm == list(range(len(perm))):
+        return (lambda a: a), (lambda a: a), G, I
+    fwd = torch.tensor(perm, device=comm.device)
+    inv = torch.argsort(fwd)
+    return (lambda a: a.index_select(0, fwd)), (lambda a: a.index_select(0, inv)), G, I
+
+
+def _local_intra(comm, impl: str, n: int, dtype: torch.dtype, wire: Optional[str],
+                 depth: int) -> Callable:
+    """The intra phase on this process's groups: ``fn(x, stream=None)``
+    taking its rows in rank order and giving each its group's sum (the
+    grouped K3 of :func:`_intra_allreduce`, one launch, or the batched
+    ``ring``)."""
+    to_groups, to_ranks, G, I = _local_groups(comm)
+    if impl == "kernel":
+        intra = _intra_allreduce(n, dtype, wire, G, I)
+
+        def run(x, stream=None):
+            kw = {} if stream is None else {"stream": stream}
+            return to_ranks(intra(to_groups(x), **kw)).contiguous()
+    else:
+        ring = _batched_ring(comm, wire, depth)
+
+        def run(x, stream=None):
+            return to_ranks(_intra_rings(ring, to_groups(x), G, I)).contiguous()
+    return run
+
+
+def _across_hier_allreduce(comm, impl: str, n: int, dtype: torch.dtype,
+                           wire: Optional[str], depth: int) -> Callable:
+    """:func:`lower_hier_allreduce` across processes whose groups are
+    process-aligned: the intra phase on each process's own groups
+    (:func:`_local_intra`), then the rows gathered from the slabs and the
+    inter rings across the groups, this process's rows kept. The same
+    adds as the one-process composition, so the same bits."""
+    intra = _local_intra(comm, impl, n, dtype, wire, depth)
+    to_groups, to_ranks, G, I = _group_major(comm)
+    inter = _batched_ring(comm, wire, 1 if impl == "kernel" else depth)
+    take = _take_local(comm)
+
+    def fn(x, stream=None):
+        full = gather_full(comm, impl, intra(x, stream), stream)
+        return take(to_ranks(_inter_rings(inter, to_groups(full), G, I))).contiguous()
+
+    return fn
+
+
+def _staged_across(x: torch.Tensor, comm, intra_impl: str, wire: str, pipeline: int,
+                   stream) -> torch.Tensor:
+    """The staged allreduce across processes (``lower.py:472-523``): the
+    intra phase on this process's groups, the representatives it owns
+    (each group's first rank) summed from zeros in group order, the
+    partials gathered over the control plane and summed from zeros in
+    process order, the total in every row."""
+    if not _process_aligned(comm):
+        from ..runtime.peers import rest
+
+        raise rest("the staged allreduce over groups that span processes")
+    n = math.prod(x.shape[1:])
+    wire_arg = None if wire == "full" else wire
+    reduced = _local_intra(comm, intra_impl, n, x.dtype, wire_arg, int(pipeline))(x, stream)
+    pos = {r: i for i, r in enumerate(comm.local_ranks)}
+    reps = reduced[[pos[g[0]] for g in comm._groups if g[0] in pos]].cpu()
+    partial = torch.zeros(x.shape[1:], dtype=x.dtype)
+    for row in reps:
+        partial = partial + row
+    plane = _eager()._plane()
+    parts = plane.all_gather_bytes(partial.reshape(-1).view(torch.uint8))
+    total = torch.zeros(x.shape[1:], dtype=x.dtype)
+    for part in parts:
+        total = total + part.view(x.dtype).reshape(x.shape[1:])
     return total.to(comm.device).expand(x.shape).contiguous()
 
 

@@ -12,7 +12,7 @@ Degradation is a ladder, not a cliff (:func:`brownout_level`): under
 queue pressure a server first sheds its lowest-QoS requests with a
 retry-after hint, then widens the weight-refresh staleness bound. The
 REQUEST/REPLY frames of the PS socket transport, the supervisor's scale
-rungs and the serving example wait for ROADMAP A13 and A10; here
+rungs and the serving example wait for ROADMAP A7's and A10's rest; here
 :meth:`InferenceServer.handle` is called in process (or by any transport
 given to the server).
 """

@@ -2,7 +2,7 @@
 
 The port of ``torchmpi_tpu/serve/client.py``: host logic over any object
 with ``serve_request(proc, tag, x, qos=)`` (the JAX package's PS
-transport; the port's waits for ROADMAP A13). ``shed:`` replies are the
+transport; the port's waits for ROADMAP A7's rest). ``shed:`` replies are the
 SERVER's brownout ladder talking: the request was admitted but dropped by
 QoS, and the reply carries the retry-after hint the client honors here
 (bounded; a request shed past the retry budget surfaces as

@@ -213,7 +213,7 @@ class InferenceServer:
 
         The fetch rides ``serve_refresh_read_policy`` (default
         ``replica``), which the port's parameter server accepts and, with
-        every shard in this process, routes nothing (ROADMAP A13)."""
+        every shard in this process, routes nothing (ROADMAP A7's rest)."""
         met = _metric_handles() if _telemetry.enabled() else None
         vec = version_vector(self.ps, self.client)
         try:

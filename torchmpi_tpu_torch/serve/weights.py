@@ -33,7 +33,7 @@ def version_vector(ps, client: int = 0) -> Tuple[int, ...]:
     The JAX package also reads remote shards here, from the delta-fetch
     client cache or the shm lane of its socket transport (``-1`` for a
     shard never fetched). The port's parameter server has no transport
-    yet (ROADMAP A13): every shard is local and that branch stays inert,
+    yet (ROADMAP A7's rest): every shard is local and that branch stays inert,
     kept so the function reads like its reference when the transport
     lands."""
     inst = ps._inst

@@ -18,8 +18,8 @@ The actions run through an actuator the caller supplies; in one process
 the caller calls ``observe(aggregator.evaluate())`` itself. See
 :mod:`.core` (engine), :mod:`.policy` (the declarative table), and
 :mod:`.checkpoints` (the registry rollbacks restore from). The
-launcher's and the simulator's actuators wait for multi-process ranks
-(ROADMAP A13, A10's rest) and ``sim/``.
+launcher's and the simulator's actuators wait for the launcher's
+elastic mode (ROADMAP A10's rest) and ``sim/``.
 """
 
 from .checkpoints import (  # noqa: F401

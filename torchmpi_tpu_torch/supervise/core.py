@@ -15,8 +15,8 @@ injected **actuator**. In one process the caller owns the loop:
 its own (``observe()`` is a plain synchronous call). Two actuators of
 the JAX package wait for their layers: the launcher's (``launch
 --elastic --supervise``: kill wedged workers, commit the live shrink,
-relaunch from the last registered checkpoint), which needs
-multi-process ranks (ROADMAP A13) and the elastic coordinator (A10's
+relaunch from the last registered checkpoint), which needs the
+launcher's elastic mode and the elastic coordinator (ROADMAP A10's
 rest), and the fleet simulator's (``sim/``).
 
 Safety properties (the policy table, :mod:`.policy`, carries the

@@ -25,7 +25,7 @@ constant is set here from measurement on the *actual* communicator:
   pins ``plan_pipeline_depth``.
 - :func:`tune_fusion_threshold`: ``fusion_buffer_bytes`` on the LeNet
   gradient leaves.
-- :func:`tune_ps_chunk_bytes`: raises, naming ROADMAP A13 (the PS
+- :func:`tune_ps_chunk_bytes`: raises, naming ROADMAP A7's rest (the PS
   transport it times is not ported).
 
 Where the JAX tuners measure ``pallas``, these measure ``kernel`` (the
@@ -110,7 +110,7 @@ LENET_LEAF_SIZES = (150, 6, 2400, 16, 48000, 120, 10080, 84, 840, 10)
 #: why :func:`tune_ps_chunk_bytes` cannot run in the port
 PS_CHUNK_REASON = (
     "tune_ps_chunk_bytes times the parameter server's socket transport, "
-    "which is not ported (ROADMAP A13)"
+    "which is not ported (ROADMAP A7's rest, over the processes of ROADMAP A13)"
 )
 
 
@@ -628,7 +628,7 @@ def tune_ps_chunk_bytes(
     """The JAX tuner times the PS transport's shard round trip over a real
     loopback listener under candidate ``ps_chunk_bytes`` values. The port
     has no PS transport yet, so after the frozen-constants check (as in
-    JAX) this raises ``NotImplementedError`` naming ROADMAP A13."""
+    JAX) this raises ``NotImplementedError`` naming ROADMAP A7's rest."""
     _comm(comm)
     _check_unfrozen(apply, measure_mutates=True)
     raise NotImplementedError(PS_CHUNK_REASON)

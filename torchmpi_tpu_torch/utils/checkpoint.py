@@ -39,7 +39,7 @@ Two formats:
 - the **single-process** format (:func:`save_engine` /
   :func:`restore_engine`): the same atomically written ``meta.json``
   header, and the host state in one ``torch.save`` file where the JAX
-  package uses orbax. Cooperative multi-process saves are ROADMAP A13.
+  package uses orbax. Cooperative multi-process saves are ROADMAP A13's rest.
 
 Parameter-server centers save and restore through
 :func:`save_parameter_servers` / :func:`restore_parameter_servers`.
@@ -298,7 +298,7 @@ def _single_process_only(what: str) -> None:
     if runtime_state.num_processes() > 1:
         raise RuntimeError(
             f"{what} is single-process only: cooperative multi-process saves "
-            "are ROADMAP A13"
+            "are ROADMAP A13's rest"
         )
 
 

@@ -130,9 +130,12 @@ class ProfilerWindow:
 
 def redirect_logs_per_process(directory: str = "/tmp", prefix: str = "tm_") -> Path:
     """Redirect this process's stdout/stderr to ``<dir>/<prefix><rank>``
-    (wrap.sh LOG_TO_FILE analog). The port runs one process, rank 0
-    (multi-process ranks are ROADMAP A13). Returns the log path."""
-    path = Path(directory) / f"{prefix}0"
+    (wrap.sh LOG_TO_FILE analog), ``rank`` the process's index in the job
+    (0 in one process). Returns the log path."""
+    from .. import runtime_state
+
+    plane = runtime_state.plane()
+    path = Path(directory) / f"{prefix}{plane.index if plane is not None else 0}"
     f = open(path, "a", buffering=1)
     os.dup2(f.fileno(), sys.stdout.fileno())
     os.dup2(f.fileno(), sys.stderr.fileno())
