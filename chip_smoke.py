@@ -186,7 +186,12 @@ phase fails:
    and a ``RecoverySupervisor``; a held async K3 gives the ``hang``
    verdict, failed evictions escalate to a rollback from the last
    checkpoint, and the run ends bit for bit on a clean run's; the
-   ``{"supervise": ...}`` line);
+   ``{"supervise": ...}`` line) and the ranks in two processes
+   (:func:`phase_multiprocess`: 2 processes x 4 ranks through the
+   launcher; the cross-process K3 allreduce, 'rs' and 'ag' and K7 bit for
+   bit their plain versions and the one-process rows; config 1 replicated
+   under two spans and under fsdp and zero1, each bit for bit its
+   one-process run, exact launches; the ``{"multiprocess": ...}`` line);
    then times each kernel, its plain version and,
    where there is one, a
    PyTorch call computing the same function with CUDA events at the main
@@ -211,7 +216,8 @@ two-level phase; ``--engine`` the build and the engine phase;
 ``--parallel`` the build and the parallel phase; ``--streaming`` the
 build and the streamed ResNet phase; ``--serve`` the build and the
 serving phase; ``--synth`` the build and the synthesized lowerings'
-phase; ``--supervise`` the build and the supervised rollback.
+phase; ``--supervise`` the build and the supervised rollback;
+``--multiprocess`` the build and the ranks in two processes.
 ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
@@ -5094,7 +5100,8 @@ def phase_supervise(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 # ranks in two processes on the card (--multiprocess): the cross-process K3
-# and K7 and config 1 trained by 2 processes x 4 ranks through the launcher
+# (allreduce, 'rs' and 'ag') and K7, and config 1 trained by 2 processes x 4
+# ranks through the launcher, replicated and under fsdp and zero1
 # ---------------------------------------------------------------------------
 
 MP_PROCS, MP_RANKS = 2, P // 2  # processes, ranks a process: P in all
@@ -5110,14 +5117,16 @@ MP_ROOTS = (0, 5)  # a root in each process
 MP_LOSS_RTOL = 1e-3
 MP_CLOSE_STEPS = 10
 MP_CALLS = 50  # timed calls of the whole cross-process allreduce and of gloo's
+MP_RS_N, MP_AG_N = N23, N20  # the timed 'rs' and 'ag' rows, the one-process rows' shapes
+MP_SHARDED = {"c": "fsdp", "d": "zero1"}  # the sharded runs
 
 
-def mp_lenet(comm, rank_map: str = "loop") -> dict:
+def mp_lenet(comm, rank_map: str = "loop", sharding: str = "replicated") -> dict:
     """Config 1 (LeNet, batch 336, lr 0.2, seed 0, two epochs of
-    ``synthetic_mnist``) on ``comm``'s ranks of this process, counts set
-    to 0 just before the engine (its first sync included) and read just
-    after: the step losses, the launches, the second epoch's global
-    samples/s."""
+    ``synthetic_mnist``) on ``comm``'s ranks of this process under
+    ``sharding``, counts set to 0 just before the engine (its first sync
+    included) and read just after: the step losses, the launches, the
+    second epoch's global samples/s."""
     (xtr, ytr), _ = synthetic_mnist()
     model = LeNet()
     losses, epoch_t = [], {}
@@ -5133,13 +5142,14 @@ def mp_lenet(comm, rank_map: str = "loop") -> dict:
     ops.reset_launch_counts()
     engine = AllReduceSGDEngine(
         make_loss_fn(model), init_params(model, seed=0), lr=LR, comm=comm, rank_map=rank_map,
+        param_sharding=sharding,
         hooks={"on_update": lambda s: losses.append(s["loss"]),
                "on_start_epoch": on_start_epoch, "on_end_epoch": on_end_epoch})
     it = DistributedIterator(xtr, ytr, BATCH, P, device=comm.device)
     state = engine.train(lambda: iter(it), max_epochs=2)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    mpinn.check_with_allreduce(engine.params, comm)
+    mpinn.check_with_allreduce(engine.gathered_params(), comm)
     losses = [float(v) for v in losses]
     # LeNet at lr 0.2 spikes now and then: the second epoch's mean is the
     # gate, not the last steps
@@ -5151,13 +5161,15 @@ def mp_lenet(comm, rank_map: str = "loop") -> dict:
             "samples_per_s": len(it) * BATCH / epoch_t[1]}
 
 
-def mp_reference(vendor_span: bool) -> dict:
+def mp_reference(vendor_span: bool, sharding: str = "replicated") -> dict:
     """A one-process p=8 run of config 1 with the rank map the processes
     take: on the kernel backend (K3 a step, the first sync by the binomial
     tree), what run (b) must equal bit for bit; or (``vendor_span``) under
     run (a)'s per-node span (keys ``host<r // 4> ici group``) with the
     selector's single-node allreduce and broadcast rows set to the vendor
-    path, as (a)'s multinode rows route it, what (a) must equal."""
+    path, as (a)'s multinode rows route it, what (a) must equal; or under
+    ``sharding`` (the single-node rows' kernel rings: K3 'rs' and 'ag' a
+    step), what (c) or (d) must equal."""
     from torchmpi_tpu_torch.collectives import selector
 
     rows = selector.table["cuda"]["singlenode"]["sync"]
@@ -5170,7 +5182,7 @@ def mp_reference(vendor_span: bool) -> dict:
             mpi.set_collective_span(0, 1)
             for op in saved:
                 rows[op] = ["xla"]
-        return mp_lenet(mpi.current_communicator())
+        return mp_lenet(mpi.current_communicator(), sharding=sharding)
     finally:
         rows.update(saved)
         mpi.stop()
@@ -5192,14 +5204,24 @@ def mp_table(lane, s: int, n: int, dtype) -> list:
 
 
 def mp_check(dev, comm) -> dict:
-    """The cross-process K3 and K7 on the card against their plain
-    versions on the same slabs and against the one-process K3 and the
-    root's row, bit for bit, over the native dtypes, the sizes of
-    ``MP_SIZES`` and the roots of ``MP_ROOTS``; and the closed form."""
+    """The cross-process K3 (allreduce, 'ag', and 'rs' on ``[P, P w]``)
+    and K7 on the card against their plain versions on the same slabs and
+    against the one-process K3's rows and the root's row, bit for bit,
+    over the native dtypes, the widths ``w`` of ``MP_SIZES`` and the roots
+    of ``MP_ROOTS``; and the closed form."""
     plane = mpi.runtime_state.plane()
     lane = plane.lane(comm)
     local, L = comm.local_ranks, comm.local_size
-    checks, err = 0, {"ring_allreduce_xproc": 0.0, "ring_broadcast_xproc": 0.0}
+    names = ("ring_allreduce_xproc", "ring_broadcast_xproc", "ring_reduce_scatter_xproc",
+             "ring_allgather_xproc")
+    checks, err = 0, dict.fromkeys(names, 0.0)
+
+    def held(name, got, plain, one):
+        err[name] = max(err[name], float((got.double() - plain.double()).abs().max()))
+        require(torch.equal(bits(got), bits(plain)),
+                f"{name} {got.dtype} {tuple(got.shape)}: differs from its plain version")
+        require(torch.equal(bits(got), bits(one)),
+                f"{name} {got.dtype} {tuple(got.shape)}: differs from the one-process rows")
     for dtype in NATIVE_DTYPES:
         for i, n in enumerate(MP_SIZES):
             full = mp_payload(n, dtype, 17 + i).to(dev)
@@ -5222,8 +5244,18 @@ def mp_check(dev, comm) -> dict:
                 require(torch.equal(bits(got7), bits(plain7))
                         and torch.equal(bits(got7), bits(full[root].expand(L, n))),
                         f"cross-process K7 {dtype} n={n} root={root}: wrong bytes")
+            held("ring_allgather_xproc", ops.ring_allgather_xproc(table, L),
+                 ops.ring_allgather_xproc_plain(table, L), ops.ring_allgather(full)[local])
             lane.release()
-            checks += 1 + len(MP_ROOTS)
+            full = mp_payload(P * n, dtype, 31 + i).to(dev)
+            s = lane.publish(full[local].contiguous(), P * n * full.element_size())
+            table = mp_table(lane, s, P * n, dtype)
+            one = ops.ring_reduce_scatter(full)
+            for owned in (local, local[::-1]):  # the owned ranks in any order
+                held("ring_reduce_scatter_xproc", ops.ring_reduce_scatter_xproc(table, owned),
+                     ops.ring_reduce_scatter_xproc_plain(table, owned), one[owned])
+            lane.release()
+            checks += 4 + len(MP_ROOTS)
     # the closed form through the collective: rank r gives r
     x = torch.stack([torch.full((LENET_PARAMS,), float(r), device=dev) for r in local])
     out = mpi.kernel.allreduce_tensor(x, comm=comm)
@@ -5303,21 +5335,85 @@ def mp_time(dev, comm) -> dict:
 
     return {**timed, "call_ms": call_ms, "protocol_us": protocol_us,
             "gloo_allreduce_ms": in_step(gloo_allreduce, 20),
-            "gloo_broadcast_ms": in_step(gloo_broadcast, 20)}
+            "gloo_broadcast_ms": in_step(gloo_broadcast, 20),
+            **mp_time_sharded(dev, comm, in_step)}
 
 
-def mp_run(ici: bool, prefer_kernel: bool) -> dict:
-    """One of the two runs of config 1 on the card across the processes:
-    (a) ``ici`` as the JAX package routes it, the per-node span and the
+def mp_time_sharded(dev, comm, in_step) -> dict:
+    """The cross-process K3 'rs' at ``[P, MP_RS_N]`` and 'ag' at ``[P,
+    MP_AG_N]`` f32: the whole lane call with both processes in step, then,
+    in process 0 while process 1 waits at the barrier, the kernel and its
+    plain version on the two slots' tables (each a different copy of every
+    process's rows; the 'ag' tables copied on until they exceed twice the
+    L2), then gloo with both processes in step: ``all_gather`` of each
+    process's rows for 'ag', and for 'rs' ``reduce_scatter_tensor`` of each
+    process's rows summed, where the gloo build takes it (else None)."""
+    import torch.distributed as dist
+
+    plane = mpi.runtime_state.plane()
+    lane = plane.lane(comm)
+    local, L = comm.local_ranks, comm.local_size
+    out = {}
+    for mode, n in (("rs", MP_RS_N), ("ag", MP_AG_N)):
+        x = mp_payload(n, torch.float32, 7).to(dev)[local].contiguous()
+        call = (lambda: lane.reduce_scatter(x)) if mode == "rs" else (lambda: lane.allgather(x))
+        out[f"{mode}_call_ms"] = in_step(call)
+        tables = []
+        for _ in range(2):  # both slots hold every process's rows
+            s = lane.publish(x, n * 4)
+            tables.append(mp_table(lane, s, n, torch.float32))
+            lane.release()
+        torch.cuda.synchronize()
+        plane.barrier()
+        if plane.index == 0:
+            copies = max(2, -(-2 * L2_BYTES // (P * n * 4)))
+            tables += [[r.clone() for r in tables[0]] for _ in range(copies - 2)]
+            sets = itertools.cycle(tables)
+            if mode == "rs":
+                kernel = lambda: ops.ring_reduce_scatter_xproc(next(sets), local)  # noqa: E731
+                plain = lambda: ops.ring_reduce_scatter_xproc_plain(next(sets), local)  # noqa: E731
+            else:
+                kernel = lambda: ops.ring_allgather_xproc(next(sets), L)  # noqa: E731
+                plain = lambda: ops.ring_allgather_xproc_plain(next(sets), L)  # noqa: E731
+            out[f"{mode}_ms"], out[f"{mode}_plain_ms"] = time_ms(kernel), time_ms(plain)
+            del sets, kernel, plain
+        del tables
+        torch.cuda.synchronize()
+        plane.barrier()
+
+        def gloo():
+            if mode == "ag":
+                parts = [torch.empty((L, n)) for _ in range(plane.count)]
+                dist.all_gather(parts, x.cpu())
+                full = torch.cat(parts).to(dev)  # the processes' rows are consecutive
+                return full[None].expand(L, P, n).contiguous()
+            t = x.sum(0).cpu()
+            part = torch.empty(n // plane.count)
+            dist.reduce_scatter_tensor(part, t)
+            return part.to(dev).reshape(L, n // P)
+
+        try:
+            out[f"gloo_{mode}_ms"] = in_step(gloo, 10)
+        except (RuntimeError, NotImplementedError, ValueError) as e:
+            out[f"gloo_{mode}_ms"], out[f"gloo_{mode}_none"] = None, f"{type(e).__name__}: {e}"[:200]
+    return out
+
+
+def mp_run(ici: bool, prefer_kernel: bool, sharding: str = "replicated") -> dict:
+    """One of the runs of config 1 on the card across the processes: (a)
+    ``ici`` as the JAX package routes it, the per-node span and the
     compiler's plan (the selector's multinode rows: the vendor path over
     gloo); (b) the flat span with the selector's ``cuda.multinode.sync``
-    allreduce and broadcast rows set to prefer ``kernel`` (the
-    reference's user-editable collectiveSelector), so the gradients and
-    the first sync run the cross-process K3 and K7."""
+    allreduce, broadcast, allgather and reducescatter rows set to prefer
+    ``kernel`` (the reference's user-editable collectiveSelector), so the
+    gradients and the first sync run the cross-process K3 and K7; (c) and
+    (d) the same rows under ``sharding`` fsdp or zero1, so the partials
+    run the cross-process K3 'rs' and the parameters (fsdp) or the updates
+    (zero1) 'ag'."""
     from torchmpi_tpu_torch.collectives import selector
 
     rows = selector.table["cuda"]["multinode"]["sync"]
-    saved = {op: rows[op] for op in ("allreduce", "broadcast")}
+    saved = {op: rows[op] for op in ("allreduce", "broadcast", "allgather", "reducescatter")}
     mpi.start(ranks=MP_RANKS, with_ici_groups=ici)
     try:
         if prefer_kernel:
@@ -5326,12 +5422,13 @@ def mp_run(ici: bool, prefer_kernel: bool) -> dict:
         comm = mpi.current_communicator()
         lane = mpi.runtime_state.plane().lane(comm)
         proto0, calls0 = lane.protocol_s, lane.calls
-        run = mp_lenet(comm)
+        run = mp_lenet(comm, sharding=sharding)
         memo = comm.__dict__.get("_dispatch_memo", {})
         run["plans"] = sorted({f"{ent[1].plan.generator}/{ent[1].plan.backend}"
                                for ent in memo.values() if hasattr(ent[1], "plan")})
         run["lane_calls"] = lane.calls - calls0
         run["protocol_us"] = ((lane.protocol_s - proto0) / max(1, lane.calls - calls0) * 1e6)
+        run["slab_growths"], run["slab_mib"] = lane.growths, 2 * lane.cap / 2**20
         run["span"] = list(mpi.stack().span)
         return run
     finally:
@@ -5358,33 +5455,56 @@ def mp_worker(out_dir: str) -> None:
         mpi.stop()
     res["a"] = mp_run(ici=True, prefer_kernel=False)
     res["b"] = mp_run(ici=False, prefer_kernel=True)
+    for run, sharding in MP_SHARDED.items():
+        res[run] = mp_run(ici=False, prefer_kernel=True, sharding=sharding)
     Path(out_dir, f"proc{index}.json").write_text(json.dumps(res))
     print(f"multiprocess worker {index} OK")
 
 
-def mp_expected(steps: int, kernel: bool) -> dict:
-    """A process's launches in a run of config 1: K1 a step, and in (b)
-    the cross-process K3 a step and K7 once (the first sync)."""
+def mp_expected(steps: int, kernel: bool, sharding: str = "replicated") -> dict:
+    """A process's launches in a run of config 1: K1 a step; in (b) the
+    cross-process K3 a step and K7 once (the first sync); under fsdp or
+    zero1 ((c), (d)) no K7 (nothing is broadcast), the cross-process K3
+    'rs' once a flush of the fusion buffer's reduce-scatter group over the
+    sharded leaves (a flush of fewer than ``fusion_min_tensors`` tensors
+    once a tensor), 'ag' once (one dtype), and the cross-process K3
+    allreduce once a flush of the other leaves above
+    ``small_allreduce_size_cuda`` (LeNet's one such leaf, the head's 10
+    biases, is below it: the vendor path over gloo)."""
     want = {name: 0 for name in ops.launch_counts()}
     want["accumulate"] = steps * list_launches(LENET_LEAVES)
-    if kernel:
+    if sharding != "replicated":
+        sizes = {k: v.numel() for k, v in init_params(LeNet(), seed=0).items()}
+        sharded = [k for k, v in init_params(LeNet(), seed=0).items()
+                   if any(d >= P and d % P == 0 for d in v.shape)]
+        least = max(1, constants.get("fusion_min_tensors"))
+        cutoff = constants.get("small_allreduce_size_cuda")
+        rs = fusion_flushes([sizes[k] for k in sharded])
+        ar = fusion_flushes([n for k, n in sizes.items() if k not in sharded])
+        want["ring_reduce_scatter_xproc"] = steps * sum(1 if c >= least else c for _, c in rs)
+        want["ring_allgather_xproc"] = steps
+        want["ring_allreduce_xproc"] = steps * sum(n > cutoff for n, _ in ar)
+    elif kernel:
         want["ring_allreduce_xproc"] = steps
         want["ring_broadcast_xproc"] = 1
     return want
 
 
 def phase_multiprocess(dev) -> tuple:
-    """``--multiprocess``: the one-process reference from the seed, then
+    """``--multiprocess``: the one-process references from the seed, then
     the two workers through ``python -m torchmpi_tpu_torch.launch``
     (their logs and results under ``_mp_logs/``), their results held
-    to the contract: the cross-process K3 and K7 bit for bit their plain
-    versions, run (b)'s losses bit for bit the one-process kernel run's,
-    run (a)'s bit for bit the one-process run under its span and path and
-    its first ``MP_CLOSE_STEPS`` within ``MP_LOSS_RTOL`` of the kernel
-    run's, exact launches. Prints the
-    ``{"multiprocess": ...}`` line; returns the runs' launches (summed
-    over the processes) and the two kernel rows of the kernels line."""
+    to the contract: the cross-process K3 (allreduce, 'rs', 'ag') and K7
+    bit for bit their plain versions and the one-process rows, run (b)'s
+    losses bit for bit the one-process kernel run's, run (a)'s bit for bit
+    the one-process run under its span and path and its first
+    ``MP_CLOSE_STEPS`` within ``MP_LOSS_RTOL`` of the kernel run's, runs
+    (c) and (d) (fsdp, zero1) bit for bit the one-process run under the
+    same mode, exact launches. Prints the ``{"multiprocess": ...}`` line;
+    returns the runs' launches (summed over the processes) and the four
+    kernel rows of the kernels line."""
     ref, ref_a = mp_reference(False), mp_reference(True)
+    refs = {run: mp_reference(False, sharding) for run, sharding in MP_SHARDED.items()}
     root = Path(__file__).resolve().parent
     logs = root / "_mp_logs"  # the workers' logs and results
     for old in logs.glob("proc*.json"):
@@ -5412,27 +5532,45 @@ def phase_multiprocess(dev) -> tuple:
         require(close <= MP_LOSS_RTOL,
                 f"proc {i}: run (a)'s first {MP_CLOSE_STEPS} losses {close} from the kernel run's")
         r["a"]["rel_first"], r["a"]["rel_all"], r["a"]["rel_by_step"] = close, max(rel), rel
-        for run, kernel in (("a", False), ("b", True)):
-            want = mp_expected(steps, kernel)
+        for run, sharding in MP_SHARDED.items():
+            require(r[run]["losses"] == refs[run]["losses"],
+                    f"proc {i}: run ({run}, {sharding})'s losses differ from the one-process "
+                    f"run's: {r[run]['losses'][:4]} vs {refs[run]['losses'][:4]}")
+        for run, kernel in (("a", False), ("b", True), ("c", True), ("d", True)):
+            want = mp_expected(steps, kernel, MP_SHARDED.get(run, "replicated"))
             require(r[run]["counts"] == want,
                     f"proc {i} run ({run}): launches {r[run]['counts']} != {want}")
     t = res[0]["time"]
-    n = LENET_PARAMS
+    n, m = LENET_PARAMS, MP_RS_N // P
     rows = []
-    for name, rows_read, nbytes, ms, plain, lib, replaces in (
-            ("ring_allreduce_xproc", P, (P + MP_RANKS) * n * 4, t["k3_ms"], t["k3_plain_ms"],
-             t["gloo_allreduce_ms"], "torchmpi_tpu/ops/ring_kernels.py:201"),
-            ("ring_broadcast_xproc", 1, (1 + MP_RANKS) * n * 4, t["k7_ms"], t["k7_plain_ms"],
-             t["gloo_broadcast_ms"], "torchmpi_tpu/ops/ring_kernels.py:1282")):
-        bound_ms, bound_by = bound(nbytes, (P - 1) * n if "allreduce" in name else 0)
+    for (name, shape, reads, nbytes, nops, ms, plain, lib, lib_name) in (
+            ("ring_allreduce_xproc", n, f"{P} rows read, {MP_RANKS} written",
+             (P + MP_RANKS) * n * 4, (P - 1) * n, t["k3_ms"], t["k3_plain_ms"],
+             t["gloo_allreduce_ms"], "gloo all_reduce of each process's rows summed"),
+            ("ring_broadcast_xproc", n, f"1 row read, {MP_RANKS} written",
+             (1 + MP_RANKS) * n * 4, 0, t["k7_ms"], t["k7_plain_ms"],
+             t["gloo_broadcast_ms"], "gloo broadcast of the root's row"),
+            # each process reads its MP_RANKS segments from every row and
+            # writes them; the adds are (P - 1) a written element
+            ("ring_reduce_scatter_xproc", MP_RS_N,
+             f"{MP_RANKS} segments of each of {P} rows read, {MP_RANKS} written",
+             (MP_RANKS * MP_RS_N + MP_RANKS * m) * 4, (P - 1) * MP_RANKS * m, t["rs_ms"],
+             t["rs_plain_ms"], t["gloo_rs_ms"],
+             t.get("gloo_rs_none", "gloo reduce_scatter_tensor of each process's rows summed")),
+            ("ring_allgather_xproc", MP_AG_N, f"{P} blocks read, {MP_RANKS} x {P} written",
+             (P + MP_RANKS * P) * MP_AG_N * 4, 0, t["ag_ms"], t["ag_plain_ms"],
+             t["gloo_ag_ms"], "gloo all_gather of each process's rows")):
+        bound_ms, bound_by = bound(nbytes, nops)
         require(bound_ms <= ms, f"{name}: {ms} ms is under its bound {bound_ms} ms")
         rows.append({
             "name": name, "route": "cuda", "source": "torchmpi_tpu_torch/csrc/ring_kernels.cu",
-            "replaces": replaces, "max_abs_err": max(r["check"]["max_abs_err"][name] for r in res),
+            "replaces": ("torchmpi_tpu/ops/ring_kernels.py:1282" if "broadcast" in name
+                         else "torchmpi_tpu/ops/ring_kernels.py:201"),
+            "max_abs_err": max(r["check"]["max_abs_err"][name] for r in res),
             "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib, "library": "gloo across the processes",
-            "shape": [P, n], "dtype": "float32", "processes": MP_PROCS,
-            "one_launch": f"one process's: {rows_read} rows read, {MP_RANKS} written"})
+            "bound_by": bound_by, "library_ms": lib, "library": lib_name,
+            "shape": [P, shape], "dtype": "float32", "processes": MP_PROCS,
+            "one_launch": f"one process's: {reads}"})
     summary = {
         "processes": MP_PROCS, "ranks_per_process": MP_RANKS, "card": card(),
         "checks": sum(r["check"]["checks"] for r in res),
@@ -5453,10 +5591,22 @@ def phase_multiprocess(dev) -> tuple:
                "staging_bound_ms": MP_PROCS * 2 * MP_RANKS * n * 4 / HBM_BYTES_PER_S * 1e3,
                "gloo_allreduce_ms": t["gloo_allreduce_ms"]},
         "k7": {"ms": t["k7_ms"], "gloo_broadcast_ms": t["gloo_broadcast_ms"]},
+        "rs": {"shape": [P, MP_RS_N], "ms": t["rs_ms"], "call_ms": t["rs_call_ms"],
+               "gloo_ms": t["gloo_rs_ms"], "gloo_none": t.get("gloo_rs_none")},
+        "ag": {"shape": [P, MP_AG_N], "ms": t["ag_ms"], "call_ms": t["ag_call_ms"],
+               "gloo_ms": t["gloo_ag_ms"]},
     }
+    for run, sharding in MP_SHARDED.items():
+        summary[run] = {
+            "sharding": sharding, "bitwise_one_process": True,
+            "one_process_samples_per_s": refs[run]["samples_per_s"],
+            "final_loss": refs[run]["losses"][-1],
+            **{k: res[0][run][k] for k in ("samples_per_s", "plans", "span", "lane_calls",
+                                           "protocol_us", "slab_growths", "slab_mib")},
+            "launches_per_process": {k: v for k, v in res[0][run]["counts"].items() if v}}
     print(json.dumps({"multiprocess": summary}))
     runs = {f"mp_{run}": {k: sum(r[run]["counts"][k] for r in res) for k in res[0][run]["counts"]}
-            for run in ("a", "b")}
+            for run in ("a", "b", *MP_SHARDED)}
     return runs, rows
 
 
@@ -5554,9 +5704,10 @@ def main(argv=None) -> None:
              "build; prints no result line")
     parser.add_argument(
         "--multiprocess", action="store_true",
-        help="only the multi-process phase (the cross-process K3 and K7 against their plain "
-             "versions, config 1 by 2 processes x 4 ranks through the launcher, runs (a) and "
-             "(b); the {\"multiprocess\"} line), after the build; prints no result line")
+        help="only the multi-process phase (the cross-process K3 allreduce, 'rs' and 'ag' and "
+             "K7 against their plain versions, config 1 by 2 processes x 4 ranks through the "
+             "launcher, runs (a) and (b) replicated, (c) fsdp and (d) zero1; the "
+             "{\"multiprocess\"} line), after the build; prints no result line")
     parser.add_argument("--mp-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():

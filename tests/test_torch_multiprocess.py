@@ -152,7 +152,11 @@ _WORKER = textwrap.dedent(
 
     # what this slice does not carry across processes raises, by name
     x = torch.ones((L, 256))
-    for fn in (lambda: mpi.allgather_tensor(x), lambda: mpi.reducescatter_tensor(x),
+    from torchmpi_tpu_torch.engine import AllReduceSGDEngine
+    for fn in (lambda: mpi.alltoall_tensor(torch.ones((L, p, 8))),
+               lambda: AllReduceSGDEngine(lambda prm, st, b: (0.0, st), {{"w": torch.ones(8)}},
+                                          model_state={{"mean": torch.zeros(4)}},
+                                          param_sharding="fsdp"),
                lambda: mpi.async_.allreduce_tensor(x),
                lambda: mpi.sendreceive_tensor(x, 0, 1),
                lambda: mpi.kernel.allreduce_tensor(torch.ones((L, 1 << 17)), wire_dtype="int8")):

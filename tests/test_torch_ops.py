@@ -294,14 +294,17 @@ def test_wrappers_launch_or_raise_off_the_cpu():
                  lambda: ops.ring_attention_fwd(a, a, a, bidir=True),
                  lambda: ops.ring_attention_bwd(a, a, a, a, lse, a),
                  lambda: ops.ring_allreduce_xproc([x[0], x[1]], 1),
-                 lambda: ops.ring_broadcast_xproc(x[0], 2)):
+                 lambda: ops.ring_broadcast_xproc(x[0], 2),
+                 lambda: ops.ring_reduce_scatter_xproc([x[0], x[1]], [1]),
+                 lambda: ops.ring_allgather_xproc([x[0], x[1]], 1)):
         with pytest.raises(ValueError, match="CUDA or the CPU"):
             call()
     counts = ops.launch_counts()
     assert set(counts) == {"ring_allreduce", "ring_broadcast", "accumulate", "scale_accumulate",
                            "ring_reduce_scatter", "ring_allgather", "ring_reduce",
                            "ring_allreduce_bidir", "ring_allreduce_xproc",
-                           "ring_broadcast_xproc", "ring_attention_fwd",
+                           "ring_broadcast_xproc", "ring_reduce_scatter_xproc",
+                           "ring_allgather_xproc", "ring_attention_fwd",
                            "ring_attention_fwd_bidir", "ring_attention_bwd"} | {
         f"{op}_{wire}" for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant")
         for wire in ("int8", "bf16")

@@ -270,8 +270,8 @@ def _plane():
     return plane
 
 
-# the collectives whose cross-process forms are ROADMAP A13's rest
-_XPROC_REST = ("allgather", "reducescatter", "alltoall", "sendreceive")
+# the collectives whose cross-process forms are ROADMAP A13's rest (part 6)
+_XPROC_REST = ("alltoall", "sendreceive")
 
 
 def op_route(op: str, nelem: int, platform: str, requested: str = "ring") -> str:
@@ -380,7 +380,12 @@ def _allgather_lastdim(x: torch.Tensor, groups: int = 1, **kw) -> torch.Tensor:
     intra allgather, one launch)."""
     from ..ops import ring_kernels
 
-    stacked = ring_kernels.ring_allgather(x, groups=groups, **kw)  # [rank, source, ..., d]
+    return _concat_lastdim(ring_kernels.ring_allgather(x, groups=groups, **kw), x)
+
+
+def _concat_lastdim(stacked: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The stacked blocks ``[rank, source, ..., d]`` of an allgather of
+    ``x`` concatenated along the last dim, ``[rank, ..., source * d]``."""
     moved = stacked.movedim(1, -2)  # [rank, ..., source, d]
     return moved.reshape(x.shape[:-1] + (stacked.shape[1] * x.shape[-1],))
 
@@ -467,7 +472,7 @@ def _validate(op: str, x: torch.Tensor, comm: Communicator, root: int,
     if comm.multiprocess and op in _XPROC_REST:
         from ..runtime.peers import rest
 
-        raise rest(f"{op}")
+        raise rest(f"{op}", 6)
     _check_rank_stacked(x, comm)
     if wire_dtype not in (None, "full", "bf16", "int8"):
         # validated on every call: a typo must not pass silently because
@@ -599,7 +604,7 @@ def run_allgatherv(blocks, comm: Communicator, backend: str = "xla") -> torch.Te
     if comm.multiprocess:
         from ..runtime.peers import rest
 
-        raise rest("allgatherv")
+        raise rest("allgatherv", 6)
     if len(blocks) != comm.size:
         raise CollectiveArgumentError(
             f"allgatherv expects {comm.size} blocks (one per rank), got {len(blocks)}"
@@ -716,7 +721,7 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, backend: str = "xla"
     if comm.multiprocess:
         from ..runtime.peers import rest
 
-        raise rest(f"the async {op}")
+        raise rest(f"the async {op}", 4)
     limit = constants.get("num_async_collectives_in_flight")
     while handles.outstanding_kind("collective") >= limit:
         if not handles.wait_oldest("collective"):
@@ -938,7 +943,7 @@ def run_group_broadcast(x: torch.Tensor, comm: Communicator, root: int = 0) -> t
     if comm.multiprocess:
         from ..runtime.peers import rest
 
-        raise rest("the group broadcast")
+        raise rest("the group broadcast", 6)
     groups: dict = {}
     for r in range(comm.size):
         m = comm.member(r)

@@ -18,7 +18,9 @@ small gradients onto the kernel path.
 
 A tensor is fused only when it is rank-stacked with at least two dims
 (``fusion.py:207-216``), and a reduce-scatter only for a ``[p, n]`` tensor
-whose ``n`` divides by p; any other dispatches at once, async. The
+whose ``n`` divides by p; any other dispatches at once, async (across
+processes, where the async collectives are ROADMAP A13's rest, at once
+and synchronously; the rows there are the process's ranks'). The
 reduce-scatter's interleaving: each tensor's ``[p, n_i]`` becomes
 ``[p, p, n_i / p]`` and the chunk axes are concatenated, so rank r's
 scattered block holds every tensor's r-th chunk, and tensor i's result is
@@ -236,7 +238,12 @@ class FusionBuffer:
 
         t0 = time.perf_counter()
         kw = {"wire_dtype": wire_dtype} if op in eager._WIRE_OPS else {}
-        h = _dispatch(op, x, self.comm, "async", backend, **kw)
+        if self.comm.multiprocess:
+            # the async collectives across processes are ROADMAP A13's rest
+            # (part 4): the unfused dispatch is synchronous there
+            h = SyncHandle(_dispatch(op, x, self.comm, "sync", backend, **kw))
+        else:
+            h = _dispatch(op, x, self.comm, "async", backend, **kw)
         if _telemetry.enabled():
             _, _, lat = _metric_handles()
             lat.observe(time.perf_counter() - t0, op=op, path="unfused")
@@ -292,9 +299,10 @@ class FusionBuffer:
             # interleave so rank r's scattered block holds every tensor's
             # r-th chunk: [p, n_i] -> [p, p, n_i / p], concatenate the chunk
             # axes, flatten back to [p, total] (each n_i divides by p,
-            # gated at submit); then one synchronous reduce-scatter plan
-            p = self.comm.size
-            buf = torch.cat([f.reshape(p, p, -1) for f in flats], dim=2).reshape(p, -1)
+            # gated at submit); then one synchronous reduce-scatter plan. The
+            # rows are this process's ranks' (all p in one process)
+            p, local = self.comm.size, self.comm.local_size
+            buf = torch.cat([f.reshape(local, p, -1) for f in flats], dim=2).reshape(local, -1)
             return _dispatch(group.op, buf, self.comm, "sync", group.backend,
                              wire_dtype=group.wire)
         # allreduce: the pack and the reduction as one plan (run_fused)

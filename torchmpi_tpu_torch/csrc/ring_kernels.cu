@@ -85,7 +85,16 @@
 //   Bound: p rows read and L rows written by each of the P_proc processes.
 //   K7: the broadcast kernel above with the root's row, in whichever slab
 //   it lies, as its source row and the process's L rows as its output.
-//   Neither kernel waits on another process: the host protocol of
+//   K3 'rs': each process sums only the segments its own ranks keep (the
+//   `owned` global ranks, passed by value beside the table, in any order),
+//   each in the one-process 'rs' order (segment s starts at rank s+1 and
+//   walks rightward to s). So the job's launches together read the [p, p*m]
+//   rows once, as the one-process 'rs' does, with no duplicated work. Bound:
+//   L*p*m elements read and L*m written by each process. K3 'ag': each
+//   process copies the p blocks, wherever they lie, into each of its L
+//   rows, in rank order; bytes, so any payload type, bool and -0.0
+//   included. Bound: p blocks read and L*p written by each process.
+//   No kernel waits on another process: the host protocol of
 //   runtime/peers.py orders the copies with interprocess events.
 //
 // The launch shape (common.cuh shape_for). Every kernel here streams: it
@@ -424,6 +433,64 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// The global rank of each of a process's rows in the cross-process 'rs':
+// row i of the output is that rank's segment.
+struct OwnedTable {
+  int rank[kMaxTableRows];
+};
+
+// The cross-process K3 'rs': vector j of local row i is vector j of
+// segment s = owned[i] of the sum over the table's p rows (each p
+// segments of seg_vecs), started at rank s+1 and walked rightward to s.
+template <typename Op, int BYTES, int P>
+__global__ void __launch_bounds__(256)
+    ring_reduce_scatter_xproc_kernel(const __grid_constant__ RowTable rows,
+                                     const __grid_constant__ OwnedTable owned,
+                                     typename Op::S* __restrict__ out, int p, int local,
+                                     long long seg_vecs) {
+  using R = typename RawOf<BYTES>::T;
+  if constexpr (P > 0) p = P;
+  R* outr = reinterpret_cast<R*>(out);
+  const long long total = (long long)local * seg_vecs;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < total;
+       v += stride) {
+    const int i = (int)(v / seg_vecs);
+    const int s = owned.rank[i];
+    const long long at = (long long)s * seg_vecs + (v - (long long)i * seg_vecs);
+    outr[v] = table_sum<Op, BYTES, P>(rows, p, at, (s + 1 == p) ? 0 : s + 1).raw;
+  }
+}
+
+// The cross-process K3 'ag': the table's p blocks of row_vecs, each read
+// once, written in rank order to each of the `local` rows of out (a row
+// is p blocks).
+template <int BYTES>
+__global__ void __launch_bounds__(256)
+    ring_allgather_xproc_kernel(const __grid_constant__ RowTable rows,
+                                unsigned char* __restrict__ out, int p, int local,
+                                long long row_vecs) {
+  using R = typename RawOf<BYTES>::T;
+  R* o = reinterpret_cast<R*>(out);
+  const long long block = (long long)p * row_vecs;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < block;
+       v += stride) {
+    const int q = (int)(v / row_vecs);
+    const R val = static_cast<const R*>(rows.row[q])[v - (long long)q * row_vecs];
+    for (int i = 0; i < local; ++i) o[(long long)i * block + v] = val;
+  }
+}
+
+template <int BYTES>
+void launch_allgather_xproc(const RowTable& rows, unsigned char* out, int p, int local,
+                            long long row_bytes, cudaStream_t stream) {
+  const long long row_vecs = row_bytes / BYTES;
+  const LaunchShape sh = shape_for(p * row_vecs, 1);
+  ring_allgather_xproc_kernel<BYTES><<<sh.grid, sh.threads, 0, stream>>>(
+      rows, out, p, local, row_vecs);
+}
+
 // Ranks per group of `rows` rows in `groups` groups, or 0 when they do not
 // split evenly (or more groups than a grid's y dimension takes).
 inline int group_size(int rows, int groups) {
@@ -613,4 +680,76 @@ extern "C" int tm_ring_broadcast_xproc(const void* src, void* out, int local,
                                        long long row_bytes, void* stream) {
   if (local < 1 || row_bytes < 0) return (int)cudaErrorInvalidValue;
   return tmpi::replicate(src, row_bytes, out, local, row_bytes, 1, stream);
+}
+
+// The cross-process K3 'rs'. rows: p device addresses, rank r's row of p
+// segments of seg_n elements of `dtype` (each in the slab of the process
+// that owns r); owned: the global rank of each of the `local` rows of out
+// ([local, seg_n] contiguous), whose row i is the sum of every rank's
+// segment owned[i], in tm_ring_reduce_scatter's order of adds.
+extern "C" int tm_ring_reduce_scatter_xproc(const unsigned long long* rows, int p,
+                                            const int* owned, int local, void* out,
+                                            int dtype, long long seg_n, void* stream) {
+  using namespace tmpi;
+  const int itemsize = itemsize_of(dtype);
+  if (itemsize == 0 || p < 1 || p > kMaxTableRows || local < 1 || local > kMaxTableRows ||
+      seg_n < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  OwnedTable own = {};
+  for (int i = 0; i < local; ++i) {
+    if (owned[i] < 0 || owned[i] >= p) return (int)cudaErrorInvalidValue;
+    own.rank[i] = owned[i];
+  }
+  RowTable table = {};
+  // a vector never straddles two segments: its width divides seg_n's bytes
+  int bytes = 16;
+  for (int r = 0; r < p; ++r) {
+    table.row[r] = reinterpret_cast<const void*>(rows[r]);
+    const int w = vector_bytes(itemsize, (unsigned long long)seg_n * itemsize, table.row[r], out);
+    if (w < bytes) bytes = w;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool launched = with_reduce_type(dtype, bytes, [&](auto op, auto width) {
+    using Op = decltype(op);
+    using S = typename Op::S;
+    constexpr int kBytes = decltype(width)::value;
+    constexpr int kVW = kBytes / (int)sizeof(S);
+    const LaunchShape sh = shape_for(local * (seg_n / kVW), 1);
+    with_ranks(p, [&](auto ranks) {
+      ring_reduce_scatter_xproc_kernel<Op, kBytes, decltype(ranks)::value>
+          <<<sh.grid, sh.threads, 0, s>>>(table, own, static_cast<S*>(out), p, local,
+                                          seg_n / kVW);
+    });
+  });
+  if (!launched) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The cross-process K3 'ag'. rows: p device addresses, rank r's block of
+// row_bytes (each in the slab of the process that owns r); out: [local, p,
+// row_bytes] contiguous, every row the p blocks in rank order.
+extern "C" int tm_ring_allgather_xproc(const unsigned long long* rows, int p, void* out,
+                                       int local, long long row_bytes, void* stream) {
+  using namespace tmpi;
+  if (p < 1 || p > kMaxTableRows || local < 1 || row_bytes < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  RowTable table = {};
+  int bytes = 16;
+  for (int r = 0; r < p; ++r) {
+    table.row[r] = reinterpret_cast<const void*>(rows[r]);
+    const int w = vector_bytes(1, (unsigned long long)row_bytes, table.row[r], out);
+    if (w < bytes) bytes = w;
+  }
+  unsigned char* o = static_cast<unsigned char*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bytes) {
+    case 16: launch_allgather_xproc<16>(table, o, p, local, row_bytes, s); break;
+    case 8: launch_allgather_xproc<8>(table, o, p, local, row_bytes, s); break;
+    case 4: launch_allgather_xproc<4>(table, o, p, local, row_bytes, s); break;
+    case 2: launch_allgather_xproc<2>(table, o, p, local, row_bytes, s); break;
+    default: launch_allgather_xproc<1>(table, o, p, local, row_bytes, s); break;
+  }
+  return (int)cudaGetLastError();
 }

@@ -85,7 +85,12 @@ modes broadcast nothing at construction and ``broadcast_parameters_now``
 is the identity (``sgd.py:376-389, 574-579``). ``self.params`` holds the
 shards of the sharded leaves under ``'fsdp'``;
 :meth:`AllReduceSGDEngine.gathered_params` gives the full rank-stacked
-parameters in every mode.
+parameters in every mode. In a job of several processes every tree holds
+this process's rows (``comm.local_ranks``), rank r's shard on rank r's
+row, and the reduce-scatter and allgather are the cross-process K3 'rs'
+and 'ag' on the kernel backend; a model state under a sharded mode there
+raises (its global batch statistics need a reduction across processes
+inside the forward, ROADMAP A13's rest).
 
 ``accum_steps=k`` cuts each rank's batch into k equal microbatches (rows
 ``[i b, (i + 1) b)`` of every rank, the rank-major split of
@@ -130,7 +135,8 @@ Observability and checkpoints (``sgd.py:787-891, 1379-1493``):
 - :meth:`AllReduceSGDEngine.checkpoint_every` saves a portable sharded
   checkpoint (:mod:`~torchmpi_tpu_torch.utils.checkpoint`) every N calls
   of :meth:`step`: the host copy on the step thread, the files on a
-  background thread, one save in flight.
+  background thread, one save in flight (across processes, the
+  cooperative save on the step thread).
 
 The JAX engine's ``resize`` (a live world resize) is not ported yet
 (ROADMAP A10).
@@ -364,10 +370,17 @@ class AllReduceSGDEngine:
             )
         if rank_map not in ("vmap", "loop"):
             raise ValueError(f"rank_map must be 'vmap' or 'loop', got {rank_map!r}")
-        if comm.multiprocess and (sharded or mode == "async"):
+        if comm.multiprocess:
             from ..runtime.peers import rest
 
-            raise rest(f"the engine's {param_sharding if sharded else mode} mode")
+            if mode == "async":
+                raise rest("the engine's async mode", 4)
+            if sharded and model_state is not None:
+                # the sharded step normalises its loss and batch statistics
+                # over every rank's rows in one forward: across processes that
+                # needs a differentiable cross-process reduction in the model
+                raise rest(f"global batch statistics (a model state under "
+                           f"param_sharding={param_sharding!r})", 9)
         if wire_dtype is None:
             wire_dtype = constants.get("wire_dtype") if not sharded else "full"
         if wire_dtype in ("bf16", "int8") and sharded:
@@ -378,7 +391,7 @@ class AllReduceSGDEngine:
         if comm.multiprocess and wire_dtype in ("bf16", "int8"):
             from ..runtime.peers import rest
 
-            raise rest(f"the {wire_dtype} wire")
+            raise rest(f"the {wire_dtype} wire", 5)
         self.wire_dtype = wire_dtype
         # a compressed wire needs the bucketed (flat-buffer) sync even in
         # sync mode; one bucket keeps sync mode's single collective
@@ -434,35 +447,43 @@ class AllReduceSGDEngine:
         return {k: v.detach().to(self.comm.device).unsqueeze(0).repeat((p,) + (1,) * v.ndim)
                 for k, v in tree.items()}
 
+    def _whole(self, key: str, leaf: torch.Tensor) -> bool:
+        """Whether a live leaf of a sharded key holds the whole value on
+        each of this process's rows (not its ``[L, n / p]`` shards)."""
+        return tuple(leaf.shape[1:]) == self._shapes[key][1:]
+
     def _shard_tree(self, tree: Tree) -> Tree:
         """``tree`` with each sharded leaf that is still whole (rank-stacked
-        ``[p, ...]``) cut to rank r's shard on rank r, ``[p, n / p]``."""
-        p = self.comm.size
+        ``[L, ...]``, this process's rows) cut to rank r's shard on rank
+        r's row, ``[L, n / p]``."""
+        p, local = self.comm.size, self.comm.local_ranks
         out = dict(tree)
         for k in self._sharded:
-            if tree[k].shape == self._shapes[k]:
-                r = torch.arange(p, device=tree[k].device)
-                out[k] = tree[k].reshape(p, p, -1)[r, r]
+            if self._whole(k, tree[k]):
+                row = torch.arange(len(local), device=tree[k].device)
+                r = torch.tensor(local, device=tree[k].device)
+                out[k] = tree[k].reshape(len(local), p, -1)[row, r]
         return out
 
     def _gather(self, shards: Tree) -> Tree:
         """``shards`` with every sharded leaf made whole: the shards of one
-        dtype packed ``[p, total / p]`` and gathered by one
+        dtype packed ``[L, total / p]`` and gathered by one
         ``allgather_tensor`` (rank s's block holds every leaf's s-th
         chunk), then each leaf cut back out."""
-        p = self.comm.size
+        p, local = self.comm.size, self.comm.local_size
         out = dict(shards)
         by_dtype: Dict[torch.dtype, list] = {}
         for k in self._sharded:
             by_dtype.setdefault(shards[k].dtype, []).append(k)
         for names in by_dtype.values():
             packed = torch.cat([shards[k] for k in names], dim=1)
-            full = collectives.allgather_tensor(packed, comm=self.comm).reshape(p, p, -1)
+            full = collectives.allgather_tensor(packed, comm=self.comm).reshape(local, p, -1)
             off = 0
             for k in names:
                 m = shards[k].shape[1]
                 # contiguous, as the kernels take their leaves
-                out[k] = full[:, :, off:off + m].reshape(self._shapes[k]).contiguous()
+                out[k] = full[:, :, off:off + m].reshape(
+                    (local,) + self._shapes[k][1:]).contiguous()
                 off += m
         return out
 
@@ -614,9 +635,10 @@ class AllReduceSGDEngine:
         through the ``FusionBuffer``'s reduce-scatter (rank r keeps its
         shard of the sum), the others allreduced; every sum times
         ``scale``."""
-        p = self.comm.size
+        local = self.comm.local_size
         fb = collectives.get_fusion_buffer(self.comm)
-        handles = {k: fb.submit("reducescatter", grads[k].reshape(p, -1)) for k in self._sharded}
+        handles = {k: fb.submit("reducescatter", grads[k].reshape(local, -1))
+                   for k in self._sharded}
         fb.flush_for(handles.values())
         out = {k: h.wait() for k, h in handles.items()}
         rest = {k: g for k, g in grads.items() if k not in handles}
@@ -648,11 +670,20 @@ class AllReduceSGDEngine:
 
     def _grad_norm(self, grads: Tree) -> torch.Tensor:
         """The global gradient norm after the sync, as a device scalar: a
-        sharded leaf's shards summed over every rank, any other leaf's
-        rank 0 row (every rank holds the same sum)."""
-        squares = [(g if k in self._sharded and tuple(g.shape) != self._shapes[k] else g[0])
-                   .float().square().sum() for k, g in grads.items()]
-        return torch.stack(squares).sum().sqrt()
+        sharded leaf's shards summed over every rank (across processes the
+        other processes' shards gathered from the slabs first, so the sum
+        is the one-process sum over the same ``[p, n / p]``), any other
+        leaf's first row (every rank holds the same sum)."""
+        def square(k, g):
+            if k not in self._sharded or self._whole(k, g):
+                return g[0].float().square().sum()
+            if self.comm.multiprocess:
+                from ..schedule.lower import gather_full
+
+                g = gather_full(self.comm, "ring", g.contiguous())
+            return g.float().square().sum()
+
+        return torch.stack([square(k, g) for k, g in grads.items()]).sum().sqrt()
 
     def _record_step(self, examples: int, t0: float, t1: float, gnorm=None,
                      steps: int = 1, epoch: bool = False, input_stall_s: float = 0.0) -> None:
@@ -707,7 +738,11 @@ class AllReduceSGDEngine:
         to host memory on the step thread (the next step replaces the
         tensors); the files are written by one daemon thread. One save in
         flight at a time: a boundary reached while the previous save is
-        still writing is skipped, not queued. Only :meth:`step` counts, as
+        still writing is skipped, not queued. In a job of several processes
+        the save is the cooperative one, made on the step thread before
+        :meth:`step` returns: its barriers are collectives of the control
+        plane, which every process must issue in the same order as the
+        step's own. Only :meth:`step` counts, as
         in the JAX engine: :meth:`train` and :meth:`train_resident` neither
         count nor save. ``steps=0`` disarms. A resumed run passes
         ``start_step`` (the restored checkpoint's step) so the saved step
@@ -723,6 +758,12 @@ class AllReduceSGDEngine:
             return
         self._ckpt_counter += 1
         if self._ckpt_counter % self._ckpt_every:
+            return
+        if self.comm.multiprocess:
+            # the cooperative save meets the other processes at gloo barriers,
+            # which must come in the same order as the step's lane and gloo
+            # calls in every process: on the step thread, synchronously
+            self._save_checkpoint(self._ckpt_counter, None)
             return
         t = self._ckpt_thread
         if t is not None and t.is_alive():

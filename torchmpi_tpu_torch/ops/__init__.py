@@ -10,8 +10,9 @@
   ``ops/ring_kernels.py:_ring_bidir_kernel``;
 - ``ring_broadcast`` (``csrc/ring_kernels.cu``) replaces
   ``ops/ring_kernels.py:_ring_broadcast_kernel``;
-- ``ring_allreduce_xproc`` and ``ring_broadcast_xproc`` (the same file)
-  are K3's allreduce and K7 across processes: they read the rank rows
+- ``ring_allreduce_xproc``, ``ring_reduce_scatter_xproc``,
+  ``ring_allgather_xproc`` and ``ring_broadcast_xproc`` (the same file)
+  are K3's three modes and K7 across processes: they read the rank rows
   from every process's slab (``runtime/peers.py``) and write the
   process's own rows;
 - ``ring_allreduce_quant`` and ``ring_reduce_scatter_quant``
@@ -59,6 +60,8 @@ from .ring_attention_kernel import (
 from .ring_kernels import (
     ring_allgather,
     ring_allgather_plain,
+    ring_allgather_xproc,
+    ring_allgather_xproc_plain,
     ring_allreduce,
     ring_allreduce_bidir,
     ring_allreduce_bidir_plain,
@@ -77,6 +80,8 @@ from .ring_kernels import (
     ring_reduce_scatter_plain,
     ring_reduce_scatter_quant,
     ring_reduce_scatter_quant_plain,
+    ring_reduce_scatter_xproc,
+    ring_reduce_scatter_xproc_plain,
 )
 
 
@@ -100,6 +105,8 @@ __all__ = [
     "reset_launch_counts",
     "ring_allgather",
     "ring_allgather_plain",
+    "ring_allgather_xproc",
+    "ring_allgather_xproc_plain",
     "ring_allreduce",
     "ring_allreduce_bidir",
     "ring_allreduce_bidir_plain",
@@ -122,6 +129,8 @@ __all__ = [
     "ring_reduce_scatter_plain",
     "ring_reduce_scatter_quant",
     "ring_reduce_scatter_quant_plain",
+    "ring_reduce_scatter_xproc",
+    "ring_reduce_scatter_xproc_plain",
     "scale_accumulate",
     "scale_accumulate_many",
     "scale_accumulate_many_plain",

@@ -69,6 +69,8 @@ launches = {
     "ring_allreduce_bidir": 0,
     "ring_allreduce_xproc": 0,
     "ring_broadcast_xproc": 0,
+    "ring_reduce_scatter_xproc": 0,
+    "ring_allgather_xproc": 0,
     **{f"{op}_{wire}": 0 for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant")
        for wire in WIRES},
 }
@@ -92,6 +94,13 @@ _SIGNATURES = {
                                 _LONG, _LONG, _PTR],
     # src, out, local, row_bytes, stream
     "tm_ring_broadcast_xproc": [_PTR, _PTR, _INT, _LONG, _PTR],
+    # rows (p addresses), p, owned (local ranks), local, out, dtype, seg_n, stream
+    "tm_ring_reduce_scatter_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT,
+                                     ctypes.POINTER(ctypes.c_int), _INT, _PTR, _INT, _LONG,
+                                     _PTR],
+    # rows (p addresses), p, out, local, row_bytes, stream
+    "tm_ring_allgather_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT, _PTR, _INT, _LONG,
+                                _PTR],
 }
 # the cross-process K3's row table (csrc/ring_kernels.cu kMaxTableRows)
 MAX_TABLE_ROWS = 32
@@ -565,6 +574,100 @@ def ring_broadcast_xproc(src: torch.Tensor, local: int, stream=None) -> torch.Te
         _launch("tm_ring_broadcast_xproc", src, src.data_ptr(), out.data_ptr(), local,
                 row_bytes, stream=stream)
         launches["ring_broadcast_xproc"] += 1
+    return out
+
+
+def _check_owned(rows, owned, what: str) -> list:
+    """``owned`` as a list of global ranks of the table's ``len(rows)``,
+    after the table's checks; each rank row must be 1-D and divide into
+    p segments."""
+    owned = [int(r) for r in owned]
+    _check_table(rows, len(owned), what)
+    p = len(rows)
+    if len(owned) > MAX_TABLE_ROWS or any(not 0 <= r < p for r in owned):
+        raise ValueError(f"{what}: owned ranks {owned} out of range for {p} ranks")
+    first = rows[0]
+    if first.ndim != 1 or first.numel() % p:
+        raise ValueError(f"{what} takes 1-D rank rows of p segments (p={p}), got "
+                         f"{tuple(first.shape)}")
+    return owned
+
+
+def ring_reduce_scatter_xproc_plain(rows, owned) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_reduce_scatter_xproc`: the p
+    rank rows stacked, :func:`ring_reduce_scatter`'s rows of the ranks in
+    ``owned``."""
+    owned = _check_owned(rows, owned, "ring_reduce_scatter_xproc")
+    x = torch.stack(list(rows))
+    out = ring_reduce_scatter_plain(x)
+    return out[torch.tensor(owned, device=x.device)]
+
+
+def ring_reduce_scatter_xproc(rows, owned, stream=None) -> torch.Tensor:
+    """Reduce-scatter over ranks held by several processes: ``rows`` are
+    the p rank rows ``[p m]`` in rank order, each where it lies (this
+    process's or a peer's mapped slab), and ``owned`` the global rank of
+    each of this process's rows, in any order. Row i of the ``[L, m]``
+    result is the sum of every rank's segment ``owned[i]``, bit for bit
+    :func:`ring_reduce_scatter`'s row of that rank on the stacked rows
+    (segment s's sum starts at rank s + 1 and walks rightward to s). So a
+    process reduces only its own segments, and the job's launches read
+    the rows once. One launch of the cross-process K3 'rs'
+    (``ring_reduce_scatter_pallas`` across processes, ``ring_kernels.py:
+    437``); the plain version for CPU rows. Natively reduced dtypes only:
+    the caller casts to :func:`carrier_dtype` before it publishes."""
+    first = rows[0]
+    if first.device.type == "cpu":
+        return ring_reduce_scatter_xproc_plain(rows, owned)
+    owned = _check_owned(rows, owned, "ring_reduce_scatter_xproc")
+    _check_cuda(first, "ring_reduce_scatter_xproc")
+    if first.dtype not in NATIVE_DTYPES:
+        raise ValueError(f"ring_reduce_scatter_xproc reduces "
+                         f"{sorted(map(str, NATIVE_DTYPES))}, not {first.dtype}")
+    p, local = len(rows), len(owned)
+    seg_n = first.numel() // p
+    out = torch.empty((local, seg_n), dtype=first.dtype, device=first.device)
+    if seg_n:
+        table = (ctypes.c_ulonglong * p)(*[r.data_ptr() for r in rows])
+        own = (ctypes.c_int * local)(*owned)
+        _launch("tm_ring_reduce_scatter_xproc", first, table, p, own, local, out.data_ptr(),
+                NATIVE_DTYPES[first.dtype], seg_n, stream=stream)
+        launches["ring_reduce_scatter_xproc"] += 1
+    return out
+
+
+def ring_allgather_xproc_plain(rows, local: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_allgather_xproc`: the p blocks
+    stacked in rank order, copied to ``local`` rows."""
+    _check_table(rows, local, "ring_allgather_xproc")
+    x = torch.stack(list(rows))
+    return x[None].expand((local,) + tuple(x.shape)).contiguous()
+
+
+def ring_allgather_xproc(rows, local: int, stream=None) -> torch.Tensor:
+    """Allgather over ranks held by several processes: ``rows`` are the p
+    rank blocks (``[*s]`` each) in rank order, each where it lies, and the
+    result ``[local, p, *s]``: every one of this process's rows gets every
+    block, in rank order, as :func:`ring_allgather`'s rows do. One launch
+    of the cross-process K3 'ag' (``ring_allgather_pallas`` across
+    processes, ``ring_kernels.py:831``); the plain version for CPU
+    blocks. Any dtype but complex: the kernel copies bytes."""
+    first = rows[0]
+    if first.device.type == "cpu":
+        return ring_allgather_xproc_plain(rows, local)
+    _check_table(rows, local, "ring_allgather_xproc")
+    _check_cuda(first, "ring_allgather_xproc")
+    if first.dtype.is_complex:
+        raise ValueError(f"ring_allgather_xproc: complex dtypes are not supported "
+                         f"({first.dtype})")
+    p = len(rows)
+    out = torch.empty((local, p) + tuple(first.shape), dtype=first.dtype, device=first.device)
+    row_bytes = first.numel() * first.element_size()
+    if row_bytes:
+        table = (ctypes.c_ulonglong * p)(*[r.data_ptr() for r in rows])
+        _launch("tm_ring_allgather_xproc", first, table, p, out.data_ptr(), local, row_bytes,
+                stream=stream)
+        launches["ring_allgather_xproc"] += 1
     return out
 
 

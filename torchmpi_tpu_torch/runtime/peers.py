@@ -34,8 +34,9 @@ time-slice):
    last *issued* when it is called);
 3. wait on the host for every peer's post k+1, then make the stream wait
    on each peer's write event;
-4. read the slots (the cross-process K3 or K7, or a copy into a full
-   rank-stacked tensor), record the read event, post the read k+1.
+4. read the slots (the cross-process K3 in any of its three modes or K7,
+   or a copy into a full rank-stacked tensor), record the read event, post
+   the read k+1.
 
 A host wait polls the peer's counter in shared memory; a peer whose
 process is gone raises :class:`PeerError` at once, and one that does not
@@ -75,10 +76,10 @@ def wait_bound() -> float:
     return t if t > 0 else _WAIT_DEFAULT_S
 
 
-def rest(what: str) -> NotImplementedError:
-    """The error of an operation this slice does not carry across
-    processes."""
-    return NotImplementedError(f"{what} across processes is ROADMAP A13's rest")
+def rest(what: str, part: int) -> NotImplementedError:
+    """The error of an operation not yet carried across processes, naming
+    the ``part`` of ROADMAP A13's rest that carries it."""
+    return NotImplementedError(f"{what} across processes is ROADMAP A13's rest, part {part}")
 
 
 def _shm_path(name: str) -> str:
@@ -263,9 +264,9 @@ class Lane:
 
     def __init__(self, plane: ControlPlane, comm, lane_id: int):
         if len(set(plane.hosts)) > 1:
-            raise rest("a lane between hosts (no shared memory or CUDA IPC between them)")
+            raise rest("a lane between hosts (no shared memory or CUDA IPC between them)", 8)
         if sorted(set(comm.processes)) != list(range(plane.count)):
-            raise rest("a communicator spanning some of the processes")
+            raise rest("a communicator spanning some of the processes", 6)
         self.plane = plane
         self.device = comm.device
         self.cuda = comm.device.type == "cuda"
@@ -345,6 +346,12 @@ class Lane:
             finally:
                 _unlink(name)
         self.cap = cap
+
+    @property
+    def growths(self) -> int:
+        """Slab allocations so far (the first included), each a collective
+        exchange."""
+        return self._gen
 
     def unmap_peers(self) -> None:
         """Close the mappings of the peers' slabs (the deleters run)."""
@@ -481,11 +488,52 @@ class Lane:
         rows = (rows if carrier == x.dtype else rows.to(carrier)).contiguous()
         n = rows.shape[1]
         s = self.publish(rows, n * rows.element_size(), stream)
-        views = self.views(s, (n,), carrier)
-        table = [views[q][self.index_of[r]] for r, q in enumerate(self.procs)]
-        out = ring_kernels.ring_allreduce_xproc(table, self.local, stream=stream)
+        out = ring_kernels.ring_allreduce_xproc(self._table(s, (n,), carrier), self.local,
+                                                stream=stream)
         self.release(stream)
         return out.to(x.dtype).reshape(x.shape)
+
+    def _table(self, s: int, shape, dtype) -> List[torch.Tensor]:
+        """The p rank rows of slot ``s`` in rank order, each where it
+        lies."""
+        views = self.views(s, shape, dtype)
+        return [views[q][self.index_of[r]] for r, q in enumerate(self.procs)]
+
+    def reduce_scatter(self, x: torch.Tensor, stream=None) -> torch.Tensor:
+        """The reduce-scatter of every rank's rows over dim 1 (``[L, m,
+        ...]``, m divisible by p) through the cross-process K3 'rs'
+        (``ops.ring_reduce_scatter_xproc``): this process's rows ``[L, m /
+        p, ...]`` of the result, each its rank's slice of the sum, bit for
+        bit the one-process 'rs' rows on the same ``[p, ...]``. A process
+        reduces only its own ranks' segments."""
+        from ..ops import ring_kernels
+
+        self._check(x)
+        carrier = ring_kernels.carrier_dtype(x.dtype)
+        rows = x.reshape(self.local, -1)
+        rows = (rows if carrier == x.dtype else rows.to(carrier)).contiguous()
+        n = rows.shape[1]
+        s = self.publish(rows, n * rows.element_size(), stream)
+        out = ring_kernels.ring_reduce_scatter_xproc(
+            self._table(s, (n,), carrier), self.rows_of[self.me], stream=stream)
+        self.release(stream)
+        return out.to(x.dtype).reshape((self.local, x.shape[1] // self.size) + tuple(x.shape[2:]))
+
+    def allgather(self, x: torch.Tensor, stream=None) -> torch.Tensor:
+        """Every rank's block (``x`` ``[L, *s]``) in each of this
+        process's rows, ``[L, p, *s]`` in rank order, through the
+        cross-process K3 'ag' (``ops.ring_allgather_xproc``), which reads
+        each block from the slab where it lies."""
+        from ..ops import ring_kernels
+
+        self._check(x)
+        x = x.contiguous()
+        shape = tuple(x.shape[1:])
+        s = self.publish(x, x[0].numel() * x.element_size(), stream)
+        out = ring_kernels.ring_allgather_xproc(self._table(s, shape, x.dtype), self.local,
+                                                stream=stream)
+        self.release(stream)
+        return out
 
     def broadcast(self, x: torch.Tensor, root: int, stream=None) -> torch.Tensor:
         """Rank ``root``'s row in every one of this process's rows through

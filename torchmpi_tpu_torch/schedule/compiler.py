@@ -524,7 +524,7 @@ def _bind(plan: Plan, comm, shape: Tuple[int, ...], dtype, wire: str,
     if comm.multiprocess and wire != "full":
         from ..runtime.peers import rest
 
-        raise rest(f"the {wire} wire")
+        raise rest(f"the {wire} wire", 5)
     if plan.generator == "flat":
         fn, takes_stream = lower.lower_flat(
             comm, op, plan.backend, shape, dtype, wire, root, src, dst,
@@ -689,7 +689,7 @@ def compile_fused(
     if comm.multiprocess and wire != "full":
         from ..runtime.peers import rest
 
-        raise rest(f"the {wire} wire")
+        raise rest(f"the {wire} wire", 5)
     plan, _cands = select_plan(
         op, total, dtype.itemsize, topo, eff, wire, route_small, comm=comm
     )

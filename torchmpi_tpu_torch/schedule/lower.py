@@ -411,15 +411,28 @@ def across(comm, backend: str, fn: Callable, takes_stream: bool) -> Callable:
 
 def _across_flat(comm, op: str, backend: str, root: int, fn: Callable) -> Callable:
     """The flat function across processes: on the kernel backend the
-    allreduce is the cross-process K3 and the broadcast the cross-process
-    K7, which read the rows from the slabs where they lie (the broadcast
-    at any size: the binomial tree's hops have no counterpart when the
-    root's row is one read away); every other pair runs :func:`across`."""
+    allreduce, the reduce-scatter and the allgather are the cross-process
+    K3 in its three modes and the broadcast the cross-process K7, which
+    read the rows from the slabs where they lie (the broadcast at any
+    size: the binomial tree's hops have no counterpart when the root's row
+    is one read away); the eager reduce-scatter scatters and the allgather
+    concatenates the last dim, moved to dim 1 around the lane as the
+    one-process kernel table moves it (``eager._reduce_scatter_lastdim``,
+    ``_allgather_lastdim``). Every other pair runs :func:`across`."""
+
+    def lane():
+        return _eager()._plane().lane(comm)
+
     if backend == "kernel" and op == "allreduce" and \
             constants.get("ring_implementation") != "kernel_bidir":
-        return lambda x, stream=None: _eager()._plane().lane(comm).allreduce(x, stream)
+        return lambda x, stream=None: lane().allreduce(x, stream)
     if backend == "kernel" and op == "broadcast":
-        return lambda x, stream=None: _eager()._plane().lane(comm).broadcast(x, root, stream)
+        return lambda x, stream=None: lane().broadcast(x, root, stream)
+    if backend == "kernel" and op == "reducescatter":
+        return lambda x, stream=None: lane().reduce_scatter(
+            x.movedim(-1, 1).contiguous(), stream).movedim(1, -1)
+    if backend == "kernel" and op == "allgather":
+        return lambda x, stream=None: _eager()._concat_lastdim(lane().allgather(x, stream), x)
     return across(comm, backend, fn, backend == "kernel")
 
 
@@ -493,7 +506,7 @@ def _staged_across(x: torch.Tensor, comm, intra_impl: str, wire: str, pipeline: 
     if not _process_aligned(comm):
         from ..runtime.peers import rest
 
-        raise rest("the staged allreduce over groups that span processes")
+        raise rest("the staged allreduce over groups that span processes", 6)
     n = math.prod(x.shape[1:])
     wire_arg = None if wire == "full" else wire
     reduced = _local_intra(comm, intra_impl, n, x.dtype, wire_arg, int(pipeline))(x, stream)

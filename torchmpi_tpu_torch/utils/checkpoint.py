@@ -39,7 +39,18 @@ Two formats:
 - the **single-process** format (:func:`save_engine` /
   :func:`restore_engine`): the same atomically written ``meta.json``
   header, and the host state in one ``torch.save`` file where the JAX
-  package uses orbax. Cooperative multi-process saves are ROADMAP A13's rest.
+  package uses orbax.
+
+In a job of several processes (``start(coordinator_address=...)``) every
+entry point is cooperative, and every process calls it: a sharded leaf's
+logical value gathers the other processes' shards over the lane
+(:func:`host_state`), process 0 writes the single-process format, and a
+restore puts this process's rows in place. :func:`save_engine_sharded` at
+the engine's own world writes without a gather: each process writes its
+own ranks' shard files straight from its live shards into one temp
+directory, process 0 the replicated leaves and the header, then publishes
+between two barriers. The files are byte for byte the ones one process
+writes for the same state.
 
 Parameter-server centers save and restore through
 :func:`save_parameter_servers` / :func:`restore_parameter_servers`.
@@ -107,10 +118,10 @@ def _leaf_name(path: str) -> str:
 
 
 def _is_shard(engine, path: str, leaf) -> bool:
-    """Whether a live leaf is a sharded leaf's ``[p, n / p]`` shards (and
+    """Whether a live leaf is a sharded leaf's ``[L, n / p]`` shards (and
     not its whole rank-stacked value)."""
     name = _leaf_name(path)
-    return name in engine._sharded and tuple(leaf.shape) != engine._shapes[name]
+    return name in engine._sharded and not engine._whole(name, leaf)
 
 
 def _logical_shape(engine, path: str, leaf) -> Tuple[int, ...]:
@@ -127,11 +138,17 @@ def _dtype_token(leaf) -> str:
 
 def _host_leaf(engine, path: str, leaf):
     """One live leaf's logical value on the host: a CPU tensor, or the
-    scalar as it is."""
+    scalar as it is. Across processes a sharded leaf's shards are
+    gathered from every process first (a collective)."""
     if not isinstance(leaf, torch.Tensor):
         return leaf
     if _is_shard(engine, path, leaf):
-        return leaf.detach().reshape(_logical_shape(engine, path, leaf)).cpu()
+        leaf = leaf.detach()
+        if engine.comm.multiprocess:
+            from ..schedule.lower import gather_full
+
+            leaf = gather_full(engine.comm, "ring", leaf.contiguous())
+        return leaf.reshape(_logical_shape(engine, path, leaf)).cpu()
     return leaf.detach()[0].cpu()
 
 
@@ -139,7 +156,9 @@ def host_state(engine) -> Dict[str, Any]:
     """The engine's logical state copied to host memory: ``{"params",
     "opt_state"[, "model_state"]}``, each leaf a CPU tensor (or a scalar).
     One device-to-host copy a leaf, synchronous: what
-    ``checkpoint_every`` takes on the step thread."""
+    ``checkpoint_every`` takes on the step thread. Across processes every
+    process must call it: a sharded leaf's shards are gathered over the
+    lane."""
     return {name: _rebuild(tree, lambda path, leaf: _host_leaf(engine, path, leaf))
             for name, tree in _live_trees(engine).items()}
 
@@ -269,9 +288,11 @@ def _check_layout(meta: Dict[str, Any], engine, path,
 
 def _install(engine, values: Dict[str, Dict[str, Any]]) -> None:
     """Put restored values on the engine: ``values[tree][path]`` is a
-    sharded leaf's ``[p, n / p]`` shards (where the live leaf is one), a
-    leaf's logical value (replicated to every rank), or a scalar."""
-    p, dev = engine.comm.size, engine.comm.device
+    sharded leaf's ``[p, n / p]`` shards (or its logical value), of which
+    this process's ranks' rows go in place where the live leaf is shards;
+    a leaf's logical value, repeated on each of this process's rows; or a
+    scalar."""
+    comm, dev = engine.comm, engine.comm.device
 
     def leaf_fn(tree_name):
         def put(path, cur):
@@ -280,8 +301,9 @@ def _install(engine, values: Dict[str, Dict[str, Any]]) -> None:
                 return new
             new = new.to(dev, cur.dtype)
             if _is_shard(engine, path, cur):
-                return new.reshape(cur.shape).contiguous()
-            return new.unsqueeze(0).repeat((p,) + (1,) * new.ndim)
+                rows = new.reshape(comm.size, -1)
+                return (rows[comm.local_ranks] if comm.multiprocess else rows).contiguous()
+            return new.unsqueeze(0).repeat((comm.local_size,) + (1,) * new.ndim)
         return put
 
     trees = _live_trees(engine)
@@ -292,14 +314,14 @@ def _install(engine, values: Dict[str, Dict[str, Any]]) -> None:
         engine.model_state = restored["model_state"]
 
 
-def _single_process_only(what: str) -> None:
+def _plane(engine):
+    """The control plane when the engine's ranks span processes, else
+    None."""
+    if not engine.comm.multiprocess:
+        return None
     from .. import runtime_state
 
-    if runtime_state.num_processes() > 1:
-        raise RuntimeError(
-            f"{what} is single-process only: cooperative multi-process saves "
-            "are ROADMAP A13's rest"
-        )
+    return runtime_state.plane()
 
 
 # --- the single-process format --------------------------------------------------
@@ -308,17 +330,22 @@ def save_engine(path, engine, step: int = 0, extra: Optional[Dict] = None) -> No
     ``torch.save`` file ``state.pt`` (written to a temp name, fsync'd and
     renamed), then the ``meta.json`` header (world size, sharding, step,
     structure fingerprint), atomically and LAST, so a save killed
-    mid-write never publishes a header whose state is torn."""
-    _single_process_only("save_engine")
+    mid-write never publishes a header whose state is torn. Across
+    processes every process calls it: the shards are gathered
+    (:func:`host_state`), process 0 writes, and a barrier ends the save."""
     path = Path(path).resolve()
-    path.mkdir(parents=True, exist_ok=True)
+    plane = _plane(engine)
     state = host_state(engine)
-    tmp = path / f"state.pt.tmp-{os.getpid()}"
-    torch.save(state, tmp)
-    _fsync_file(tmp)
-    os.replace(tmp, path / "state.pt")
-    _atomic_write_text(path / "meta.json",
-                       json.dumps(_layout_meta(engine, step, extra, state=state)))
+    if plane is None or plane.index == 0:
+        path.mkdir(parents=True, exist_ok=True)
+        tmp = path / f"state.pt.tmp-{os.getpid()}"
+        torch.save(state, tmp)
+        _fsync_file(tmp)
+        os.replace(tmp, path / "state.pt")
+        _atomic_write_text(path / "meta.json",
+                           json.dumps(_layout_meta(engine, step, extra, state=state)))
+    if plane is not None:
+        plane.barrier()
 
 
 def restore_engine(path, engine) -> Dict[str, Any]:
@@ -327,8 +354,9 @@ def restore_engine(path, engine) -> Dict[str, Any]:
     validated FIRST: a checkpoint from another world size (for sharded
     state), sharding mode or model structure raises
     :class:`CheckpointMismatchError` naming the mismatch, before any of
-    the engine's state is touched. Returns the header (with ``step``)."""
-    _single_process_only("restore_engine")
+    the engine's state is touched. Returns the header (with ``step``).
+    Across processes every process reads the files and puts its own rows
+    in place."""
     path = Path(path).resolve()
     meta = json.loads((path / "meta.json").read_text())
     _check_layout(meta, engine, path)
@@ -355,21 +383,39 @@ def _sharded_trees(engine) -> Dict[str, str]:
     return out
 
 
+def _record(tree_name: str, path: str, kind: str, shape, dtype, torch_dtype: str) -> dict:
+    """One leaf's record in a sharded checkpoint's header."""
+    return {
+        "tree": tree_name,
+        "path": path,
+        "shape": [int(d) for d in shape],
+        "dtype": np.dtype(dtype).str,
+        "n": int(np.prod(shape, dtype=np.int64)),
+        "kind": kind,
+        "torch_dtype": torch_dtype,
+    }
+
+
 def _leaf_records(state: Dict[str, Any], kinds: Dict[str, str]) -> List[dict]:
     records = []
     for tree_name in sorted(state):
         for path, leaf in _walk(state[tree_name]):
             arr = _to_numpy(leaf)
-            records.append({
-                "tree": tree_name,
-                "path": path,
-                "shape": list(arr.shape),
-                "dtype": arr.dtype.str,
-                "n": int(arr.size),
-                "kind": kinds[tree_name],
-                "torch_dtype": _dtype_token(leaf),
-            })
+            records.append(_record(tree_name, path, kinds[tree_name], arr.shape, arr.dtype,
+                                   _dtype_token(leaf)))
     return records
+
+
+def _live_record(engine, tree_name: str, path: str, leaf, kind: str) -> dict:
+    """:func:`_leaf_records`'s record of a live leaf, from its logical
+    shape and dtype (no copy, no gather)."""
+    if isinstance(leaf, torch.Tensor):
+        shape = _logical_shape(engine, path, leaf)
+        dtype = _to_numpy(torch.empty(0, dtype=leaf.dtype)).dtype
+    else:
+        arr = _to_numpy(leaf)
+        shape, dtype = arr.shape, arr.dtype
+    return _record(tree_name, path, kind, shape, dtype, _dtype_token(leaf))
 
 
 def _shard_file(data_dir: Path, leaf_idx: int, rank: Optional[int]) -> Path:
@@ -417,24 +463,26 @@ def save_engine_sharded(
     ``state`` is a :func:`host_state` taken earlier: the engine's
     ``checkpoint_every`` takes it on the step thread and writes the files
     on a background thread, so a save never serializes a tree the next
-    step already replaced."""
+    step already replaced.
+
+    Across processes every process calls it. At the engine's own world
+    and without ``state`` the save is cooperative
+    (:func:`_save_sharded_cooperative`); otherwise the shards are gathered
+    (:func:`host_state`) and process 0 writes every file. Every process
+    returns the published directory."""
+    path = Path(path).resolve()
+    world = int(world or engine.comm.size)
+    plane = _plane(engine)
+    if plane is not None and state is None and world == engine.comm.size:
+        return _save_sharded_cooperative(path, engine, step, extra, plane)
+    state = host_state(engine) if state is None else state
+    if plane is not None and plane.index != 0:
+        return path / plane.all_gather_object(None)[0]
     from ..reshard import Layout
 
-    _single_process_only("save_engine_sharded")
-    path = Path(path).resolve()
     path.mkdir(parents=True, exist_ok=True)
-    world = int(world or engine.comm.size)
-    state = host_state(engine) if state is None else state
-    kinds = _sharded_trees(engine)
-    records = _leaf_records(state, kinds)
-    meta = {
-        "format": SHARDED_FORMAT,
-        **_layout_meta(engine, step, extra, state=state),
-        "world": world,
-        "leaves": records,
-    }
+    records = _leaf_records(state, _sharded_trees(engine))
     token = secrets.token_hex(4)
-    data_dir = path / f"data-{token}"
     tmp_dir = path / f".tmp-{token}"
     tmp_dir.mkdir()
     leaves = [leaf for tree_name in sorted(state) for _, leaf in _walk(state[tree_name])]
@@ -451,8 +499,31 @@ def save_engine_sharded(
         for f, data in files:
             np.save(f, data)
             _fsync_file(f)
+    meta = _sharded_meta(engine, step, extra, state, world, records)
+    data_dir = _publish(path, tmp_dir, token, meta, step)
+    if plane is not None:
+        plane.all_gather_object(data_dir.name)
+    return data_dir
+
+
+def _sharded_meta(engine, step: int, extra: Optional[Dict], state, world: int,
+                  records: List[dict]) -> Dict[str, Any]:
+    return {
+        "format": SHARDED_FORMAT,
+        **_layout_meta(engine, step, extra, state=state),
+        "world": world,
+        "leaves": records,
+    }
+
+
+def _publish(path: Path, tmp_dir: Path, token: str, meta: Dict[str, Any], step: int) -> Path:
+    """Write the header into the complete ``tmp_dir``, make it the data
+    directory, swing ``CURRENT`` to it, register the checkpoint, then
+    remove the superseded payload and the temp dirs of saves that died
+    before publishing."""
     (tmp_dir / "meta.json").write_text(json.dumps(meta))
     _fsync_file(tmp_dir / "meta.json")
+    data_dir = path / f"data-{token}"
     os.replace(tmp_dir, data_dir)  # the complete payload becomes visible
     prev = None
     try:
@@ -463,14 +534,64 @@ def save_engine_sharded(
     from ..supervise import checkpoints as _registry
 
     _registry.register_checkpoint(path, step)
-    # remove the superseded payload and the temp dirs of saves that died
-    # before publishing, only AFTER the pointer swung
+    # only AFTER the pointer swung
     for stale in list(path.glob(".tmp-*")) + (
         [prev] if prev is not None and prev != data_dir else []
     ):
         if stale.name != data_dir.name:
             shutil.rmtree(stale, ignore_errors=True)
     return data_dir
+
+
+def _save_sharded_cooperative(path: Path, engine, step: int, extra: Optional[Dict],
+                              plane) -> Path:
+    """:func:`save_engine_sharded` at the engine's world across processes,
+    with no gather: process 0 draws the token and makes the temp
+    directory, the control plane carries the token; each process writes
+    its own ranks' shard files (a sharded leaf's straight from its live
+    shard, the r-th p-th of the leaf's flattening, which is
+    ``Layout(p)``'s interval of rank r; any other leaf of a sharded tree
+    cut from its logical value), process 0 the replicated trees' full
+    copies; a barrier; process 0 writes the header and publishes
+    (:func:`_publish`); a barrier."""
+    from ..reshard import Layout
+
+    comm = engine.comm
+    token = None
+    if plane.index == 0:
+        path.mkdir(parents=True, exist_ok=True)
+        token = secrets.token_hex(4)
+        (path / f".tmp-{token}").mkdir()
+    token = plane.all_gather_object(token)[0]
+    tmp_dir = path / f".tmp-{token}"
+    kinds = _sharded_trees(engine)
+    trees = _live_trees(engine)
+    layout = Layout(comm.size)
+    records = []
+    for tree_name in sorted(trees):
+        for leaf_path, leaf in _walk(trees[tree_name]):
+            i = len(records)
+            records.append(_live_record(engine, tree_name, leaf_path, leaf, kinds[tree_name]))
+            if kinds[tree_name] == "replicated":
+                files = ([(None, _to_numpy(_host_leaf(engine, leaf_path, leaf)).reshape(-1))]
+                         if plane.index == 0 else [])
+            elif isinstance(leaf, torch.Tensor) and _is_shard(engine, leaf_path, leaf):
+                rows = leaf.detach().cpu()
+                files = [(r, _to_numpy(rows[j])) for j, r in enumerate(comm.local_ranks)]
+            else:
+                flat = _to_numpy(_host_leaf(engine, leaf_path, leaf)).reshape(-1)
+                files = [(r, flat[slice(*layout.interval(flat.size, r))])
+                         for r in comm.local_ranks]
+            for r, data in files:
+                f = _shard_file(tmp_dir, i, r)
+                np.save(f, data)
+                _fsync_file(f)
+    plane.barrier()
+    if plane.index == 0:
+        _publish(path, tmp_dir, token, _sharded_meta(engine, step, extra, None, comm.size,
+                                                     records), step)
+    plane.barrier()
+    return path / f"data-{token}"
 
 
 def _read_leaf(data_dir: Path, leaf_idx: int, rec: dict, world: int, dst_world: int,
