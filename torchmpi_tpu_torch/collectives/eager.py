@@ -252,6 +252,8 @@ def barrier(comm: Communicator) -> None:
     process's virtual ranks share one device, so that is the device's
     work, the async side stream's included; across processes every
     process then meets the others at the control plane's barrier."""
+    if comm.multiprocess:
+        _plane().drain()
     if comm.device.type == "cuda":
         torch.cuda.synchronize(comm.device)
     if comm.multiprocess:
@@ -713,19 +715,20 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, backend: str = "xla"
     ordering event, the stream switch, the work, the done event and
     ``record_stream``) while telemetry and the flight recorder are off,
     its plan memoized per call shape (:func:`_issue_route`); with either
-    on, the Python path issues it, so every stamp is made."""
+    on, the Python path issues it, so every stamp is made.
+
+    Across processes the call runs on the control plane's issue thread
+    (:func:`_run_async_across`)."""
     # backpressure: bound the unwaited async collectives
     # (kNumAsyncCollectivesInFlight, lib/constants.cpp:152-155) by waiting
     # the oldest first, as the reference's bounded queues block enqueue;
     # the table keeps the count, so under the bound this is one read
-    if comm.multiprocess:
-        from ..runtime.peers import rest
-
-        raise rest(f"the async {op}", 4)
     limit = constants.get("num_async_collectives_in_flight")
     while handles.outstanding_kind("collective") >= limit:
         if not handles.wait_oldest("collective"):
             break
+    if comm.multiprocess:
+        return _run_async_across(op, x, comm, backend, root, src, dst, route_small, wire_dtype)
     cuda = comm.device.type == "cuda"
     if cuda and not _telemetry.enabled() and not _flight.enabled():
         ep = _issue_route(op, x, comm, backend, root, src, dst, route_small, wire_dtype)
@@ -761,6 +764,50 @@ def run_async(op: str, x: torch.Tensor, comm: Communicator, backend: str = "xla"
             torch.cuda.set_stream(caller)
     x.record_stream(side.stream)
     h = SyncHandle(out, done)
+    handles.register(h, kind="collective")
+    return h
+
+
+def _run_async_across(op: str, x: torch.Tensor, comm: Communicator, backend: str,
+                      root: int, src: int, dst: int, route_small: bool,
+                      wire_dtype: Optional[str]) -> SyncHandle:
+    """:func:`run_async` on a communicator whose ranks span processes: the
+    plan compiled here, the call enqueued on the control plane's issue
+    thread (``runtime/peers.py``, one FIFO a process, so every process
+    posts its lane and gloo calls in program order), a handle returned at
+    once. On CUDA the caller's stream records an ordering event now; the
+    thread makes the communicator's side stream wait on it, runs the plan
+    there (the lane's protocol included) and records the done event, and
+    ``x`` stays alive until the side stream has read it. The handle's
+    :meth:`~SyncHandle.wait` joins the work item (raising its error, a
+    :class:`~torchmpi_tpu_torch.runtime.peers.PeerError` when a peer died
+    or did not answer), then orders the caller's stream after the done
+    event."""
+    from ..runtime.handles import StreamResult
+
+    x, ep = _compile(op, x, comm, backend, root, src, dst, route_small, wire_dtype)
+    x = x.contiguous()
+    if comm.device.type != "cuda":
+        fut = _plane().issue.submit(lambda: ep.execute(x))
+        h = SyncHandle(future=fut)
+        handles.register(h, kind="collective")
+        return h
+    side = _async_side(comm)
+    order, done = torch.cuda.Event(), torch.cuda.Event()
+    order.record(torch.cuda.current_stream(comm.device))
+    x.record_stream(side.stream)
+    stream, device = side.stream, comm.device
+
+    def work():
+        # the current stream is per thread: the issue thread sets its own
+        with torch.cuda.device(device):
+            torch.cuda.set_stream(stream)
+            stream.wait_event(order)
+            out = ep.execute(x, stream)
+            done.record(stream)
+        return StreamResult(out, done)
+
+    h = SyncHandle(future=_plane().issue.submit(work))
     handles.register(h, kind="collective")
     return h
 

@@ -19,8 +19,8 @@ small gradients onto the kernel path.
 A tensor is fused only when it is rank-stacked with at least two dims
 (``fusion.py:207-216``), and a reduce-scatter only for a ``[p, n]`` tensor
 whose ``n`` divides by p; any other dispatches at once, async (across
-processes, where the async collectives are ROADMAP A13's rest, at once
-and synchronously; the rows there are the process's ranks'). The
+processes too, through the control plane's issue thread; the rows there
+are the process's ranks'). The
 reduce-scatter's interleaving: each tensor's ``[p, n_i]`` becomes
 ``[p, p, n_i / p]`` and the chunk axes are concatenated, so rank r's
 scattered block holds every tensor's r-th chunk, and tensor i's result is
@@ -238,12 +238,7 @@ class FusionBuffer:
 
         t0 = time.perf_counter()
         kw = {"wire_dtype": wire_dtype} if op in eager._WIRE_OPS else {}
-        if self.comm.multiprocess:
-            # the async collectives across processes are ROADMAP A13's rest
-            # (part 4): the unfused dispatch is synchronous there
-            h = SyncHandle(_dispatch(op, x, self.comm, "sync", backend, **kw))
-        else:
-            h = _dispatch(op, x, self.comm, "async", backend, **kw)
+        h = _dispatch(op, x, self.comm, "async", backend, **kw)
         if _telemetry.enabled():
             _, _, lat = _metric_handles()
             lat.observe(time.perf_counter() - t0, op=op, path="unfused")

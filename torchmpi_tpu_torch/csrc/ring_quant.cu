@@ -57,6 +57,16 @@
 //   qmax * s), 1e-30) * RN(1/127)), and each later hop installs q * s'.
 //   A bf16 hop re-installs the same values.
 //
+// The cross-process form (tm_ring_quant_xproc) is the same hop chain over
+// ranks held by several processes on the card (runtime/peers.py): it reads
+// every rank's row through a table of pointers into the processes' slabs,
+// as the cross-process K3 does, and writes only this process's ranks'
+// rows. The allreduce walks every row position's whole chain and stores the
+// local ranks' values; the reduce-scatter walks only the segments this
+// process's ranks own. So each process's rows are the one-card kernel's
+// rows bit for bit. No launch waits on another process: the lane's events
+// and host sequence numbers order the slab copies around it.
+//
 // Rounding is spelled out so that the plain PyTorch version, which walks
 // every hop in full, repeats it bit for bit: the scale is a product with
 // 1/127 rounded to f32 (XLA's rewrite of the JAX kernel's division), the
@@ -211,57 +221,107 @@ __device__ __forceinline__ void store_row(float* __restrict__ dst, int valid, in
   }
 }
 
+// Where the rank rows lie: one [p, stride] tensor on this card, or (the
+// cross-process form) a table of p rows, each in the slab of the process
+// that owns its rank.
+struct Stacked {
+  const float* x;
+  long long stride;
+  __device__ __forceinline__ const float* rank(int r) const { return x + r * stride; }
+};
+
+constexpr int kMaxTableRows = 32;
+struct Table {
+  const float* row[kMaxTableRows];
+  __device__ __forceinline__ const float* rank(int r) const { return row[r]; }
+};
+
+// Where rank r's output row lies: row r of one [p, n] tensor, or row
+// slot[r] of this process's [local, n] (nullptr for another process's rank).
+// kEveryRank: every rank has a row, so no store tests for nullptr.
+struct StackedOut {
+  static constexpr bool kEveryRank = true;
+  float* out;
+  long long n;
+  __device__ __forceinline__ float* rank(int r) const { return out + r * n; }
+};
+
+struct LocalOut {
+  static constexpr bool kEveryRank = false;
+  float* out;
+  long long n;
+  int slot[kMaxTableRows];
+  __device__ __forceinline__ float* rank(int r) const {
+    return slot[r] < 0 ? nullptr : out + slot[r] * n;
+  }
+};
+
+// The segments a reduce-scatter walks: every rank's (one card), or those
+// of this process's ranks, in the order of its output rows.
+struct AllSegments {
+  __device__ __forceinline__ int at(long long i) const { return (int)i; }
+};
+
+struct OwnedSegments {
+  int rank[kMaxTableRows];
+  __device__ __forceinline__ int at(long long i) const { return rank[i]; }
+};
+
 // Where row w lies and where its sum starts.
-// allreduce: x and out are [p, n]; row w is elements [128w, 128w + 128) of
-//   every rank's row, in the chunk (128w % (p*chunk)) / chunk.
-// reduce-scatter: x is [p, p*n] (p segments of n per rank) and out [p, n];
-//   row w is row w % rps of segment s = w / rps, whose sum starts at rank
-//   s + 1 (the JAX wrapper's pre-roll) and ends at its owner, rank s.
+// allreduce: every rank's row is n elements; row w is elements [128w, 128w
+//   + 128) of each, in the chunk (128w % (p*chunk)) / chunk.
+// reduce-scatter: every rank's row is p segments of n; row w is row w % rps
+//   of segment s = segs.at(w / rps), whose sum starts at rank s + 1 (the
+//   JAX wrapper's pre-roll) and ends at its owner, rank s.
+// Either way the sum's owner is rank c - 1.
 struct Row {
-  long long off;  // the row's first element in every rank's x row, and in out
+  long long off;  // the row's first element in every rank's input row
+  long long dst;  // and in an output row
   int valid;      // its elements, 128 but in a ragged last row
   int c;          // the rank its sum starts at
 };
 
-template <int MODE>
+template <int MODE, typename Segs>
 __device__ __forceinline__ Row row_at(long long w, int p, long long n, long long rps,
-                                      long long chunk_elems) {
+                                      long long chunk_elems, const Segs& segs) {
   Row r;
   if constexpr (MODE == kAllreduce) {
     r.off = w * kLanes;
+    r.dst = r.off;
     r.valid = (int)min((long long)kLanes, n - r.off);
     r.c = (int)((r.off % (chunk_elems * p)) / chunk_elems);
   } else {
-    const long long s = w / rps, wr = w - s * rps;
+    const long long i = w / rps, wr = w - i * rps;
+    const int s = segs.at(i);
     r.off = s * n + wr * kLanes;
+    r.dst = wr * kLanes;
     r.valid = (int)min((long long)kLanes, n - wr * kLanes);
-    r.c = (int)((s + 1) % p);
+    r.c = (s + 1) % p;
   }
   return r;
 }
 
 // Every rank's values of a row, in ring order from its start rank.
-template <int MAXP, int V>
-__device__ __forceinline__ void load_ranks(const float* __restrict__ x, long long x_stride,
-                                           const Row& row, int p, int lane,
+template <int MAXP, int V, typename Src>
+__device__ __forceinline__ void load_ranks(const Src& src, const Row& row, int p, int lane,
                                            float (&held)[MAXP][kPerLane]) {
 #pragma unroll
   for (int k = 0; k < MAXP; ++k) {
     if (k < p) {
       const int r = row.c + k < p ? row.c + k : row.c + k - p;
-      load_row<V>(x + r * x_stride + row.off, row.valid, lane, held[k]);
+      load_row<V>(src.rank(r) + row.off, row.valid, lane, held[k]);
     }
   }
 }
 
 // The hop chain of one row, then its stores. MAXP > 0: ``held`` has every
 // rank's values (p <= MAXP); MAXP == 0: each rank's are loaded when the
-// walk reaches them.
-template <int WIRE, int MODE, int MAXP, int V>
+// walk reaches them. Only the ranks whose output row ``dst`` holds are
+// stored.
+template <int WIRE, int MODE, int MAXP, int V, typename Src, typename Dst>
 __device__ __forceinline__ void walk_row(const float (&held)[MAXP > 0 ? MAXP : 1][kPerLane],
-                                         const float* __restrict__ x, float* __restrict__ out,
-                                         long long x_stride, const Row& row, int p,
-                                         long long n, int lane) {
+                                         const Src& src, const Dst& dst, const Row& row,
+                                         int p, int lane) {
   // reduce-scatter: round the ring from rank c
   float acc[kPerLane];
   if constexpr (MAXP > 0) {
@@ -276,25 +336,23 @@ __device__ __forceinline__ void walk_row(const float (&held)[MAXP > 0 ? MAXP : 1
       for (int j = 0; j < kPerLane; ++j) acc[j] = decode_add<WIRE>(q[j], s, held[k][j]);
     }
   } else {
-    const float* src = x + row.off;
-    load_row<V>(src + row.c * x_stride, row.valid, lane, acc);
+    load_row<V>(src.rank(row.c) + row.off, row.valid, lane, acc);
     for (int k = 1; k < p; ++k) {
       const int r = row.c + k < p ? row.c + k : row.c + k - p;
       float local[kPerLane], q[kPerLane], s;
-      load_row<V>(src + r * x_stride, row.valid, lane, local);
+      load_row<V>(src.rank(r) + row.off, row.valid, lane, local);
       encode<WIRE>(acc, q, s);
 #pragma unroll
       for (int j = 0; j < kPerLane; ++j) acc[j] = decode_add<WIRE>(q[j], s, local[j]);
     }
   }
 
-  if constexpr (MODE == kReduceScatter) {
-    store_row<V>(out + row.off, row.valid, lane, acc);
-  } else {
+  float* owner = dst.rank(row.c == 0 ? p - 1 : row.c - 1);
+  if (Dst::kEveryRank || owner != nullptr) store_row<V>(owner + row.dst, row.valid, lane, acc);
+  if constexpr (MODE == kAllreduce) {
     // all-gather: the owner keeps its f32 sum; each later rank installs
     // the decoding of the wire form of its left neighbour's value, the
     // owner's codes at a scale that moves from hop to hop (see the top)
-    store_row<V>(out + (row.c == 0 ? p - 1 : row.c - 1) * n + row.off, row.valid, lane, acc);
     float q[kPerLane], s;
     encode<WIRE>(acc, q, s);
     float qmax = fabsf(q[0]);
@@ -304,34 +362,36 @@ __device__ __forceinline__ void walk_row(const float (&held)[MAXP > 0 ? MAXP : 1
     for (int k = 0; k < p - 1; ++k) {
       const int r = row.c + k < p ? row.c + k : row.c + k - p;
       if (k > 0) s = next_scale<WIRE>(qmax, s);
+      float* o = dst.rank(r);
+      if (!Dst::kEveryRank && o == nullptr) continue;
 #pragma unroll
       for (int j = 0; j < kPerLane; ++j) acc[j] = decode<WIRE>(q[j], s);
-      store_row<V>(out + r * n + row.off, row.valid, lane, acc);
+      store_row<V>(o + row.dst, row.valid, lane, acc);
     }
   }
 }
 
-template <int WIRE, int MODE, int MAXP, int V>
+template <int WIRE, int MODE, int MAXP, int V, typename Src, typename Dst, typename Segs>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    ring_quant_kernel(const float* __restrict__ x, float* __restrict__ out, int p,
-                      long long n, long long chunk_elems) {
+    ring_quant_kernel(const __grid_constant__ Src src, const __grid_constant__ Dst dst,
+                      const __grid_constant__ Segs segs, int p, long long n, long long nrows,
+                      long long chunk_elems) {
   const int lane = threadIdx.x & 31;
   const long long rps = (n + kLanes - 1) / kLanes;
-  const long long nrows = MODE == kAllreduce ? rps : rps * p;
-  const long long x_stride = MODE == kAllreduce ? n : n * p;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
   long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   for (; w < nrows; w += warps) {
-    const Row row = row_at<MODE>(w, p, n, rps, chunk_elems);
+    const Row row = row_at<MODE>(w, p, n, rps, chunk_elems, segs);
     float held[MAXP > 0 ? MAXP : 1][kPerLane];
-    if constexpr (MAXP > 0) load_ranks<MAXP, V>(x, x_stride, row, p, lane, held);
-    walk_row<WIRE, MODE, MAXP, V>(held, x, out, x_stride, row, p, n, lane);
+    if constexpr (MAXP > 0) load_ranks<MAXP, V>(src, row, p, lane, held);
+    walk_row<WIRE, MODE, MAXP, V>(held, src, dst, row, p, lane);
   }
 }
 
-template <int WIRE, int MODE, int MAXP, int V>
-void launch(const float* x, float* out, int p, long long n, long long chunk_elems,
-            cudaStream_t stream) {
+// One launch over `nrows` row positions of `n`-element rows (segments).
+template <int WIRE, int MODE, int MAXP, int V, typename Src, typename Dst, typename Segs>
+void launch(const Src& src, const Dst& dst, const Segs& segs, int p, long long n,
+            long long nrows, long long chunk_elems, cudaStream_t stream) {
   // as many blocks as the card keeps resident, found once per instantiation
   static int resident = 0;
   if (resident == 0) {
@@ -339,48 +399,58 @@ void launch(const float* x, float* out, int p, long long n, long long chunk_elem
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ring_quant_kernel<WIRE, MODE, MAXP, V>, kThreads, 0);
+        &per_sm, ring_quant_kernel<WIRE, MODE, MAXP, V, Src, Dst, Segs>, kThreads, 0);
     resident = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   }
-  const long long rows = ((n + kLanes - 1) / kLanes) * (MODE == kAllreduce ? 1 : p);
-  const long long need = (rows * 32 + kThreads - 1) / kThreads;
+  const long long need = (nrows * 32 + kThreads - 1) / kThreads;
   const unsigned int blocks = (unsigned int)(need < resident ? need : resident);
-  ring_quant_kernel<WIRE, MODE, MAXP, V><<<blocks, kThreads, 0, stream>>>(
-      x, out, p, n, chunk_elems);
+  ring_quant_kernel<WIRE, MODE, MAXP, V, Src, Dst, Segs><<<blocks, kThreads, 0, stream>>>(
+      src, dst, segs, p, n, nrows, chunk_elems);
 }
 
-template <int WIRE, int MODE, int V>
-void launch_p(const float* x, float* out, int p, long long n, long long chunk_elems,
-              cudaStream_t stream) {
-  if (p <= 8) {
-    launch<WIRE, MODE, 8, V>(x, out, p, n, chunk_elems, stream);
-  } else {
-    launch<WIRE, MODE, 0, V>(x, out, p, n, chunk_elems, stream);
-  }
-}
-
-template <int WIRE, int MODE>
-void launch_v(const float* x, float* out, int p, long long n, long long chunk_elems,
-              cudaStream_t stream) {
-  // every rank's row (and every segment) starts n elements apart
-  const int v = vector_bytes(4, (unsigned long long)n * 4, x, out) / 4;
+// The launch at the vector width `v` (4 bytes times 4, 2 or 1) and p.
+template <int WIRE, int MODE, typename Src, typename Dst, typename Segs>
+void launch_vp(int v, const Src& src, const Dst& dst, const Segs& segs, int p, long long n,
+               long long nrows, long long chunk_elems, cudaStream_t stream) {
+#define TM_QUANT_LAUNCH(V)                                                                  \
+  do {                                                                                      \
+    if (p <= 8) {                                                                           \
+      launch<WIRE, MODE, 8, V>(src, dst, segs, p, n, nrows, chunk_elems, stream);           \
+    } else {                                                                                \
+      launch<WIRE, MODE, 0, V>(src, dst, segs, p, n, nrows, chunk_elems, stream);           \
+    }                                                                                       \
+  } while (0)
   if (v == 4) {
-    launch_p<WIRE, MODE, 4>(x, out, p, n, chunk_elems, stream);
+    TM_QUANT_LAUNCH(4);
   } else if (v == 2) {
-    launch_p<WIRE, MODE, 2>(x, out, p, n, chunk_elems, stream);
+    TM_QUANT_LAUNCH(2);
   } else {
-    launch_p<WIRE, MODE, 1>(x, out, p, n, chunk_elems, stream);
+    TM_QUANT_LAUNCH(1);
+  }
+#undef TM_QUANT_LAUNCH
+}
+
+template <typename Src, typename Dst, typename Segs>
+void launch_all(int wire, int mode, int v, const Src& src, const Dst& dst, const Segs& segs,
+                int p, long long n, long long nrows, long long chunk_elems,
+                cudaStream_t stream) {
+  if (wire == kWireInt8) {
+    if (mode == kAllreduce) {
+      launch_vp<kWireInt8, kAllreduce>(v, src, dst, segs, p, n, nrows, chunk_elems, stream);
+    } else {
+      launch_vp<kWireInt8, kReduceScatter>(v, src, dst, segs, p, n, nrows, chunk_elems, stream);
+    }
+  } else if (mode == kAllreduce) {
+    launch_vp<kWireBF16, kAllreduce>(v, src, dst, segs, p, n, nrows, chunk_elems, stream);
+  } else {
+    launch_vp<kWireBF16, kReduceScatter>(v, src, dst, segs, p, n, nrows, chunk_elems, stream);
   }
 }
 
-template <int WIRE>
-void launch_mode(int mode, const float* x, float* out, int p, long long n,
-                 long long chunk_elems, cudaStream_t stream) {
-  if (mode == kAllreduce) {
-    launch_v<WIRE, kAllreduce>(x, out, p, n, chunk_elems, stream);
-  } else {
-    launch_v<WIRE, kReduceScatter>(x, out, p, n, chunk_elems, stream);
-  }
+inline bool bad_args(int wire, int mode, long long n, long long chunk_elems) {
+  return n < 0 || (wire != kWireInt8 && wire != kWireBF16) ||
+         (mode != kAllreduce && mode != kReduceScatter) ||
+         (mode == kAllreduce && (chunk_elems <= 0 || chunk_elems % kLanes));
 }
 
 }  // namespace
@@ -392,19 +462,55 @@ void launch_mode(int mode, const float* x, float* out, int p, long long n,
 extern "C" int tm_ring_quant(const void* x, void* out, int wire, int mode, int p,
                              long long n, long long chunk_elems, void* stream) {
   using namespace tmpi;
-  if (p < 2 || n < 0 || (wire != kWireInt8 && wire != kWireBF16) ||
-      (mode != kAllreduce && mode != kReduceScatter) ||
-      (mode == kAllreduce && (chunk_elems <= 0 || chunk_elems % kLanes))) {
+  if (p < 2 || bad_args(wire, mode, n, chunk_elems)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const Stacked src{static_cast<const float*>(x), mode == kAllreduce ? n : n * p};
+  const StackedOut dst{static_cast<float*>(out), n};
+  const long long rps = (n + kLanes - 1) / kLanes;
+  // every rank's row (and every segment) starts n elements apart
+  const int v = vector_bytes(4, (unsigned long long)n * 4, x, out) / 4;
+  launch_all(wire, mode, v, src, dst, AllSegments{}, p, n, mode == kAllreduce ? rps : rps * p,
+             chunk_elems, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// The cross-process K4. rows: p device addresses, rank r's f32 row (each in
+// the slab of the process that owns r): n elements (mode 0) or p segments
+// of n (mode 1). owned: the global rank of each of the `local` rows of out
+// ([local, n] contiguous). Mode 0: row i is rank owned[i]'s row of
+// tm_ring_quant's allreduce over the stacked rows (every row position's
+// whole chain walked, this process's ranks stored). Mode 1: row i is the
+// sum of segment owned[i], as tm_ring_quant's 'rs' row of that rank (only
+// the owned segments walked).
+extern "C" int tm_ring_quant_xproc(const unsigned long long* rows, int p, const int* owned,
+                                   int local, void* out, int wire, int mode, long long n,
+                                   long long chunk_elems, void* stream) {
+  using namespace tmpi;
+  if (p < 2 || p > kMaxTableRows || local < 1 || local > p ||
+      bad_args(wire, mode, n, chunk_elems)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (n == 0) return 0;
-  const float* xf = static_cast<const float*>(x);
-  float* of = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wire == kWireInt8) {
-    launch_mode<kWireInt8>(mode, xf, of, p, n, chunk_elems, s);
-  } else {
-    launch_mode<kWireBF16>(mode, xf, of, p, n, chunk_elems, s);
+  Table src = {};
+  LocalOut dst = {static_cast<float*>(out), n, {}};
+  OwnedSegments segs = {};
+  for (int r = 0; r < p; ++r) dst.slot[r] = -1;
+  for (int i = 0; i < local; ++i) {
+    if (owned[i] < 0 || owned[i] >= p || dst.slot[owned[i]] >= 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    dst.slot[owned[i]] = i;
+    segs.rank[i] = owned[i];
   }
+  if (n == 0) return 0;
+  int bytes = 16;
+  for (int r = 0; r < p; ++r) {
+    src.row[r] = reinterpret_cast<const float*>(rows[r]);
+    const int w = vector_bytes(4, (unsigned long long)n * 4, src.row[r], out);
+    if (w < bytes) bytes = w;
+  }
+  const long long rps = (n + kLanes - 1) / kLanes;
+  launch_all(wire, mode, bytes / 4, src, dst, segs, p, n,
+             mode == kAllreduce ? rps : rps * local, chunk_elems,
+             static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

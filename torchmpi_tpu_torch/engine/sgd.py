@@ -88,9 +88,10 @@ shards of the sharded leaves under ``'fsdp'``;
 parameters in every mode. In a job of several processes every tree holds
 this process's rows (``comm.local_ranks``), rank r's shard on rank r's
 row, and the reduce-scatter and allgather are the cross-process K3 'rs'
-and 'ag' on the kernel backend; a model state under a sharded mode there
-raises (its global batch statistics need a reduction across processes
-inside the forward, ROADMAP A13's rest).
+and 'ag' on the kernel backend, the int8 or bf16 wire the cross-process
+K4; a model state under a sharded mode there raises (its global batch
+statistics need a reduction across processes inside the forward, ROADMAP
+A13's rest).
 
 ``accum_steps=k`` cuts each rank's batch into k equal microbatches (rows
 ``[i b, (i + 1) b)`` of every rank, the rank-major split of
@@ -373,8 +374,6 @@ class AllReduceSGDEngine:
         if comm.multiprocess:
             from ..runtime.peers import rest
 
-            if mode == "async":
-                raise rest("the engine's async mode", 4)
             if sharded and model_state is not None:
                 # the sharded step normalises its loss and batch statistics
                 # over every rank's rows in one forward: across processes that
@@ -388,10 +387,6 @@ class AllReduceSGDEngine:
                 f"wire_dtype={wire_dtype!r} requires param_sharding='replicated' (the "
                 "sharded modes' reduce-scatter and allgather ship the full wire)"
             )
-        if comm.multiprocess and wire_dtype in ("bf16", "int8"):
-            from ..runtime.peers import rest
-
-            raise rest(f"the {wire_dtype} wire", 5)
         self.wire_dtype = wire_dtype
         # a compressed wire needs the bucketed (flat-buffer) sync even in
         # sync mode; one bucket keeps sync mode's single collective
@@ -506,8 +501,16 @@ class AllReduceSGDEngine:
     def _per_rank(self, fn: Callable) -> Callable:
         """``fn`` over rank-stacked arguments, its outputs stacked on a
         leading rank axis: ``torch.func.vmap``, or a loop over the ranks
-        (``rank_map``)."""
+        (``rank_map``). On the CPU vmap takes one rank at a time
+        (``chunk_size=1``): a vmap over L ranks batches the dense layers
+        into one ``bmm`` and the convolutions into one grouped
+        convolution, whose oneDNN kernels round by L, so a rank's gradient
+        would depend on how many ranks its process holds (ROADMAP C6);
+        one at a time it does not, and on the CPU it costs no more. On
+        the card the ranks stay batched."""
         if self.rank_map == "vmap":
+            if self.comm.device.type == "cpu":
+                return torch.func.vmap(fn, chunk_size=1)
             return torch.func.vmap(fn)
 
         def loop(*args):

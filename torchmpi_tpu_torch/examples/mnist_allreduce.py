@@ -7,12 +7,21 @@ first parameter sync runs the ring-broadcast kernel and every step's
 gradient sync the ring-allreduce kernel. ``--mode async`` syncs the
 gradients in buckets, each an async allreduce on a side stream, waited in
 reverse order. The engine's wire is the ``wire_dtype`` constant ('full'
-unless set), as the JAX example has no wire flag. Prints the final loss,
-the test accuracy and samples/sec/chip, and checks replica consistency
-with ``check_with_allreduce``.
+unless set), as the JAX example has no wire flag: ``--mode async`` with the
+constant at 'int8' (the launcher's ``--set-constant wire_dtype=int8``, or
+``TORCHMPI_TPU_CONSTANTS``) is BASELINE config 2, bucket 0 through the
+quantized ring K4. Prints the final loss, the test accuracy and
+samples/sec/chip, and checks replica consistency with
+``check_with_allreduce`` (for the full wire: a compressed one leaves the
+ranks' rows apart by its rounding).
 
 Run:  python -m torchmpi_tpu_torch.examples.mnist_allreduce --model lenet
       --ranks 8 [--mode async] [--batch 336] [--epochs 5] [--device cuda]
+Under the launcher (``python -m torchmpi_tpu_torch.launch --nproc 2 -m
+torchmpi_tpu_torch.examples.mnist_allreduce -- --ranks 4 ...``) ``--ranks``
+is each process's; config 2 across processes is ``launch --nproc 2
+--set-constant wire_dtype=int8 -m torchmpi_tpu_torch.examples.mnist_allreduce
+-- --ranks 4 --mode async``.
 """
 
 from __future__ import annotations
@@ -75,8 +84,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[float, float]:
         state = engine.train(lambda: iter(it), max_epochs=args.epochs)
 
         # replica consistency (checkWithAllreduce invariant, init.lua:372-395)
-        mpinn.check_with_allreduce(engine.params, comm)
-        print("check_with_allreduce: ok")
+        if engine.wire_dtype in (None, "full"):
+            mpinn.check_with_allreduce(engine.params, comm)
+            print("check_with_allreduce: ok")
 
         final = {k: v[0] for k, v in engine.params.items()}
         with torch.no_grad():

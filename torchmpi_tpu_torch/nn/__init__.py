@@ -180,7 +180,8 @@ class GradientBuckets:
 
     def pack(self, tree: Tree, b: int, p: int) -> torch.Tensor:
         """Bucket ``b``'s rank-stacked leaves as one flat ``[p, total]``
-        buffer of :meth:`bucket_dtype`, in bucket order."""
+        buffer of :meth:`bucket_dtype`, in bucket order; ``p`` is the
+        leaves' rows (this process's ranks)."""
         dtype = self.bucket_dtype(b)
         return torch.cat([v.reshape(p, -1).to(dtype) for v in self.bucket_leaves(tree, b)], dim=1)
 
@@ -188,7 +189,8 @@ class GradientBuckets:
                         wire_dtype: Optional[str]) -> torch.Tensor:
         """Error-feedback encode of one packed bucket (``nn/__init__.py:
         280``): add the stored residual, quantize and dequantize on the
-        wire's grid (per rank row, ``wire_quant_block_size`` blocks for
+        wire's grid (per rank row, one residual a local rank across
+        processes, ``wire_quant_block_size`` blocks for
         int8; a bf16 round trip for bf16), store the new residual and ship
         the quantized values. The wire requantizes them exactly on its
         first hop, so the residual is the true compression error. A no-op
@@ -230,7 +232,7 @@ class GradientBuckets:
         comm = _comm(comm)
         handles = []
         for b in range(self.num_buckets):
-            buf = self.pack(grads, b, comm.size)
+            buf = self.pack(grads, b, comm.local_size)
             if constants.get("wire_error_feedback"):
                 buf = self._error_feedback(b, buf, wire_dtype)
             handles.append(

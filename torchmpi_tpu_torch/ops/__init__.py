@@ -18,6 +18,9 @@
 - ``ring_allreduce_quant`` and ``ring_reduce_scatter_quant``
   (``csrc/ring_quant.cu``) replace ``ops/ring_kernels.py:_ring_quant_kernel``
   in its allreduce and 'rs' modes (int8 or bf16 on every hop);
+  ``ring_allreduce_quant_xproc`` and ``ring_reduce_scatter_quant_xproc``
+  (the same file) are its two modes across processes, read from every
+  process's slab as K3's are;
 - ``accumulate`` (``csrc/reduce_kernel.cu``) replaces
   ``ops/reduce_kernel.py:_accumulate_kernel``, and ``scale_accumulate``
   (the same file) ``ops/reduce_kernel.py:_scale_add_kernel``;
@@ -68,6 +71,8 @@ from .ring_kernels import (
     ring_allreduce_plain,
     ring_allreduce_quant,
     ring_allreduce_quant_plain,
+    ring_allreduce_quant_xproc,
+    ring_allreduce_quant_xproc_plain,
     ring_allreduce_xproc,
     ring_allreduce_xproc_plain,
     ring_broadcast,
@@ -80,6 +85,8 @@ from .ring_kernels import (
     ring_reduce_scatter_plain,
     ring_reduce_scatter_quant,
     ring_reduce_scatter_quant_plain,
+    ring_reduce_scatter_quant_xproc,
+    ring_reduce_scatter_quant_xproc_plain,
     ring_reduce_scatter_xproc,
     ring_reduce_scatter_xproc_plain,
 )
@@ -113,6 +120,8 @@ __all__ = [
     "ring_allreduce_plain",
     "ring_allreduce_quant",
     "ring_allreduce_quant_plain",
+    "ring_allreduce_quant_xproc",
+    "ring_allreduce_quant_xproc_plain",
     "ring_allreduce_xproc",
     "ring_allreduce_xproc_plain",
     "ring_attention_bwd",
@@ -129,6 +138,8 @@ __all__ = [
     "ring_reduce_scatter_plain",
     "ring_reduce_scatter_quant",
     "ring_reduce_scatter_quant_plain",
+    "ring_reduce_scatter_quant_xproc",
+    "ring_reduce_scatter_quant_xproc_plain",
     "ring_reduce_scatter_xproc",
     "ring_reduce_scatter_xproc_plain",
     "scale_accumulate",

@@ -71,7 +71,9 @@ launches = {
     "ring_broadcast_xproc": 0,
     "ring_reduce_scatter_xproc": 0,
     "ring_allgather_xproc": 0,
-    **{f"{op}_{wire}": 0 for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant")
+    **{f"{op}_{wire}": 0 for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant",
+                                    "ring_allreduce_quant_xproc",
+                                    "ring_reduce_scatter_quant_xproc")
        for wire in WIRES},
 }
 
@@ -692,6 +694,13 @@ _QUANT_SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ],
+    # rows (p addresses), p, owned (local ranks), local, out, wire, mode, n,
+    # chunk_elems, stream
+    "tm_ring_quant_xproc": [
+        ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p,
+    ],
 }
 
 
@@ -883,3 +892,112 @@ def ring_reduce_scatter_quant(x: torch.Tensor, wire: str, stream=None) -> torch.
         _launch_quant(x, out, wire, "rs", seg_n, 0, stream)
         launches[f"ring_reduce_scatter_quant_{wire}"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the cross-process K4: the quantized ring over ranks held by several
+# processes, each rank's row read where it lies (runtime/peers.py)
+# ---------------------------------------------------------------------------
+
+
+def _check_quant_table(rows, owned, wire: str, what: str) -> list:
+    if wire not in WIRES:
+        raise ValueError(f"wire must be one of {WIRES}, got {wire!r}")
+    owned = [int(r) for r in owned]
+    _check_table(rows, len(owned), what)
+    p = len(rows)
+    if len(owned) > MAX_TABLE_ROWS or len(set(owned)) != len(owned) or \
+            any(not 0 <= r < p for r in owned):
+        raise ValueError(f"{what}: owned ranks {owned} out of range or repeated for {p} ranks")
+    if rows[0].dtype != torch.float32 or rows[0].ndim != 1:
+        raise ValueError(f"{what} takes 1-D float32 rank rows, got {rows[0].dtype} "
+                         f"{tuple(rows[0].shape)}")
+    return owned
+
+
+def ring_allreduce_quant_xproc_plain(rows, owned, wire: str) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_allreduce_quant_xproc`: the p
+    rank rows stacked, :func:`ring_allreduce_quant_plain`'s rows of the
+    ranks in ``owned``."""
+    owned = _check_quant_table(rows, owned, wire, "ring_allreduce_quant_xproc")
+    out = ring_allreduce_quant_plain(torch.stack(list(rows)), wire)
+    return out[torch.tensor(owned, device=out.device)]
+
+
+def ring_allreduce_quant_xproc(rows, owned, wire: str, stream=None) -> torch.Tensor:
+    """The quantized allreduce over ranks held by several processes:
+    ``rows`` are the p rank rows ``[n]`` f32 in rank order, each where it
+    lies (this process's or a peer's mapped slab), ``owned`` the global
+    rank of each of this process's rows. Row i of the ``[L, n]`` result is
+    rank ``owned[i]``'s row of :func:`ring_allreduce_quant` on the stacked
+    rows, bit for bit: each process walks every row position's full hop
+    chain and stores its own ranks' values. One launch of the
+    cross-process K4 (``ring_allreduce_quant_pallas`` across processes,
+    ``ring_kernels.py:746``); the plain version for CPU rows."""
+    first = rows[0]
+    if first.device.type == "cpu":
+        return ring_allreduce_quant_xproc_plain(rows, owned, wire)
+    owned = _check_quant_table(rows, owned, wire, "ring_allreduce_quant_xproc")
+    _check_cuda(first, "ring_allreduce_quant_xproc")
+    p, n = len(rows), first.numel()
+    out = torch.empty((len(owned), n), dtype=first.dtype, device=first.device)
+    if n:
+        _launch_quant_xproc(rows, owned, out, wire, "allreduce", n,
+                            quant_chunk_elems(n, p, wire), stream)
+        launches[f"ring_allreduce_quant_xproc_{wire}"] += 1
+    return out
+
+
+def ring_reduce_scatter_quant_xproc_plain(rows, owned, wire: str) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_reduce_scatter_quant_xproc`:
+    the p rank rows stacked, :func:`ring_reduce_scatter_quant_plain`'s
+    rows of the ranks in ``owned``."""
+    owned = _check_quant_table(rows, owned, wire, "ring_reduce_scatter_quant_xproc")
+    p = len(rows)
+    if rows[0].numel() % p:
+        raise ValueError(f"ring_reduce_scatter_quant_xproc takes rank rows of p segments "
+                         f"(p={p}), got {tuple(rows[0].shape)}")
+    out = ring_reduce_scatter_quant_plain(torch.stack(list(rows)).reshape(p, p, -1), wire)
+    return out.reshape(p, -1)[torch.tensor(owned, device=out.device)]
+
+
+def ring_reduce_scatter_quant_xproc(rows, owned, wire: str, stream=None) -> torch.Tensor:
+    """The quantized reduce-scatter over ranks held by several processes:
+    ``rows`` are the p rank rows ``[p m]`` f32 in rank order, each where it
+    lies, ``owned`` the global rank of each of this process's rows. Row i
+    of the ``[L, m]`` result is the f32 sum of every rank's segment
+    ``owned[i]`` with ``wire`` on every hop, bit for bit
+    :func:`ring_reduce_scatter_quant`'s row of that rank (segment s's sum
+    starts at rank s + 1 and walks rightward to s): a process walks only
+    its own segments. One launch of the cross-process K4 'rs'
+    (``ring_reduce_scatter_quant_pallas`` across processes,
+    ``ring_kernels.py:782``); the plain version for CPU rows."""
+    first = rows[0]
+    if first.device.type == "cpu":
+        return ring_reduce_scatter_quant_xproc_plain(rows, owned, wire)
+    owned = _check_quant_table(rows, owned, wire, "ring_reduce_scatter_quant_xproc")
+    _check_cuda(first, "ring_reduce_scatter_quant_xproc")
+    p = len(rows)
+    if first.numel() % p:
+        raise ValueError(f"ring_reduce_scatter_quant_xproc takes rank rows of p segments "
+                         f"(p={p}), got {tuple(first.shape)}")
+    seg_n = first.numel() // p
+    out = torch.empty((len(owned), seg_n), dtype=first.dtype, device=first.device)
+    if seg_n:
+        _launch_quant_xproc(rows, owned, out, wire, "rs", seg_n, 0, stream)
+        launches[f"ring_reduce_scatter_quant_xproc_{wire}"] += 1
+    return out
+
+
+def _launch_quant_xproc(rows, owned, out: torch.Tensor, wire: str, mode: str, n: int,
+                        chunk: int, stream=None) -> None:
+    from ._build import check, launch, library
+
+    call = library("ring_quant", _QUANT_SIGNATURES).tm_ring_quant_xproc
+    p, local = len(rows), len(owned)
+    table = (ctypes.c_ulonglong * p)(*[r.data_ptr() for r in rows])
+    own = (ctypes.c_int * local)(*owned)
+    err = launch(out.device, lambda s: call(
+        table, p, own, local, out.data_ptr(), _WIRE_CODES[wire], _MODE_CODES[mode], n,
+        chunk, s), stream)
+    check(err, f"cross-process ring quant ({mode}, {wire})")

@@ -34,26 +34,39 @@ time-slice):
    last *issued* when it is called);
 3. wait on the host for every peer's post k+1, then make the stream wait
    on each peer's write event;
-4. read the slots (the cross-process K3 in any of its three modes or K7,
-   or a copy into a full rank-stacked tensor), record the read event, post
-   the read k+1.
+4. read the slots (the cross-process K3 in any of its three modes, K4 in
+   either of its two, K7, or a copy into a full rank-stacked tensor),
+   record the read event, post the read k+1.
 
 A host wait polls the peer's counter in shared memory; a peer whose
 process is gone raises :class:`PeerError` at once, and one that does not
 answer raises after ``deadlock_timeout_seconds`` (600 s while it is 0).
 Every communicator a lane serves must span every process, and every
 process must be on one host (the rest is ROADMAP A13's rest).
+
+Since a lane call waits on the host, an async collective cannot run it on
+the caller's thread. The control plane's :class:`IssueThread` runs them,
+one FIFO a process (the counterpart of the reference's collective offload
+thread): ``run_async`` enqueues the call and returns at once. Every
+process must post its calls in one order, so everything else that crosses
+processes (a sync collective, the scalar collectives, a barrier) first
+drains the FIFO (:meth:`ControlPlane.drain`) and then runs on the
+caller's thread: the calls keep program order, and gloo never sees two
+threads' ops interleaved differently in two processes.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import secrets
 import socket
+import threading
 import time
+from concurrent.futures import Future
 from datetime import timedelta
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -143,6 +156,94 @@ def _store(coordinator: str, count: int, index: int):
     return ent[0], ent[1]
 
 
+class IssueThread:
+    """One FIFO of cross-process work and the daemon thread that runs it,
+    started at the first :meth:`submit`. A call's error is set on its
+    future, and every later call fails with a :class:`PeerError` naming
+    it: once a call has left the lanes' protocol midway, the processes are
+    out of step, and no later call may run as if they were not."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._items: collections.deque = collections.deque()
+        self._pending = 0
+        self._thread: Optional[threading.Thread] = None
+        self.failed: Optional[BaseException] = None
+
+    def submit(self, fn: Callable) -> Future:
+        """Enqueue ``fn``; its future holds what it returns or raises."""
+        fut: Future = Future()
+        with self._cv:
+            if self.failed is not None:
+                fut.set_exception(self._failure())
+                return fut
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._run, name="tm-xproc-issue",
+                                                daemon=True)
+                self._thread.start()
+            self._items.append((fn, fut))
+            self._pending += 1
+            self._cv.notify_all()
+        return fut
+
+    def _failure(self) -> PeerError:
+        return PeerError(f"an earlier cross-process call failed: {self.failed!r}")
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while not self._items:
+                    self._cv.wait()
+                fn, fut = self._items.popleft()
+            try:
+                if fn is None:
+                    return
+                if self.failed is not None:
+                    fut.set_exception(self._failure())
+                    continue
+                try:
+                    fut.set_result(fn())
+                except BaseException as e:  # raised from wait(); an exit stops the thread too
+                    with self._cv:
+                        self.failed = e
+                    fut.set_exception(e)
+                    if not isinstance(e, Exception):
+                        with self._cv:
+                            for _, rest in self._items:
+                                if rest is not None:
+                                    rest.set_exception(self._failure())
+                            self._pending -= len(self._items)
+                            self._items.clear()
+                        raise
+            finally:
+                with self._cv:
+                    self._pending -= 1
+                    self._cv.notify_all()
+
+    def drain(self) -> None:
+        """Wait until every call submitted so far has run (a no-op on the
+        thread itself). Raises :class:`PeerError` once a call has failed."""
+        if self._pending and threading.current_thread() is not self._thread:
+            with self._cv:
+                while self._pending and self.failed is None:
+                    self._cv.wait()
+        if self.failed is not None:
+            raise self._failure()
+
+    def close(self) -> None:
+        """Stop the thread once the FIFO is empty."""
+        with self._cv:
+            thread = self._thread
+            if thread is None:
+                return
+            if thread.is_alive():
+                self._items.append((None, None))
+                self._pending += 1
+                self._cv.notify_all()
+        thread.join()
+        self._thread = None
+
+
 class ControlPlane:
     """The processes' gloo group, met at the coordinator's store, made by
     ``start()`` and torn down by ``stop()``. ``index`` is this
@@ -152,6 +253,7 @@ class ControlPlane:
         import torch.distributed as dist
 
         self._dist = dist
+        self.issue = IssueThread()
         self.index, self.count = int(process_id), int(num_processes)
         self._own = not dist.is_initialized()
         self.group = None
@@ -175,19 +277,38 @@ class ControlPlane:
         self.lanes: List["Lane"] = []
         self._lane_ids = 0
 
+    def drain(self) -> None:
+        """Run every async call enqueued so far before the caller's next
+        cross-process step (see the module's last paragraph)."""
+        self.issue.drain()
+
+    def _collective(self, fn: Callable):
+        """``fn()``, a gloo collective, after the FIFO drains; gloo's error
+        becomes a :class:`PeerError` when a peer process is gone."""
+        self.drain()
+        try:
+            return fn()
+        except RuntimeError as e:
+            gone = [q for q, pid in enumerate(getattr(self, "pids", ()))
+                    if q != self.index and not _alive(pid)]
+            if gone:
+                raise PeerError(f"process {gone[0]} (pid {self.pids[gone[0]]}) died during a "
+                                f"collective of process {self.index}: {e}") from e
+            raise
+
     def all_gather_object(self, obj) -> list:
         out = [None] * self.count
-        self._dist.all_gather_object(out, obj, group=self.group)
+        self._collective(lambda: self._dist.all_gather_object(out, obj, group=self.group))
         return out
 
     def barrier(self) -> None:
-        self._dist.barrier(group=self.group)
+        self._collective(lambda: self._dist.barrier(group=self.group))
 
     def all_gather_bytes(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Every process's CPU uint8 tensor of ``t``'s shape (the same in
         every process), in process order."""
         bufs = [torch.empty_like(t) for _ in range(self.count)]
-        self._dist.all_gather(bufs, t.contiguous(), group=self.group)
+        self._collective(lambda: self._dist.all_gather(bufs, t.contiguous(), group=self.group))
         return bufs
 
     def lane(self, comm) -> "Lane":
@@ -200,8 +321,18 @@ class ControlPlane:
         return lane
 
     def close(self) -> None:
-        """Unmap the peers' slabs, wait for every process, free this
-        process's slabs, destroy the group (``stop()``'s last steps)."""
+        """Stop the issue thread, unmap the peers' slabs, wait for every
+        process, free this process's slabs, destroy the group (``stop()``'s
+        last steps). Once a call has failed, the processes are out of
+        step: the thread and the lanes go without waiting for the peers
+        (:meth:`abandon`) and the failure is raised."""
+        try:
+            self.drain()
+        except BaseException:
+            self.issue.close()
+            self.abandon()
+            raise
+        self.issue.close()
         for lane in self.lanes:
             lane.unmap_peers()
         self.barrier()
@@ -403,6 +534,7 @@ class Lane:
         peer has read it, and every peer's slot ready to read. Slots are
         sized for the largest process's rows of ``row_bytes`` each.
         Returns the slot."""
+        self.plane.drain()
         self._ensure(max(1, self.most * row_bytes))
         t0 = time.perf_counter()
         k, s = self.seq, self.seq & 1
@@ -518,6 +650,42 @@ class Lane:
             self._table(s, (n,), carrier), self.rows_of[self.me], stream=stream)
         self.release(stream)
         return out.to(x.dtype).reshape((self.local, x.shape[1] // self.size) + tuple(x.shape[2:]))
+
+    def allreduce_quant(self, x: torch.Tensor, wire: str, stream=None) -> torch.Tensor:
+        """The f32 sum over every rank's rows with ``wire`` ('int8' or
+        'bf16') on every hop, through the cross-process K4
+        (``ops.ring_allreduce_quant_xproc``): this process's rows of the
+        result, bit for bit the one-process K4's rows on the same ``[p,
+        ...]`` (each chunk's owner keeps its f32 sum, every other rank the
+        wire's decoding, so the rows differ)."""
+        from ..ops import ring_kernels
+
+        self._check(x)
+        rows = x.reshape(self.local, -1).contiguous()
+        n = rows.shape[1]
+        s = self.publish(rows, n * rows.element_size(), stream)
+        out = ring_kernels.ring_allreduce_quant_xproc(
+            self._table(s, (n,), rows.dtype), self.rows_of[self.me], wire, stream=stream)
+        self.release(stream)
+        return out.reshape(x.shape)
+
+    def reduce_scatter_quant(self, x: torch.Tensor, wire: str, stream=None) -> torch.Tensor:
+        """The reduce-scatter of every rank's f32 rows over dim 1 (``[L,
+        m, ...]``, m divisible by p) with ``wire`` on every hop, through
+        the cross-process K4 'rs' (``ops.ring_reduce_scatter_quant_xproc``):
+        this process's rows ``[L, m / p, ...]``, bit for bit the
+        one-process K4 'rs' rows. A process walks only its own ranks'
+        segments."""
+        from ..ops import ring_kernels
+
+        self._check(x)
+        rows = x.reshape(self.local, -1).contiguous()
+        n = rows.shape[1]
+        s = self.publish(rows, n * rows.element_size(), stream)
+        out = ring_kernels.ring_reduce_scatter_quant_xproc(
+            self._table(s, (n,), rows.dtype), self.rows_of[self.me], wire, stream=stream)
+        self.release(stream)
+        return out.reshape((self.local, x.shape[1] // self.size) + tuple(x.shape[2:]))
 
     def allgather(self, x: torch.Tensor, stream=None) -> torch.Tensor:
         """Every rank's block (``x`` ``[L, *s]``) in each of this

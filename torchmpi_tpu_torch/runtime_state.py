@@ -342,7 +342,9 @@ def stop() -> None:
     shuts the offload pools down, then drops the communicator stack. In a
     job of several processes it then waits for the device's work, meets
     every process at a barrier, unmaps the peers' slabs, frees its own and
-    tears the control plane down, in that order."""
+    tears the control plane down, in that order; once a cross-process
+    call has failed, it drops the plane and the stack without meeting the
+    peers and raises the failure."""
     global _stack, _plane
     from .collectives.eager import free_collective_resources
     from .parameterserver import free_all
@@ -351,20 +353,31 @@ def stop() -> None:
 
     from .telemetry.watchdog import stop_watchdog
 
-    sync_all()
-    free_all()
-    if _stack is not None:
-        for level in range(_stack.depth):
-            free_collective_resources(_stack.at(level))
-    shutdown_all()
-    # the start()-scoped watchdog; one armed from the environment lives
-    # as long as the process
-    stop_watchdog(only_source="constants")
     plane = _plane
+    try:
+        sync_all()
+        free_all()
+        if _stack is not None:
+            for level in range(_stack.depth):
+                free_collective_resources(_stack.at(level))
+        shutdown_all()
+        # the start()-scoped watchdog; one armed from the environment lives
+        # as long as the process
+        stop_watchdog(only_source="constants")
+        if plane is not None:
+            if _stack is not None and _stack.at(0).device.type == "cuda":
+                torch.cuda.synchronize(_stack.at(0).device)
+            plane.barrier()
+    except BaseException:
+        if plane is not None:
+            # a cross-process call failed: the processes are out of step,
+            # so the plane goes without meeting them, and so does the stack
+            plane.issue.close()
+            _abandon_plane()
+            with _lock:
+                _stack = None
+        raise
     if plane is not None:
-        if _stack is not None and _stack.at(0).device.type == "cuda":
-            torch.cuda.synchronize(_stack.at(0).device)
-        plane.barrier()
         plane.close()
     with _lock:
         _stack = None

@@ -521,10 +521,6 @@ def _bind(plan: Plan, comm, shape: Tuple[int, ...], dtype, wire: str,
 
     op = plan.op
     nelem = _nelem(shape)
-    if comm.multiprocess and wire != "full":
-        from ..runtime.peers import rest
-
-        raise rest(f"the {wire} wire", 5)
     if plan.generator == "flat":
         fn, takes_stream = lower.lower_flat(
             comm, op, plan.backend, shape, dtype, wire, root, src, dst,
@@ -686,10 +682,6 @@ def compile_fused(
     wire = "full"
     if eff in ("ring", "kernel"):
         wire = eager.resolve_wire_dtype(op, total, dtype, wire_dtype)
-    if comm.multiprocess and wire != "full":
-        from ..runtime.peers import rest
-
-        raise rest(f"the {wire} wire", 5)
     plan, _cands = select_plan(
         op, total, dtype.itemsize, topo, eff, wire, route_small, comm=comm
     )

@@ -71,7 +71,7 @@ def lower_flat(comm, op: str, backend: str, shape: Tuple, dtype, wire: str,
     fn = _eager()._kernels(op, backend, nelem, dtype, comm.device.type, root,
                            src, dst, wire, pipeline=pipeline)
     if comm.multiprocess:
-        return _across_flat(comm, op, backend, root, fn), backend != "xla"
+        return _across_flat(comm, op, backend, root, fn, wire), backend != "xla"
     return fn, backend == "kernel"
 
 
@@ -409,28 +409,35 @@ def across(comm, backend: str, fn: Callable, takes_stream: bool) -> Callable:
     return run
 
 
-def _across_flat(comm, op: str, backend: str, root: int, fn: Callable) -> Callable:
+def _across_flat(comm, op: str, backend: str, root: int, fn: Callable,
+                 wire: str = "full") -> Callable:
     """The flat function across processes: on the kernel backend the
     allreduce, the reduce-scatter and the allgather are the cross-process
-    K3 in its three modes and the broadcast the cross-process K7, which
-    read the rows from the slabs where they lie (the broadcast at any
-    size: the binomial tree's hops have no counterpart when the root's row
-    is one read away); the eager reduce-scatter scatters and the allgather
-    concatenates the last dim, moved to dim 1 around the lane as the
-    one-process kernel table moves it (``eager._reduce_scatter_lastdim``,
-    ``_allgather_lastdim``). Every other pair runs :func:`across`."""
+    K3 in its three modes, or with a compressed ``wire`` the allreduce and
+    the reduce-scatter the cross-process K4 in its two, and the broadcast
+    the cross-process K7, which read the rows from the slabs where they
+    lie (the broadcast at any size: the binomial tree's hops have no
+    counterpart when the root's row is one read away); the eager
+    reduce-scatter scatters and the allgather concatenates the last dim,
+    moved to dim 1 around the lane as the one-process kernel table moves
+    it (``eager._reduce_scatter_lastdim``, ``_allgather_lastdim``). Every
+    other pair runs :func:`across`."""
 
     def lane():
         return _eager()._plane().lane(comm)
 
+    quant = wire != "full"
+    if backend == "kernel" and op == "allreduce" and quant:
+        return lambda x, stream=None: lane().allreduce_quant(x, wire, stream)
     if backend == "kernel" and op == "allreduce" and \
             constants.get("ring_implementation") != "kernel_bidir":
         return lambda x, stream=None: lane().allreduce(x, stream)
     if backend == "kernel" and op == "broadcast":
         return lambda x, stream=None: lane().broadcast(x, root, stream)
     if backend == "kernel" and op == "reducescatter":
-        return lambda x, stream=None: lane().reduce_scatter(
-            x.movedim(-1, 1).contiguous(), stream).movedim(1, -1)
+        scatter = ((lambda m, stream: lane().reduce_scatter_quant(m, wire, stream)) if quant
+                   else (lambda m, stream: lane().reduce_scatter(m, stream)))
+        return lambda x, stream=None: scatter(x.movedim(-1, 1).contiguous(), stream).movedim(1, -1)
     if backend == "kernel" and op == "allgather":
         return lambda x, stream=None: _eager()._concat_lastdim(lane().allgather(x, stream), x)
     return across(comm, backend, fn, backend == "kernel")

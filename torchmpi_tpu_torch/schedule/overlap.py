@@ -102,10 +102,10 @@ def _open_entry(base: str, b: int, buf: torch.Tensor) -> Optional[Any]:
     )
 
 
-def _packed(bkts, b: int, grads, p: int, wire_dtype: Optional[str]) -> torch.Tensor:
+def _packed(bkts, b: int, grads, comm, wire_dtype: Optional[str]) -> torch.Tensor:
     """Bucket ``b`` packed, error-feedback encoded where
     ``wire_error_feedback`` engages (the JAX ``_dispatch_bucket``)."""
-    buf = bkts.pack(grads, b, p)
+    buf = bkts.pack(grads, b, comm.local_size)
     if constants.get("wire_error_feedback"):
         buf = bkts._error_feedback(b, buf, wire_dtype)
     return buf
@@ -144,7 +144,7 @@ def run_bucketed_sync(
         entries: List[Any] = [None] * nb
         handles: List[Any] = [None] * nb
         for b in range(nb):
-            buf = _packed(bkts, b, grads, p, wire_dtype)
+            buf = _packed(bkts, b, grads, comm, wire_dtype)
             entries[b] = _open_entry(base, b, buf)
             try:
                 handles[b] = _dispatch(buf, comm, backend, wire_dtype)
@@ -167,7 +167,7 @@ def run_bucketed_sync(
     else:
         # all-at-once baseline: every bucket packed (and finished) before
         # the first dispatch, then dispatch and wait serially
-        packed = [_packed(bkts, b, grads, p, wire_dtype) for b in range(nb)]
+        packed = [_packed(bkts, b, grads, comm, wire_dtype) for b in range(nb)]
         if comm.device.type == "cuda":
             torch.cuda.current_stream(comm.device).synchronize()
         for b, buf in enumerate(packed):
