@@ -190,11 +190,18 @@ phase fails:
    (:func:`phase_multiprocess`: 2 processes x 4 ranks through the
    launcher; the cross-process K3 allreduce, 'rs' and 'ag', K4 (both
    modes, both wires) and K7 bit for bit their plain versions and the
-   one-process rows; config 1 replicated under two spans and under fsdp
+   one-process rows, and so the cross-process K5 and K6 (the latter in
+   the root's process only); sendreceive's and alltoall's rows on every
+   backend; config 1 replicated under two spans and under fsdp
    and zero1, config 2 (async, int8), each bit for bit its one-process
    run, exact launches; config 1 under ``rank_map='vmap'`` held to the
    one-process vmap run (ROADMAP C6); the host time to issue an async
-   cross-process allreduce; the ``{"multiprocess": ...}`` line);
+   cross-process allreduce; run (g), the collectives benchmark through
+   the launcher by the two processes (every op of the surface on xla,
+   ring and kernel, sync and async, 2^8..2^23, then the kernel allreduce
+   under 'kernel_bidir'): every row correct, exact launches a process;
+   the ``{"multiprocess": ...}`` line and the ``{"bench_2x4": ...}`` line,
+   the bus GB/s at 2^23 beside the one-process sweep's);
    then times each kernel, its plain version and,
    where there is one, a
    PyTorch call computing the same function with CUDA events at the main
@@ -2296,6 +2303,16 @@ def bench_expected(op: str) -> dict:
     return {kernel: calls * len(SWEEP)}
 
 
+# the one-process sweep's bus GB/s at its largest size, by (op, backend,
+# mode), beside which run (g) prints the two processes'
+BENCH_TOP: dict = {}
+
+
+def bench_key(row: dict) -> str:
+    impl = "/kernel_bidir" if row.get("ring_implementation") else ""
+    return f"{row['op']}{impl}/{row['backend']}/{row['mode']}"
+
+
 def phase_bench() -> dict:
     """The collectives benchmark at p=8 (``run_matrix``, as
     ``python -m torchmpi_tpu_torch.examples.bench_collectives`` runs it):
@@ -2318,6 +2335,8 @@ def phase_bench() -> dict:
                     row["ring_implementation"] = impl
                 if r.mode == "async":
                     row["launch_us"] = r.launch_us
+                if r.nelem == SWEEP[-1]:
+                    BENCH_TOP[bench_key(row)] = r.bus_gbps
                 print(json.dumps({"bench": row}))
 
             ops.reset_launch_counts()
@@ -5104,10 +5123,11 @@ def phase_supervise(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 # ranks in two processes on the card (--multiprocess): the cross-process K3
-# (allreduce, 'rs' and 'ag'), K4 (allreduce and 'rs', int8 and bf16) and
-# K7, config 1 trained by 2 processes x 4 ranks through the launcher,
-# replicated and under fsdp and zero1, config 2 (the async engine, the int8
-# wire), and config 1 under rank_map='vmap' (ROADMAP C6)
+# (allreduce, 'rs' and 'ag'), K4 (allreduce and 'rs', int8 and bf16), K5,
+# K6 and K7, config 1 trained by 2 processes x 4 ranks through the
+# launcher, replicated and under fsdp and zero1, config 2 (the async
+# engine, the int8 wire), config 1 under rank_map='vmap' (ROADMAP C6), and
+# the collectives benchmark by the two processes (run (g))
 # ---------------------------------------------------------------------------
 
 MP_PROCS, MP_RANKS = 2, P // 2  # processes, ranks a process: P in all
@@ -5128,6 +5148,15 @@ MP_SHARDED = {"c": "fsdp", "d": "zero1"}  # the sharded runs
 MP_QUANT_SIZES = (BUCKET0, 1000003, 1025)  # LeNet's int8 bucket, odd and ragged widths
 MP_QUANT_RS_N = P * 100674  # the timed K4 'rs' row, the one-process row's shape
 MP_ISSUE_N = 1 << 8  # the async issue's width, as {"async_issue"} times it
+MP_K56_N = N23  # the timed cross-process K5 and K6 rows, the one-process rows' shape
+MP_SENDRECV = ((0, 7), (6, 1), (1, 2))  # (src, dst): across, back, within a process
+# run (g): the collectives benchmark by the processes through the launcher,
+# every op of the surface; the vendor path's rows (gloo through host memory,
+# 0.1-0.5 s a call at 2^23) take 1 warm-up and 2 timed calls, the others
+# the reference's 10 and 10
+MP_BENCH_OPS = BENCH_OPS + ("alltoall", "sendreceive")
+MP_BENCH_POWS = (8, 23)  # the sweep's sizes, as the one-process sweep's
+MP_BENCH_XLA_REPS = (1, 2)
 
 
 def mp_lenet(comm, rank_map: str = "loop", sharding: str = "replicated", mode: str = "sync",
@@ -5251,7 +5280,7 @@ def mp_check(dev, comm) -> dict:
     lane = plane.lane(comm)
     local, L = comm.local_ranks, comm.local_size
     names = ("ring_allreduce_xproc", "ring_broadcast_xproc", "ring_reduce_scatter_xproc",
-             "ring_allgather_xproc",
+             "ring_allgather_xproc", "ring_allreduce_bidir_xproc", "ring_reduce_xproc",
              *(f"{op}_quant_xproc_{w}" for op in ("ring_allreduce", "ring_reduce_scatter")
                for w in WIRES))
     checks, err = 0, dict.fromkeys(names, 0.0)
@@ -5286,6 +5315,17 @@ def mp_check(dev, comm) -> dict:
                         f"cross-process K7 {dtype} n={n} root={root}: wrong bytes")
             held("ring_allgather_xproc", ops.ring_allgather_xproc(table, L),
                  ops.ring_allgather_xproc_plain(table, L), ops.ring_allgather(full)[local])
+            held("ring_allreduce_bidir_xproc", ops.ring_allreduce_bidir_xproc(table, L),
+                 ops.ring_allreduce_bidir_xproc_plain(table, L),
+                 ops.ring_allreduce_bidir(full)[local])
+            for root in MP_ROOTS:
+                if comm.process_of(root) != plane.index:
+                    continue  # only the root's process launches K6
+                one = ops.ring_reduce(full, root)
+                for owned in (local, local[::-1]):
+                    held("ring_reduce_xproc", ops.ring_reduce_xproc(table, owned, root),
+                         ops.ring_reduce_xproc_plain(table, owned, root), one[owned])
+                checks += 2
             lane.release()
             full = mp_payload(P * n, dtype, 31 + i).to(dev)
             s = lane.publish(full[local].contiguous(), P * n * full.element_size())
@@ -5295,7 +5335,7 @@ def mp_check(dev, comm) -> dict:
                 held("ring_reduce_scatter_xproc", ops.ring_reduce_scatter_xproc(table, owned),
                      ops.ring_reduce_scatter_xproc_plain(table, owned), one[owned])
             lane.release()
-            checks += 4 + len(MP_ROOTS)
+            checks += 5 + len(MP_ROOTS)
     for wire in WIRES:
         for i, n in enumerate(MP_QUANT_SIZES):
             full = mp_payload(n, torch.float32, 41 + i).to(dev)
@@ -5321,8 +5361,35 @@ def mp_check(dev, comm) -> dict:
     x = torch.stack([torch.full((LENET_PARAMS,), float(r), device=dev) for r in local])
     out = mpi.kernel.allreduce_tensor(x, comm=comm)
     require(bool((out == P * (P - 1) / 2).all()), "cross-process K3: closed form")
+    checks += mp_check_moves(dev, comm)
     torch.cuda.synchronize()
     return {"checks": checks, "max_abs_err": err}
+
+
+def mp_check_moves(dev, comm) -> int:
+    """The rows of sendreceive (which the tester reads correct
+    unconditionally) for the pairs of ``MP_SENDRECV`` and of alltoall on a
+    seeded payload, on every backend, sync and async, against the
+    one-process result; returns the comparisons."""
+    local, checks = comm.local_ranks, 0
+    x = mp_payload(N20, torch.float32, 61).to(dev)
+    blocks = mp_payload(P * 1025, torch.float32, 67).to(dev).reshape(P, P, 1025)
+    for b in ("xla", "ring", "kernel"):
+        for mode in ("sync", "async"):
+            ns = getattr(mpi.async_ if mode == "async" else mpi, b)
+
+            def done(out):
+                return out.wait() if mode == "async" else out
+            for src, dst in MP_SENDRECV:
+                got = done(ns.sendreceive_tensor(x[local].contiguous(), src, dst, comm=comm))
+                want = primitives.sendreceive(x, src, dst)[local]
+                require(torch.equal(bits(got), bits(want)),
+                        f"sendreceive {src}->{dst} on {b} ({mode}): wrong rows")
+            got = done(ns.alltoall_tensor(blocks[local].contiguous(), comm=comm))
+            require(torch.equal(bits(got), bits(primitives.alltoall(blocks)[local])),
+                    f"alltoall on {b} ({mode}): wrong rows")
+            checks += len(MP_SENDRECV) + 1
+    return checks
 
 
 def mp_time(dev, comm) -> dict:
@@ -5398,7 +5465,62 @@ def mp_time(dev, comm) -> dict:
             "gloo_allreduce_ms": in_step(gloo_allreduce, 20),
             "gloo_broadcast_ms": in_step(gloo_broadcast, 20),
             **mp_time_sharded(dev, comm, in_step), **mp_time_quant(dev, comm, in_step),
-            **mp_issue(dev, comm)}
+            **mp_time_k56(dev, comm, in_step), **mp_issue(dev, comm)}
+
+
+def mp_time_k56(dev, comm, in_step) -> dict:
+    """The cross-process K5 (the ``kernel_bidir`` allreduce) and K6 (the
+    reduce to rank ``MP_ROOTS[0]``, in process 0) at ``[P, MP_K56_N]``
+    f32: the whole lane call with both processes in step; then, in process
+    0 while process 1 waits at the barrier, each kernel and its plain
+    version on the two slots' tables; then gloo with both processes in
+    step: ``all_reduce`` and ``reduce`` of each process's rows summed,
+    through host memory, copied back to its rows (the reduce to the
+    root's row)."""
+    import torch.distributed as dist
+
+    plane = mpi.runtime_state.plane()
+    lane = plane.lane(comm)
+    local, L, n = comm.local_ranks, comm.local_size, MP_K56_N
+    root = MP_ROOTS[0]
+    owner = comm.process_of(root)
+    x = mp_payload(n, torch.float32, 13).to(dev)[local].contiguous()
+    out = {"k5_call_ms": in_step(lambda: lane.allreduce_bidir(x)),
+           "k6_call_ms": in_step(lambda: lane.reduce(x, root))}
+    tables = []
+    for _ in range(2):  # both slots hold every process's rows
+        s = lane.publish(x, n * 4)
+        tables.append(mp_table(lane, s, n, torch.float32))
+        lane.release()
+    torch.cuda.synchronize()
+    plane.barrier()
+    if plane.index == owner:
+        sets = itertools.cycle(tables)
+        out["k5_ms"] = time_ms(lambda: ops.ring_allreduce_bidir_xproc(next(sets), L))
+        out["k5_plain_ms"] = time_ms(lambda: ops.ring_allreduce_bidir_xproc_plain(next(sets), L))
+        out["k6_ms"] = time_ms(lambda: ops.ring_reduce_xproc(next(sets), local, root))
+        out["k6_plain_ms"] = time_ms(lambda: ops.ring_reduce_xproc_plain(next(sets), local, root))
+        del sets
+    del tables
+    torch.cuda.synchronize()
+    plane.barrier()
+
+    def gloo_allreduce():
+        t = x.sum(0).cpu()
+        dist.all_reduce(t)
+        return t.to(dev).expand(L, n).contiguous()
+
+    def gloo_reduce():
+        t = x.sum(0).cpu()
+        dist.reduce(t, dst=owner)
+        res = x.clone()
+        if plane.index == owner:
+            res[local.index(root)] = t.to(dev)
+        return res
+
+    out["gloo_k5_ms"] = in_step(gloo_allreduce, 10)
+    out["gloo_k6_ms"] = in_step(gloo_reduce, 10)
+    return out
 
 
 def mp_time_quant(dev, comm, in_step) -> dict:
@@ -5642,12 +5764,94 @@ def mp_expected(steps: int, kernel: bool, sharding: str = "replicated", wire=Non
     return want
 
 
+def mp_bench_expected(op: str, impl, proc: int) -> dict:
+    """A process's launches in run (g)'s sweep of one op (its kernel
+    backend's configs, sync and async, ``BENCH_CALLS`` calls each), by the
+    rules of the flat lowering across processes and the default cutoffs:
+    allreduces above ``small_allreduce_size_cuda`` elements the
+    cross-process K3 (K5 under 'kernel_bidir'), broadcasts above
+    ``small_broadcast_size_cuda`` the cross-process K7 (at any size above
+    it: no tree across processes), every reduce the cross-process K6 in
+    the process of the root (rank 0) only, every allgather and
+    reducescatter the cross-process K3 'ag' and 'rs'; alltoall and
+    sendreceive copy from the slabs and launch nothing."""
+    defaults = constants._Constants()
+    calls, sweep = 2 * BENCH_CALLS, sweep_sizes(*MP_BENCH_POWS)
+    if op == "allreduce":
+        big = [n for n in sweep if n > defaults.small_allreduce_size_cuda]
+        name = "ring_allreduce_bidir_xproc" if impl else "ring_allreduce_xproc"
+        return {name: calls * len(big)}
+    if op == "broadcast":
+        big = [n for n in sweep if n > defaults.small_broadcast_size_cuda]
+        return {"ring_broadcast_xproc": calls * len(big)}
+    if op == "reduce":
+        return {"ring_reduce_xproc": calls * len(sweep)} if proc == 0 else {}
+    if op in ("allgather", "reducescatter"):
+        name = "ring_allgather_xproc" if op == "allgather" else "ring_reduce_scatter_xproc"
+        return {name: calls * len(sweep)}
+    return {}
+
+
+def mp_bench(root: Path) -> tuple:
+    """Run (g): ``python -m torchmpi_tpu_torch.launch --nproc MP_PROCS -m
+    torchmpi_tpu_torch.examples.bench_collectives`` at MP_RANKS ranks a
+    process, every op of ``MP_BENCH_OPS`` on xla, ring and kernel, sync
+    and async, every size of the sweep, then the kernel allreduce under
+    'kernel_bidir' (the tuning and calibration caches empty, so both
+    processes route by the default cutoffs). Every row must read correct
+    and every process's launches of each op's sweep (counted from 0 just
+    before it) must equal :func:`mp_bench_expected`. Returns the launches
+    summed over the processes, the rows at the largest size and the
+    seconds it took."""
+    logs = root / "_mp_bench_logs"
+    shutil.rmtree(logs, ignore_errors=True)
+    caches = Path(tempfile.mkdtemp(prefix="chip-smoke-bench-caches-"))
+    env = dict(os.environ, TORCHMPI_TPU_TUNING_CACHE=str(caches / "autotune.json"),
+               TORCHMPI_TPU_CALIBRATION_CACHE=str(caches / "calibration.json"))
+    args = ["--ranks", str(MP_RANKS), "--ops", ",".join(MP_BENCH_OPS),
+            "--backends", "xla,ring,kernel", "--modes", "sync,async",
+            "--min-pow", str(MP_BENCH_POWS[0]), "--max-pow", str(MP_BENCH_POWS[1]),
+            "--kernel-bidir", "--launch-counts", "--json",
+            "--xla-reps", ",".join(map(str, MP_BENCH_XLA_REPS))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchmpi_tpu_torch.launch", "--nproc", str(MP_PROCS),
+         "--log-dir", str(logs), "-m", "torchmpi_tpu_torch.examples.bench_collectives", "--",
+         *args], cwd=str(root), env=env, timeout=600)
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(caches, ignore_errors=True)
+    texts = [(logs / f"rank_{i}.log").read_text() for i in range(MP_PROCS)]
+    require(proc.returncode == 0, f"run (g) failed ({proc.returncode}):\n"
+            + "\n".join(f"--- {i}\n{t[-3000:]}" for i, t in enumerate(texts)))
+    lines = [[json.loads(ln) for ln in t.splitlines() if ln.startswith("{")] for t in texts]
+    rows = [ln["bench"] for ln in lines[0] if "bench" in ln]
+    sweep = sweep_sizes(*MP_BENCH_POWS)
+    want_rows = (len(MP_BENCH_OPS) * 3 + 1) * 2 * len(sweep)
+    require(len(rows) == want_rows, f"run (g): {len(rows)} rows, not {want_rows}")
+    bad = [bench_key(r) + f"/{r['nelem']}" for r in rows if not r["correct"]]
+    require(not bad, f"run (g): incorrect configs {bad}")
+    names = list(ops.launch_counts())
+    summed = dict.fromkeys(names, 0)
+    for i, found in enumerate(lines):
+        got = [ln["launches"] for ln in found if "launches" in ln]
+        require(len(got) == len(MP_BENCH_OPS) + 1, f"run (g) proc {i}: {len(got)} launch lines")
+        for entry in got:
+            want = mp_bench_expected(entry["op"], entry["ring_implementation"], i)
+            require(entry["counts"] == want,
+                    f"run (g) proc {i} {entry['op']} ({entry['ring_implementation']}): launches "
+                    f"{entry['counts']} != {want}")
+            for k, v in entry["counts"].items():
+                summed[k] += v
+    top = {bench_key(r): r["bus_gbps"] for r in rows if r["nelem"] == sweep[-1]}
+    return summed, top, seconds
+
+
 def phase_multiprocess(dev) -> tuple:
     """``--multiprocess``: the one-process references from the seed, then
     the two workers through ``python -m torchmpi_tpu_torch.launch``
     (their logs and results under ``_mp_logs/``), their results held
-    to the contract: the cross-process K3 (allreduce, 'rs', 'ag') and K7
-    bit for bit their plain versions and the one-process rows, run (b)'s
+    to the contract: the cross-process K3 (allreduce, 'rs', 'ag'), K5, K6
+    and K7 bit for bit their plain versions and the one-process rows, run (b)'s
     losses bit for bit the one-process kernel run's, run (a)'s bit for bit
     the one-process run under its span and path and its first
     ``MP_CLOSE_STEPS`` within ``MP_LOSS_RTOL`` of the kernel run's, runs
@@ -5659,9 +5863,10 @@ def phase_multiprocess(dev) -> tuple:
     open on the card: cuDNN's weight gradient of the grouped convolution
     vmap makes depends on how many ranks it stacks). Prints the
     ``{"multiprocess": ...}`` line;
-    returns the runs' launches (summed over the processes) and the eight
-    kernel rows of the kernels line (K3's three modes, K7, K4's two modes
-    in both wires)."""
+    runs run (g) (:func:`mp_bench`) and prints the ``{"bench_2x4": ...}``
+    line; returns the runs' launches (summed over the processes) and the
+    ten kernel rows of the kernels line (K3's three modes, K7, K5, K6,
+    K4's two modes in both wires)."""
     ref, ref_a = mp_reference(False), mp_reference(True)
     refs = {run: mp_reference(False, sharding) for run, sharding in MP_SHARDED.items()}
     ref_e = mp_reference(False, mode="async", wire="int8")
@@ -5678,6 +5883,7 @@ def phase_multiprocess(dev) -> tuple:
                       for f in sorted(logs.glob("rank_*.log")))
     require(proc.returncode == 0, f"multiprocess workers failed ({proc.returncode}):\n{tails}")
     res = [json.loads((logs / f"proc{i}.json").read_text()) for i in range(MP_PROCS)]
+    g_counts, g_top, g_seconds = mp_bench(root)
     for i, r in enumerate(res):
         steps = r["b"]["steps"]
         require(steps == ref["steps"] == r["a"]["steps"], f"proc {i}: steps differ")
@@ -5745,6 +5951,16 @@ def phase_multiprocess(dev) -> tuple:
                ((P - 1) * (7 if w == "int8" else 2) + MP_RANKS) * BUCKET0,
                t[f"k4ar_{w}_ms"], t[f"k4ar_{w}_plain_ms"], None,
                "none: no PyTorch call requantizes on every hop") for w in WIRES),
+            # the cross-process K5 and K6: each process's (K6: the root's
+            # process's) launch reads the P rows and writes its MP_RANKS
+            ("ring_allreduce_bidir_xproc", MP_K56_N, f"{P} rows read, {MP_RANKS} written",
+             (P + MP_RANKS) * MP_K56_N * 4, (P - 1) * MP_K56_N, t["k5_ms"], t["k5_plain_ms"],
+             t["gloo_k5_ms"], "gloo all_reduce of each process's rows summed"),
+            ("ring_reduce_xproc", MP_K56_N,
+             f"the root's process: {P} rows read, {MP_RANKS} written (the root's sum, the "
+             "other rows their inputs)", (P + MP_RANKS) * MP_K56_N * 4, (P - 1) * MP_K56_N,
+             t["k6_ms"], t["k6_plain_ms"], t["gloo_k6_ms"],
+             "gloo reduce of each process's rows summed to the root's process"),
             *((f"ring_reduce_scatter_quant_xproc_{w}", MP_QUANT_RS_N,
                f"{MP_RANKS} segments of each of {P} rows read, {MP_RANKS} written",
                (MP_RANKS * MP_QUANT_RS_N + MP_RANKS * (MP_QUANT_RS_N // P)) * 4,
@@ -5760,6 +5976,8 @@ def phase_multiprocess(dev) -> tuple:
                        else "torchmpi_tpu_torch/csrc/ring_kernels.cu"),
             "replaces": ("torchmpi_tpu/ops/ring_kernels.py:1282" if "broadcast" in name
                          else "torchmpi_tpu/ops/ring_kernels.py:551" if quant
+                         else "torchmpi_tpu/ops/ring_kernels.py:897" if "bidir" in name
+                         else "torchmpi_tpu/ops/ring_kernels.py:1120" if name == "ring_reduce_xproc"
                          else "torchmpi_tpu/ops/ring_kernels.py:201"),
             "max_abs_err": max(r["check"]["max_abs_err"][name] for r in res),
             "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
@@ -5827,9 +6045,24 @@ def phase_multiprocess(dev) -> tuple:
             **{k: res[0][run][k] for k in ("samples_per_s", "plans", "span", "lane_calls",
                                            "protocol_us", "slab_growths", "slab_mib")},
             "launches_per_process": {k: v for k, v in res[0][run]["counts"].items() if v}}
+    summary["k5"] = {"shape": [P, MP_K56_N], "ms": t["k5_ms"], "call_ms": t["k5_call_ms"],
+                     "gloo_ms": t["gloo_k5_ms"]}
+    summary["k6"] = {"shape": [P, MP_K56_N], "ms": t["k6_ms"], "call_ms": t["k6_call_ms"],
+                     "gloo_ms": t["gloo_k6_ms"]}
+    summary["g"] = {"seconds": g_seconds, "ops": list(MP_BENCH_OPS), "sizes": len(SWEEP),
+                    "xla_reps": list(MP_BENCH_XLA_REPS), "all_correct": True,
+                    "launches": {k: v for k, v in g_counts.items() if v}}
     print(json.dumps({"multiprocess": summary}))
+    # the sweep's bus GB/s at its largest size: one process of P ranks (the
+    # complete run's phase_bench; absent under --multiprocess) and the two
+    # processes of run (g)
+    print(json.dumps({"bench_2x4": {
+        "nelem": SWEEP[-1], "card": card(), "xla_reps": list(MP_BENCH_XLA_REPS),
+        "bus_gbps": {k: {"one_process": BENCH_TOP.get(k), "two_processes": v}
+                     for k, v in sorted(g_top.items())}}}))
     runs = {f"mp_{run}": {k: sum(r[run]["counts"][k] for r in res) for k in res[0][run]["counts"]}
             for run in ("a", "b", *MP_SHARDED, "e", "f")}
+    runs["mp_g"] = g_counts
     return runs, rows
 
 
@@ -5927,10 +6160,11 @@ def main(argv=None) -> None:
              "build; prints no result line")
     parser.add_argument(
         "--multiprocess", action="store_true",
-        help="only the multi-process phase (the cross-process K3 allreduce, 'rs' and 'ag', K4 "
-             "and K7 against their plain versions, config 1 by 2 processes x 4 ranks through "
-             "the launcher, runs (a) and (b) replicated, (c) fsdp, (d) zero1, (e) config 2, "
-             "(f) rank_map='vmap'; the {\"multiprocess\"} line), after the build; prints no "
+        help="only the multi-process phase (the cross-process K3 allreduce, 'rs' and 'ag', K4, "
+             "K5, K6 and K7 against their plain versions, config 1 by 2 processes x 4 ranks "
+             "through the launcher, runs (a) and (b) replicated, (c) fsdp, (d) zero1, (e) "
+             "config 2, (f) rank_map='vmap', (g) the collectives benchmark by the two processes; the "
+             "{\"multiprocess\"} and {\"bench_2x4\"} lines), after the build; prints no "
              "result line")
     parser.add_argument("--mp-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)

@@ -150,14 +150,25 @@ _WORKER = textwrap.dedent(
     assert mpi.sendreceive_scalar(50 + pid, src=0, dst=1) == 50 + (pid != 1) * pid
     assert isinstance(mpi.allreduce_scalar(2), int)
 
+    # alltoall and sendreceive across the processes: the closed form
+    a2a = torch.stack([100.0 * r + torch.arange(float(p)) for r in mine])[:, :, None]
+    for b in ("xla", "ring", "kernel"):
+        out = mpi.alltoall_tensor(a2a.expand(L, p, 8).contiguous(), comm=gcomm, backend=b)
+        want = 100.0 * torch.arange(float(p))[None, :, None] + torch.tensor(mine)[:, None, None]
+        assert torch.equal(out, want.expand(L, p, 8)), (b, out)
+        x = torch.stack([torch.full((64,), float(r)) for r in mine])
+        out = mpi.sendreceive_tensor(x, p - 1, 0, comm=gcomm, backend=b)
+        assert all((row == (p - 1 if r == 0 else r)).all() for r, row in zip(mine, out)), (b, out)
+
     # what this slice does not carry across processes raises, by name
-    x = torch.ones((L, 256))
     from torchmpi_tpu_torch.engine import AllReduceSGDEngine
-    for fn in (lambda: mpi.alltoall_tensor(torch.ones((L, p, 8))),
+    from torchmpi_tpu_torch.runtime.communicator import split_by_keys
+    spanning = split_by_keys(gcomm, lambda r: str(r % 2))  # each group in both processes
+    for fn in (lambda: eager.run_hierarchical_allreduce(torch.ones((L, 256)), spanning,
+                                                        impl="staged", staged_intra="ring"),
                lambda: AllReduceSGDEngine(lambda prm, st, b: (0.0, st), {{"w": torch.ones(8)}},
                                           model_state={{"mean": torch.zeros(4)}},
-                                          param_sharding="fsdp"),
-               lambda: mpi.sendreceive_tensor(x, 0, 1)):
+                                          param_sharding="fsdp")):
         try:
             fn()
         except NotImplementedError as e:

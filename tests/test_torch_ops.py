@@ -298,7 +298,9 @@ def test_wrappers_launch_or_raise_off_the_cpu():
                  lambda: ops.ring_reduce_scatter_xproc([x[0], x[1]], [1]),
                  lambda: ops.ring_allgather_xproc([x[0], x[1]], 1),
                  lambda: ops.ring_allreduce_quant_xproc([x[0], x[1]], [1], "int8"),
-                 lambda: ops.ring_reduce_scatter_quant_xproc([x[0], x[1]], [0], "bf16")):
+                 lambda: ops.ring_reduce_scatter_quant_xproc([x[0], x[1]], [0], "bf16"),
+                 lambda: ops.ring_allreduce_bidir_xproc([x[0], x[1]], 1),
+                 lambda: ops.ring_reduce_xproc([x[0], x[1]], [1], 1)):
         with pytest.raises(ValueError, match="CUDA or the CPU"):
             call()
     counts = ops.launch_counts()
@@ -306,7 +308,8 @@ def test_wrappers_launch_or_raise_off_the_cpu():
                            "ring_reduce_scatter", "ring_allgather", "ring_reduce",
                            "ring_allreduce_bidir", "ring_allreduce_xproc",
                            "ring_broadcast_xproc", "ring_reduce_scatter_xproc",
-                           "ring_allgather_xproc", "ring_attention_fwd",
+                           "ring_allgather_xproc", "ring_allreduce_bidir_xproc",
+                           "ring_reduce_xproc", "ring_attention_fwd",
                            "ring_attention_fwd_bidir", "ring_attention_bwd"} | {
         f"{op}_{wire}" for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant",
                                   "ring_allreduce_quant_xproc",

@@ -82,7 +82,8 @@ REMAT = ("fsdp", 2)  # the run that also recomputes its forward in the backward
 MLP_BATCH = 8  # a rank's batch in the checkpoint twin
 C6_STEPS, C6_THREADS = 8, 4  # ROADMAP C6's test: vmap across processes, bit for bit
 # the errors a worker must meet, each naming its part of ROADMAP A13's rest
-RAISES = {"alltoall": 6, "sendreceive": 6, "stateful_fsdp": 9}
+RAISES = {"staged_span": 10, "stateful_fsdp": 9}
+MOVES = ("alltoall", "sendreceive")  # run on the interleaved communicator
 
 _WORKER = textwrap.dedent(
     """
@@ -151,14 +152,22 @@ _WORKER = textwrap.dedent(
             res[f"{{key}}/interleaved/{{b}}"] = fn(full[icomm.local_ranks], comm=icomm,
                                                    backend=b)
 
+    # alltoall and sendreceive on the interleaved ranks
+    a2a = torch.arange(p * p * 3, dtype=torch.float32).reshape(p, p, 3)[icomm.local_ranks]
+    for b in ("ring", "kernel"):
+        res[f"moves/alltoall/{{b}}"] = mpi.alltoall_tensor(a2a, comm=icomm, backend=b)
+        res[f"moves/sendreceive/{{b}}"] = mpi.sendreceive_tensor(a2a, 1, 2, comm=icomm, backend=b)
+
     # what still raises across processes, each naming its part
-    x = torch.ones((L, 256))
+    from torchmpi_tpu_torch.collectives import eager
+    from torchmpi_tpu_torch.runtime.communicator import split_by_keys
+    spanning = split_by_keys(gcomm, lambda r: str(r % 2))  # each group in both processes
     raised = {{}}
     model = MLP6(features=8 * p)
     params = init_params(model, seed=0)
     for name, fn in (
-            ("alltoall", lambda: mpi.alltoall_tensor(torch.ones((L, p, 8)))),
-            ("sendreceive", lambda: mpi.sendreceive_tensor(x, 0, 1)),
+            ("staged_span", lambda: eager.run_hierarchical_allreduce(
+                torch.ones((L, 256)), spanning, impl="staged", staged_intra="ring")),
             ("stateful_fsdp", lambda: AllReduceSGDEngine(
                 lambda prm, st, b: (0.0, st), params, model_state={{"mean": torch.zeros(4)}},
                 param_sharding="fsdp"))):
@@ -480,6 +489,21 @@ def test_matches_jax(worker_results, jax_results, key):
 def test_what_still_raises_names_its_part(worker_results, name):
     for res in worker_results:
         assert f"ROADMAP A13's rest, part {RAISES[name]}" in res["raised"][name], res["raised"]
+
+
+@pytest.mark.parametrize("op", MOVES)
+def test_moves_on_interleaved_ranks(worker_results, op):
+    """alltoall and sendreceive (src 1, dst 2) on a communicator whose
+    ranks interleave the processes, on ``ring`` and ``kernel`` (the
+    lane's copies): each process's rows of the one-process result."""
+    x = torch.arange(P * P * 3, dtype=torch.float32).reshape(P, P, 3)
+    want = x.transpose(0, 1).contiguous() if op == "alltoall" else x.clone()
+    if op == "sendreceive":
+        want[2] = x[1]
+    for proc, res in enumerate(worker_results):
+        rows = [r for r in range(P) if r % NPROC == proc]
+        for b in ("ring", "kernel"):
+            assert torch.equal(res[f"moves/{op}/{b}"], want[rows]), (op, b, proc)
 
 
 # --- the plain versions of the two new forms ------------------------------

@@ -272,10 +272,6 @@ def _plane():
     return plane
 
 
-# the collectives whose cross-process forms are ROADMAP A13's rest (part 6)
-_XPROC_REST = ("alltoall", "sendreceive")
-
-
 def op_route(op: str, nelem: int, platform: str, requested: str = "ring") -> str:
     """Size-based latency/bandwidth routing (reference
     ``collectives.cpp:296-301``): at or below the cutoff the vendor path,
@@ -471,10 +467,6 @@ def _validate(op: str, x: torch.Tensor, comm: Communicator, root: int,
     lifted) input."""
     if op not in _OPS:
         raise CollectiveArgumentError(f"unknown collective {op!r}")
-    if comm.multiprocess and op in _XPROC_REST:
-        from ..runtime.peers import rest
-
-        raise rest(f"{op}", 6)
     _check_rank_stacked(x, comm)
     if wire_dtype not in (None, "full", "bf16", "int8"):
         # validated on every call: a typo must not pass silently because
@@ -602,40 +594,76 @@ def run_allgatherv(blocks, comm: Communicator, backend: str = "xla") -> torch.Te
     but the last; every rank gets them concatenated along the last dim in
     rank order. The blocks travel padded to the largest size through the
     ``xla`` or ``ring`` allgather, and each rank keeps the valid prefixes.
-    Returns ``[p, ..., sum(sizes)]`` on the communicator's device."""
-    if comm.multiprocess:
-        from ..runtime.peers import rest
+    Returns ``[p, ..., sum(sizes)]`` on the communicator's device.
 
-        raise rest("allgatherv", 6)
+    Across processes a process passes its own ranks' blocks (``comm.
+    local_size`` of them, in rank order) and gets its rows ``[L, ...,
+    sum(sizes)]``: every block's shape and dtype is exchanged over the
+    control plane first (:func:`_allgatherv_across`)."""
+    if backend not in ("xla", "ring"):
+        raise CollectiveArgumentError(
+            f"allgatherv backend must be 'xla' or 'ring', got {backend!r}"
+        )
+    if comm.multiprocess:
+        return _allgatherv_across(blocks, comm, backend)
     if len(blocks) != comm.size:
         raise CollectiveArgumentError(
             f"allgatherv expects {comm.size} blocks (one per rank), got {len(blocks)}"
         )
     blocks = [torch.as_tensor(b, device=comm.device) for b in blocks]
-    base, dtype = blocks[0].shape[:-1], blocks[0].dtype
-    for i, b in enumerate(blocks):
-        if b.ndim == 0 or b.shape[:-1] != base:
-            raise CollectiveArgumentError(
-                f"block {i} shape {tuple(b.shape)} does not match leading dims "
-                f"{tuple(base)} (only the LAST dim may vary, like the reference's "
-                "last-dim realloc)"
-            )
-        if b.dtype != dtype:
-            raise CollectiveArgumentError(f"block {i} dtype {b.dtype} != {dtype}")
-    if backend == "xla":
-        gather = prim.allgather
-    elif backend == "ring":
-        gather = prim.ring_allgather
-    else:
-        raise CollectiveArgumentError(
-            f"allgatherv backend must be 'xla' or 'ring', got {backend!r}"
-        )
+    err = _allgatherv_blocks_error([tuple(b.shape) for b in blocks], [b.dtype for b in blocks])
+    if err:
+        raise CollectiveArgumentError(err)
+    gather = prim.allgather if backend == "xla" else prim.ring_allgather
     sizes = [b.shape[-1] for b in blocks]
     nmax = max(sizes)
     padded = torch.stack([torch.nn.functional.pad(b, (0, nmax - s)) if s < nmax else b
                           for b, s in zip(blocks, sizes)])
     g = gather(padded.unsqueeze(1), dim=0)  # [rank, source, ..., nmax]
     return torch.cat([g[:, r, ..., :s] for r, s in enumerate(sizes)], dim=-1)
+
+
+def _allgatherv_blocks_error(shapes, dtypes) -> Optional[str]:
+    """The argument error of a variable-size allgather of blocks of
+    ``shapes`` and ``dtypes`` (rank order), or None."""
+    base, dtype = shapes[0][:-1], dtypes[0]
+    for i, (shape, dt) in enumerate(zip(shapes, dtypes)):
+        if len(shape) == 0 or shape[:-1] != base:
+            return (f"block {i} shape {shape} does not match leading dims {base} (only the "
+                    "LAST dim may vary, like the reference's last-dim realloc)")
+        if dt != dtype:
+            return f"block {i} dtype {dt} != {dtype}"
+    return None
+
+
+def _allgatherv_across(blocks, comm: Communicator, backend: str) -> torch.Tensor:
+    """:func:`run_allgatherv` on a communicator whose ranks span
+    processes: every process's block shapes and dtypes gathered over the
+    control plane (the reference's size exchange), checked alike in every
+    process (so an error raises in all of them), the blocks padded to the
+    largest size through the backend's cross-process allgather, each
+    rank's valid prefix kept."""
+    blocks = [torch.as_tensor(b, device=comm.device) for b in blocks]
+    every = _plane().all_gather_object([(tuple(b.shape), str(b.dtype)) for b in blocks])
+    owned = [[r for r in range(comm.size) if comm.process_of(r) == q] for q in range(len(every))]
+    wrong = [q for q, (m, rows) in enumerate(zip(every, owned)) if len(m) != len(rows)]
+    if wrong:
+        raise CollectiveArgumentError(
+            f"allgatherv expects each process's blocks of its ranks: process {wrong[0]} gave "
+            f"{len(every[wrong[0]])} for {len(owned[wrong[0]])} ranks")
+    by_rank = [None] * comm.size
+    for m, rows in zip(every, owned):
+        for r, entry in zip(rows, m):
+            by_rank[r] = entry
+    err = _allgatherv_blocks_error([s for s, _ in by_rank], [d for _, d in by_rank])
+    if err:
+        raise CollectiveArgumentError(err)
+    sizes = [s[-1] for s, _ in by_rank]
+    nmax = max(sizes)
+    padded = torch.stack([torch.nn.functional.pad(b, (0, nmax - b.shape[-1])) for b in blocks])
+    g = run("allgather", padded, comm, backend=backend, route_small=False)
+    g = g.reshape(padded.shape[:-1] + (comm.size, nmax))
+    return torch.cat([g[..., r, :s] for r, s in enumerate(sizes)], dim=-1)
 
 
 def _async_side(comm: Communicator) -> threading.local:
@@ -985,12 +1013,11 @@ def run_group_broadcast(x: torch.Tensor, comm: Communicator, root: int = 0) -> t
     intra rank ``root`` (``eager.py:1009``): the building block of mixed
     PS x data-parallel updates (``update.lua:104-112``). Each rank's row
     becomes its group root's row, one gather over the rank axis, for
-    cartesian and ragged (tree) communicators alike."""
+    cartesian and ragged (tree) communicators alike. Across processes each
+    of this process's rows is read from its root's row where it lies
+    (``Lane.move``: a root's process stages it only for the other
+    processes' ranks that take it)."""
     _check_rank_stacked(x, comm)
-    if comm.multiprocess:
-        from ..runtime.peers import rest
-
-        raise rest("the group broadcast", 6)
     groups: dict = {}
     for r in range(comm.size):
         m = comm.member(r)
@@ -1003,4 +1030,6 @@ def run_group_broadcast(x: torch.Tensor, comm: Communicator, root: int = 0) -> t
                 f"intra root {root} out of range for group of size {len(g)}"
             )
         src.append(g[root])
+    if comm.multiprocess:
+        return _plane().lane(comm).move(x, src)
     return x.index_select(0, torch.tensor(src, device=x.device))

@@ -94,6 +94,13 @@
 //   process copies the p blocks, wherever they lie, into each of its L
 //   rows, in rank order; bytes, so any payload type, bool and -0.0
 //   included. Bound: p blocks read and L*p written by each process.
+//   K5: the bidirectional allreduce above over the table, each process
+//   writing its L rows. Bound: p rows read and L written by each process.
+//   K6: launched by the root's process only (the others' result is their
+//   input, and they read no peer's slab): the reduce above over the table,
+//   the sum written to the root's row and each other rank the process
+//   holds given its value as the sum reads it. Bound: p rows read, L
+//   written.
 //   No kernel waits on another process: the host protocol of
 //   runtime/peers.py orders the copies with interprocess events.
 //
@@ -491,6 +498,81 @@ void launch_allgather_xproc(const RowTable& rows, unsigned char* out, int p, int
       rows, out, p, local, row_vecs);
 }
 
+// The cross-process K5: tm_ring_allreduce_bidir's sums (half A rightward,
+// half B leftward, each half in its own chunk layout) over the table's p
+// rows, written to the `local` rows of out.
+template <typename Op, int BYTES>
+__global__ void __launch_bounds__(256)
+    ring_allreduce_bidir_xproc_kernel(const __grid_constant__ RowTable rows,
+                                      typename Op::S* __restrict__ out, int p, int local,
+                                      long long row_vecs, long long half_vecs,
+                                      long long chunk_vecs) {
+  using S = typename Op::S;
+  using R = typename RawOf<BYTES>::T;
+  R* outr = reinterpret_cast<R*>(out);
+  const long long seg_vecs = chunk_vecs * p;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       v < row_vecs; v += stride) {
+    const bool leftward = v >= half_vecs;
+    const long long i = leftward ? v - half_vecs : v;
+    int r = (int)((i % seg_vecs) / chunk_vecs);
+    Pack<S, BYTES> acc;
+    acc.raw = static_cast<const R*>(rows.row[r])[v];
+#pragma unroll 4
+    for (int k = 1; k < p; ++k) {
+      if (leftward) {
+        r = (r == 0) ? p - 1 : r - 1;
+      } else {
+        r = (r + 1 == p) ? 0 : r + 1;
+      }
+      Pack<S, BYTES> in;
+      in.raw = static_cast<const R*>(rows.row[r])[v];
+      add_into<Op, BYTES>(acc, in);
+    }
+    for (int q = 0; q < local; ++q) outr[(long long)q * row_vecs + v] = acc.raw;
+  }
+}
+
+// The process's row of each rank of a table, or -1 for a rank it does not
+// hold.
+struct RankSlots {
+  int slot[kMaxTableRows];
+};
+
+// The cross-process K6, launched by the root's process only: vector v of
+// the ring's sum over the table's p rows (tm_ring_reduce's chunk layout and
+// order of adds) written to the root's slot of out, and each other rank the
+// process holds given its own value, copied as the sum reads it.
+template <typename Op, int BYTES>
+__global__ void __launch_bounds__(256)
+    ring_reduce_xproc_kernel(const __grid_constant__ RowTable rows,
+                             const __grid_constant__ RankSlots slots,
+                             typename Op::S* __restrict__ out, int p, long long row_vecs,
+                             long long chunk_vecs, int root) {
+  using S = typename Op::S;
+  using R = typename RawOf<BYTES>::T;
+  R* outr = reinterpret_cast<R*>(out);
+  const long long seg_vecs = chunk_vecs * p;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       v < row_vecs; v += stride) {
+    int r = (int)((v % seg_vecs) / chunk_vecs);
+    Pack<S, BYTES> acc;
+    acc.raw = static_cast<const R*>(rows.row[r])[v];
+    if (r != root && slots.slot[r] >= 0) outr[(long long)slots.slot[r] * row_vecs + v] = acc.raw;
+#pragma unroll 4
+    for (int k = 1; k < p; ++k) {
+      r = (r + 1 == p) ? 0 : r + 1;
+      Pack<S, BYTES> in;
+      in.raw = static_cast<const R*>(rows.row[r])[v];
+      if (r != root && slots.slot[r] >= 0) outr[(long long)slots.slot[r] * row_vecs + v] = in.raw;
+      add_into<Op, BYTES>(acc, in);
+    }
+    outr[(long long)slots.slot[root] * row_vecs + v] = acc.raw;
+  }
+}
+
 // Ranks per group of `rows` rows in `groups` groups, or 0 when they do not
 // split evenly (or more groups than a grid's y dimension takes).
 inline int group_size(int rows, int groups) {
@@ -751,5 +833,87 @@ extern "C" int tm_ring_allgather_xproc(const unsigned long long* rows, int p, vo
     case 2: launch_allgather_xproc<2>(table, o, p, local, row_bytes, s); break;
     default: launch_allgather_xproc<1>(table, o, p, local, row_bytes, s); break;
   }
+  return (int)cudaGetLastError();
+}
+
+// The cross-process K5. rows: p device addresses, rank r's row of n
+// elements of `dtype` (each in the slab of the process that owns r); out:
+// [local, n] contiguous, every row tm_ring_allreduce_bidir's sum for a ring
+// of p: elements [0, half) summed rightward, [half, n) leftward, each half
+// in chunks of chunk_elems (a multiple of 128) from its own start.
+extern "C" int tm_ring_allreduce_bidir_xproc(const unsigned long long* rows, int p, void* out,
+                                             int local, int dtype, long long n, long long half,
+                                             long long chunk_elems, void* stream) {
+  using namespace tmpi;
+  const int itemsize = itemsize_of(dtype);
+  if (itemsize == 0 || p < 1 || p > kMaxTableRows || local < 1 || n < 0 || half < 0 ||
+      half > n || chunk_elems <= 0 || chunk_elems % 128) {
+    return (int)cudaErrorInvalidValue;
+  }
+  RowTable table = {};
+  // a vector must not straddle the two halves: its width divides both
+  int bytes = 16;
+  for (int r = 0; r < p; ++r) {
+    table.row[r] = reinterpret_cast<const void*>(rows[r]);
+    const int w = vector_bytes(itemsize, (unsigned long long)std::gcd(n, half) * itemsize,
+                               table.row[r], out);
+    if (w < bytes) bytes = w;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool launched = with_reduce_type(dtype, bytes, [&](auto op, auto width) {
+    using Op = decltype(op);
+    using S = typename Op::S;
+    constexpr int kVW = decltype(width)::value / (int)sizeof(S);
+    const LaunchShape sh = shape_for(n / kVW, 1);
+    ring_allreduce_bidir_xproc_kernel<Op, decltype(width)::value>
+        <<<sh.grid, sh.threads, 0, s>>>(table, static_cast<S*>(out), p, local, n / kVW,
+                                        half / kVW, chunk_elems / kVW);
+  });
+  if (!launched) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The cross-process K6, launched by the process that owns `root`. rows: p
+// device addresses, rank r's row of n elements of `dtype` (each in the slab
+// of the process that owns r); owned: the global rank of each of the
+// `local` rows of out ([local, n] contiguous), root among them. The root's
+// row is tm_ring_reduce's sum for a ring of p (chunk_elems, a multiple of
+// 128), every other row its rank's input.
+extern "C" int tm_ring_reduce_xproc(const unsigned long long* rows, int p, const int* owned,
+                                    int local, void* out, int dtype, long long n,
+                                    long long chunk_elems, int root, void* stream) {
+  using namespace tmpi;
+  const int itemsize = itemsize_of(dtype);
+  if (itemsize == 0 || p < 1 || p > kMaxTableRows || local < 1 || local > p || n < 0 ||
+      chunk_elems <= 0 || chunk_elems % 128 || root < 0 || root >= p) {
+    return (int)cudaErrorInvalidValue;
+  }
+  RankSlots slots;
+  for (int r = 0; r < kMaxTableRows; ++r) slots.slot[r] = -1;
+  for (int i = 0; i < local; ++i) {
+    if (owned[i] < 0 || owned[i] >= p || slots.slot[owned[i]] >= 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    slots.slot[owned[i]] = i;
+  }
+  if (slots.slot[root] < 0) return (int)cudaErrorInvalidValue;
+  RowTable table = {};
+  int bytes = 16;
+  for (int r = 0; r < p; ++r) {
+    table.row[r] = reinterpret_cast<const void*>(rows[r]);
+    const int w = vector_bytes(itemsize, (unsigned long long)n * itemsize, table.row[r], out);
+    if (w < bytes) bytes = w;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool launched = with_reduce_type(dtype, bytes, [&](auto op, auto width) {
+    using Op = decltype(op);
+    using S = typename Op::S;
+    constexpr int kVW = decltype(width)::value / (int)sizeof(S);
+    const LaunchShape sh = shape_for(n / kVW, 1);
+    ring_reduce_xproc_kernel<Op, decltype(width)::value>
+        <<<sh.grid, sh.threads, 0, s>>>(table, slots, static_cast<S*>(out), p, n / kVW,
+                                        chunk_elems / kVW, root);
+  });
+  if (!launched) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

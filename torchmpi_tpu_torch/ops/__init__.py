@@ -11,10 +11,11 @@
 - ``ring_broadcast`` (``csrc/ring_kernels.cu``) replaces
   ``ops/ring_kernels.py:_ring_broadcast_kernel``;
 - ``ring_allreduce_xproc``, ``ring_reduce_scatter_xproc``,
-  ``ring_allgather_xproc`` and ``ring_broadcast_xproc`` (the same file)
-  are K3's three modes and K7 across processes: they read the rank rows
-  from every process's slab (``runtime/peers.py``) and write the
-  process's own rows;
+  ``ring_allgather_xproc``, ``ring_broadcast_xproc``,
+  ``ring_allreduce_bidir_xproc`` and ``ring_reduce_xproc`` (the same file)
+  are K3's three modes, K7, K5 and K6 across processes: they read the
+  rank rows from every process's slab (``runtime/peers.py``) and write
+  the process's own rows;
 - ``ring_allreduce_quant`` and ``ring_reduce_scatter_quant``
   (``csrc/ring_quant.cu``) replace ``ops/ring_kernels.py:_ring_quant_kernel``
   in its allreduce and 'rs' modes (int8 or bf16 on every hop);
@@ -68,6 +69,8 @@ from .ring_kernels import (
     ring_allreduce,
     ring_allreduce_bidir,
     ring_allreduce_bidir_plain,
+    ring_allreduce_bidir_xproc,
+    ring_allreduce_bidir_xproc_plain,
     ring_allreduce_plain,
     ring_allreduce_quant,
     ring_allreduce_quant_plain,
@@ -89,6 +92,8 @@ from .ring_kernels import (
     ring_reduce_scatter_quant_xproc_plain,
     ring_reduce_scatter_xproc,
     ring_reduce_scatter_xproc_plain,
+    ring_reduce_xproc,
+    ring_reduce_xproc_plain,
 )
 
 
@@ -117,6 +122,8 @@ __all__ = [
     "ring_allreduce",
     "ring_allreduce_bidir",
     "ring_allreduce_bidir_plain",
+    "ring_allreduce_bidir_xproc",
+    "ring_allreduce_bidir_xproc_plain",
     "ring_allreduce_plain",
     "ring_allreduce_quant",
     "ring_allreduce_quant_plain",
@@ -142,6 +149,8 @@ __all__ = [
     "ring_reduce_scatter_quant_xproc_plain",
     "ring_reduce_scatter_xproc",
     "ring_reduce_scatter_xproc_plain",
+    "ring_reduce_xproc",
+    "ring_reduce_xproc_plain",
     "scale_accumulate",
     "scale_accumulate_many",
     "scale_accumulate_many_plain",

@@ -6,7 +6,8 @@ The port of the ``torchmpi_tpu/ops/ring_kernels.py`` kernels:
 ``ring_allgather_pallas``), 'rs' followed by ``_ring_gather_root_kernel``
 (``ring_reduce_pallas``), ``_ring_bidir_kernel``
 (``ring_allreduce_bidir_pallas``), ``_ring_broadcast_kernel``
-(``ring_broadcast_pallas``) and ``_ring_quant_kernel`` (the int8/bf16 wire).
+(``ring_broadcast_pallas``) and ``_ring_quant_kernel`` (the int8/bf16 wire),
+and their forms across processes (the ``_xproc`` wrappers).
 The kernels are hand-written CUDA in ``csrc/ring_kernels.cu`` and
 ``csrc/ring_quant.cu``; each has a plain PyTorch version here that repeats
 its arithmetic. A wrapper takes the plain version only for a tensor on the
@@ -71,6 +72,8 @@ launches = {
     "ring_broadcast_xproc": 0,
     "ring_reduce_scatter_xproc": 0,
     "ring_allgather_xproc": 0,
+    "ring_allreduce_bidir_xproc": 0,
+    "ring_reduce_xproc": 0,
     **{f"{op}_{wire}": 0 for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant",
                                     "ring_allreduce_quant_xproc",
                                     "ring_reduce_scatter_quant_xproc")
@@ -103,6 +106,14 @@ _SIGNATURES = {
     # rows (p addresses), p, out, local, row_bytes, stream
     "tm_ring_allgather_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT, _PTR, _INT, _LONG,
                                 _PTR],
+    # rows (p addresses), p, out, local, dtype, n, half, chunk_elems, stream
+    "tm_ring_allreduce_bidir_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT, _PTR, _INT,
+                                      _INT, _LONG, _LONG, _LONG, _PTR],
+    # rows (p addresses), p, owned (local ranks), local, out, dtype, n,
+    # chunk_elems, root, stream
+    "tm_ring_reduce_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT,
+                             ctypes.POINTER(ctypes.c_int), _INT, _PTR, _INT, _LONG, _LONG, _INT,
+                             _PTR],
 }
 # the cross-process K3's row table (csrc/ring_kernels.cu kMaxTableRows)
 MAX_TABLE_ROWS = 32
@@ -509,6 +520,24 @@ def _check_table(rows, local: int, what: str) -> None:
             raise ValueError(f"{what} expects contiguous rank rows")
 
 
+def _check_native_table(rows, what: str) -> None:
+    if rows[0].dtype not in NATIVE_DTYPES:
+        raise ValueError(f"{what} reduces {sorted(map(str, NATIVE_DTYPES))}, "
+                         f"not {rows[0].dtype}")
+
+
+def _check_distinct_owned(rows, owned, what: str) -> list:
+    """``owned`` as a list of distinct global ranks of the table's
+    ``len(rows)``, after the table's checks."""
+    owned = [int(r) for r in owned]
+    _check_table(rows, len(owned), what)
+    p = len(rows)
+    if len(owned) > MAX_TABLE_ROWS or len(set(owned)) != len(owned) or \
+            any(not 0 <= r < p for r in owned):
+        raise ValueError(f"{what}: owned ranks {owned} out of range or repeated for {p} ranks")
+    return owned
+
+
 def ring_allreduce_xproc_plain(rows, local: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`ring_allreduce_xproc`: the p rank
     rows stacked, the ring's sum in :func:`ring_allreduce`'s chunk layout
@@ -536,9 +565,7 @@ def ring_allreduce_xproc(rows, local: int, stream=None) -> torch.Tensor:
         return ring_allreduce_xproc_plain(rows, local)
     _check_table(rows, local, "ring_allreduce_xproc")
     _check_cuda(first, "ring_allreduce_xproc")
-    if first.dtype not in NATIVE_DTYPES:
-        raise ValueError(f"ring_allreduce_xproc reduces {sorted(map(str, NATIVE_DTYPES))}, "
-                         f"not {first.dtype}")
+    _check_native_table(rows, "ring_allreduce_xproc")
     p = len(rows)
     out = torch.empty((local,) + tuple(first.shape), dtype=first.dtype, device=first.device)
     n = first.numel()
@@ -623,9 +650,7 @@ def ring_reduce_scatter_xproc(rows, owned, stream=None) -> torch.Tensor:
         return ring_reduce_scatter_xproc_plain(rows, owned)
     owned = _check_owned(rows, owned, "ring_reduce_scatter_xproc")
     _check_cuda(first, "ring_reduce_scatter_xproc")
-    if first.dtype not in NATIVE_DTYPES:
-        raise ValueError(f"ring_reduce_scatter_xproc reduces "
-                         f"{sorted(map(str, NATIVE_DTYPES))}, not {first.dtype}")
+    _check_native_table(rows, "ring_reduce_scatter_xproc")
     p, local = len(rows), len(owned)
     seg_n = first.numel() // p
     out = torch.empty((local, seg_n), dtype=first.dtype, device=first.device)
@@ -670,6 +695,98 @@ def ring_allgather_xproc(rows, local: int, stream=None) -> torch.Tensor:
         _launch("tm_ring_allgather_xproc", first, table, p, out.data_ptr(), local, row_bytes,
                 stream=stream)
         launches["ring_allgather_xproc"] += 1
+    return out
+
+
+def ring_allreduce_bidir_xproc_plain(rows, local: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_allreduce_bidir_xproc`: the p
+    rank rows stacked, :func:`ring_allreduce_bidir_plain`'s row copied to
+    ``local`` rows."""
+    _check_table(rows, local, "ring_allreduce_bidir_xproc")
+    x = torch.stack(list(rows))
+    out = ring_allreduce_bidir_plain(x)
+    return out[:1].expand((local,) + tuple(x.shape[1:])).contiguous()
+
+
+def ring_allreduce_bidir_xproc(rows, local: int, stream=None) -> torch.Tensor:
+    """The bidirectional allreduce over ranks held by several processes:
+    ``rows`` are the p rank rows in rank order, each where it lies (this
+    process's or a peer's mapped slab), and the result ``[local, ...]``,
+    the process's own rows, each :func:`ring_allreduce_bidir`'s sum of the
+    stacked rows bit for bit (half A rightward, half B leftward, the
+    :func:`bidir_chunk_elems` layout). ``p <= 2`` runs
+    :func:`ring_allreduce_xproc`, as the one-process wrapper delegates.
+    One launch of the cross-process K5 (``ring_allreduce_bidir_pallas``
+    across processes, ``ring_kernels.py:1005``); the plain version for CPU
+    rows. Natively reduced dtypes only: the caller casts to
+    :func:`carrier_dtype` before it publishes."""
+    first = rows[0]
+    if first.device.type == "cpu":
+        return ring_allreduce_bidir_xproc_plain(rows, local)
+    _check_table(rows, local, "ring_allreduce_bidir_xproc")
+    _check_cuda(first, "ring_allreduce_bidir_xproc")
+    _check_native_table(rows, "ring_allreduce_bidir_xproc")
+    p = len(rows)
+    if p <= 2:
+        return ring_allreduce_xproc(rows, local, stream=stream)
+    out = torch.empty((local,) + tuple(first.shape), dtype=first.dtype, device=first.device)
+    n = first.numel()
+    if n:
+        half = -(-n // 2)
+        table = (ctypes.c_ulonglong * p)(*[r.data_ptr() for r in rows])
+        _launch("tm_ring_allreduce_bidir_xproc", first, table, p, out.data_ptr(), local,
+                NATIVE_DTYPES[first.dtype], n, half, bidir_chunk_elems(half, p, first.dtype),
+                stream=stream)
+        launches["ring_allreduce_bidir_xproc"] += 1
+    return out
+
+
+def _check_reduce_owned(rows, owned, root: int, what: str) -> list:
+    owned = _check_distinct_owned(rows, owned, what)
+    if root not in owned:
+        raise ValueError(f"{what}: the root {root} is not among the owned ranks {owned} (only "
+                         "the root's process launches it)")
+    return owned
+
+
+def ring_reduce_xproc_plain(rows, owned, root: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_reduce_xproc`: the p rank rows
+    stacked, :func:`ring_reduce_plain`'s rows of the ranks in ``owned``."""
+    owned = _check_reduce_owned(rows, owned, root, "ring_reduce_xproc")
+    out = ring_reduce_plain(torch.stack(list(rows)), root)
+    return out[torch.tensor(owned, device=out.device)]
+
+
+def ring_reduce_xproc(rows, owned, root: int, stream=None) -> torch.Tensor:
+    """Sum-reduce to rank ``root`` over ranks held by several processes,
+    in the root's process: ``rows`` are the p rank rows in rank order,
+    each where it lies (this process's or a peer's mapped slab), and
+    ``owned`` the global rank of each of this process's rows, ``root``
+    among them. Row i of the ``[L, ...]`` result is rank ``owned[i]``'s
+    row of :func:`ring_reduce` on the stacked rows, bit for bit: the ring
+    allreduce's sum for the root, its input for every other rank. Every
+    other process's result is its input, and it reads no peer's slab
+    (``runtime/peers.py`` ``Lane.reduce``). One launch of the
+    cross-process K6 (``ring_reduce_pallas`` across processes,
+    ``ring_kernels.py:1232``); the plain version for CPU rows. Natively
+    reduced dtypes only: the caller casts to :func:`carrier_dtype` before
+    it publishes."""
+    first = rows[0]
+    if first.device.type == "cpu":
+        return ring_reduce_xproc_plain(rows, owned, root)
+    owned = _check_reduce_owned(rows, owned, root, "ring_reduce_xproc")
+    _check_cuda(first, "ring_reduce_xproc")
+    _check_native_table(rows, "ring_reduce_xproc")
+    p, local = len(rows), len(owned)
+    out = torch.empty((local,) + tuple(first.shape), dtype=first.dtype, device=first.device)
+    n = first.numel()
+    if n:
+        table = (ctypes.c_ulonglong * p)(*[r.data_ptr() for r in rows])
+        own = (ctypes.c_int * local)(*owned)
+        _launch("tm_ring_reduce_xproc", first, table, p, own, local, out.data_ptr(),
+                NATIVE_DTYPES[first.dtype], n, chunk_elems(n, p, first.dtype), root,
+                stream=stream)
+        launches["ring_reduce_xproc"] += 1
     return out
 
 
@@ -903,12 +1020,7 @@ def ring_reduce_scatter_quant(x: torch.Tensor, wire: str, stream=None) -> torch.
 def _check_quant_table(rows, owned, wire: str, what: str) -> list:
     if wire not in WIRES:
         raise ValueError(f"wire must be one of {WIRES}, got {wire!r}")
-    owned = [int(r) for r in owned]
-    _check_table(rows, len(owned), what)
-    p = len(rows)
-    if len(owned) > MAX_TABLE_ROWS or len(set(owned)) != len(owned) or \
-            any(not 0 <= r < p for r in owned):
-        raise ValueError(f"{what}: owned ranks {owned} out of range or repeated for {p} ranks")
+    owned = _check_distinct_owned(rows, owned, what)
     if rows[0].dtype != torch.float32 or rows[0].ndim != 1:
         raise ValueError(f"{what} takes 1-D float32 rank rows, got {rows[0].dtype} "
                          f"{tuple(rows[0].shape)}")

@@ -35,8 +35,9 @@ time-slice):
 3. wait on the host for every peer's post k+1, then make the stream wait
    on each peer's write event;
 4. read the slots (the cross-process K3 in any of its three modes, K4 in
-   either of its two, K7, or a copy into a full rank-stacked tensor),
-   record the read event, post the read k+1.
+   either of its two, K5, K6, K7, a copy into a full rank-stacked tensor,
+   or the copies of :meth:`Lane.move` and :meth:`Lane.alltoall`), record
+   the read event, post the read k+1.
 
 A host wait polls the peer's counter in shared memory; a peer whose
 process is gone raises :class:`PeerError` at once, and one that does not
@@ -397,7 +398,7 @@ class Lane:
         if len(set(plane.hosts)) > 1:
             raise rest("a lane between hosts (no shared memory or CUDA IPC between them)", 8)
         if sorted(set(comm.processes)) != list(range(plane.count)):
-            raise rest("a communicator spanning some of the processes", 6)
+            raise rest("a communicator spanning some of the processes", 10)
         self.plane = plane
         self.device = comm.device
         self.cuda = comm.device.type == "cuda"
@@ -528,6 +529,11 @@ class Lane:
     def _stream(self, stream):
         return stream if stream is not None else torch.cuda.current_stream(self.device)
 
+    def _on(self, stream):
+        """A context that makes ``stream`` current on CUDA (a no-op on the
+        CPU)."""
+        return torch.cuda.stream(self._stream(stream)) if self.cuda else contextlib.nullcontext()
+
     def publish(self, rows: Optional[torch.Tensor], row_bytes: int, stream=None) -> int:
         """Steps 1-3 of call k: ``rows`` (this process's rows, or a prefix
         of them, or None for nothing) copied into slot k % 2 once every
@@ -590,6 +596,16 @@ class Lane:
                 f"lane of {self.local} local rows on {self.device} got {tuple(x.shape)} "
                 f"on {x.device}")
 
+    def _carried(self, x: torch.Tensor):
+        """``(rows, carrier)``: this process's rows of ``x`` flat and
+        contiguous in the dtype the ring adds in, after the checks."""
+        from ..ops import ring_kernels
+
+        self._check(x)
+        carrier = ring_kernels.carrier_dtype(x.dtype)
+        rows = x.reshape(self.local, -1)
+        return (rows if carrier == x.dtype else rows.to(carrier)).contiguous(), carrier
+
     def gather(self, x: torch.Tensor, stream=None) -> torch.Tensor:
         """The full rank-stacked ``[p, ...]`` tensor from every process's
         rows, each copied from the slab where it lies (the ``ring``
@@ -600,8 +616,7 @@ class Lane:
         row_bytes = x[0].numel() * x.element_size()
         s = self.publish(x, row_bytes, stream)
         full = torch.empty((self.size,) + shape, dtype=x.dtype, device=x.device)
-        ctx = torch.cuda.stream(self._stream(stream)) if self.cuda else contextlib.nullcontext()
-        with ctx:
+        with self._on(stream):
             for q, (rows, part) in enumerate(zip(self.rows_of, self.views(s, shape, x.dtype))):
                 _place(full, rows, x if q == self.me else part)
         self.release(stream)
@@ -614,10 +629,7 @@ class Lane:
         ``[p, ...]``."""
         from ..ops import ring_kernels
 
-        self._check(x)
-        carrier = ring_kernels.carrier_dtype(x.dtype)
-        rows = x.reshape(self.local, -1)
-        rows = (rows if carrier == x.dtype else rows.to(carrier)).contiguous()
+        rows, carrier = self._carried(x)
         n = rows.shape[1]
         s = self.publish(rows, n * rows.element_size(), stream)
         out = ring_kernels.ring_allreduce_xproc(self._table(s, (n,), carrier), self.local,
@@ -640,10 +652,7 @@ class Lane:
         reduces only its own ranks' segments."""
         from ..ops import ring_kernels
 
-        self._check(x)
-        carrier = ring_kernels.carrier_dtype(x.dtype)
-        rows = x.reshape(self.local, -1)
-        rows = (rows if carrier == x.dtype else rows.to(carrier)).contiguous()
+        rows, carrier = self._carried(x)
         n = rows.shape[1]
         s = self.publish(rows, n * rows.element_size(), stream)
         out = ring_kernels.ring_reduce_scatter_xproc(
@@ -722,3 +731,96 @@ class Lane:
         self.release(stream)
         return out
 
+    def allreduce_bidir(self, x: torch.Tensor, stream=None) -> torch.Tensor:
+        """The sum over every rank's rows through the cross-process K5
+        (``ops.ring_allreduce_bidir_xproc``): this process's rows of the
+        result, bit for bit the one-process K5's rows on the same ``[p,
+        ...]``."""
+        from ..ops import ring_kernels
+
+        rows, carrier = self._carried(x)
+        n = rows.shape[1]
+        s = self.publish(rows, n * rows.element_size(), stream)
+        out = ring_kernels.ring_allreduce_bidir_xproc(self._table(s, (n,), carrier), self.local,
+                                                      stream=stream)
+        self.release(stream)
+        return out.to(x.dtype).reshape(x.shape)
+
+    def reduce(self, x: torch.Tensor, root: int, stream=None) -> torch.Tensor:
+        """The sum over every rank's rows to rank ``root``, every other
+        rank keeping its input: in the root's process the cross-process K6
+        (``ops.ring_reduce_xproc``) over the rows where they lie, in every
+        other process a copy of its input, which reads no peer's slab (it
+        publishes its rows and posts its read all the same). Bit for bit
+        the one-process K6's rows on the same ``[p, ...]``."""
+        from ..ops import ring_kernels
+
+        rows, carrier = self._carried(x)
+        n = rows.shape[1]
+        s = self.publish(rows, n * rows.element_size(), stream)
+        if self.procs[root] == self.me:
+            out = ring_kernels.ring_reduce_xproc(self._table(s, (n,), carrier),
+                                                 self.rows_of[self.me], root, stream=stream)
+            out = out.to(x.dtype).reshape(x.shape)
+        else:
+            with self._on(stream):
+                out = x.clone()
+        self.release(stream)
+        return out
+
+    def move(self, x: torch.Tensor, src: List[int], stream=None) -> torch.Tensor:
+        """Each of this process's rows taken from a source rank's row:
+        rank r's row of the result is rank ``src[r]``'s row of ``x``
+        (``src`` names a source for every rank of the communicator, the
+        same list in every process). A process stages only the rows of its
+        ranks that a rank of another process takes, in rank order, and
+        reads only the rows its ranks take from another process, each
+        from the slab where it lies (sendreceive: only the destination's
+        process reads, only the source's row; the group broadcast: the
+        roots' rows). Plain copies: it moves bytes, any dtype."""
+        self._check(x)
+        x = x.contiguous()
+        shape = tuple(x.shape[1:])
+        row_bytes = x[0].numel() * x.element_size()
+        staged = [sorted({s for r, s in enumerate(src) if self.procs[s] == q != self.procs[r]})
+                  for q in range(self.plane.count)]
+        mine = staged[self.me]
+        with self._on(stream):
+            rows = torch.stack([x[self.index_of[r]] for r in mine]) if mine else None
+        s = self.publish(rows, row_bytes, stream)
+        out = torch.empty_like(x)
+        with self._on(stream):
+            for i, r in enumerate(self.rows_of[self.me]):
+                q = self.procs[src[r]]
+                if q == self.me:
+                    out[i].copy_(x[self.index_of[src[r]]])
+                else:
+                    at = staged[q].index(src[r])
+                    out[i].copy_(self._view(q, s, (at + 1) * row_bytes,
+                                            (at + 1,) + shape, x.dtype)[at])
+        self.release(stream)
+        return out
+
+    def alltoall(self, x: torch.Tensor, stream=None) -> torch.Tensor:
+        """The all-to-all of the ``[L, p, ...]`` rows (block s of rank r's
+        row is r's block for rank s): block j of each of this process's
+        ranks' rows is its block of rank j's row, copied from the slab
+        where that row lies. Every process stages its rows; each reads
+        only the blocks its ranks receive. Plain copies, any dtype."""
+        self._check(x)
+        x = x.contiguous()
+        shape = tuple(x.shape[1:])
+        s = self.publish(x, x[0].numel() * x.element_size(), stream)
+        out = torch.empty_like(x)
+        with self._on(stream):
+            mine = torch.tensor(self.rows_of[self.me], device=x.device)
+            for q, (rows, part) in enumerate(zip(self.rows_of, self.views(s, shape, x.dtype))):
+                src = x if q == self.me else part
+                # out[i, rows[j]] = src[j, mine[i]]: this process's blocks of q's rows
+                blocks = src.index_select(1, mine).transpose(0, 1)
+                if rows == list(range(rows[0], rows[0] + len(rows))):
+                    out[:, rows[0]:rows[0] + len(rows)].copy_(blocks)
+                else:
+                    out.index_copy_(1, torch.tensor(rows, device=x.device), blocks)
+        self.release(stream)
+        return out

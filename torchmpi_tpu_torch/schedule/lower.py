@@ -71,7 +71,7 @@ def lower_flat(comm, op: str, backend: str, shape: Tuple, dtype, wire: str,
     fn = _eager()._kernels(op, backend, nelem, dtype, comm.device.type, root,
                            src, dst, wire, pipeline=pipeline)
     if comm.multiprocess:
-        return _across_flat(comm, op, backend, root, fn, wire), backend != "xla"
+        return _across_flat(comm, op, backend, root, src, dst, fn, wire), backend != "xla"
     return fn, backend == "kernel"
 
 
@@ -409,29 +409,41 @@ def across(comm, backend: str, fn: Callable, takes_stream: bool) -> Callable:
     return run
 
 
-def _across_flat(comm, op: str, backend: str, root: int, fn: Callable,
+def _across_flat(comm, op: str, backend: str, root: int, src: int, dst: int, fn: Callable,
                  wire: str = "full") -> Callable:
     """The flat function across processes: on the kernel backend the
     allreduce, the reduce-scatter and the allgather are the cross-process
     K3 in its three modes, or with a compressed ``wire`` the allreduce and
-    the reduce-scatter the cross-process K4 in its two, and the broadcast
-    the cross-process K7, which read the rows from the slabs where they
-    lie (the broadcast at any size: the binomial tree's hops have no
-    counterpart when the root's row is one read away); the eager
-    reduce-scatter scatters and the allgather concatenates the last dim,
-    moved to dim 1 around the lane as the one-process kernel table moves
-    it (``eager._reduce_scatter_lastdim``, ``_allgather_lastdim``). Every
-    other pair runs :func:`across`."""
+    the reduce-scatter the cross-process K4 in its two, the allreduce
+    under ``ring_implementation='kernel_bidir'`` the cross-process K5, the
+    reduce the cross-process K6 and the broadcast the cross-process K7,
+    which read the rows from the slabs where they lie (the broadcast at
+    any size: the binomial tree's hops have no counterpart when the
+    root's row is one read away); the eager reduce-scatter scatters and
+    the allgather concatenates the last dim, moved to dim 1 around the
+    lane as the one-process kernel table moves it
+    (``eager._reduce_scatter_lastdim``, ``_allgather_lastdim``). On
+    ``ring`` and ``kernel`` the alltoall and the sendreceive copy only
+    the blocks or the row that cross from the slabs (``Lane.alltoall``,
+    ``Lane.move``). Every other pair runs :func:`across`."""
 
     def lane():
         return _eager()._plane().lane(comm)
 
     quant = wire != "full"
+    if backend != "xla" and op == "alltoall":
+        return lambda x, stream=None: lane().alltoall(x, stream)
+    if backend != "xla" and op == "sendreceive":
+        sources = [src if r == dst else r for r in range(comm.size)]
+        return lambda x, stream=None: lane().move(x, sources, stream)
     if backend == "kernel" and op == "allreduce" and quant:
         return lambda x, stream=None: lane().allreduce_quant(x, wire, stream)
-    if backend == "kernel" and op == "allreduce" and \
-            constants.get("ring_implementation") != "kernel_bidir":
+    if backend == "kernel" and op == "allreduce":
+        if constants.get("ring_implementation") == "kernel_bidir":
+            return lambda x, stream=None: lane().allreduce_bidir(x, stream)
         return lambda x, stream=None: lane().allreduce(x, stream)
+    if backend == "kernel" and op == "reduce":
+        return lambda x, stream=None: lane().reduce(x, root, stream)
     if backend == "kernel" and op == "broadcast":
         return lambda x, stream=None: lane().broadcast(x, root, stream)
     if backend == "kernel" and op == "reducescatter":
@@ -513,7 +525,7 @@ def _staged_across(x: torch.Tensor, comm, intra_impl: str, wire: str, pipeline: 
     if not _process_aligned(comm):
         from ..runtime.peers import rest
 
-        raise rest("the staged allreduce over groups that span processes", 6)
+        raise rest("the staged allreduce over groups that span processes", 10)
     n = math.prod(x.shape[1:])
     wire_arg = None if wire == "full" else wire
     reduced = _local_intra(comm, intra_impl, n, x.dtype, wire_arg, int(pipeline))(x, stream)

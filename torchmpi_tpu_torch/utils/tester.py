@@ -16,9 +16,13 @@ communication-volume models (``tester.lua:103-126``,
 
 With p virtual ranks on one card every "link" is the card's memory, so a
 bus GB/s is the reference's yardstick applied to this run, not a link
-speed. An async call's result is waited inside the loop; the host time of
-issuing it is reported beside, as ``launch_us`` (the reference asserts an
-async launch under 50 µs, ``collectives_all.lua:192-199``).
+speed. In a job of several processes (the launcher's), each process builds
+and checks its own ranks' rows, the volume models keep the global p, and
+every process meets the others at the control plane's barrier before its
+timed loop, so all of them time the same calls. An async call's result is
+waited inside the loop; the host time of issuing it is reported beside,
+as ``launch_us`` (the reference asserts an async launch under 50 µs,
+``collectives_all.lua:192-199``).
 
 :func:`wire_midpoint_rows` makes inputs of the quantized ring on which
 rounding the int8 wire's decode-and-add twice gives other bits than
@@ -82,18 +86,22 @@ class BenchResult:
     launch_us: float = math.nan
 
 
-def _payload(op: str, nelem: int, p: int, device: torch.device) -> torch.Tensor:
-    """The closed-form input: rank r contributes r (alltoall: rank r's
-    block for rank s holds 100 r + s)."""
-    r = torch.arange(p, dtype=torch.float32, device=device)
+def _payload(op: str, nelem: int, p: int, device: torch.device,
+             ranks: Optional[List[int]] = None) -> torch.Tensor:
+    """The closed-form input of the ``ranks`` (default: all p) in rank
+    order: rank r contributes r (alltoall: rank r's block for rank s
+    holds 100 r + s)."""
+    r = torch.tensor(list(range(p)) if ranks is None else ranks, dtype=torch.float32,
+                     device=device)
+    s = torch.arange(p, dtype=torch.float32, device=device)
     if op == "alltoall":
         chunk = max(1, nelem // p)
-        return (100.0 * r[:, None] + r[None, :])[:, :, None].expand(p, p, chunk).contiguous()
+        return (100.0 * r[:, None] + s[None, :])[:, :, None].expand(len(r), p, chunk).contiguous()
     if op == "reducescatter":
         n = max(p, -(-max(1, nelem) // p) * p)  # last dim divisible by p
     else:
         n = max(1, nelem)
-    return r[:, None].expand(p, n).contiguous()
+    return r[:, None].expand(len(r), n).contiguous()
 
 
 def _close(out: torch.Tensor, expect) -> bool:
@@ -102,20 +110,27 @@ def _close(out: torch.Tensor, expect) -> bool:
     return bool(torch.isclose(out, expect, rtol=1e-5, atol=1e-8).all())
 
 
-def _correct(op: str, out: torch.Tensor, p: int, root: int) -> bool:
+def _correct(op: str, out: torch.Tensor, p: int, root: int,
+             ranks: Optional[List[int]] = None) -> bool:
+    """The closed-form check of the rows of ``ranks`` (default: all p,
+    in rank order). A reduce's non-root rows keep their input. A
+    sendreceive reads correct unconditionally, as the JAX tester has it
+    (``tester.py:147``)."""
+    ranks = list(range(p)) if ranks is None else ranks
     total = p * (p - 1) / 2
     if op == "allreduce" or op == "reducescatter":
         return _close(out, total)
     if op == "broadcast":
         return _close(out, float(root))
     if op == "reduce":
-        return _close(out[root], total)
+        return all(_close(row, total if r == root else float(r)) for r, row in zip(ranks, out))
     if op == "allgather":
-        ranks = torch.arange(p, dtype=out.dtype, device=out.device)
-        return _close(out[0], ranks.repeat_interleave(out.shape[1] // p))
+        every = torch.arange(p, dtype=out.dtype, device=out.device)
+        return _close(out, every.repeat_interleave(out.shape[1] // p))
     if op == "alltoall":
-        r = torch.arange(p, dtype=out.dtype, device=out.device)
-        return _close(out, 100.0 * r[None, :, None] + r[:, None, None])
+        r = torch.tensor(ranks, dtype=out.dtype, device=out.device)
+        s = torch.arange(p, dtype=out.dtype, device=out.device)
+        return _close(out, 100.0 * s[None, :, None] + r[:, None, None])
     return True
 
 
@@ -144,7 +159,8 @@ def run_one_config(
     from ..collectives import eager
 
     p = comm.size
-    x = _payload(op, nelem, p, comm.device)
+    ranks = comm.local_ranks
+    x = _payload(op, nelem, p, comm.device, ranks)
     pinned = not route_override and backend in ("xla", "ring", "kernel")
     ns = collectives.async_ if mode == "async" else collectives
     if backend and not pinned and backend != "selector":
@@ -184,13 +200,15 @@ def run_one_config(
         launch_s.append(time.perf_counter() - t0)
         return handle.wait()
 
-    correct = _correct(op, call(), p, root)
+    correct = _correct(op, call(), p, root, ranks)
 
     mean_us = gbps = launch_us = math.nan
     if benchmark:
         for _ in range(warmup):
             call()
         call()
+        if comm.multiprocess:
+            eager.barrier(comm)  # every process's timed loop starts together
         _synchronize(comm.device)
         launch_s.clear()
         t0 = time.perf_counter()
@@ -214,10 +232,13 @@ def run_matrix(
     sizes: Optional[List[int]] = None,
     benchmark: bool = False,
     report: Optional[Callable[[BenchResult], None]] = None,
+    reps: Optional[dict] = None,
 ) -> List[BenchResult]:
     """The full config-matrix sweep (``collectives_all.lua:554-598``),
     freeing the communicator's per-size resources after each op's sweep as
-    the reference tester does between sizes (``tester.lua:131-133``)."""
+    the reference tester does between sizes (``tester.lua:131-133``).
+    ``reps`` maps a backend to its ``(warmup, timed)`` calls (default the
+    reference's 10 and 10)."""
     from ..collectives.eager import free_collective_resources
 
     sizes = sizes or sweep_sizes()
@@ -226,7 +247,9 @@ def run_matrix(
         for backend in backends:
             for mode in modes:
                 for n in sizes:
-                    res = run_one_config(op, n, comm, backend, mode, benchmark=benchmark)
+                    warmup, timed = (reps or {}).get(backend, (10, 10))
+                    res = run_one_config(op, n, comm, backend, mode, benchmark=benchmark,
+                                         warmup=warmup, timed=timed)
                     results.append(res)
                     if report:
                         report(res)
