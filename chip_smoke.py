@@ -24,8 +24,14 @@ phase fails:
    list forms over ResNet-50's 161 leaves, mixed lists and the PS shard at
    an odd offset, with the launches each call counts (``{"many_table"}``
    names the table the build takes and the host time of one list call);
+   the per-rank kernels of ROADMAP C6's repair (the convolution weight
+   gradient and the product) within ``WGRAD_RTOL`` of max|plain| of their
+   plain versions and bit for bit across stacks of 8, 4 and 2 ranks;
 4. checks the trainer on a small input against the same trainer on the
-   CPU (plain versions), then drives the two MNIST paths, LeNet at p=8
+   CPU (plain versions), and the main path's first steps' gradients
+   through the per-rank kernels against the same engine's with their
+   plain versions (:func:`main_path_gradient`), then drives the two MNIST
+   paths, LeNet at p=8
    virtual ranks, global batch 336, lr 0.2, two epochs of
    ``synthetic_mnist`` each (the first warms up), with every launch count
    set to 0 just before each path and read just after it:
@@ -99,7 +105,8 @@ phase fails:
    config 4): a narrow ResNet (stages [1, 1], 8 filters, 32 px, p=4) on
    the card against the CPU (plain versions), sync and async; the step
    time of both per-rank gradient forms (``rank_map`` 'vmap' and 'loop')
-   on ResNet-50 at full width and on the MNIST path's LeNet; then
+   on ResNet-50 at full width and on the MNIST path's LeNet, and LeNet's
+   vmap with the per-rank kernels against its native form in turns; then
    ResNet-50 at full width (1000 classes, 224 px), p=8, per-rank batch
    32, momentum 0.9, lr 0.1, three epochs of
    ``synthetic_imagenet(2048)``, in sync and in async mode (4 buckets):
@@ -201,7 +208,11 @@ phase fails:
    ring and kernel, sync and async, 2^8..2^23, then the kernel allreduce
    under 'kernel_bidir'): every row correct, exact launches a process;
    the ``{"multiprocess": ...}`` line and the ``{"bench_2x4": ...}`` line,
-   the bus GB/s at 2^23 beside the one-process sweep's);
+   the bus GB/s at 2^23 beside the one-process sweep's; run (h), config 5
+   by 4 processes x 2 ranks in 2 hosts of 2 processes under ``hier`` and
+   staged, bit for bit the one-process run of 8, the grouped
+   cross-process K3 and K7 and communicators over some of the processes,
+   the ``{"groups_4x2": ...}`` line);
    then times each kernel, its plain version and,
    where there is one, a
    PyTorch call computing the same function with CUDA events at the main
@@ -227,14 +238,18 @@ two-level phase; ``--engine`` the build and the engine phase;
 build and the streamed ResNet phase; ``--serve`` the build and the
 serving phase; ``--synth`` the build and the synthesized lowerings'
 phase; ``--supervise`` the build and the supervised rollback;
-``--multiprocess`` the build and the ranks in two processes.
+``--multiprocess`` the build and the ranks in two and four processes;
+``--wgrad`` builds the per-rank kernels alone, holds them against their
+plain versions and prints their rows.
 ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
 SASS counts, holds it against its plain version and times its rows
 (``{"quant_kernels": ...}``); ``--quant time`` only times them. None of
 these prints the result line. ``python3 chip_vmap_probe.py`` is ROADMAP
-C6's probe on the card.
+C6's probe on the card, ``python3 chip_wgrad_precision.py`` the weight
+gradient's precision against f64 and ``python3 chip_exchange_probe.py``
+the control plane's two host exchanges.
 
 Kernels are held to their plain versions bit for bit, but for the ring
 attention kernels (K8, K9, K10), which merge 64-key tiles where the plain
@@ -341,6 +356,12 @@ P = 8  # virtual ranks on the main path
 BATCH = 336
 LR = 0.2
 LENET_PARAMS = 857738  # LeNet's fused gradient buffer, per rank
+# LeNet's convolutions: under the engine's vmap on the card each one's
+# weight gradient is one launch of the per-rank kernel a step (C6's repair)
+LENET_CONVS = 2
+# its per-rank products under the vmap, one ops.rank_bmm launch each a
+# step: the two dense layers' forwards, weight and input gradients
+LENET_PRODUCTS = 6
 BUCKET0 = 805386  # LeNet's first async gradient bucket, per rank
 LARGEST_LEAF = (256, 7 * 7 * 64)  # LeNet dense0.weight, the largest update
 WIRES = ("int8", "bf16")
@@ -439,6 +460,9 @@ CONFIG5_G, CONFIG5_I = CONFIG5["hosts"], P // CONFIG5["hosts"]
 CONFIG5_BUCKET = 100480  # its largest gradient bucket per rank (dense1.bias, dense0.weight)
 CONFIG5_BUCKETS = (67210, CONFIG5_BUCKET, 128)  # its three buckets per rank
 CONFIG5_PARAMS = 167818  # MLP6 at 128 features: its first sync's one fused broadcast a rank
+# MLP6's per-rank products a step on the card, one ops.rank_bmm launch
+# each: 6 forwards, 6 weight gradients, 5 input gradients (not the input's)
+CONFIG5_PRODUCTS = 17
 # the engine phase: its checkpoints under the checkout (removed at the end),
 # LeNet 3 steps + a checkpoint + 3, ResNet-50 fsdp 2 + 2, the telemetry run's
 # (warm-up, timed) steps, the profile window, the scheduled syncs timed
@@ -470,6 +494,17 @@ SERVE = dict(sends=48, lr=0.05, batch=64, threads=4, payloads=4, min_requests=25
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+_MARK = [time.perf_counter()]
+
+
+def mark(phase: str) -> None:
+    """Print the seconds since the last mark (or the start): each phase's
+    share of the run's time limit."""
+    now = time.perf_counter()
+    print(f"phase {phase}: {now - _MARK[0]:.1f} s", flush=True)
+    _MARK[0] = now
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -609,7 +644,10 @@ def phase_build(names=_build.SOURCES + _build.EXTENSIONS) -> None:
     # (K8/K9's fwd_mma_kernel and K10's bwd_dq_mma_kernel and
     # bwd_dkv_mma_kernel, at every head dim and dtype) and of K4, and K4's
     # SASS opcode counts
-    for source, name_of in (("ring_attention", attention_kernel), ("ring_quant", quant_kernel)):
+    for source, name_of in (("ring_attention", attention_kernel), ("ring_quant", quant_kernel),
+                            ("conv_wgrad", lambda m: "conv_wgrad_kernel" if "conv_wgrad" in m
+                             else None),
+                            ("rank_bmm", lambda m: "rank_bmm_kernel" if "rank_bmm" in m else None)):
         if source not in names:
             continue
         if source == "ring_attention":
@@ -915,6 +953,169 @@ def check_attention(dev, gen) -> dict:
     return err
 
 
+# the per-rank convolution weight gradient (ROADMAP C6's repair): the
+# config-1 step's two convolutions under the engine's vmap (8 ranks of 42
+# images), then ResNet-like and ragged shapes (R, B, C, H, W, O, k, stride,
+# padding, dilation)
+WGRAD_CONV1 = (P, BATCH // P, 32, 14, 14, 64, 5, 1, 2, 1)
+WGRAD_SHAPES = (
+    (P, BATCH // P, 1, 28, 28, 32, 5, 1, 2, 1),  # LeNet conv0
+    WGRAD_CONV1,
+    (2, 4, 3, 64, 64, 64, 7, 2, 3, 1),  # a ResNet stem
+    (3, 2, 64, 14, 14, 128, 1, 2, 0, 1),  # a strided 1x1 projection
+    (2, 3, 5, 9, 11, 70, 3, 1, 2, 2),  # ragged tiles, dilation 2
+    (1, 1, 7, 5, 5, 3, 3, 1, 1, 1),  # one rank, one image
+)
+# |kernel - plain| against max |plain|: the f32 sums run in another order
+# than cuDNN's (no TF32 on either side); a zeroed output reads 1
+WGRAD_RTOL = 1e-5
+
+
+def wgrad_inputs(shape, randn):
+    """``(x, dy, weight shape, stride, padding, dilation)`` of a
+    :data:`WGRAD_SHAPES` entry, drawn by ``randn``."""
+    R, B, C, H, W, O, k, st, pd, dl = shape
+    Ho = (H + 2 * pd - dl * (k - 1) - 1) // st + 1
+    Wo = (W + 2 * pd - dl * (k - 1) - 1) // st + 1
+    return randn(R, B, C, H, W), randn(R, B, O, Ho, Wo), (O, C, k, k), st, pd, dl
+
+
+def wgrad_grouped(x, dy, wshape, stride, padding, dilation):
+    """cuDNN's weight gradient of the same convolution as the engine's
+    native vmap makes it: one grouped convolution, a group a rank."""
+    R, B = x.shape[:2]
+    O, C, kh, kw = wshape
+    return torch.nn.grad.conv2d_weight(
+        x.transpose(0, 1).reshape(B, R * C, *x.shape[3:]), (R * O, C, kh, kw),
+        dy.transpose(0, 1).reshape(B, R * O, *dy.shape[3:]), stride, padding, dilation,
+        groups=R).reshape(R, O, C, kh, kw)
+
+
+def check_wgrad(dev, gen) -> dict:
+    """The per-rank weight gradient (``ops.conv2d_weight_grad_ranks``)
+    against its plain version on the card over :data:`WGRAD_SHAPES`,
+    within :data:`WGRAD_RTOL` of max |plain|; at the config-1 shapes bit for
+    bit the same rank's result in stacks of 8, 4 and 2 and on a second
+    call. Returns max |kernel - plain| at ``conv1``'s shape."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    err, worst = {}, 0.0
+    for shape in WGRAD_SHAPES:
+        args = wgrad_inputs(shape, randn)
+        k = ops.conv2d_weight_grad_ranks(*args)
+        pl = ops.conv2d_weight_grad_ranks_plain(*args)
+        torch.cuda.synchronize()
+        scale = float(pl.abs().max())
+        rel = float((k - pl).abs().max()) / scale
+        worst = max(worst, rel)
+        require(scale > 0 and rel <= WGRAD_RTOL,
+                f"conv2d_weight_grad_ranks {shape}: |kernel - plain| / max|plain| = {rel}")
+        if shape == WGRAD_CONV1:
+            err["conv2d_weight_grad_ranks"] = float((k - pl).abs().max())
+        if shape[0] == P:
+            x, dy = args[:2]
+            require(torch.equal(bits(k), bits(ops.conv2d_weight_grad_ranks(*args))),
+                    f"conv2d_weight_grad_ranks {shape}: two calls differ")
+            for m in (4, 2):
+                parts = torch.cat([ops.conv2d_weight_grad_ranks(x[a:a + m], dy[a:a + m], *args[2:])
+                                   for a in range(0, P, m)])
+                require(torch.equal(bits(k), bits(parts)),
+                        f"conv2d_weight_grad_ranks {shape}: stacks of {m} differ from one of {P}")
+    print(f"wgrad: {len(WGRAD_SHAPES)} shapes within {WGRAD_RTOL} of max|plain| (worst {worst:.3e}); "
+          f"config 1's bit for bit in stacks of {P}, 4 and 2")
+    return err
+
+
+def wgrad_row(randn) -> dict:
+    """The kernels line's row of the per-rank weight gradient at config 1's
+    ``conv1`` under the engine's vmap; its library call is cuDNN's grouped
+    weight gradient, which the native vmap ran."""
+    R, B, C, H, W, O, k = WGRAD_CONV1[:7]
+    n_in = R * B * (C + O) * H * W  # x and dy: stride 1, 'same' padding
+    return dict(
+        name="conv2d_weight_grad_ranks", source="torchmpi_tpu_torch/csrc/conv_wgrad.cu",
+        replaces="none: a port repair (ROADMAP C6); the JAX package takes this gradient "
+                 "from XLA",
+        shape=[R, B, C, H, W], make=lambda: wgrad_inputs(WGRAD_CONV1, randn),
+        in_bytes=n_in * 4, bytes=(n_in + R * O * C * k * k) * 4,
+        ops=2 * R * O * C * k * k * B * H * W,
+        kernel=ops.conv2d_weight_grad_ranks, plain=ops.conv2d_weight_grad_ranks_plain,
+        library=wgrad_grouped)
+
+
+# the per-rank product (ROADMAP C6's repair) as the engine's vmap issues
+# it: (R, M, K, N, a transposed, b transposed), a transposed operand a
+# view of its [R, K, M] or [R, N, K] layout
+BMM_LENET = (P, BATCH // P, 7 * 7 * 64, 256, False, True)  # LeNet dense0's forward, x @ W^T
+BMM_SHAPES = (
+    BMM_LENET,
+    (P, 256, BATCH // P, 7 * 7 * 64, True, False),  # its weight gradient, dy^T @ x
+    (P, BATCH // P, 256, 7 * 7 * 64, False, False),  # its input gradient, dy @ W
+    (P, 8, 784, 128, False, True),  # config 5's dense0 forward
+    (P, 128, 8, 784, True, False),  # its weight gradient
+    (P, 8, 128, 128, False, False),  # a hidden layer's input gradient
+    (3, 5, 37, 70, False, False),  # ragged tiles
+)
+
+
+def bmm_inputs(shape, randn):
+    """``(a, b)`` of a :data:`BMM_SHAPES` entry, drawn by ``randn``."""
+    R, M, K, N, a_t, b_t = shape
+    a = randn(R, K, M).transpose(1, 2) if a_t else randn(R, M, K)
+    b = randn(R, N, K).transpose(1, 2) if b_t else randn(R, K, N)
+    return a, b
+
+
+def check_bmm(dev, gen) -> dict:
+    """The per-rank product (``ops.rank_bmm``) against its plain version on
+    the card over :data:`BMM_SHAPES`, within :data:`WGRAD_RTOL` of max
+    |plain|; at the shapes of 8 ranks bit for bit the same rank's result in
+    stacks of 8, 4 and 2, contiguous, and on a second call. Returns max
+    |kernel - plain| at :data:`BMM_LENET`."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    err, worst = {}, 0.0
+    for shape in BMM_SHAPES:
+        a, b = bmm_inputs(shape, randn)
+        k, pl = ops.rank_bmm(a, b), ops.rank_bmm_plain(a, b)
+        torch.cuda.synchronize()
+        scale = float(pl.abs().max())
+        rel = float((k - pl).abs().max()) / scale
+        worst = max(worst, rel)
+        require(scale > 0 and rel <= WGRAD_RTOL,
+                f"rank_bmm {shape}: |kernel - plain| / max|plain| = {rel}")
+        if shape == BMM_LENET:
+            err["rank_bmm"] = float((k - pl).abs().max())
+        if shape[0] == P:
+            require(torch.equal(bits(k), bits(ops.rank_bmm(a, b))) and
+                    torch.equal(bits(k), bits(ops.rank_bmm(a.contiguous(), b.contiguous()))),
+                    f"rank_bmm {shape}: a second call, or the contiguous operands, differ")
+            for m in (4, 2):
+                parts = torch.cat([ops.rank_bmm(a[i:i + m], b[i:i + m]) for i in range(0, P, m)])
+                require(torch.equal(bits(k), bits(parts)),
+                        f"rank_bmm {shape}: stacks of {m} differ from one of {P}")
+    print(f"rank_bmm: {len(BMM_SHAPES)} shapes within {WGRAD_RTOL} of max|plain| (worst "
+          f"{worst:.3e}); bit for bit in stacks of {P}, 4 and 2 and at any strides")
+    return err
+
+
+def bmm_row(randn) -> dict:
+    """The kernels line's row of the per-rank product at config 1's
+    ``dense0`` forward under the engine's vmap; its library call is
+    ``torch.bmm`` (cuBLAS's batched product, which the native vmap ran)."""
+    R, M, K, N = BMM_LENET[:4]
+    n_in = R * (M * K + K * N)
+    return dict(
+        name="rank_bmm", source="torchmpi_tpu_torch/csrc/rank_bmm.cu",
+        replaces="none: a port repair (ROADMAP C6); the JAX package takes these products "
+                 "from XLA",
+        shape=[R, M, K, N], make=lambda: bmm_inputs(BMM_LENET, randn),
+        in_bytes=n_in * 4, bytes=(n_in + R * M * N) * 4, ops=2 * R * M * N * K,
+        kernel=ops.rank_bmm, plain=ops.rank_bmm_plain, library=torch.bmm)
+
+
 def phase_kernels(dev) -> dict:
     """Every kernel against its plain version; returns the main-path
     max |kernel - plain| of each."""
@@ -993,6 +1194,8 @@ def phase_kernels(dev) -> dict:
     err.update(check_scale(dev, gen))
     err.update(check_quant(dev, gen))
     err.update(check_phases(dev, gen))
+    err.update(check_wgrad(dev, gen))
+    err.update(check_bmm(dev, gen))
     print(f"kernels: all collective comparisons exact; main-path max|kernel - plain| = {err}")
     err.update(check_attention(dev, gen))
     return err
@@ -1199,6 +1402,69 @@ def small_trainer(device, batches, params) -> tuple:
         mpi.stop()
 
 
+# the main path's gradient check: along its first steps, each leaf of the
+# engine's gradient through the per-rank kernels within this share of its
+# max |plain| of the same engine's gradient with the kernels' plain
+# versions at the same parameters (the same forward: LeNet's max pools
+# route the gradient by the forward's argmax, so a gradient with another
+# forward's rounding, a per-rank loop's or f64's, parts at near ties by
+# up to 7e-3 of a convolution's max)
+MAIN_GRAD_STEPS, MAIN_GRAD_RTOL = 3, 1e-4
+
+
+@contextlib.contextmanager
+def plain_rank_products():
+    """The engine's vmap on the card with the per-rank kernels' plain
+    versions in their place (``engine/rankwise.py`` calls them through
+    ``ops``)."""
+    kept = ops.conv2d_weight_grad_ranks, ops.rank_bmm
+    ops.conv2d_weight_grad_ranks = ops.conv2d_weight_grad_ranks_plain
+    ops.rank_bmm = ops.rank_bmm_plain
+    try:
+        yield
+    finally:
+        ops.conv2d_weight_grad_ranks, ops.rank_bmm = kept
+
+
+def main_path_gradient(dev) -> dict:
+    """The main path's engine (LeNet, p=8, batch 336, lr 0.2, the vmap
+    with the per-rank kernels) over its first :data:`MAIN_GRAD_STEPS`
+    batches: at each step its gradient against the same engine's with the
+    kernels' plain versions (:func:`plain_rank_products`) at the same
+    parameters, each leaf within :data:`MAIN_GRAD_RTOL` of its max |plain|;
+    then the engine steps as the main path does. It catches a broken
+    gradient that the spike-prone losses of lr 0.2 would not show."""
+    (xtr, ytr), _ = synthetic_mnist()
+    model = LeNet()
+    it = DistributedIterator(xtr, ytr, BATCH, P, device=dev)
+    batches = [b for _, b in zip(range(MAIN_GRAD_STEPS), iter(it))]
+    dist, far = {}, []
+    mpi.start(ranks=P)
+    try:
+        engine = AllReduceSGDEngine(make_loss_fn(model), init_params(model, seed=0), lr=LR,
+                                    comm=mpi.current_communicator())
+        for step, b in enumerate(batches):
+            got = engine._grad_fn(engine.params, b)[0]
+            with plain_rank_products():
+                want = engine._grad_fn(engine.params, b)[0]
+            torch.cuda.synchronize()
+            for k, w in want.items():
+                rel = float((got[k] - w).abs().max()) / float(w.abs().max())
+                dist[k] = max(dist.get(k, 0.0), rel)
+                if not rel <= MAIN_GRAD_RTOL:
+                    far.append(f"step {step + 1} {k}: {rel:.3e}")
+            engine.step(b)
+        torch.cuda.synchronize()
+    finally:
+        mpi.stop()
+    require(not far, f"main path: the gradient through the per-rank kernels parts from the "
+                     f"plain versions' (of max|plain|): {far}")
+    print(f"trainer: the main path's first {MAIN_GRAD_STEPS} steps' gradients through the "
+          f"per-rank kernels within {max(dist.values()):.3e} of max|plain| of their plain "
+          f"versions' (each leaf's largest: {dist})")
+    return dist
+
+
 def main_path(dev, mode: str, wire: str) -> dict:
     """Drive one main path for two epochs: counts to 0 just before, read
     just after. Returns what the run showed."""
@@ -1242,8 +1508,13 @@ def main_path(dev, mode: str, wire: str) -> dict:
     losses = [float(v) for v in step_losses]
     steps = state["t"]
     require(all(abs(v) < float("inf") for v in losses), f"{mode}/{wire}: non-finite loss")
-    first, last = losses[0], sum(losses[-3:]) / 3
-    require(last < first, f"{mode}/{wire}: loss did not fall: first step {first:.4f}, last three {last:.4f}")
+    # LeNet at lr 0.2 spikes at steps that move with the rounding (the JAX
+    # engine too), so a spike in the last steps says nothing of whether it
+    # learns: the gate is the second epoch's mean, as runs (a)-(d) of
+    # --multiprocess take it
+    first, mean = losses[0], sum(losses[len(it):]) / (len(losses) - len(it))
+    require(mean < first, f"{mode}/{wire}: loss did not fall: first step {first:.4f}, second "
+                          f"epoch's mean {mean:.4f} ({losses})")
     final = {k: v[0] for k, v in params.items()}
     x_test = torch.as_tensor(xte, device=dev)
     logits = torch.func.functional_call(model, final, (x_test,))
@@ -1253,7 +1524,8 @@ def main_path(dev, mode: str, wire: str) -> dict:
     steady = len(it) * BATCH / epoch_t[1]
     print(
         f"trainer: MNIST LeNet {mode} wire={wire} p={P} batch={BATCH} lr={LR}: {steps} steps, "
-        f"loss {first:.4f} -> {last:.4f} (epoch ends {state['losses']}), test_acc={acc:.4f}, "
+        f"loss {first:.4f} -> {mean:.4f} (the second epoch's mean; epoch ends "
+        f"{state['losses']}), test_acc={acc:.4f}, "
         f"max replica spread max|params[r] - params[0]| = {spread!r}, launches {counts}"
     )
     print(
@@ -1296,6 +1568,7 @@ def phase_trainer(dev) -> dict:
         d = float((gp[k] - cp[k]).abs().max())
         require(d <= 1e-5, f"small trainer {k} differs from CPU by {d}")
     print(f"trainer: 3 steps at p=4 match the CPU plain path (losses {gl})")
+    main_path_gradient(dev)
 
     sync = main_path(dev, "sync", "full")
     c, steps = sync["counts"], sync["steps"]
@@ -1310,6 +1583,12 @@ def phase_trainer(dev) -> dict:
             f"sync: accumulate launched {c['accumulate']} times in {steps} steps, want "
             f"{list_launches(LENET_LEAVES)} a step")
     require(c["scale_accumulate"] == 0, "sync: scale_accumulate launched without a momentum")
+    require(c["conv2d_weight_grad_ranks"] == LENET_CONVS * steps,
+            f"sync: the per-rank weight gradient launched {c['conv2d_weight_grad_ranks']} times "
+            f"in {steps} steps, want {LENET_CONVS} a step")
+    require(c["rank_bmm"] == LENET_PRODUCTS * steps,
+            f"sync: the per-rank product launched {c['rank_bmm']} times in {steps} steps, want "
+            f"{LENET_PRODUCTS} a step")
     require(not any(v for k, v in c.items() if "quant" in k), "sync: a quantized ring launched")
     print("sync path: check_with_allreduce passed")
 
@@ -1324,6 +1603,11 @@ def phase_trainer(dev) -> dict:
     require(c["accumulate"] == steps * list_launches(LENET_LEAVES),
             f"async int8: accumulate launched {c['accumulate']} times in {steps} steps, want "
             f"{list_launches(LENET_LEAVES)} a step")
+    require(c["conv2d_weight_grad_ranks"] == LENET_CONVS * steps,
+            f"async int8: the per-rank weight gradient launched "
+            f"{c['conv2d_weight_grad_ranks']} times in {steps} steps")
+    require(c["rank_bmm"] == LENET_PRODUCTS * steps,
+            f"async int8: the per-rank product launched {c['rank_bmm']} times in {steps} steps")
     require(quant["spread"] > 0, "async int8: replicas identical; the wire did not engage")
     return {"sync": sync, "async_int8": quant}
 
@@ -1720,14 +2004,15 @@ def resnet_small(dev, mode: str) -> tuple:
 
 
 def rank_map_step_ms(make_engine, batches: list, warmup: int) -> dict:
-    """Each per-rank gradient form's (``rank_map`` 'vmap' and 'loop') mean
-    step time over ``batches[warmup:]`` after ``batches[:warmup]``, and its
-    peak memory; ``make_engine(comm, rank_map)`` builds the engine."""
+    """Both per-rank gradient forms' (``rank_map`` 'vmap', the engine's on
+    the card with the per-rank kernels, and 'loop') mean step time over
+    ``batches[warmup:]`` after ``batches[:warmup]``, and peak memory;
+    ``make_engine(comm, rank_map)`` builds the engine."""
     out = {}
-    for rank_map in ("vmap", "loop"):
+    for form in ("vmap", "loop"):
         mpi.start(ranks=P)
         try:
-            engine = make_engine(mpi.current_communicator(), rank_map)
+            engine = make_engine(mpi.current_communicator(), form)
             torch.cuda.reset_peak_memory_stats()
             for b in batches[:warmup]:
                 engine.step(b)
@@ -1736,8 +2021,8 @@ def rank_map_step_ms(make_engine, batches: list, warmup: int) -> dict:
             for b in batches[warmup:]:
                 engine.step(b)
             torch.cuda.synchronize()
-            out[rank_map] = {"step_ms": (time.perf_counter() - t0) / (len(batches) - warmup) * 1e3,
-                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            out[form] = {"step_ms": (time.perf_counter() - t0) / (len(batches) - warmup) * 1e3,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
             del engine
         finally:
             mpi.stop()
@@ -1745,10 +2030,20 @@ def rank_map_step_ms(make_engine, batches: list, warmup: int) -> dict:
     return out
 
 
+# config 1's vmap step with the per-rank kernels against the native form:
+# pairs of runs in turns, each this many steps after 4
+RANK_MAP_TURNS, RANK_MAP_TURN_STEPS = 5, 100
+
+
 def rank_maps(dev, data) -> dict:
     """Both per-rank gradient forms on ResNet-50 at full width (sync,
     ``RESNET_TIMED_STEPS`` steps after one) and on the MNIST path's LeNet
-    (p=8, batch 336, 20 steps after 4)."""
+    (p=8, batch 336, 20 steps after 4); then LeNet's vmap step against its
+    native form (cuDNN's grouped weight gradient, cuBLAS's batched
+    products) in :data:`RANK_MAP_TURNS` pairs of runs in turns
+    (``chip_vmap_probe.step_in_turns``)."""
+    from chip_vmap_probe import step_in_turns
+
     batch = resnet_batch(data, P, RESNET["per_rank"], dev)
     resnet = rank_map_step_ms(
         lambda comm, rank_map: resnet_engine(ResNet50(num_classes=RESNET["classes"], device=dev),
@@ -1756,12 +2051,18 @@ def rank_maps(dev, data) -> dict:
         [batch] * (1 + RESNET_TIMED_STEPS), 1)
     (xtr, ytr), _ = synthetic_mnist()
     it = DistributedIterator(xtr, ytr, BATCH, P, device=dev)
-    lenet = rank_map_step_ms(
-        lambda comm, rank_map: AllReduceSGDEngine(make_loss_fn(LeNet()), init_params(LeNet(), seed=0),
-                                                  lr=LR, comm=comm, rank_map=rank_map),
-        [b for _, b in zip(range(24), iter(it))], 4)
-    print(f"rank_map: ResNet-50 at full width (sync) {resnet}; MNIST LeNet (sync) {lenet}")
-    return {"resnet50": resnet, "mnist_lenet": lenet}
+    batches = [b for _, b in zip(range(24), iter(it))]
+
+    def lenet(comm, rank_map="vmap"):
+        return AllReduceSGDEngine(make_loss_fn(LeNet()), init_params(LeNet(), seed=0), lr=LR,
+                                  comm=comm, rank_map=rank_map)
+
+    forms = rank_map_step_ms(lenet, batches, 4)
+    turns = step_in_turns(lenet, [batches[i % len(batches)] for i in range(4 + RANK_MAP_TURN_STEPS)],
+                          4, RANK_MAP_TURNS)
+    print(f"rank_map: ResNet-50 at full width (sync) {resnet}; MNIST LeNet (sync) {forms}; "
+          f"LeNet's vmap with the per-rank kernels against the native form in turns {turns}")
+    return {"resnet50": resnet, "mnist_lenet": forms, "mnist_lenet_vmap_turns": turns}
 
 
 def kernel_class(name: str) -> str:
@@ -2783,9 +3084,9 @@ def check_hier(dev) -> dict:
     return errs
 
 
-def config5_run(backend: str) -> dict:
-    """The config-5 twin at its defaults with ``--backend``: the launch
-    counts (0 just before, read just after) and the plans its
+def config5_run(backend: str, argv=()) -> dict:
+    """The config-5 twin at its defaults with ``--backend`` (and ``argv``):
+    the launch counts (0 just before, read just after) and the plans its
     communicator held when it stopped."""
     from torchmpi_tpu_torch.examples import blocksequential_2host
 
@@ -2799,7 +3100,7 @@ def config5_run(backend: str) -> dict:
     mpi.stop = stop
     try:
         ops.reset_launch_counts()
-        losses, acc, hier_used, sps = blocksequential_2host.main(["--backend", backend])
+        losses, acc, hier_used, sps = blocksequential_2host.main(["--backend", backend, *argv])
         torch.cuda.synchronize()
         counts = ops.launch_counts()
     finally:
@@ -2815,10 +3116,12 @@ def config5_run(backend: str) -> dict:
 
 
 def config5_expected(run: dict, backend: str) -> dict:
-    """Its launches: one K3 over both hosts for every bucket of every step
-    on the kernel backend, and one K7 over both hosts for each
+    """Its launches: :data:`CONFIG5_PRODUCTS` per-rank products every step
+    (its vmap on the card), one K3 over both hosts for every bucket of
+    every step on the kernel backend, and one K7 over both hosts for each
     ``hier-kernel`` broadcast plan (the first parameter sync)."""
     expected = dict.fromkeys(run["counts"], 0)
+    expected["rank_bmm"] = CONFIG5_STEPS * CONFIG5_PRODUCTS
     if backend == "kernel":
         expected["ring_allreduce"] = CONFIG5_STEPS * CONFIG5["blocks"]
     expected["ring_broadcast"] = sum(
@@ -3026,6 +3329,14 @@ def counts_want(**launches) -> dict:
     return want
 
 
+def lenet_vmap_launches(steps: int) -> dict:
+    """The per-rank kernels' launches in ``steps`` LeNet steps under the
+    engine's vmap on the card (ROADMAP C6's repair): each convolution's
+    weight gradient and each dense product once a step."""
+    return {"conv2d_weight_grad_ranks": LENET_CONVS * steps,
+            "rank_bmm": LENET_PRODUCTS * steps}
+
+
 def file_digests(data_dir: Path) -> dict:
     import hashlib
 
@@ -3061,7 +3372,8 @@ def engine_lenet(dev, root: Path) -> tuple:
         counts = ops.launch_counts()
         steps = len(batches)
         require(counts == counts_want(ring_allreduce=steps,
-                                      accumulate=steps * list_launches(LENET_LEAVES)),
+                                      accumulate=steps * list_launches(LENET_LEAVES),
+                                      **lenet_vmap_launches(steps)),
                 f"engine lenet: launches {counts}")
         require(len(tree) >= 1, "engine lenet: the first weight sync took no tree broadcast")
         first = make()
@@ -3638,7 +3950,8 @@ def observe_live(dev, agg, root: Path) -> tuple:
         mpi.stop()
     require(runs["observe_config1"] == counts_want(
         ring_allreduce=OBSERVE_SYNC_STEPS,
-        accumulate=OBSERVE_SYNC_STEPS * list_launches(LENET_LEAVES)),
+        accumulate=OBSERVE_SYNC_STEPS * list_launches(LENET_LEAVES),
+        **lenet_vmap_launches(OBSERVE_SYNC_STEPS)),
         f"observe: config 1 launches {runs['observe_config1']}")
     require(runs["observe_config2_sched"] == counts_want(
         ring_allreduce_quant_int8=OBSERVE_SCHED_REPS),
@@ -4248,6 +4561,8 @@ def timing_rows(randn) -> list:
             library=lambda x: x.sum(0, keepdim=True).expand_as(x).contiguous(),
             k3=ops.ring_allreduce,
         ),
+        wgrad_row(randn),
+        bmm_row(randn),
     ]
     # ring attention at the LM path's shape, f32, causal; the bound counts
     # the useful products: the T(T+1)/2 (query, key) pairs the causal mask
@@ -4903,6 +5218,7 @@ def config5_synth(dev, hier: dict, overrides: dict) -> dict:
                         if label in ("halve_allreduce", "torus_allreduce", "striped_allreduce"))
     require(len(run["buckets"]) == CONFIG5["blocks"], f"{what}: buckets {run['buckets']}")
     expected = dict.fromkeys(run["counts"], 0)
+    expected["rank_bmm"] = CONFIG5_STEPS * CONFIG5_PRODUCTS
     expected["ring_allreduce"] = CONFIG5_STEPS * (CONFIG5["blocks"] - synth_buckets)
     expected["ring_broadcast"] = 1
     require(run["counts"] == expected, f"{what}: launches {run['counts']}, expected {expected}")
@@ -5100,7 +5416,8 @@ def phase_supervise(dev) -> dict:
     require(same_bits(live_state(final), live_state(clean)),
             "supervise: the recovered state differs from the clean run's")
     require(counts == counts_want(ring_allreduce=steps_run + 1,
-                                  accumulate=steps_run * list_launches(LENET_LEAVES)),
+                                  accumulate=steps_run * list_launches(LENET_LEAVES),
+                                  **lenet_vmap_launches(steps_run)),
             f"supervise: launches {counts} for {steps_run} steps and the held K3")
     require(acts["rolled_back"] and [e["action"] for e in acts["journal"]] == actions,
             f"supervise: /actions {acts}")
@@ -5729,7 +6046,8 @@ def mp_worker(out_dir: str) -> None:
     print(f"multiprocess worker {index} OK")
 
 
-def mp_expected(steps: int, kernel: bool, sharding: str = "replicated", wire=None) -> dict:
+def mp_expected(steps: int, kernel: bool, sharding: str = "replicated", wire=None,
+                rank_map: str = "loop") -> dict:
     """A process's launches in a run of config 1: K1 a step; in (b) and
     (f) the cross-process K3 a step and K7 once (the first sync); in (e)
     (config 2) the cross-process K4 (int8) a step for bucket 0 and K7
@@ -5761,6 +6079,8 @@ def mp_expected(steps: int, kernel: bool, sharding: str = "replicated", wire=Non
     elif kernel:
         want["ring_allreduce_xproc"] = steps
         want["ring_broadcast_xproc"] = 1
+    if rank_map == "vmap":
+        want.update(lenet_vmap_launches(steps))
     return want
 
 
@@ -5846,6 +6166,398 @@ def mp_bench(root: Path) -> tuple:
     return summed, top, seconds
 
 
+# ---------------------------------------------------------------------------
+# run (h): groups and communicators over some of the processes (ROADMAP
+# A13's rest, part 10) in the reference's layout: 4 processes x 2 ranks, 2
+# hosts of 2 processes (host key r // 4, pushed from the root level)
+# ---------------------------------------------------------------------------
+
+MPH_PROCS, MPH_RANKS = 4, P // 4
+MPH_HOST = P // CONFIG5["hosts"]  # ranks a host: each host's group spans 2 processes
+MPH_SUBSETS = ((0, 1), (2, 3), (1, 2))  # disjoint, disjoint, overlapping
+MPH_SUBSET_N = N20
+MPH_STAGED_N = CONFIG5_BUCKET
+# the grouped cross-process kernels' checks: (width, dtype)
+MPH_CHECKS = ((CONFIG5_BUCKET, torch.float32), (CONFIG5_PARAMS, torch.float32),
+              (1025, torch.bfloat16), (1001, torch.int32), (N23, torch.float32))
+
+
+def mph_host_key(r: int) -> str:
+    return f"host{r // MPH_HOST}"
+
+
+@contextlib.contextmanager
+def mph_kernel_sync():
+    """The selector's ``cuda.multinode.sync`` allreduce and broadcast rows
+    set to prefer ``kernel`` (the reference's user-editable
+    collectiveSelector), as run (b) sets them: config 5's first parameter
+    sync across the processes is then the two-level broadcast on
+    ``kernel`` (the grouped cross-process K7), as it is in one process."""
+    from torchmpi_tpu_torch.collectives import selector
+
+    rows = selector.table["cuda"]["multinode"]["sync"]
+    saved = {op: rows[op] for op in ("allreduce", "broadcast")}
+    for op in saved:
+        rows[op] = ["kernel", "ring", "xla"]
+    try:
+        yield
+    finally:
+        rows.update(saved)
+
+
+def mph_config5(staged: bool) -> dict:
+    """Config 5's twin in this process of run (h): ``--ranks MPH_RANKS``
+    through :func:`config5_run` with ``start()`` pushing no per-process
+    level, so the example's host key splits the world's ranks (each
+    host's group spans two processes), under :func:`mph_kernel_sync`;
+    ``staged`` turns ``use_staged_collectives`` on."""
+    real_start = mpi.start
+    mpi.start = partial(real_start, with_ici_groups=False)
+    try:
+        with constants_set({"use_staged_collectives": staged}), mph_kernel_sync():
+            run = config5_run("kernel", ("--ranks", str(MPH_RANKS)))
+    finally:
+        mpi.start = real_start
+    run["plans"] = [list(pl) for pl in run["plans"]]
+    run["buckets"] = {str(k): list(v) for k, v in run["buckets"].items()}
+    return run
+
+
+def staged_formula(full: torch.Tensor, groups, process_of) -> torch.Tensor:
+    """The JAX multi-controller staged total (``torchmpi_tpu/schedule/
+    lower.py:478-523``) of the rank-stacked ``full`` on the host: each
+    group summed by the grouped ring's plain version (the grouped K3's
+    adds), each process's representatives (each group's first rank)
+    summed from zeros in group order, the partials summed from zeros in
+    process order."""
+    order = [r for g in groups for r in g]
+    sums = ops.ring_allreduce_plain(full[order].contiguous(), groups=len(groups))
+    total = torch.zeros_like(full[0])
+    for q in sorted(set(process_of)):
+        partial = torch.zeros_like(full[0])
+        for i, g in enumerate(groups):
+            if process_of[g[0]] == q:
+                partial = partial + sums[i * len(g)]
+        total = total + partial
+    return total
+
+
+def mph_check(dev, comm) -> dict:
+    """The grouped cross-process K3 (``Lane.allreduce_groups``) and K7
+    (``Lane.broadcast_groups``, from each intra rank) over the host groups
+    that span processes, on :data:`MPH_CHECKS`: each process's rows bit for
+    bit the one-process grouped K3 / K7 launch's rows on the same full
+    ``[P, n]`` (and the grouped plain versions'); the staged allreduce on
+    ``kernel`` bit for bit :func:`staged_formula` on f32 and exactly
+    p(p-1)/2 on the integers rank r -> r. Returns the checks' count, the
+    largest |kernel - plain| and this process's launches."""
+    lane = mpi.runtime_state.plane().lane(comm)
+    groups, local = comm.groups, comm.local_ranks
+    G, checks, err = len(groups), 0, {"ring_allreduce_xproc_grouped": 0.0,
+                                      "ring_broadcast_xproc_grouped": 0.0}
+    ops.reset_launch_counts()
+    for i, (n, dtype) in enumerate(MPH_CHECKS):
+        full = mp_payload(n, dtype, 40 + i).to(dev)
+        x = full[local].contiguous()
+        got = lane.allreduce_groups(x, groups)
+        one = ops.ring_allreduce(full, groups=G)
+        plain = ops.ring_allreduce_plain(full, groups=G)
+        torch.cuda.synchronize()
+        require(torch.equal(bits(one), bits(plain)), f"run (h): one-process grouped K3 {n} {dtype}")
+        require(torch.equal(bits(got), bits(one[local])),
+                f"run (h): grouped cross-process K3 [{P}, {n}] {dtype} != the one-process launch")
+        if dtype.is_floating_point:
+            err["ring_allreduce_xproc_grouped"] = max(
+                err["ring_allreduce_xproc_grouped"],
+                float((got.float() - plain[local].float()).abs().max()))
+        checks += 1
+        for root in range(MPH_HOST):
+            got = lane.broadcast_groups(x, groups, root)
+            want = ops.ring_broadcast(full, root, groups=G)
+            torch.cuda.synchronize()
+            require(torch.equal(bits(want), bits(ops.ring_broadcast_plain(full, root, groups=G))),
+                    f"run (h): one-process grouped K7 {n} {dtype}")
+            require(torch.equal(bits(got), bits(want[local])),
+                    f"run (h): grouped cross-process K7 [{P}, {n}] {dtype} root {root} != the "
+                    "one-process launch")
+            checks += 1
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    want_x = len(MPH_CHECKS)
+    require(launches.get("ring_allreduce_xproc_grouped") == want_x and
+            launches.get("ring_broadcast_xproc_grouped") == want_x * MPH_HOST,
+            f"run (h): check launches {launches}")
+    # the staged allreduce: f32 against the host formula, integers exact
+    full = mp_payload(MPH_STAGED_N, torch.float32, 50)
+    staged = eager_staged(full[local].to(dev), comm)
+    want = staged_formula(full, groups, comm.processes)
+    require(torch.equal(bits(staged.cpu()), bits(want.expand(len(local), -1))),
+            "run (h): the staged allreduce is not the multi-controller order's bits")
+    ints = torch.arange(P, dtype=torch.int32)[local, None].expand(-1, 4097).contiguous().to(dev)
+    total = eager_staged(ints, comm)
+    require(bool((total == P * (P - 1) // 2).all()), "run (h): staged integers inexact")
+    checks += 2
+    return {"checks": checks, "max_abs_err": err, "launches": launches}
+
+
+def eager_staged(x: torch.Tensor, comm) -> torch.Tensor:
+    from torchmpi_tpu_torch.collectives import eager
+
+    return eager.run_hierarchical_allreduce(x, comm, impl="staged", staged_intra="kernel")
+
+
+def mph_time(dev, comm) -> dict:
+    """In process 0 while the others wait at the barrier: the grouped
+    cross-process K3 over its host group (4 rows read where they lie, its
+    2 written) at [8, 2^23] and at config 5's largest bucket, and the
+    grouped K7 at config 5's first sync, each beside its plain version, on
+    rows rotated past the L2; then, every process in step, the whole lane
+    calls and gloo's all_reduce / broadcast within each host's pair of
+    processes (a gloo group a host, made by every process)."""
+    import torch.distributed as dist
+
+    plane = mpi.runtime_state.plane()
+    lane = plane.lane(comm)
+    groups, local, L = comm.groups, comm.local_ranks, comm.local_size
+    mine = next(g for g in groups if local[0] in g)
+    owned = [mine.index(r) for r in local]
+    out = {}
+    for name, n in (("n23", N23), ("bucket", CONFIG5_BUCKET), ("sync", CONFIG5_PARAMS)):
+        x = mp_payload(n, torch.float32, 60).to(dev)[local].contiguous()
+        tables = []
+        for _ in range(2):  # both slots hold every process's rows
+            s = lane.publish(x, n * 4)
+            views = lane.views(s, (n,), torch.float32)
+            tables.append([views[lane.procs[r]][lane.index_of[r]] for r in mine])
+            lane.release()
+        torch.cuda.synchronize()
+        plane.barrier()
+        if plane.index == 0:
+            copies = max(2, -(-2 * L2_BYTES // (len(mine) * n * 4)))
+            tables += [[r.clone() for r in tables[0]] for _ in range(copies - 2)]
+            sets = itertools.cycle(tables)
+            roots = itertools.cycle([[t[0]] for t in tables])
+            if name == "sync":
+                out["k7_ms"] = time_ms(lambda: ops.ring_broadcast_xproc(
+                    next(roots), L, owned=[0] * L))
+                out["k7_plain_ms"] = time_ms(lambda: ops.ring_broadcast_xproc_plain(
+                    next(roots), L, owned=[0] * L))
+            else:
+                out[f"k3_{name}_ms"] = time_ms(lambda: ops.ring_allreduce_xproc(
+                    next(sets), L, owned=owned))
+                out[f"k3_{name}_plain_ms"] = time_ms(lambda: ops.ring_allreduce_xproc_plain(
+                    next(sets), L, owned=owned))
+            del sets, roots
+        del tables
+        torch.cuda.synchronize()
+        plane.barrier()
+    # every process in step: the whole grouped lane calls, and gloo within
+    # each host's pair of processes
+    hosts = [dist.new_group(sorted({comm.process_of(r) for r in g}), backend="gloo")
+             for g in groups]
+    mygroup = hosts[groups.index(mine)]
+
+    def in_step(fn, calls: int) -> float:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        plane.barrier()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    for name, n in (("n23", N23), ("bucket", CONFIG5_BUCKET)):
+        x = mp_payload(n, torch.float32, 61).to(dev)[local].contiguous()
+
+        def gloo_allreduce():
+            t = x.sum(0).cpu()
+            dist.all_reduce(t, group=mygroup)
+            return t.to(dev).expand(L, n).contiguous()
+
+        out[f"call_{name}_ms"] = in_step(lambda: lane.allreduce_groups(x, groups), 20)
+        out[f"gloo_{name}_ms"] = in_step(gloo_allreduce, 5 if n == N23 else 20)
+    x = mp_payload(CONFIG5_PARAMS, torch.float32, 62).to(dev)[local].contiguous()
+    root = comm.process_of(mine[0])
+
+    def gloo_broadcast():
+        t = x[0].cpu() if plane.index == root else torch.empty(CONFIG5_PARAMS)
+        dist.broadcast(t, src=root, group=mygroup)
+        return t.to(dev).expand(L, CONFIG5_PARAMS).contiguous()
+
+    out["call_sync_ms"] = in_step(lambda: lane.broadcast_groups(x, groups, 0), 20)
+    out["gloo_sync_ms"] = in_step(gloo_broadcast, 20)
+    for g in hosts:
+        dist.destroy_process_group(g)
+    return out
+
+
+def mph_subsets(dev, plane) -> dict:
+    """The communicators over some of the processes: each pair of
+    :data:`MPH_SUBSETS` builds a ``Communicator`` over its 4 ranks only
+    (processes {0,1} and {2,3} disjoint, {1,2} overlapping) and runs an
+    allreduce and a broadcast on ``kernel`` (the cross-process K3 and K7
+    over the pair's lane): each process's rows bit for bit the plain
+    versions' on the full ``[4, n]``, exactly one launch of each a call.
+    Returns this process's launches and lane members by pair."""
+    from torchmpi_tpu_torch.runtime.communicator import Communicator
+
+    out = {}
+    for i, procs in enumerate(MPH_SUBSETS):
+        if plane.index not in procs:
+            continue
+        ranks = [r for q in procs for r in range(q * MPH_RANKS, (q + 1) * MPH_RANKS)]
+        sub = Communicator(ranks, dev, name=f"processes {procs}",
+                           processes=[q for q in procs for _ in range(MPH_RANKS)],
+                           process_index=plane.index)
+        full = mp_payload(MPH_SUBSET_N, torch.float32, 70 + i)[:sub.size].to(dev)
+        x = full[sub.local_ranks].contiguous()
+        ops.reset_launch_counts()
+        got = mpi.kernel.allreduce_tensor(x, comm=sub)
+        root = sub.size - 1
+        bcast = mpi.kernel.broadcast_tensor(x, root=root, comm=sub)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        require(torch.equal(bits(got), bits(ops.ring_allreduce_plain(full)[sub.local_ranks])),
+                f"run (h): allreduce over processes {procs} != the plain version")
+        require(torch.equal(bits(bcast), bits(full[root].expand_as(x))),
+                f"run (h): broadcast over processes {procs} != the root's row")
+        require(counts == {"ring_allreduce_xproc": 1, "ring_broadcast_xproc": 1},
+                f"run (h): processes {procs}: launches {counts}")
+        from torchmpi_tpu_torch.collectives import eager
+
+        eager.barrier(sub)
+        out[f"{procs[0]}{procs[1]}"] = {"launches": counts,
+                                        "lane_members": plane.lane(sub).members}
+    return out
+
+
+def mph_worker(out_dir: str) -> None:
+    """One process of run (h) (started by the launcher with ``--nproc
+    4``): config 5's twin under ``hier`` and under ``use_staged_collectives``
+    (:func:`mph_config5`), then the grouped kernels' checks, the staged
+    order, the times and the subset communicators; its results to
+    ``out_dir/h<i>.json``. Nothing is caught."""
+    res = {"hier": mph_config5(False), "staged": mph_config5(True)}
+    mpi.start(ranks=MPH_RANKS, with_ici_groups=False)
+    try:
+        plane = mpi.runtime_state.plane()
+        mpi.push_communicator(mph_host_key, name="hosts")
+        comm = mpi.current_communicator()
+        dev = comm.device
+        require(comm.multiprocess and comm.num_nodes() == MPH_PROCS and
+                all(len({comm.process_of(r) for r in g}) == 2 for g in comm.groups),
+                f"run (h): the host groups {comm.groups} do not span two processes each")
+        res["check"] = mph_check(dev, comm)
+        res["time"] = mph_time(dev, comm)
+        res["subsets"] = mph_subsets(dev, plane)
+        index = plane.index
+    finally:
+        mpi.stop()
+    Path(out_dir, f"h{index}.json").write_text(json.dumps(res))
+    print(f"run (h) worker {index} OK")
+
+
+def mph_expected(run: dict) -> dict:
+    """A process's launches in run (h)'s config-5 twin: its
+    :data:`CONFIG5_PRODUCTS` per-rank products every step, the grouped
+    cross-process K3 for every bucket of every step (the intra phase of
+    the ``hier`` or ``staged`` plan) and the grouped cross-process K7 for
+    each ``hier-kernel`` broadcast plan (the first parameter sync)."""
+    want = dict.fromkeys(run["counts"], 0)
+    want["rank_bmm"] = CONFIG5_STEPS * CONFIG5_PRODUCTS
+    want["ring_allreduce_xproc_grouped"] = CONFIG5_STEPS * CONFIG5["blocks"]
+    want["ring_broadcast_xproc_grouped"] = sum(
+        1 for label, plan_id in run["plans"]
+        if label == "hier_broadcast" and plan_id.startswith("hier-kernel"))
+    return want
+
+
+def mph_run(root: Path) -> tuple:
+    """Run (h): the one-process config-5 runs of 8 ranks under ``hier`` and
+    ``use_staged_collectives``, then the four workers through ``python -m
+    torchmpi_tpu_torch.launch --nproc 4`` (logs and results under
+    ``_mph_logs/``), held to them: both runs' losses bit for bit the
+    one-process runs' in every process, exact launches, the grouped
+    kernels' and the subsets' checks. Prints the ``{"groups_4x2": ...}``
+    line; returns the launches summed over the processes (by run) and the
+    kernels line's rows of the grouped K3 and K7."""
+    t0 = time.perf_counter()
+    refs = {}
+    for name, staged in (("hier", False), ("staged", True)):
+        with constants_set({"use_staged_collectives": staged}):
+            refs[name] = config5_run("kernel")
+        refs[name]["plans"] = [list(pl) for pl in refs[name]["plans"]]
+    logs = root / "_mph_logs"
+    for old in logs.glob("h*.json"):
+        old.unlink()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchmpi_tpu_torch.launch", "--nproc", str(MPH_PROCS),
+         "--log-dir", str(logs), str(Path(__file__).resolve()), "--",
+         "--mp-groups-worker", str(logs)], cwd=str(root), timeout=600)
+    tails = "\n".join(f"--- {f.name}\n" + f.read_text()[-3000:]
+                      for f in sorted(logs.glob("rank_*.log")))
+    require(proc.returncode == 0, f"run (h) workers failed ({proc.returncode}):\n{tails}")
+    res = [json.loads((logs / f"h{i}.json").read_text()) for i in range(MPH_PROCS)]
+    seconds = time.perf_counter() - t0
+    for i, r in enumerate(res):
+        for name in ("hier", "staged"):
+            run, ref = r[name], refs[name]
+            require(run["losses"] == ref["losses"],
+                    f"run (h) proc {i} {name}: losses {run['losses']} != the one-process "
+                    f"run's {ref['losses']}")
+            require(run["hier_used"], f"run (h) proc {i} {name}: no two-level plan ran")
+            want = mph_expected(run)
+            require(run["counts"] == want,
+                    f"run (h) proc {i} {name}: launches {run['counts']} != {want}")
+        require(refs["staged"]["plans"] != refs["hier"]["plans"],
+                "run (h): use_staged_collectives changed no plan")
+    t = res[0]["time"]
+    rows = []
+    for name, n, nbytes, nops, ms, plain, lib, shape_note in (
+            ("ring_allreduce_xproc_grouped", N23, 6 * N23 * 4, 3 * N23, t["k3_n23_ms"],
+             t["k3_n23_plain_ms"], t["gloo_n23_ms"], "its host group's 4 rows read, its 2 written"),
+            ("ring_broadcast_xproc_grouped", CONFIG5_PARAMS, 3 * CONFIG5_PARAMS * 4, 0,
+             t["k7_ms"], t["k7_plain_ms"], t["gloo_sync_ms"],
+             "its host group's root row read, its 2 written")):
+        bound_ms, bound_by = bound(nbytes, nops)
+        require(bound_ms <= ms, f"{name}: {ms} ms is under its bound {bound_ms} ms")
+        rows.append({
+            "name": name, "route": "cuda", "source": "torchmpi_tpu_torch/csrc/ring_kernels.cu",
+            "replaces": ("torchmpi_tpu/ops/ring_kernels.py:1282" if "broadcast" in name
+                         else "torchmpi_tpu/ops/ring_kernels.py:201"),
+            "max_abs_err": max(r["check"]["max_abs_err"][name] for r in res),
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib,
+            "library": ("gloo all_reduce of each process's rows summed, within its host's "
+                        "2 processes" if "allreduce" in name else
+                        "gloo broadcast of the host root's row within its host's 2 processes"),
+            "shape": [P, n], "dtype": "float32", "processes": MPH_PROCS,
+            "one_launch": f"one process's: {shape_note}"})
+    rows[0]["bucket"] = {"shape": [P, CONFIG5_BUCKET], "ms": t["k3_bucket_ms"],
+                         "plain_ms": t["k3_bucket_plain_ms"],
+                         "bound_ms": bound(6 * CONFIG5_BUCKET * 4, 3 * CONFIG5_BUCKET)[0],
+                         "library_ms": t["gloo_bucket_ms"]}
+    summary = {
+        "processes": MPH_PROCS, "ranks_per_process": MPH_RANKS, "card": card(),
+        "groups": "host r // 4: each host's 4 ranks in 2 processes", "seconds": seconds,
+        "checks": sum(r["check"]["checks"] for r in res),
+        **{name: {"bitwise_one_process": True, "samples_per_s_chip": res[0][name]["samples_per_s_chip"],
+                  "one_process_samples_per_s_chip": refs[name]["samples_per_s_chip"],
+                  "final_loss": refs[name]["losses"][-1], "plans": res[0][name]["plans"],
+                  "launches_by_process": [{k: v for k, v in r[name]["counts"].items() if v}
+                                          for r in res]}
+           for name in ("hier", "staged")},
+        "staged_order": "JAX multi-controller, bit for bit on f32, integers exact",
+        "subsets": [r["subsets"] for r in res],
+        "check_launches_by_process": [r["check"]["launches"] for r in res],
+        "time": t}
+    print(json.dumps({"groups_4x2": summary}))
+    runs = {f"mp_h_{name}": {k: sum(r[name]["counts"][k] for r in res)
+                             for k in res[0][name]["counts"]} for name in ("hier", "staged")}
+    return runs, rows
+
+
 def phase_multiprocess(dev) -> tuple:
     """``--multiprocess``: the one-process references from the seed, then
     the two workers through ``python -m torchmpi_tpu_torch.launch``
@@ -5857,12 +6569,11 @@ def phase_multiprocess(dev) -> tuple:
     ``MP_CLOSE_STEPS`` within ``MP_LOSS_RTOL`` of the kernel run's, runs
     (c) and (d) (fsdp, zero1) bit for bit the one-process run under the
     same mode, run (e) (config 2) bit for bit the one-process async int8
-    run, exact launches; run (f) (``rank_map='vmap'``) against the
-    one-process vmap run, its first loss held bit for bit and the rest
-    printed as bit for bit or the first step that differs (ROADMAP C6,
-    open on the card: cuDNN's weight gradient of the grouped convolution
-    vmap makes depends on how many ranks it stacks). Prints the
-    ``{"multiprocess": ...}`` line;
+    run, exact launches; run (f) (``rank_map='vmap'``) bit for bit the
+    one-process vmap run at every step (ROADMAP C6: the convolutions'
+    weight gradient is the per-rank kernel, whose sums do not depend on
+    how many ranks a process stacks, where cuDNN's grouped one did).
+    Prints the ``{"multiprocess": ...}`` line;
     runs run (g) (:func:`mp_bench`) and prints the ``{"bench_2x4": ...}``
     line; returns the runs' launches (summed over the processes) and the
     ten kernel rows of the kernels line (K3's three modes, K7, K5, K6,
@@ -5884,6 +6595,7 @@ def phase_multiprocess(dev) -> tuple:
     require(proc.returncode == 0, f"multiprocess workers failed ({proc.returncode}):\n{tails}")
     res = [json.loads((logs / f"proc{i}.json").read_text()) for i in range(MP_PROCS)]
     g_counts, g_top, g_seconds = mp_bench(root)
+    h_runs, h_rows = mph_run(root)
     for i, r in enumerate(res):
         steps = r["b"]["steps"]
         require(steps == ref["steps"] == r["a"]["steps"], f"proc {i}: steps differ")
@@ -5908,18 +6620,23 @@ def phase_multiprocess(dev) -> tuple:
                 f"{r['e']['losses'][:4]} vs {ref_e['losses'][:4]}")
         require(ref_e["counts"]["ring_allreduce_quant_int8"] == steps,
                 f"the one-process config-2 run launched K4 {ref_e['counts']}")
+        # ROADMAP C6: the convolutions' weight gradient under vmap is the
+        # per-rank kernel, whose sums do not depend on how many ranks a
+        # process stacks, so every step is bit for bit the one-process run's
         rel = [abs(a - b) / abs(b) for a, b in zip(r["f"]["losses"], ref_f["losses"])]
         r["f"]["first_differing_step"] = next((k + 1 for k, v in enumerate(rel) if v), None)
         r["f"]["rel_all"] = max(rel)
-        # ROADMAP C6, open on the card: vmap's forward is the same for 4 and 8
-        # stacked ranks (chip_vmap_probe.py), conv1's weight gradient is not, so the
-        # first step's loss must agree and the rest is reported
-        require(rel[0] == 0, f"proc {i}: run (f)'s first loss differs from the one-process "
-                             f"vmap run's: {r['f']['losses'][0]} vs {ref_f['losses'][0]}")
+        require(r["f"]["losses"] == ref_f["losses"],
+                f"proc {i}: run (f)'s losses part from the one-process vmap run's at step "
+                f"{r['f']['first_differing_step']} (max rel {r['f']['rel_all']})")
+        vmap_want = lenet_vmap_launches(steps)
+        require({k: ref_f["counts"][k] for k in vmap_want} == vmap_want,
+                f"the one-process vmap run launched the per-rank kernels "
+                f"{ {k: ref_f['counts'][k] for k in vmap_want} } times, want {vmap_want}")
         for run, kernel in (("a", False), ("b", True), ("c", True), ("d", True), ("e", True),
                             ("f", True)):
             want = mp_expected(steps, kernel, MP_SHARDED.get(run, "replicated"),
-                               "int8" if run == "e" else None)
+                               "int8" if run == "e" else None, "vmap" if run == "f" else "loop")
             require(r[run]["counts"] == want,
                     f"proc {i} run ({run}): launches {r[run]['counts']} != {want}")
     t = res[0]["time"]
@@ -6063,7 +6780,8 @@ def phase_multiprocess(dev) -> tuple:
     runs = {f"mp_{run}": {k: sum(r[run]["counts"][k] for r in res) for k in res[0][run]["counts"]}
             for run in ("a", "b", *MP_SHARDED, "e", "f")}
     runs["mp_g"] = g_counts
-    return runs, rows
+    runs.update(h_runs)
+    return runs, rows + h_rows
 
 
 def phase_timing(dev, runs: dict, errs: dict, timed_rows=()) -> None:
@@ -6163,10 +6881,18 @@ def main(argv=None) -> None:
         help="only the multi-process phase (the cross-process K3 allreduce, 'rs' and 'ag', K4, "
              "K5, K6 and K7 against their plain versions, config 1 by 2 processes x 4 ranks "
              "through the launcher, runs (a) and (b) replicated, (c) fsdp, (d) zero1, (e) "
-             "config 2, (f) rank_map='vmap', (g) the collectives benchmark by the two processes; the "
-             "{\"multiprocess\"} and {\"bench_2x4\"} lines), after the build; prints no "
-             "result line")
+             "config 2, (f) rank_map='vmap', (g) the collectives benchmark by the two processes; "
+             "(h) config 5 by 4 processes x 2 ranks in hosts of 2 processes, the grouped "
+             "cross-process K3 and K7, communicators over some of the processes; the "
+             "{\"multiprocess\"}, {\"bench_2x4\"} and {\"groups_4x2\"} lines), after the "
+             "build; prints no result line")
+    parser.add_argument(
+        "--wgrad", action="store_true",
+        help="only the per-rank kernels (the convolution weight gradient and the product): "
+             "build them, check them against their plain versions and across stacks, print "
+             "their kernels rows (no launches: no path is driven); prints no result line")
     parser.add_argument("--mp-worker", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--mp-groups-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one card")
@@ -6181,6 +6907,9 @@ def main(argv=None) -> None:
     if args.mp_worker:
         mp_worker(args.mp_worker)
         return
+    if args.mp_groups_worker:
+        mph_worker(args.mp_groups_worker)
+        return
     phase_device()
     if args.quant:
         quant_only(dev, args.quant == "check")
@@ -6189,7 +6918,20 @@ def main(argv=None) -> None:
         phase_build(("reduce_kernel",))
         check_many(dev, torch.Generator(device=dev).manual_seed(0))
         return
+    if args.wgrad:
+        phase_build(("conv_wgrad", "rank_bmm"))
+        errs = check_wgrad(dev, torch.Generator(device=dev).manual_seed(0))
+        errs.update(check_bmm(dev, torch.Generator(device=dev).manual_seed(0)))
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        print(json.dumps({"wgrad_kernels": time_rows([wgrad_row(randn), bmm_row(randn)], {}, errs,
+                                                     launch_floor_ms())}))
+        return
     phase_build()
+    mark("build")
     if args.resnet:
         phase_resnet(dev, main_path(dev, "sync", "full"))
         return
@@ -6229,37 +6971,64 @@ def main(argv=None) -> None:
         phase_multiprocess(dev)
         return
     errs = phase_kernels(dev)
+    mark("kernels")
     trainer = phase_trainer(dev)
+    mark("trainer")
     runs = {path: run["counts"] for path, run in trainer.items()}
     phase_async(dev)
+    mark("async")
     runs.update(phase_bench())
+    mark("bench")
     phase_async_issue(dev)
+    mark("async_issue")
     phase_compiler(dev)
+    mark("compiler")
     hier_runs, hier_errs = phase_hier(dev)
+    mark("hier")
     runs.update(hier_runs)
     errs.update(hier_errs)
     lm_runs, lm_stats = phase_lm(dev)
+    mark("lm")
     runs.update(lm_runs)
     runs.update(phase_parallel(dev, lm_stats.pop("losses")))
+    mark("parallel")
     runs.update(phase_resnet(dev, trainer["sync"]))
+    mark("resnet")
     runs.update(phase_sharded(dev))
+    mark("sharded")
     runs.update(phase_engine(dev))
+    mark("engine")
     runs.update(phase_observe(dev))
+    mark("observe")
     runs.update(phase_ps(dev))
+    mark("ps")
     phase_ps_vs_cpu(dev)
+    mark("ps_vs_cpu")
     phase_ps_throughput()
+    mark("ps_throughput")
     phase_profile("sync", "full")
+    mark("profile")
     phase_profile("async", "int8")
+    mark("profile")
     phase_profile_lm(dev, lm_stats)
+    mark("profile_lm")
     phase_profile_ps()
+    mark("profile_ps")
     phase_rs_retime(dev)
+    mark("rs_retime")
     runs.update(phase_streaming(dev))
+    mark("streaming")
     runs.update(phase_serve(dev))
+    mark("serve")
     runs.update(phase_synth(dev))
+    mark("synth")
     runs.update(phase_supervise(dev))
+    mark("supervise")
     mp_runs, mp_rows = phase_multiprocess(dev)
+    mark("multiprocess")
     runs.update(mp_runs)
     phase_timing(dev, runs, errs, mp_rows)
+    mark("timing")
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,156 +1,119 @@
 #!/usr/bin/env python3
 """ROADMAP C6's probe on one card: does ``rank_map='vmap'`` depend on how
-many ranks one vmap call stacks, and does either of two forms of the
-convolutions' weight gradient repair it?
+many ranks one vmap call stacks, with the native batched ops (cuDNN's
+grouped weight gradient, cuBLAS's batched products) and with the per-rank
+kernels the engine takes on the card?
 
 ``python3 chip_vmap_probe.py`` takes config 1's first step (the seed-0
-LeNet parameters on every rank, the first batch of 336 over P=8 ranks)
-under ``torch.func.vmap`` stacking all P ranks, against the same ranks in
-stacks of 4 (the two processes of ``chip_smoke.py --multiprocess`` run
-(f)) and in stacks of 2. It compares every intermediate of the forward
-and every leaf of the gradient bit for bit (the leaves that differ), for
-the native vmap and for the convolutions' weight gradient taken rank by
-rank (``'rank'``: one ``convolution_backward`` a rank) or as ``unfold``
-and a batched matmul (``'unfold'``), the forward and the input and bias
-gradients kept batched (:func:`weight_grad_form`), and times one
-gradient of all P ranks under each form and under the loop (CUDA
-events, ``chip_smoke.time_ms``). It prints one ``{"vmap_probe":
-...}`` line with the card's name and power limit, builds no kernel and
-uses ``chip_smoke.py``'s settings (no TF32, deterministic cuDNN).
+LeNet parameters on every rank, the first batch of 336 over P=8 ranks) and
+config 5's (the seed-0 MLP6 at 128 features, 8 images a rank) under
+``torch.func.vmap`` stacking all P ranks, against the same ranks in stacks
+of 4 (the two processes of ``chip_smoke.py --multiprocess`` run (f)) and
+in stacks of 2 (the four of run (h)). It compares every intermediate of
+LeNet's forward and every leaf of both gradients bit for bit (the leaves
+that differ), for the native vmap (``'native'``) and for the engine's
+form (``'kernel'``: ``engine/rankwise.py``, each convolution's weight
+gradient by ``ops.conv2d_weight_grad_ranks`` and each batched product by
+``ops.rank_bmm``; :func:`product_form`), prints each leaf's largest
+difference between the two forms, and times one LeNet gradient of all P
+ranks under each form in turns (native, kernel, kernel, native) and under
+the loop (CUDA events, ``chip_smoke.time_ms``). It prints one
+``{"vmap_probe": ...}`` line with the card's name and power limit and uses
+``chip_smoke.py``'s settings (no TF32, deterministic cuDNN); the kernels
+build at their first call.
+
+:func:`native_vmap` and :func:`step_in_turns` serve ``chip_smoke.py``'s
+``rank_maps``: config 1's engine step with the kernels against the native
+form, in turns.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import statistics
 import sys
+import time
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
-from torch.overrides import TorchFunctionMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-FORMS = ("rank", "unfold")
+FORMS = ("native", "kernel")
 
 
-def _pair(v):
-    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+@contextlib.contextmanager
+def native_vmap():
+    """The engine's vmap gradient on the card with the native batched ops
+    (ROADMAP C6's fault: cuDNN's grouped weight gradient, cuBLAS's batched
+    products), in place of the per-rank kernels ``engine/rankwise.py``
+    routes them through: kept here only, as the yardstick of the repair."""
+    from torchmpi_tpu_torch.engine import sgd
+
+    kept = sgd.by_rank_products
+    sgd.by_rank_products = lambda batched: batched
+    try:
+        yield
+    finally:
+        sgd.by_rank_products = kept
 
 
-def _weight_grad_unfold(x, g, wshape, stride, padding, dilation, groups):
-    """One rank's weight gradient as ``g`` times the unfolded input: a
-    GEMM ``[O, B*HW] @ [B*HW, C*kh*kw]`` (per group); under vmap a
-    batched matmul over the ranks."""
-    O, Cg, kh, kw = wshape
-    B = x.shape[0]
-    cols = F.unfold(x, (kh, kw), dilation=dilation, padding=padding, stride=stride)
-    hw = cols.shape[-1]
-    cols = cols.reshape(B, groups, Cg * kh * kw, hw).permute(1, 0, 3, 2).reshape(
-        groups, B * hw, Cg * kh * kw)
-    gg = g.reshape(B, groups, O // groups, hw).permute(1, 2, 0, 3).reshape(
-        groups, O // groups, B * hw)
-    return torch.matmul(gg, cols).reshape(wshape)
-
-
-class _WeightGradByRank(torch.autograd.Function):
-    """One rank's weight gradient; under vmap one call a rank."""
-
-    @staticmethod
-    def forward(x, g, wshape, stride, padding, dilation, groups):
-        return torch.ops.aten.convolution_backward(
-            g, x, g.new_empty(1).expand(wshape), None,
-            stride, padding, dilation, False, [0, 0], groups, [False, True, False])[1]
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError("the per-rank convolution weight gradient has no derivative")
-
-    @staticmethod
-    def vmap(info, in_dims, x, g, wshape, stride, padding, dilation, groups):
-        n = info.batch_size
-        xd, gd = in_dims[:2]
-        x = x.movedim(xd, 0) if xd is not None else x.expand((n,) + x.shape)
-        g = g.movedim(gd, 0) if gd is not None else g.expand((n,) + g.shape)
-        out = torch.stack([_WeightGradByRank.forward(x[r], g[r], wshape, stride, padding,
-                                                     dilation, groups) for r in range(n)])
-        return out, 0
-
-
-class _Conv2d(torch.autograd.Function):
-    """``F.conv2d`` whose weight gradient takes ``form``; the forward and
-    the input and bias gradients are the native ones."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x, w, b, stride, padding, dilation, groups, form):
-        return F.conv2d(x, w, b, stride, padding, dilation, groups)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        x, w, b, stride, padding, dilation, groups, form = inputs
-        ctx.save_for_backward(x, w)
-        ctx.conf = (_pair(stride), _pair(padding), _pair(dilation), groups, form)
-        ctx.bias = None if b is None else tuple(b.shape)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        stride, padding, dilation, groups, form = ctx.conf
-        need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        gx = gb = gw = None
-        if need_x or (need_b and ctx.bias is not None):
-            gx, _, gb = torch.ops.aten.convolution_backward(
-                g, x, w, list(ctx.bias) if ctx.bias is not None else None, stride, padding,
-                dilation, False, [0, 0], groups,
-                [bool(need_x), False, bool(need_b and ctx.bias is not None)])
-        if need_w:
-            if form == "unfold":
-                gw = _weight_grad_unfold(x, g, tuple(w.shape), stride, padding, dilation, groups)
-            else:
-                gw = _WeightGradByRank.apply(x, g, tuple(w.shape), stride, padding, dilation,
-                                             groups)
-        return gx, gw, gb, None, None, None, None, None
-
-
-class _Mode(TorchFunctionMode):
-    def __init__(self, form: str):
-        super().__init__()
-        self.form = form
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func is torch.conv2d:
-            names = ("input", "weight", "bias", "stride", "padding", "dilation", "groups")
-            given = dict(zip(names, args), **kwargs)
-            padding = given.get("padding", 0)
-            if not isinstance(padding, str):
-                return _Conv2d.apply(given["input"], given["weight"], given.get("bias"),
-                                     given.get("stride", 1), padding, given.get("dilation", 1),
-                                     given.get("groups", 1), self.form)
-        return func(*args, **kwargs)
-
-
-def weight_grad_form(form):
-    """A context in which ``F.conv2d`` takes the weight-gradient ``form``
-    ('rank' or 'unfold'); None is no change."""
-    if form is None:
-        return contextlib.nullcontext()
+def product_form(form):
+    """A context in which a vmap's convolutions and batched products take
+    the ``form``: 'kernel' (``engine/rankwise.py``, the engine's) or
+    'native'."""
     if form not in FORMS:
-        raise ValueError(f"weight-gradient form must be one of {FORMS}, got {form!r}")
-    return _Mode(form)
+        raise ValueError(f"product form must be one of {FORMS}, got {form!r}")
+    if form == "native":
+        return contextlib.nullcontext()
+    from torchmpi_tpu_torch.engine.rankwise import rank_products
+
+    return rank_products()
+
+
+def step_in_turns(make_engine, batches: list, warmup: int, pairs: int) -> dict:
+    """The engine's mean step time (ms) over ``batches[warmup:]`` after
+    ``batches[:warmup]``, with the per-rank kernels ('kernel') and with the
+    native form (:func:`native_vmap`), in ``pairs`` pairs whose order
+    alternates (kernel, native, native, kernel, ...), each on a new
+    ``mpi.start(ranks=P)`` and engine (``make_engine(comm)``). Returns each
+    form's readings, median and spread (max - min), and the median of the
+    pairs' kernel / native ratios."""
+    import chip_smoke as cs
+
+    out = {form: [] for form in FORMS}
+    for i in range(2 * pairs):
+        form = FORMS[(i + i // 2) % 2 == 0]
+        cs.mpi.start(ranks=cs.P)
+        try:
+            with native_vmap() if form == "native" else contextlib.nullcontext():
+                engine = make_engine(cs.mpi.current_communicator())
+                for b in batches[:warmup]:
+                    engine.step(b)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in batches[warmup:]:
+                    engine.step(b)
+                torch.cuda.synchronize()
+            out[form].append((time.perf_counter() - t0) / (len(batches) - warmup) * 1e3)
+            del engine
+        finally:
+            cs.mpi.stop()
+    ratios = [k / n for k, n in zip(out["kernel"], out["native"])]
+    return {**{f"{form}_ms": out[form] for form in FORMS},
+            **{f"{form}_median_ms": statistics.median(out[form]) for form in FORMS},
+            **{f"{form}_spread_ms": max(out[form]) - min(out[form]) for form in FORMS},
+            "ratio_median": statistics.median(ratios), "ratios": ratios,
+            "steps": len(batches) - warmup, "pairs": pairs}
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_vmap_probe: no CUDA device; this run needs one card")
     import chip_smoke as cs
+    from torchmpi_tpu_torch.models import MLP6
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -164,6 +127,11 @@ def main() -> None:
     x, y = next(iter(it))
     params = {k: v.to(dev).unsqueeze(0).repeat((P,) + (1,) * v.ndim)
               for k, v in cs.init_params(model, seed=0).items()}
+    mlp = MLP6(features=128)
+    mlp_params = {k: v.to(dev).unsqueeze(0).repeat((P,) + (1,) * v.ndim)
+                  for k, v in cs.init_params(mlp, seed=0).items()}
+    mx, my = next(iter(cs.DistributedIterator(xtr, ytr, cs.CONFIG5["batch_per_rank"] * P, P,
+                                              device=dev, seed=3)))
 
     def forward(prm, xb, yb):
         h = xb.reshape(xb.shape[0], 1, 28, 28)
@@ -180,9 +148,9 @@ def main() -> None:
 
     grad = torch.func.grad(cs.make_loss_fn(model))
 
-    def split(fn, m):
+    def split(fn, m, prm, xb, yb):
         """fn over the ranks in stacks of m, concatenated."""
-        parts = [fn({k: v[a:a + m] for k, v in params.items()}, (x[a:a + m], y[a:a + m]))
+        parts = [fn({k: v[a:a + m] for k, v in prm.items()}, (xb[a:a + m], yb[a:a + m]))
                  for a in range(0, P, m)]
         return {k: torch.cat([q[k] for q in parts]) for k in parts[0]}
 
@@ -191,15 +159,29 @@ def main() -> None:
         return sorted(k for k in a if not torch.equal(cs.bits(a[k]), cs.bits(b[k])))
 
     fwd = torch.func.vmap(lambda prm, b: forward(prm, *b))
-    out = {"forward_differs": {m: same(fwd(params, (x, y)), split(fwd, m)) for m in (M, 2)}}
+    out = {"forward_differs": {m: same(fwd(params, (x, y)), split(fwd, m, params, x, y))
+                               for m in (M, 2)}}
     g = torch.func.vmap(grad)
+    g_mlp = torch.func.vmap(torch.func.grad(cs.make_loss_fn(mlp)))
     ms = {}
-    for form in (None, *FORMS):
-        name = form or "full"
-        with weight_grad_form(form):
-            whole = g(params, (x, y))
-            out[f"grad_differs_{name}"] = {m: same(whole, split(g, m)) for m in (M, 2)}
-            ms[name] = cs.time_ms(lambda: g(params, (x, y)))
+    # in turns: native, kernel, kernel, native
+    for form in ("native", "kernel", "kernel", "native"):
+        with product_form(form):
+            if f"grad_differs_{form}" not in out:
+                whole = g(params, (x, y))
+                out[f"grad_differs_{form}"] = {m: same(whole, split(g, m, params, x, y))
+                                               for m in (M, 2)}
+                whole = g_mlp(mlp_params, (mx, my))
+                out[f"mlp6_grad_differs_{form}"] = {
+                    m: same(whole, split(g_mlp, m, mlp_params, mx, my)) for m in (M, 2)}
+            ms.setdefault(form, []).append(cs.time_ms(lambda: g(params, (x, y))))
+    with product_form("native"):
+        native = g(params, (x, y))
+    with product_form("kernel"):
+        kernel = g(params, (x, y))
+    torch.cuda.synchronize()
+    out["kernel_vs_native_max_abs"] = {k: float((kernel[k] - native[k]).abs().max())
+                                       for k in native}
     ms["loop"] = cs.time_ms(lambda: [grad({k: v[r] for k, v in params.items()}, (x[r], y[r]))
                                      for r in range(P)])
     out["grad_ms"] = ms

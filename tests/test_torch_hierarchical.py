@@ -459,16 +459,17 @@ def test_fused_flush_delegates_to_the_hierarchical_plan():
 
 
 def test_staged_across_processes_is_refused():
-    """The staged allreduce across processes runs when every intra group
-    lies in one process (``tests/test_torch_multiprocess.py``); over
-    groups that span processes it is not ported and raises, naming
-    ROADMAP A13's rest, where JAX would exchange the group sums of the
-    rows each process owns. Here process 0 of 2 holds ranks 0-3, and the
-    2x4 split's groups (``r % 2``) each span both processes."""
+    """The staged allreduce across processes runs whether the intra groups
+    lie in one process or span them (``tests/test_torch_multiprocess.py``,
+    ``tests/test_torch_xproc_groups.py``), over the control plane that
+    meets the processes. A communicator that claims two processes in a job
+    started without a coordinator has none, and is refused, naming what
+    it needs. Here process 0 of 2 holds ranks 0-3, and the 2x4 split's
+    groups (``r % 2``) each span both processes."""
     from torchmpi_tpu_torch.runtime.communicator import Communicator
 
     tcomm = Communicator(range(P), torch.device("cpu"), keys=[KEYS["2x4"](r) for r in range(P)],
                          processes=[r // (P // 2) for r in range(P)], process_index=0)
     assert tcomm.multiprocess and tcomm.cartesian and tcomm.num_nodes() == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A13's rest"):
+    with pytest.raises(CollectiveArgumentError, match="started with a coordinator"):
         eager.run_hierarchical_allreduce(torch.ones(P // 2, 16), tcomm, impl="staged")

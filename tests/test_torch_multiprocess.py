@@ -160,15 +160,18 @@ _WORKER = textwrap.dedent(
         out = mpi.sendreceive_tensor(x, p - 1, 0, comm=gcomm, backend=b)
         assert all((row == (p - 1 if r == 0 else r)).all() for r, row in zip(mine, out)), (b, out)
 
-    # what this slice does not carry across processes raises, by name
+    # the staged allreduce over groups that span the processes (ROADMAP
+    # A13's rest, part 10): every row the sum of the p ones
     from torchmpi_tpu_torch.engine import AllReduceSGDEngine
     from torchmpi_tpu_torch.runtime.communicator import split_by_keys
     spanning = split_by_keys(gcomm, lambda r: str(r % 2))  # each group in both processes
-    for fn in (lambda: eager.run_hierarchical_allreduce(torch.ones((L, 256)), spanning,
-                                                        impl="staged", staged_intra="ring"),
-               lambda: AllReduceSGDEngine(lambda prm, st, b: (0.0, st), {{"w": torch.ones(8)}},
+    out = eager.run_hierarchical_allreduce(torch.ones((L, 256)), spanning, impl="staged",
+                                           staged_intra="ring")
+    assert bool((out == p).all()), out
+    # what this slice does not carry across processes raises, by name
+    for fn in (lambda: AllReduceSGDEngine(lambda prm, st, b: (0.0, st), {{"w": torch.ones(8)}},
                                           model_state={{"mean": torch.zeros(4)}},
-                                          param_sharding="fsdp")):
+                                          param_sharding="fsdp"),):
         try:
             fn()
         except NotImplementedError as e:

@@ -300,7 +300,12 @@ def test_wrappers_launch_or_raise_off_the_cpu():
                  lambda: ops.ring_allreduce_quant_xproc([x[0], x[1]], [1], "int8"),
                  lambda: ops.ring_reduce_scatter_quant_xproc([x[0], x[1]], [0], "bf16"),
                  lambda: ops.ring_allreduce_bidir_xproc([x[0], x[1]], 1),
-                 lambda: ops.ring_reduce_xproc([x[0], x[1]], [1], 1)):
+                 lambda: ops.ring_reduce_xproc([x[0], x[1]], [1], 1),
+                 lambda: ops.conv2d_weight_grad_ranks(
+                     torch.empty(2, 1, 3, 6, 6, device="meta"),
+                     torch.empty(2, 1, 4, 4, 4, device="meta"), (4, 3, 3, 3)),
+                 lambda: ops.rank_bmm(torch.empty(2, 3, 4, device="meta"),
+                                      torch.empty(2, 4, 5, device="meta"))):
         with pytest.raises(ValueError, match="CUDA or the CPU"):
             call()
     counts = ops.launch_counts()
@@ -308,9 +313,11 @@ def test_wrappers_launch_or_raise_off_the_cpu():
                            "ring_reduce_scatter", "ring_allgather", "ring_reduce",
                            "ring_allreduce_bidir", "ring_allreduce_xproc",
                            "ring_broadcast_xproc", "ring_reduce_scatter_xproc",
+                           "ring_allreduce_xproc_grouped", "ring_broadcast_xproc_grouped",
                            "ring_allgather_xproc", "ring_allreduce_bidir_xproc",
                            "ring_reduce_xproc", "ring_attention_fwd",
-                           "ring_attention_fwd_bidir", "ring_attention_bwd"} | {
+                           "ring_attention_fwd_bidir", "ring_attention_bwd",
+                           "conv2d_weight_grad_ranks", "rank_bmm"} | {
         f"{op}_{wire}" for op in ("ring_allreduce_quant", "ring_reduce_scatter_quant",
                                   "ring_allreduce_quant_xproc",
                                   "ring_reduce_scatter_quant_xproc")
@@ -330,7 +337,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 def test_build_is_keyed_on_the_sources():
     names = {_build.target(s).name for s in _build.SOURCES}
-    assert len(names) == len(_build.SOURCES) == 4
+    assert len(names) == len(_build.SOURCES) == 6
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)
     assert _build.target("ring_kernels").parent == _build.BUILD_DIR
 

@@ -25,7 +25,8 @@ seeds and hands them in a file:
   ``ring`` and ``kernel`` gather the rows;
 - a block that disagrees in one process makes allgatherv raise
   ``CollectiveArgumentError`` in both; the staged allreduce over groups
-  that span the processes raises, naming ROADMAP A13's rest, part 10;
+  that span the processes gives the JAX multi-controller total (ROADMAP
+  A13's rest, part 10, carries it);
 - the collectives benchmark's tester (``utils/tester.py``) over sizes
   2^8..2^12, every op, backend and mode: every row correct.
 
@@ -168,12 +169,8 @@ _WORKER = textwrap.dedent(
         res[f"group/{{name}}"] = eager.run_group_broadcast(x, split[which], root=root)
 
     # the staged allreduce over the mod-2 groups, which span both processes
-    try:
-        eager.run_hierarchical_allreduce(inputs["group_payload"][mine], split["mod2"],
-                                         impl="staged", staged_intra="ring")
-        res["staged_span"] = None
-    except NotImplementedError as e:
-        res["staged_span"] = str(e)
+    res["staged_span"] = eager.run_hierarchical_allreduce(
+        inputs["group_payload"][mine], split["mod2"], impl="staged", staged_intra="ring")
 
     # the collectives benchmark's tester over every op, backend and mode
     reps = {{b: (0, 1) for b in BACKENDS}}
@@ -429,22 +426,33 @@ def test_gatherv_disagreeing_block_raises_in_every_process(worker_results):
         assert res["gatherv_error"] and "block 3 shape (3, 8)" in res["gatherv_error"], res
 
 
-def test_staged_allreduce_over_spanning_groups_names_part_10(worker_results):
+def test_staged_allreduce_over_spanning_groups_names_part_10(worker_results, inputs):
+    """The staged allreduce over groups that span the processes, which
+    raised naming ROADMAP A13's rest, part 10 until that part carried it:
+    every row is the JAX multi-controller total, each process's
+    representatives (groups {0,2} and {1,3}: both in process 0) summed from
+    zeros in group order and the partials from zeros in process order."""
+    x = inputs["group_payload"]
+    partial = torch.zeros_like(x[0])
+    for g in ([0, 2], [1, 3]):
+        partial = partial + (x[g[0]] + x[g[1]])
+    total = (torch.zeros_like(x[0]) + partial) + torch.zeros_like(x[0])
     for res in worker_results:
-        assert "ROADMAP A13's rest, part 10" in (res["staged_span"] or ""), res["staged_span"]
+        assert torch.equal(res["staged_span"], total.expand(L, *total.shape))
 
 
 def test_lane_over_some_processes_names_part_10():
-    """A communicator whose ranks lie in some of the processes (here 2 of
-    3) has no lane yet: ROADMAP A13's rest, part 10."""
+    """A communicator whose ranks lie in some of the processes has a lane
+    since ROADMAP A13's rest, part 10; one whose processes lie on two hosts
+    still raises, naming part 8."""
     from types import SimpleNamespace
 
     from torchmpi_tpu_torch.runtime.peers import Lane
 
-    plane = SimpleNamespace(hosts=["h"] * 3, count=3, index=0)
-    comm = SimpleNamespace(processes=[0, 0, 1, 1])
-    with pytest.raises(NotImplementedError, match="ROADMAP A13's rest, part 10"):
-        Lane(plane, comm, 1)
+    plane = SimpleNamespace(hosts=["h", "h", "g"], count=3, index=0)
+    comm = SimpleNamespace(processes=[0, 0, 2, 2])
+    with pytest.raises(NotImplementedError, match="ROADMAP A13's rest, part 8"):
+        Lane(plane, comm, "0-2n1")
 
 
 def test_tester_sweep_across_processes_reads_correct(worker_results):

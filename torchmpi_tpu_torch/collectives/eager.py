@@ -251,13 +251,16 @@ def barrier(comm: Communicator) -> None:
     ``eager.py:1052``): returns once every rank's queued work is done. A
     process's virtual ranks share one device, so that is the device's
     work, the async side stream's included; across processes every
-    process then meets the others at the control plane's barrier."""
+    process of the communicator then meets the others at the control
+    plane's barrier (among those processes only)."""
     if comm.multiprocess:
         _plane().drain()
     if comm.device.type == "cuda":
         torch.cuda.synchronize(comm.device)
     if comm.multiprocess:
-        _plane().barrier()
+        from ..runtime.peers import processes_of
+
+        _plane().barrier(processes_of(comm))
 
 
 def _plane():
@@ -643,14 +646,17 @@ def _allgatherv_across(blocks, comm: Communicator, backend: str) -> torch.Tensor
     process (so an error raises in all of them), the blocks padded to the
     largest size through the backend's cross-process allgather, each
     rank's valid prefix kept."""
+    from ..runtime.peers import processes_of
+
     blocks = [torch.as_tensor(b, device=comm.device) for b in blocks]
-    every = _plane().all_gather_object([(tuple(b.shape), str(b.dtype)) for b in blocks])
-    owned = [[r for r in range(comm.size) if comm.process_of(r) == q] for q in range(len(every))]
-    wrong = [q for q, (m, rows) in enumerate(zip(every, owned)) if len(m) != len(rows)]
+    procs = processes_of(comm)
+    every = _plane().all_gather_object([(tuple(b.shape), str(b.dtype)) for b in blocks], procs)
+    owned = [[r for r in range(comm.size) if comm.process_of(r) == q] for q in procs]
+    wrong = [i for i, (m, rows) in enumerate(zip(every, owned)) if len(m) != len(rows)]
     if wrong:
         raise CollectiveArgumentError(
-            f"allgatherv expects each process's blocks of its ranks: process {wrong[0]} gave "
-            f"{len(every[wrong[0]])} for {len(owned[wrong[0]])} ranks")
+            f"allgatherv expects each process's blocks of its ranks: process "
+            f"{procs[wrong[0]]} gave {len(every[wrong[0]])} for {len(owned[wrong[0]])} ranks")
     by_rank = [None] * comm.size
     for m, rows in zip(every, owned):
         for r, entry in zip(rows, m):

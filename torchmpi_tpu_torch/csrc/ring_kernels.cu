@@ -101,6 +101,16 @@
 //   the sum written to the root's row and each other rank the process
 //   holds given its value as the sum reads it. Bound: p rows read, L
 //   written.
+//   Grouped K3 and K7 across processes (the intra phase of a two-level
+//   communicator whose groups span processes): the table holds, group-major,
+//   the rows of every group that holds one of the process's ranks, wherever
+//   each lies; blockIdx.y is the group. K3 sums each group in the chunk
+//   layout and order of a ring of its I ranks, as the one-process grouped
+//   launch does, and writes the sum to the process's own rows of that group
+//   only (a slot a table row). K7 reads each group's root row from its
+//   owner's slab and writes it to the process's own rows of that group.
+//   Bound: every row of those groups read once (K7: each root row) and the
+//   process's rows written once.
 //   No kernel waits on another process: the host protocol of
 //   runtime/peers.py orders the copies with interprocess events.
 //
@@ -391,9 +401,12 @@ struct RowTable {
 
 // ring_sum over the rows of a table: vector v of rank rows started at rank
 // r, ((x_r + x_{r+1}) + ...) + x_{r+p-1}, ranks mod p.
+// (The rows of a ring of p start at table row `base`: a group of the
+// grouped form.)
 template <typename Op, int BYTES, int P>
 __device__ __forceinline__ Pack<typename Op::S, BYTES> table_sum(const RowTable& rows, int p,
-                                                               long long v, int r) {
+                                                               long long v, int r,
+                                                               int base = 0) {
   using S = typename Op::S;
   using R = typename RawOf<BYTES>::T;
   Pack<S, BYTES> acc;
@@ -402,42 +415,89 @@ __device__ __forceinline__ Pack<typename Op::S, BYTES> table_sum(const RowTable&
 #pragma unroll
     for (int k = 0; k < P; ++k) {
       const int q = (r + k < P) ? r + k : r + k - P;
-      in[k].raw = static_cast<const R*>(rows.row[q])[v];
+      in[k].raw = static_cast<const R*>(rows.row[base + q])[v];
     }
     acc = in[0];
 #pragma unroll
     for (int k = 1; k < P; ++k) add_into<Op, BYTES>(acc, in[k]);
   } else {
-    acc.raw = static_cast<const R*>(rows.row[r])[v];
+    acc.raw = static_cast<const R*>(rows.row[base + r])[v];
 #pragma unroll 4
     for (int k = 1; k < p; ++k) {
       r = (r + 1 == p) ? 0 : r + 1;
       Pack<S, BYTES> in;
-      in.raw = static_cast<const R*>(rows.row[r])[v];
+      in.raw = static_cast<const R*>(rows.row[base + r])[v];
       add_into<Op, BYTES>(acc, in);
     }
   }
   return acc;
 }
 
-// The cross-process K3: every vector's ring sum over the table's p rows,
-// written to the `local` rows of out.
+// The process's row of each rank of a table, or -1 for a rank it does not
+// hold.
+struct RankSlots {
+  int slot[kMaxTableRows];
+};
+
+// The cross-process K3: group g (blockIdx.y) is the table's rows g*p ..
+// g*p+p-1, a ring of p; every vector's ring sum of the group is written to
+// the rows of out that the group's table rows name in `slots` (the
+// process's own ranks of the group). One group with slots 0..local-1 is
+// the flat ring.
 template <typename Op, int BYTES, int P>
 __global__ void __launch_bounds__(256)
     ring_allreduce_xproc_kernel(const __grid_constant__ RowTable rows,
-                                typename Op::S* __restrict__ out, int p, int local,
+                                const __grid_constant__ RankSlots slots,
+                                typename Op::S* __restrict__ out, int p,
                                 long long row_vecs, long long chunk_vecs) {
   using R = typename RawOf<BYTES>::T;
   if constexpr (P > 0) p = P;
   R* outr = reinterpret_cast<R*>(out);
+  const int base = blockIdx.y * p;
   const long long seg_vecs = chunk_vecs * p;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        v < row_vecs; v += stride) {
     const int r = (int)((v % seg_vecs) / chunk_vecs);
-    const auto acc = table_sum<Op, BYTES, P>(rows, p, v, r);
-    for (int q = 0; q < local; ++q) outr[(long long)q * row_vecs + v] = acc.raw;
+    const auto acc = table_sum<Op, BYTES, P>(rows, p, v, r, base);
+    for (int q = 0; q < p; ++q) {
+      const int slot = slots.slot[base + q];
+      if (slot >= 0) outr[(long long)slot * row_vecs + v] = acc.raw;
+    }
   }
+}
+
+// The cross-process K7: each row i of out gets the bytes of the source
+// row groups[i] (each group's root row, where it lies); blockIdx.y is the
+// source row.
+template <int BYTES>
+__global__ void __launch_bounds__(256)
+    ring_broadcast_xproc_kernel(const __grid_constant__ RowTable srcs,
+                                const __grid_constant__ RankSlots groups,
+                                unsigned char* __restrict__ out, int local,
+                                long long row_vecs) {
+  using R = typename RawOf<BYTES>::T;
+  const int g = blockIdx.y;
+  const R* s = static_cast<const R*>(srcs.row[g]);
+  R* o = reinterpret_cast<R*>(out);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       v < row_vecs; v += stride) {
+    const R val = s[v];
+    for (int i = 0; i < local; ++i) {
+      if (groups.slot[i] == g) o[(long long)i * row_vecs + v] = val;
+    }
+  }
+}
+
+template <int BYTES>
+void launch_broadcast_xproc(const RowTable& srcs, const RankSlots& groups, int ngroups,
+                            unsigned char* out, int local, long long row_bytes,
+                            cudaStream_t stream) {
+  const long long row_vecs = row_bytes / BYTES;
+  const LaunchShape sh = shape_for(row_vecs, ngroups);
+  ring_broadcast_xproc_kernel<BYTES><<<sh.grid, sh.threads, 0, stream>>>(
+      srcs, groups, out, local, row_vecs);
 }
 
 // The global rank of each of a process's rows in the cross-process 'rs':
@@ -533,12 +593,6 @@ __global__ void __launch_bounds__(256)
     for (int q = 0; q < local; ++q) outr[(long long)q * row_vecs + v] = acc.raw;
   }
 }
-
-// The process's row of each rank of a table, or -1 for a rank it does not
-// hold.
-struct RankSlots {
-  int slot[kMaxTableRows];
-};
 
 // The cross-process K6, launched by the root's process only: vector v of
 // the ring's sum over the table's p rows (tm_ring_reduce's chunk layout and
@@ -719,22 +773,33 @@ extern "C" int tm_ring_broadcast(const void* x, void* out, int rows, int groups,
   return tmpi::replicate(src, (long long)p * row_bytes, out, p, row_bytes, groups, stream);
 }
 
-// The cross-process K3. rows: p device addresses, rank r's row of n
-// elements of `dtype` (each in the slab of the process that owns r); out:
-// [local, n] contiguous, every row the ring's sum, in tm_ring_allreduce's
-// chunk layout for a ring of p (chunk_elems, a multiple of 128).
-extern "C" int tm_ring_allreduce_xproc(const unsigned long long* rows, int p, void* out,
-                                       int local, int dtype, long long n,
-                                       long long chunk_elems, void* stream) {
+// The cross-process K3. rows: `count` device addresses in `groups` groups
+// of p = count / groups ranks, group-major, rank row t of n elements of
+// `dtype` (each in the slab of the process that owns it); slots: for each
+// table row, the row of out ([local, n] contiguous) that gets its group's
+// sum (this process's own ranks), or -1. Each group's sum is
+// tm_ring_allreduce's for a ring of p (chunk_elems, a multiple of 128), so
+// the result is the one-process grouped launch's rows. One group with
+// slots 0..local-1 is the flat ring.
+extern "C" int tm_ring_allreduce_xproc(const unsigned long long* rows, int count, int groups,
+                                       const int* slots, void* out, int local, int dtype,
+                                       long long n, long long chunk_elems, void* stream) {
   using namespace tmpi;
   const int itemsize = itemsize_of(dtype);
-  if (itemsize == 0 || p < 1 || p > kMaxTableRows || local < 1 || n < 0 ||
+  const int p = group_size(count, groups);
+  if (itemsize == 0 || p < 1 || count > kMaxTableRows || local < 1 || n < 0 ||
       chunk_elems <= 0 || chunk_elems % 128) {
     return (int)cudaErrorInvalidValue;
   }
+  RankSlots slot;
+  for (int t = 0; t < kMaxTableRows; ++t) slot.slot[t] = -1;
+  for (int t = 0; t < count; ++t) {
+    if (slots[t] < -1 || slots[t] >= local) return (int)cudaErrorInvalidValue;
+    slot.slot[t] = slots[t];
+  }
   RowTable table = {};
   int bytes = 16;
-  for (int r = 0; r < p; ++r) {
+  for (int r = 0; r < count; ++r) {
     table.row[r] = reinterpret_cast<const void*>(rows[r]);
     const int w = vector_bytes(itemsize, (unsigned long long)n * itemsize, table.row[r], out);
     if (w < bytes) bytes = w;
@@ -745,10 +810,10 @@ extern "C" int tm_ring_allreduce_xproc(const unsigned long long* rows, int p, vo
     using S = typename Op::S;
     constexpr int kBytes = decltype(width)::value;
     constexpr int kVW = kBytes / (int)sizeof(S);
-    const LaunchShape sh = shape_for(n / kVW, 1);
+    const LaunchShape sh = shape_for(n / kVW, groups);
     with_ranks(p, [&](auto ranks) {
       ring_allreduce_xproc_kernel<Op, kBytes, decltype(ranks)::value>
-          <<<sh.grid, sh.threads, 0, s>>>(table, static_cast<S*>(out), p, local, n / kVW,
+          <<<sh.grid, sh.threads, 0, s>>>(table, slot, static_cast<S*>(out), p, n / kVW,
                                           chunk_elems / kVW);
     });
   });
@@ -756,12 +821,41 @@ extern "C" int tm_ring_allreduce_xproc(const unsigned long long* rows, int p, vo
   return (int)cudaGetLastError();
 }
 
-// The cross-process K7: the root's row_bytes at `src` (in the slab of the
-// process that owns the root) written to each of the `local` rows of out.
-extern "C" int tm_ring_broadcast_xproc(const void* src, void* out, int local,
+// The cross-process K7. srcs: `groups` device addresses, each group's root
+// row of row_bytes (in the slab of the process that owns it); of_group:
+// for each of the `local` rows of out ([local, row_bytes] contiguous), the
+// group whose root row it gets. One group is the flat broadcast.
+extern "C" int tm_ring_broadcast_xproc(const unsigned long long* srcs, int groups,
+                                       const int* of_group, void* out, int local,
                                        long long row_bytes, void* stream) {
-  if (local < 1 || row_bytes < 0) return (int)cudaErrorInvalidValue;
-  return tmpi::replicate(src, row_bytes, out, local, row_bytes, 1, stream);
+  using namespace tmpi;
+  if (groups < 1 || groups > kMaxTableRows || local < 1 || local > kMaxTableRows ||
+      row_bytes < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  RankSlots of;
+  for (int i = 0; i < kMaxTableRows; ++i) of.slot[i] = -1;
+  for (int i = 0; i < local; ++i) {
+    if (of_group[i] < 0 || of_group[i] >= groups) return (int)cudaErrorInvalidValue;
+    of.slot[i] = of_group[i];
+  }
+  RowTable table = {};
+  int bytes = 16;
+  for (int g = 0; g < groups; ++g) {
+    table.row[g] = reinterpret_cast<const void*>(srcs[g]);
+    const int w = vector_bytes(1, (unsigned long long)row_bytes, table.row[g], out);
+    if (w < bytes) bytes = w;
+  }
+  unsigned char* o = static_cast<unsigned char*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bytes) {
+    case 16: launch_broadcast_xproc<16>(table, of, groups, o, local, row_bytes, s); break;
+    case 8: launch_broadcast_xproc<8>(table, of, groups, o, local, row_bytes, s); break;
+    case 4: launch_broadcast_xproc<4>(table, of, groups, o, local, row_bytes, s); break;
+    case 2: launch_broadcast_xproc<2>(table, of, groups, o, local, row_bytes, s); break;
+    default: launch_broadcast_xproc<1>(table, of, groups, o, local, row_bytes, s); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 // The cross-process K3 'rs'. rows: p device addresses, rank r's row of p

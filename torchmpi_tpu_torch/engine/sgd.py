@@ -168,6 +168,7 @@ from ..utils import checkpoint as _ckpt
 from ..utils.flops import mfu
 from ..utils.tracing import ProfilerWindow, annotate
 from .optim import SGD
+from .rankwise import by_rank_products
 
 Tree = Dict[str, torch.Tensor]
 
@@ -507,11 +508,15 @@ class AllReduceSGDEngine:
         convolution, whose oneDNN kernels round by L, so a rank's gradient
         would depend on how many ranks its process holds (ROADMAP C6);
         one at a time it does not, and on the CPU it costs no more. On
-        the card the ranks stay batched."""
+        the card the ranks stay batched, and each f32 convolution's weight
+        gradient and each f32 batched product is a hand-written per-rank
+        kernel (``engine/rankwise.py``), one launch for every rank, whose
+        sums do not depend on how many ranks it holds (cuDNN's grouped
+        weight gradient and cuBLAS's batched products did)."""
         if self.rank_map == "vmap":
             if self.comm.device.type == "cpu":
                 return torch.func.vmap(fn, chunk_size=1)
-            return torch.func.vmap(fn)
+            return by_rank_products(torch.func.vmap(fn))
 
         def loop(*args):
             outs = [fn(*pytree.tree_map(lambda t, r=r: t[r], args))

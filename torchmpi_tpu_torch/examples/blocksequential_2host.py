@@ -17,7 +17,10 @@ rest of the backward (``BlockSequential.lua:29-89, 114-151``). Here:
   then the inter-host ring.
 
 MLP6 (128 features), Adam, ``synthetic_mnist``, the JAX example's
-defaults. Prints each epoch's test loss, whether the hierarchical plan ran
+defaults. In a job of several processes (the launcher, or ``start``'s
+coordinator) ``--ranks`` is this process's ranks, the hosts split the
+world's ranks, and a process keeps its own ranks' rows of the parameters
+and of each global batch. Prints each epoch's test loss, whether the hierarchical plan ran
 (read from the plans the communicator's dispatch memo holds), the test
 accuracy and samples/sec/chip (over the epochs after the first, which
 warms up), and checks replica consistency with ``check_with_allreduce``.
@@ -68,6 +71,7 @@ def main(argv: Optional[Sequence[str]] = None,
     from torchmpi_tpu_torch import constants
     from torchmpi_tpu_torch import nn as mpinn
     from torchmpi_tpu_torch.engine import SGD, Adam
+    from torchmpi_tpu_torch.engine.rankwise import by_rank_products
     from torchmpi_tpu_torch.models import MLP6, accuracy, init_params, make_loss_fn
     from torchmpi_tpu_torch.nn import GradientBuckets
     from torchmpi_tpu_torch.utils import DistributedIterator, synthetic_mnist
@@ -98,13 +102,20 @@ def main(argv: Optional[Sequence[str]] = None,
         buckets = GradientBuckets(params, args.blocks)
         print(f"[bseq] {len(params)} leaves -> {buckets.num_buckets} blocks "
               "(equal-element partition)")
-        stacked = {k: v.to(dev).unsqueeze(0).expand((p,) + tuple(v.shape)).contiguous()
+        # this process's ranks' rows (every rank in one process)
+        local = comm.local_size
+        rows = torch.tensor(comm.local_ranks, device=dev)
+        stacked = {k: v.to(dev).unsqueeze(0).expand((local,) + tuple(v.shape)).contiguous()
                    for k, v in params.items()}
         stacked = mpinn.synchronize_parameters(stacked, comm=comm)
         opt = Adam(args.lr) if args.opt == "adam" else SGD(args.lr, momentum=0.9)
         opt_state = opt.init(stacked)
         loss_fn = make_loss_fn(model)
         grad_fn = torch.func.vmap(torch.func.grad(loss_fn))
+        if dev.type == "cuda":
+            # each rank's products by the per-rank kernel, whose sums do not
+            # depend on how many ranks this process stacks (ROADMAP C6)
+            grad_fn = by_rank_products(grad_fn)
 
         (xtr, ytr), (xte, yte) = synthetic_mnist(num_train=args.train, num_test=512)
         it = DistributedIterator(xtr, ytr, args.batch_per_rank * p, p, device=dev, seed=3)
@@ -119,6 +130,8 @@ def main(argv: Optional[Sequence[str]] = None,
                     torch.cuda.synchronize(dev)
                 start = time.perf_counter()
                 for xb, yb in it:
+                    if comm.multiprocess:
+                        xb, yb = xb.index_select(0, rows), yb.index_select(0, rows)
                     grads = grad_fn(stacked, (xb, yb))
                     # BlockSequential overlap: one async allreduce a block,
                     # waited in reverse launch order (nn.lua:207-212),

@@ -31,7 +31,15 @@
   ``ops/ring_attention_kernel.py:_ring_attn_kernel`` and, with
   ``bidir=True``, ``_ring_attn_bidir_kernel``; ``ring_attention_bwd``
   replaces ``_ring_attn_bwd_kernel``; ``RingAttention`` is the autograd
-  function around them.
+  function around them;
+- ``conv2d_weight_grad_ranks`` (``csrc/conv_wgrad.cu``) replaces no TPU
+  kernel (the JAX package takes it from XLA): each rank's convolution
+  weight gradient in an order that does not depend on how many ranks a
+  launch holds, the engine's vmap gradient on the card (ROADMAP C6);
+- ``rank_bmm`` (``csrc/rank_bmm.cu``) replaces no TPU kernel either: each
+  rank's matrix product (a dense layer's forward and gradients under the
+  engine's vmap on the card) in an order that does not depend on how many
+  ranks a launch holds (ROADMAP C6).
 
 Every wrapper counts its launches; :func:`launch_counts` reads the counts
 and :func:`reset_launch_counts` sets them to 0. ``ops.issue`` is the C++
@@ -43,7 +51,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import reduce_kernel, ring_attention_kernel, ring_kernels
+from . import conv_wgrad, rank_bmm_kernel, reduce_kernel, ring_attention_kernel, ring_kernels
+from .conv_wgrad import conv2d_weight_grad_ranks, conv2d_weight_grad_ranks_plain
+from .rank_bmm_kernel import rank_bmm, rank_bmm_plain
 from .reduce_kernel import (
     accumulate,
     accumulate_many,
@@ -98,11 +108,13 @@ from .ring_kernels import (
 
 
 def launch_counts() -> Dict[str, int]:
-    return {**ring_kernels.launches, **reduce_kernel.launches, **ring_attention_kernel.launches}
+    return {**ring_kernels.launches, **reduce_kernel.launches, **ring_attention_kernel.launches,
+            **conv_wgrad.launches, **rank_bmm_kernel.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (ring_kernels.launches, reduce_kernel.launches, ring_attention_kernel.launches):
+    for counts in (ring_kernels.launches, reduce_kernel.launches, ring_attention_kernel.launches,
+                   conv_wgrad.launches, rank_bmm_kernel.launches):
         for name in counts:
             counts[name] = 0
 
@@ -113,7 +125,11 @@ __all__ = [
     "accumulate_many",
     "accumulate_many_plain",
     "accumulate_plain",
+    "conv2d_weight_grad_ranks",
+    "conv2d_weight_grad_ranks_plain",
     "launch_counts",
+    "rank_bmm",
+    "rank_bmm_plain",
     "reset_launch_counts",
     "ring_allgather",
     "ring_allgather_plain",

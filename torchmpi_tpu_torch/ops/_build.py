@@ -29,7 +29,8 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("reduce_kernel", "ring_kernels", "ring_quant", "ring_attention")
+SOURCES = ("reduce_kernel", "ring_kernels", "ring_quant", "ring_attention", "conv_wgrad",
+           "rank_bmm")
 # Python extension modules (csrc/<name>.cpp, module tm_<name>): the C++
 # async issue path and the cross-process slabs (runtime/peers.py)
 EXTENSIONS = ("issue", "peer")

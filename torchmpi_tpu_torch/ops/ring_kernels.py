@@ -70,6 +70,9 @@ launches = {
     "ring_allreduce_bidir": 0,
     "ring_allreduce_xproc": 0,
     "ring_broadcast_xproc": 0,
+    # the grouped forms (a table of groups and the rows each writes)
+    "ring_allreduce_xproc_grouped": 0,
+    "ring_broadcast_xproc_grouped": 0,
     "ring_reduce_scatter_xproc": 0,
     "ring_allgather_xproc": 0,
     "ring_allreduce_bidir_xproc": 0,
@@ -94,11 +97,16 @@ _SIGNATURES = {
     "tm_ring_reduce": [_PTR, _PTR, _INT, _INT, _LONG, _LONG, _INT, _PTR],
     # x, out, dtype, p, n, half, chunk_elems, stream
     "tm_ring_allreduce_bidir": [_PTR, _PTR, _INT, _INT, _LONG, _LONG, _LONG, _PTR],
-    # rows (p addresses), p, out, local, dtype, n, chunk_elems, stream
-    "tm_ring_allreduce_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT, _PTR, _INT, _INT,
-                                _LONG, _LONG, _PTR],
-    # src, out, local, row_bytes, stream
-    "tm_ring_broadcast_xproc": [_PTR, _PTR, _INT, _LONG, _PTR],
+    # rows (G*I addresses, group-major), count, groups, slots (count: the
+    # out row of each table row, or -1), out, local, dtype, n, chunk_elems,
+    # stream
+    "tm_ring_allreduce_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT, _INT,
+                                ctypes.POINTER(ctypes.c_int), _PTR, _INT, _INT, _LONG, _LONG,
+                                _PTR],
+    # srcs (G root rows), groups, of_group (local: each out row's group),
+    # out, local, row_bytes, stream
+    "tm_ring_broadcast_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT,
+                                ctypes.POINTER(ctypes.c_int), _PTR, _INT, _LONG, _PTR],
     # rows (p addresses), p, owned (local ranks), local, out, dtype, seg_n, stream
     "tm_ring_reduce_scatter_xproc": [ctypes.POINTER(ctypes.c_ulonglong), _INT,
                                      ctypes.POINTER(ctypes.c_int), _INT, _PTR, _INT, _LONG,
@@ -538,71 +546,131 @@ def _check_distinct_owned(rows, owned, what: str) -> list:
     return owned
 
 
-def ring_allreduce_xproc_plain(rows, local: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`ring_allreduce_xproc`: the p rank
-    rows stacked, the ring's sum in :func:`ring_allreduce`'s chunk layout
-    and order of adds for a ring of p, copied to ``local`` rows."""
-    _check_table(rows, local, "ring_allreduce_xproc")
+def _xproc_slots(rows, local: int, groups: int, owned, what: str) -> list:
+    """The out row of each table row of a grouped cross-process K3 (or
+    -1), after the table's checks: with ``owned`` (a table position for
+    each of the ``local`` out rows) the positions named, else the flat
+    ring's first ``local`` rows."""
+    _check_table(rows, local, what)
+    if groups < 1 or len(rows) % groups:
+        raise ValueError(f"{what}: {len(rows)} rank rows do not split into {groups} groups of "
+                         "equal size")
+    if owned is None:
+        if groups != 1:
+            raise ValueError(f"{what}: a grouped table needs the owned positions")
+        return list(range(local)) + [-1] * (len(rows) - local)
+    owned = [int(t) for t in owned]
+    if len(owned) != local or len(set(owned)) != local or \
+            any(not 0 <= t < len(rows) for t in owned):
+        raise ValueError(f"{what}: owned positions {owned} out of range or repeated for "
+                         f"{len(rows)} rows")
+    slots = [-1] * len(rows)
+    for i, t in enumerate(owned):
+        slots[t] = i
+    return slots
+
+
+def ring_allreduce_xproc_plain(rows, local: int, groups: int = 1, owned=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_allreduce_xproc`: the rank
+    rows stacked, :func:`ring_allreduce_plain`'s grouped sum (each group's
+    chunk layout and order of adds for a ring of its ranks), the rows of
+    ``owned`` (or the sum in ``local`` rows)."""
+    _xproc_slots(rows, local, groups, owned, "ring_allreduce_xproc")
     x = torch.stack(list(rows))
-    if len(rows) == 1:
-        return x.expand((local,) + tuple(x.shape[1:])).contiguous()
-    out = ring_allreduce_plain(x)
-    return out[:1].expand((local,) + tuple(x.shape[1:])).contiguous()
+    out = ring_allreduce_plain(x, groups)
+    if owned is None:
+        return out[:1].expand((local,) + tuple(x.shape[1:])).contiguous()
+    return out[torch.tensor([int(t) for t in owned], device=x.device)]
 
 
-def ring_allreduce_xproc(rows, local: int, stream=None) -> torch.Tensor:
+def ring_allreduce_xproc(rows, local: int, stream=None, groups: int = 1,
+                         owned=None) -> torch.Tensor:
     """Sum-allreduce over ranks held by several processes: ``rows`` are
     the p rank rows in rank order (each a contiguous tensor where it lies:
     this process's or a peer's mapped slab), and the result is
     ``[local, ...]``, the process's own rows, each the ring's sum. The
     sum is :func:`ring_allreduce`'s on the stacked rows, bit for bit (the
-    same chunk layout and order of adds). One launch of the cross-process
-    K3 (``ring_allreduce_pallas`` across processes, ``ring_kernels.py:
+    same chunk layout and order of adds). With ``groups`` G, ``rows`` are
+    G groups of I ranks in group-major order (every group that holds one
+    of this process's ranks, the intra phase of a two-level communicator
+    whose groups span processes) and ``owned`` the table position of each
+    of the ``local`` rows of the result: row i is the sum of the group of
+    ``rows[owned[i]]``, bit for bit :func:`ring_allreduce` with
+    ``groups=G`` on the stacked rows. One launch of the cross-process K3
+    (``ring_allreduce_pallas`` across processes, ``ring_kernels.py:
     385``); the plain version for CPU rows. Natively reduced dtypes only:
     the caller casts to :func:`carrier_dtype` before it publishes."""
     first = rows[0]
     if first.device.type == "cpu":
-        return ring_allreduce_xproc_plain(rows, local)
-    _check_table(rows, local, "ring_allreduce_xproc")
+        return ring_allreduce_xproc_plain(rows, local, groups, owned)
+    slots = _xproc_slots(rows, local, groups, owned, "ring_allreduce_xproc")
     _check_cuda(first, "ring_allreduce_xproc")
     _check_native_table(rows, "ring_allreduce_xproc")
-    p = len(rows)
+    count = len(rows)
     out = torch.empty((local,) + tuple(first.shape), dtype=first.dtype, device=first.device)
     n = first.numel()
     if n:
-        table = (ctypes.c_ulonglong * p)(*[r.data_ptr() for r in rows])
-        _launch("tm_ring_allreduce_xproc", first, table, p, out.data_ptr(), local,
-                NATIVE_DTYPES[first.dtype], n, chunk_elems(n, p, first.dtype), stream=stream)
-        launches["ring_allreduce_xproc"] += 1
+        table = (ctypes.c_ulonglong * count)(*[r.data_ptr() for r in rows])
+        slot = (ctypes.c_int * count)(*slots)
+        _launch("tm_ring_allreduce_xproc", first, table, count, groups, slot, out.data_ptr(),
+                local, NATIVE_DTYPES[first.dtype], n, chunk_elems(n, count // groups, first.dtype),
+                stream=stream)
+        launches["ring_allreduce_xproc" if owned is None else "ring_allreduce_xproc_grouped"] += 1
     return out
 
 
-def ring_broadcast_xproc_plain(src: torch.Tensor, local: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`ring_broadcast_xproc`: the root's
-    row copied to ``local`` rows."""
-    _check_table([src], local, "ring_broadcast_xproc")
-    return src[None].expand((local,) + tuple(src.shape)).contiguous()
+def _broadcast_sources(src, local: int, owned, what: str):
+    """``(roots, of_group)``: the root rows and each out row's group,
+    after the checks."""
+    roots = [src] if isinstance(src, torch.Tensor) else list(src)
+    _check_table(roots, local, what)
+    if local > MAX_TABLE_ROWS:
+        raise ValueError(f"{what} writes at most {MAX_TABLE_ROWS} rows, got {local}")
+    if owned is None:
+        if len(roots) != 1:
+            raise ValueError(f"{what}: several root rows need each row's group")
+        return roots, [0] * local
+    of_group = [int(g) for g in owned]
+    if len(of_group) != local or any(not 0 <= g < len(roots) for g in of_group):
+        raise ValueError(f"{what}: groups {of_group} of {local} rows out of range for "
+                         f"{len(roots)} root rows")
+    return roots, of_group
 
 
-def ring_broadcast_xproc(src: torch.Tensor, local: int, stream=None) -> torch.Tensor:
+def ring_broadcast_xproc_plain(src, local: int, owned=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ring_broadcast_xproc`: each row the
+    bytes of its group's root row."""
+    roots, of_group = _broadcast_sources(src, local, owned, "ring_broadcast_xproc")
+    return torch.stack([roots[g] for g in of_group]).contiguous()
+
+
+def ring_broadcast_xproc(src, local: int, stream=None, owned=None) -> torch.Tensor:
     """Broadcast across processes: ``src`` is the root rank's row where it
     lies (this process's or a peer's mapped slab), the result ``[local,
-    ...]`` its bytes in each of the process's own rows. One launch of the
-    cross-process K7 (``ring_broadcast_pallas`` across processes,
-    ``ring_kernels.py:1386``); the plain version for a CPU row. Any dtype
-    but complex: the kernel copies bytes."""
-    if src.device.type == "cpu":
-        return ring_broadcast_xproc_plain(src, local)
-    _check_table([src], local, "ring_broadcast_xproc")
-    _check_cuda(src, "ring_broadcast_xproc")
-    if src.dtype.is_complex:
-        raise ValueError(f"ring_broadcast_xproc: complex dtypes are not supported ({src.dtype})")
-    out = torch.empty((local,) + tuple(src.shape), dtype=src.dtype, device=src.device)
-    row_bytes = src.numel() * src.element_size()
+    ...]`` its bytes in each of the process's own rows. With a list of
+    root rows (each group's, where it lies: the intra phase of a
+    two-level broadcast whose groups span processes), ``owned`` names the
+    group of each of the ``local`` rows, and row i gets the bytes of
+    ``src[owned[i]]``. One launch of the cross-process K7
+    (``ring_broadcast_pallas`` across processes, ``ring_kernels.py:1386``);
+    the plain version for CPU rows. Any dtype but complex: the kernel
+    copies bytes."""
+    roots = [src] if isinstance(src, torch.Tensor) else list(src)
+    if roots[0].device.type == "cpu":
+        return ring_broadcast_xproc_plain(src, local, owned)
+    roots, of_group = _broadcast_sources(src, local, owned, "ring_broadcast_xproc")
+    first = roots[0]
+    _check_cuda(first, "ring_broadcast_xproc")
+    if first.dtype.is_complex:
+        raise ValueError(f"ring_broadcast_xproc: complex dtypes are not supported ({first.dtype})")
+    out = torch.empty((local,) + tuple(first.shape), dtype=first.dtype, device=first.device)
+    row_bytes = first.numel() * first.element_size()
     if row_bytes:
-        _launch("tm_ring_broadcast_xproc", src, src.data_ptr(), out.data_ptr(), local,
+        table = (ctypes.c_ulonglong * len(roots))(*[r.data_ptr() for r in roots])
+        of = (ctypes.c_int * local)(*of_group)
+        _launch("tm_ring_broadcast_xproc", first, table, len(roots), of, out.data_ptr(), local,
                 row_bytes, stream=stream)
-        launches["ring_broadcast_xproc"] += 1
+        launches["ring_broadcast_xproc" if owned is None else "ring_broadcast_xproc_grouped"] += 1
     return out
 
 

@@ -42,8 +42,22 @@ time-slice):
 A host wait polls the peer's counter in shared memory; a peer whose
 process is gone raises :class:`PeerError` at once, and one that does not
 answer raises after ``deadlock_timeout_seconds`` (600 s while it is 0).
-Every communicator a lane serves must span every process, and every
-process must be on one host (the rest is ROADMAP A13's rest).
+Every process of a lane must be on one host (the rest is ROADMAP A13's
+rest, part 8).
+
+A communicator may span some of the processes only (a ``Communicator``
+built by the processes that hold its ranks, as a JAX one over a subset of
+the devices). Its lane's setup and slab-growth exchanges, its barrier and
+its staged partials then meet among that set only
+(:meth:`ControlPlane.all_gather_object`, ``barrier`` and
+``all_gather_bytes`` with ``procs``): keys under the control plane's
+``TCPStore``, which process 0 serves for the job's life, scoped to the set
+and numbered by an epoch of that set, as the JAX package scopes its
+staged exchange's tags (``torchmpi_tpu/schedule/lower.py:494-516``). A
+gloo group over a subset would have to be made by every process of the
+job, which a process outside the set never reaches; the store needs
+nobody else. So a process outside the set is never waited for, and two
+sets that overlap keep their own order.
 
 Since a lane call waits on the host, an async collective cannot run it on
 the caller's thread. The control plane's :class:`IssueThread` runs them,
@@ -61,6 +75,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
+import pickle
 import secrets
 import socket
 import threading
@@ -139,6 +154,10 @@ def _alive(pid: int) -> bool:
 # its own, so a process that starts again while another is still tearing
 # its group down never meets the old group's keys
 _stores: dict = {}
+# the bytes of one store value in an exchange among some of the processes:
+# the TCPStore's server refuses a message over 8 MiB (and drops the
+# connection), so a larger payload travels as pieces of this size
+STORE_PIECE_BYTES = 4 << 20
 
 
 def _store(coordinator: str, count: int, index: int):
@@ -264,6 +283,7 @@ class ControlPlane:
                 "gloo", store=dist.PrefixStore(f"tm-start-{gen}", store), world_size=self.count,
                 rank=self.index, timeout=timedelta(seconds=wait_bound()))
         else:
+            store = dist.distributed_c10d._get_default_store()
             if dist.get_world_size() != self.count or dist.get_rank() != self.index:
                 raise RuntimeError(
                     f"torch.distributed is initialised as rank {dist.get_rank()} of "
@@ -273,10 +293,14 @@ class ControlPlane:
         info = self.all_gather_object((socket.gethostname(), os.getpid(), secrets.token_hex(4)))
         self.hosts = [h for h, _, _ in info]
         self.pids = [pid for _, pid, _ in info]
-        # process 0's token names this job's shared-memory files
+        # process 0's token names this job's shared-memory files and its
+        # keys of the exchanges among some of the processes
         self.job = info[0][2]
+        self._sets = dist.PrefixStore(f"tm-sets-{self.job}", store)
+        self._epochs: dict = {}
+        self._pieces: dict = {}
         self.lanes: List["Lane"] = []
-        self._lane_ids = 0
+        self._lane_ids: dict = {}
 
     def drain(self) -> None:
         """Run every async call enqueued so far before the caller's next
@@ -297,27 +321,115 @@ class ControlPlane:
                                 f"collective of process {self.index}: {e}") from e
             raise
 
-    def all_gather_object(self, obj) -> list:
+    def _some(self, procs) -> Optional[List[int]]:
+        """``procs`` as a sorted list of process indices that holds this
+        process, or None when it is every process. Every process meets
+        over the gloo group, which carries the bulk payloads several times
+        faster than the store's one server thread: 4 processes gathering
+        config 5's staged partial (100480 f32 each) took 9.2 ms through
+        gloo and 16.1 through the store, the vendor path's rows (2 x 2^23
+        f32 each) 324 and 2,206 ms (``chip_exchange_probe.py`` on the
+        H100 machine's host, PERF.md)."""
+        if procs is None:
+            return None
+        procs = sorted({int(q) for q in procs})
+        if self.index not in procs or any(not 0 <= q < self.count for q in procs):
+            raise ValueError(f"process {self.index} cannot meet the processes {procs} of "
+                             f"{self.count}")
+        return None if len(procs) == self.count else procs
+
+    def _exchange(self, procs: List[int], payload: bytes) -> List[bytes]:
+        """Every process of ``procs``'s ``payload`` in process order, met
+        under the store's keys of this set and its next epoch (see the
+        module). A payload travels as pieces of at most
+        :data:`STORE_PIECE_BYTES`; its head (the piece count and the first
+        piece) is posted last, so a member that reads it finds every
+        piece. Each process deletes its keys of the set's previous
+        exchange: every member has read them once all have posted this
+        one."""
+        self.drain()
+        name = ",".join(map(str, procs))
+        epoch = self._epochs.get(name, 0) + 1
+        self._epochs[name] = epoch
+        keys = [f"{name}/{epoch}/{q}" for q in procs]
+        own = keys[procs.index(self.index)]
+        pieces = [payload[i:i + STORE_PIECE_BYTES]
+                  for i in range(0, len(payload), STORE_PIECE_BYTES)] or [b""]
+        for i, piece in enumerate(pieces[1:], 1):
+            self._sets.set(f"{own}/{i}", piece)
+        self._sets.set(own, len(pieces).to_bytes(4, "little") + pieces[0])
+        t0 = time.monotonic()
+        while True:
+            try:
+                self._sets.wait(keys, timedelta(seconds=0.2))
+                break
+            except RuntimeError:
+                gone = [q for q in procs if q != self.index and not _alive(self.pids[q])]
+                if gone:
+                    raise PeerError(f"process {gone[0]} (pid {self.pids[gone[0]]}) died during "
+                                    f"an exchange of processes {procs}") from None
+                if time.monotonic() - t0 > wait_bound():
+                    raise PeerError(f"processes {procs} did not all post exchange {epoch} within "
+                                    f"{wait_bound():.0f} s (deadlock_timeout_seconds)") from None
+        out = []
+        for q, k in zip(procs, keys):
+            if q == self.index:
+                out.append(payload)
+                continue
+            head = self._sets.get(k)
+            count = int.from_bytes(head[:4], "little")
+            out.append(b"".join([head[4:]] + [self._sets.get(f"{k}/{i}")
+                                              for i in range(1, count)]))
+        if epoch > 1:
+            last = f"{name}/{epoch - 1}/{self.index}"
+            for i in range(1, self._pieces[name]):
+                self._sets.delete_key(f"{last}/{i}")
+            self._sets.delete_key(last)
+        self._pieces[name] = len(pieces)
+        return out
+
+    def all_gather_object(self, obj, procs=None) -> list:
+        """Every process's ``obj`` in process order: of every process over
+        the gloo group, or of the processes ``procs`` (a set that holds
+        this one) over the store."""
+        some = self._some(procs)
+        if some is not None:
+            return [pickle.loads(b) for b in self._exchange(some, pickle.dumps(obj))]
         out = [None] * self.count
         self._collective(lambda: self._dist.all_gather_object(out, obj, group=self.group))
         return out
 
-    def barrier(self) -> None:
+    def barrier(self, procs=None) -> None:
+        """Meet every process, or the processes ``procs``."""
+        some = self._some(procs)
+        if some is not None:
+            self._exchange(some, b"")
+            return
         self._collective(lambda: self._dist.barrier(group=self.group))
 
-    def all_gather_bytes(self, t: torch.Tensor) -> List[torch.Tensor]:
-        """Every process's CPU uint8 tensor of ``t``'s shape (the same in
-        every process), in process order."""
+    def all_gather_bytes(self, t: torch.Tensor, procs=None) -> List[torch.Tensor]:
+        """Every process's (or every process of ``procs``'s) CPU uint8
+        tensor of ``t``'s shape (the same in every process), in process
+        order."""
+        some = self._some(procs)
+        if some is not None:
+            raw = t.contiguous().numpy().tobytes()
+            return [torch.frombuffer(bytearray(b), dtype=torch.uint8).reshape(t.shape)
+                    for b in self._exchange(some, raw)]
         bufs = [torch.empty_like(t) for _ in range(self.count)]
         self._collective(lambda: self._dist.all_gather(bufs, t.contiguous(), group=self.group))
         return bufs
 
     def lane(self, comm) -> "Lane":
-        """``comm``'s lane, made (collectively) at its first use."""
+        """``comm``'s lane, made (collectively, among its processes) at its
+        first use. Lanes are numbered per process set, so every member
+        names a lane alike."""
         lane = comm.__dict__.get("_peer_lane")
         if lane is None:
-            self._lane_ids += 1
-            lane = comm.__dict__["_peer_lane"] = Lane(self, comm, self._lane_ids)
+            members = tuple(sorted(set(comm.processes)))
+            n = self._lane_ids[members] = self._lane_ids.get(members, 0) + 1
+            name = f"{'-'.join(map(str, members))}n{n}"
+            lane = comm.__dict__["_peer_lane"] = Lane(self, comm, name)
             self.lanes.append(lane)
         return lane
 
@@ -354,6 +466,11 @@ class ControlPlane:
             self._dist.destroy_process_group()
 
 
+def processes_of(comm) -> List[int]:
+    """The processes that hold ``comm``'s ranks, in process order."""
+    return sorted(set(comm.processes))
+
+
 def _rows_of(comm, count: int) -> List[List[int]]:
     rows = [[] for _ in range(count)]
     for r, q in enumerate(comm.processes):
@@ -375,16 +492,17 @@ def gather_rows_host(plane: ControlPlane, comm, x: torch.Tensor) -> torch.Tensor
     travel as bytes through host memory, padded to the largest process's
     row count. Returns it on ``x``'s device."""
     rows_of = _rows_of(comm, plane.count)
+    procs = processes_of(comm)
     most = max(len(r) for r in rows_of)
     shape = tuple(x.shape[1:])
     raw = x.detach().contiguous().cpu().reshape(len(x), -1).view(torch.uint8)
     row_bytes = raw.shape[1]
     padded = torch.zeros((most, row_bytes), dtype=torch.uint8)
     padded[:len(raw)] = raw
-    parts = plane.all_gather_bytes(padded)
+    parts = plane.all_gather_bytes(padded, procs)
     full = torch.empty((comm.size, row_bytes), dtype=torch.uint8)
-    for rows, part in zip(rows_of, parts):
-        _place(full, rows, part[:len(rows)])
+    for q, part in zip(procs, parts):
+        _place(full, rows_of[q], part[:len(rows_of[q])])
     return full.view(x.dtype).reshape((comm.size,) + shape).to(x.device)
 
 
@@ -394,11 +512,10 @@ class Lane:
     at a communicator's first cross-process call; every process calls its
     methods in the same order."""
 
-    def __init__(self, plane: ControlPlane, comm, lane_id: int):
-        if len(set(plane.hosts)) > 1:
+    def __init__(self, plane: ControlPlane, comm, lane_id: str):
+        self.members = processes_of(comm)
+        if len({plane.hosts[q] for q in self.members}) > 1:
             raise rest("a lane between hosts (no shared memory or CUDA IPC between them)", 8)
-        if sorted(set(comm.processes)) != list(range(plane.count)):
-            raise rest("a communicator spanning some of the processes", 10)
         self.plane = plane
         self.device = comm.device
         self.cuda = comm.device.type == "cuda"
@@ -428,17 +545,20 @@ class Lane:
             with torch.cuda.device(self.device):
                 handles = [e.ipc_handle() for e in self._write + self._read]
         try:
-            info = plane.all_gather_object({"flags": name, "events": handles})
-            # counters in shared memory (the arrays keep the mappings alive)
-            self.flags = [(own if q == self.me else _shm(i["flags"], 16, create=False))
-                          .view(torch.int64).numpy() for q, i in enumerate(info)]
+            info = plane.all_gather_object({"flags": name, "events": handles}, self.members)
+            # counters in shared memory (the arrays keep the mappings alive);
+            # None for a process outside the lane
+            self.flags = [None] * plane.count
+            for q, i in zip(self.members, info):
+                self.flags[q] = (own if q == self.me else _shm(i["flags"], 16, create=False)
+                                 ).view(torch.int64).numpy()
             if self.cuda:
                 self._peer_write, self._peer_read = [None] * plane.count, [None] * plane.count
-                for q, i in enumerate(info):
+                for q, i in zip(self.members, info):
                     if q != self.me:
                         ev = [torch.cuda.Event.from_ipc_handle(self.device, h) for h in i["events"]]
                         self._peer_write[q], self._peer_read[q] = ev[:2], ev[2:]
-            plane.barrier()
+            plane.barrier(self.members)
         finally:
             _unlink(name)  # every peer has it mapped (or the start failed)
 
@@ -452,29 +572,32 @@ class Lane:
             # every read of the old slabs done before they go
             if self.cuda:
                 torch.cuda.synchronize(self.device)
-            self.plane.barrier()
+            self.plane.barrier(self.members)
             self.unmap_peers()
-            self.plane.barrier()
+            self.plane.barrier(self.members)
             self.free_own()
         cap = -(-max(slot_bytes, 2 * self.cap) // _SLOT_ALIGN) * _SLOT_ALIGN
         self._gen += 1
+        slabs: List[Optional[torch.Tensor]] = [None] * self.plane.count
         if self.cuda:
             from ..ops._build import extension
 
-            slab, handle = extension("peer").alloc(2 * cap, self.device.index)
-            info = self.plane.all_gather_object(handle)
             ext = extension("peer")
-            self._slabs = [slab if q == self.me else ext.open(h, 2 * cap, self.device.index)
-                           for q, h in enumerate(info)]
-            self.plane.barrier()
+            slab, handle = ext.alloc(2 * cap, self.device.index)
+            info = self.plane.all_gather_object(handle, self.members)
+            for q, h in zip(self.members, info):
+                slabs[q] = slab if q == self.me else ext.open(h, 2 * cap, self.device.index)
+            self._slabs = slabs
+            self.plane.barrier(self.members)
         else:
             name = f"{self._prefix}-d{self.me}-g{self._gen}"
             slab = _shm(name, 2 * cap, create=True)
             try:
-                info = self.plane.all_gather_object(name)
-                self._slabs = [slab if q == self.me else _shm(n, 2 * cap, create=False)
-                               for q, n in enumerate(info)]
-                self.plane.barrier()
+                info = self.plane.all_gather_object(name, self.members)
+                for q, n in zip(self.members, info):
+                    slabs[q] = slab if q == self.me else _shm(n, 2 * cap, create=False)
+                self._slabs = slabs
+                self.plane.barrier(self.members)
             finally:
                 _unlink(name)
         self.cap = cap
@@ -503,7 +626,7 @@ class Lane:
         """Wait on the host until every peer's counter ``which`` reaches
         ``value``."""
         for q, flags in enumerate(self.flags):
-            if q == self.me or flags[which] >= value:
+            if q == self.me or flags is None or flags[which] >= value:
                 continue
             spins, t0 = 0, time.monotonic()
             check = t0
@@ -548,8 +671,8 @@ class Lane:
         if k >= 2:
             self._wait(_READ, k - 1)
             if self.cuda:
-                for q, ev in enumerate(self._peer_read):
-                    if q != self.me:
+                for ev in self._peer_read:
+                    if ev is not None:
                         st.wait_event(ev[s])
         t1 = time.perf_counter()
         if rows is not None and rows.numel():
@@ -565,18 +688,18 @@ class Lane:
         self.flags[self.me][_WRITE] = k + 1
         self._wait(_WRITE, k + 1)
         if self.cuda:
-            for q, ev in enumerate(self._peer_write):
-                if q != self.me:
+            for ev in self._peer_write:
+                if ev is not None:
                     st.wait_event(ev[s])
         self.protocol_s += (t1 - t0) + (time.perf_counter() - t2)
         return s
 
-    def views(self, s: int, shape, dtype) -> List[torch.Tensor]:
+    def views(self, s: int, shape, dtype) -> List[Optional[torch.Tensor]]:
         """Every process's rows in slot ``s``, ``[L_q, *shape]`` of
-        ``dtype``."""
+        ``dtype`` (None for a process outside the lane)."""
         row = int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
         return [self._view(q, s, len(rows) * row, (len(rows),) + tuple(shape), dtype)
-                for q, rows in enumerate(self.rows_of)]
+                if rows else None for q, rows in enumerate(self.rows_of)]
 
     def release(self, stream=None) -> None:
         """Step 4's end: this process has read call k's slot."""
@@ -618,7 +741,8 @@ class Lane:
         full = torch.empty((self.size,) + shape, dtype=x.dtype, device=x.device)
         with self._on(stream):
             for q, (rows, part) in enumerate(zip(self.rows_of, self.views(s, shape, x.dtype))):
-                _place(full, rows, x if q == self.me else part)
+                if rows:
+                    _place(full, rows, x if q == self.me else part)
         self.release(stream)
         return full
 
@@ -636,6 +760,64 @@ class Lane:
                                                 stream=stream)
         self.release(stream)
         return out.to(x.dtype).reshape(x.shape)
+
+    def allreduce_groups(self, x: torch.Tensor, groups: List[List[int]],
+                         stream=None) -> torch.Tensor:
+        """The sum within each of ``groups`` (lists of ranks of one size,
+        the intra groups of a two-level communicator, which may span
+        processes) through the grouped cross-process K3
+        (``ops.ring_allreduce_xproc(..., groups=G)``): this process's rows,
+        each its group's sum, bit for bit the one-process grouped K3 on the
+        same rows in group-major order. The launch reads every row of each
+        group that holds one of this process's ranks, where it lies, and
+        writes only its own rows."""
+        from ..ops import ring_kernels
+
+        rows, carrier = self._carried(x)
+        n = rows.shape[1]
+        mine = set(self.rows_of[self.me])
+        touched = [r for g in groups if mine.intersection(g) for r in g]
+        s = self.publish(rows, n * rows.element_size(), stream)
+        views = self.views(s, (n,), carrier)
+        table = [views[self.procs[r]][self.index_of[r]] for r in touched]
+        out = ring_kernels.ring_allreduce_xproc(
+            table, self.local, stream=stream, groups=len(touched) // len(groups[0]),
+            owned=[touched.index(r) for r in self.rows_of[self.me]])
+        self.release(stream)
+        return out.to(x.dtype).reshape(x.shape)
+
+    def broadcast_groups(self, x: torch.Tensor, groups: List[List[int]], root: int,
+                         stream=None) -> torch.Tensor:
+        """Each of this process's rows given the row of its group's rank
+        ``root`` (the rank at that position of its group in ``groups``,
+        groups that may span processes) through the grouped cross-process
+        K7 (``ops.ring_broadcast_xproc`` with a root row a group): a
+        process stages only the root rows it holds, and the launch reads
+        each group's root row where it lies."""
+        from ..ops import ring_kernels
+
+        self._check(x)
+        x = x.contiguous()
+        shape = tuple(x.shape[1:])
+        row_bytes = x[0].numel() * x.element_size()
+        mine = self.rows_of[self.me]
+        touched = [g for g in groups if set(mine).intersection(g)]
+        staged = [sorted(g[root] for g in groups if self.procs[g[root]] == q)
+                  for q in range(self.plane.count)]
+        with self._on(stream):
+            own = torch.stack([x[self.index_of[r]] for r in staged[self.me]]) \
+                if staged[self.me] else None
+        s = self.publish(own, row_bytes, stream)
+        roots = []
+        for g in touched:
+            r = g[root]
+            q, at = self.procs[r], staged[self.procs[r]].index(r)
+            roots.append(self._view(q, s, (at + 1) * row_bytes, (at + 1,) + shape, x.dtype)[at])
+        out = ring_kernels.ring_broadcast_xproc(
+            roots, self.local, stream=stream,
+            owned=[next(i for i, g in enumerate(touched) if r in g) for r in mine])
+        self.release(stream)
+        return out
 
     def _table(self, s: int, shape, dtype) -> List[torch.Tensor]:
         """The p rank rows of slot ``s`` in rank order, each where it
@@ -815,6 +997,8 @@ class Lane:
         with self._on(stream):
             mine = torch.tensor(self.rows_of[self.me], device=x.device)
             for q, (rows, part) in enumerate(zip(self.rows_of, self.views(s, shape, x.dtype))):
+                if not rows:
+                    continue
                 src = x if q == self.me else part
                 # out[i, rows[j]] = src[j, mine[i]]: this process's blocks of q's rows
                 blocks = src.index_select(1, mine).transpose(0, 1)

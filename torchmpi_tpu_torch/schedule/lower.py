@@ -204,6 +204,8 @@ def lower_hier_allreduce(comm, impl: str, shape: Tuple, dtype, wire: str,
     wire_arg = None if wire == "full" else wire
     if comm.multiprocess and impl != "xla" and _process_aligned(comm):
         return _across_hier_allreduce(comm, impl, n, dtype, wire_arg, int(pipeline)), True
+    if comm.multiprocess and impl == "kernel" and _grouped_k3(n, dtype, wire_arg):
+        return _across_grouped_hier_allreduce(comm, wire_arg), True
 
     if impl == "xla":
         def levels(xg, stream=None):
@@ -315,6 +317,8 @@ def lower_hier_collective(comm, op: str, root: int, ring_impl: str,
         return (out if post is None else post(out)).contiguous()
 
     if comm.multiprocess:
+        if op == "broadcast" and kernel_intra and not _process_aligned(comm):
+            return _across_grouped_broadcast(comm, g0, i0), True
         return across(comm, ring_impl, fn, kernel_intra), True
     return fn, kernel_intra
 
@@ -343,9 +347,10 @@ def run_staged_hierarchical_allreduce(x: torch.Tensor, comm, intra_impl: str = "
 
     The host hop is the designed transport of this path, not a fallback.
     Across processes (``lower.py:472-523``) each process runs step 1 on
-    its own groups, sums the representatives it owns from zeros, and the
-    partials meet over the control plane's gather, summed from zeros in
-    process order (:func:`_staged_across`)."""
+    the groups that hold its ranks (across processes where they span
+    them), sums the representatives it owns from zeros, and the partials
+    meet among the communicator's processes, summed from zeros in process
+    order (:func:`_staged_across`)."""
     if comm.multiprocess:
         return _staged_across(x, comm, intra_impl, wire, pipeline, stream)
     to_groups, _, G, I = _group_major(comm)
@@ -428,7 +433,7 @@ def _across_flat(comm, op: str, backend: str, root: int, src: int, dst: int, fn:
     ``Lane.move``). Every other pair runs :func:`across`."""
 
     def lane():
-        return _eager()._plane().lane(comm)
+        return _lane(comm)
 
     quant = wire != "full"
     if backend != "xla" and op == "alltoall":
@@ -515,27 +520,97 @@ def _across_hier_allreduce(comm, impl: str, n: int, dtype: torch.dtype,
     return fn
 
 
+def _grouped_k3(n: int, dtype: torch.dtype, wire: Optional[str]) -> bool:
+    """Whether the kernel backend's intra allreduce of a two-level
+    communicator is K3 (:func:`_intra_allreduce`): the full wire or one
+    that does not engage, not ``ring_implementation='kernel_bidir'``. Its
+    groups may then span processes (the grouped cross-process K3); K4 and
+    K5 launch once a group on a group's own rows, and gather them first."""
+    if wire is not None:
+        return not prim.wire_engages(wire, dtype, n)
+    return constants.get("ring_implementation") != "kernel_bidir"
+
+
+def _lane(comm):
+    return _eager()._plane().lane(comm)
+
+
+def _across_grouped_hier_allreduce(comm, wire: Optional[str]) -> Callable:
+    """:func:`lower_hier_allreduce` on the kernel backend across processes
+    whose groups span them: the intra phase the grouped cross-process K3
+    (``Lane.allreduce_groups``: each process's launch reads every row of
+    each group that holds one of its ranks, where it lies, and writes its
+    own rows), then the rows gathered from the slabs and the inter rings
+    across the groups, this process's rows kept. The same adds as the
+    one-process composition, so the same bits."""
+    to_groups, to_ranks, G, I = _group_major(comm)
+    inter = _batched_ring(comm, wire, 1)
+    take = _take_local(comm)
+    groups = [list(g) for g in comm._groups]
+
+    def fn(x, stream=None):
+        reduced = _lane(comm).allreduce_groups(x, groups, stream)
+        full = gather_full(comm, "kernel", reduced, stream)
+        return take(to_ranks(_inter_rings(inter, to_groups(full), G, I))).contiguous()
+
+    return fn
+
+
+def _across_grouped_broadcast(comm, g0: int, i0: int) -> Callable:
+    """:func:`lower_hier_collective`'s broadcast on the kernel backend
+    across processes whose groups span them: the inter phase moves root
+    group ``g0``'s row of each intra rank to the same intra rank of every
+    group (``Lane.move``: plain copies of the rows that cross, as the
+    one-process inter broadcast moves bytes), then the intra phase is the
+    grouped cross-process K7 from intra rank ``i0`` (``Lane.
+    broadcast_groups``: each group's root row read from its owner's slab
+    and written to this process's rows of the group)."""
+    groups = [list(g) for g in comm._groups]
+    src = [groups[g0][comm.member(r).intra_rank] for r in range(comm.size)]
+
+    def fn(x, stream=None):
+        lane = _lane(comm)
+        return lane.broadcast_groups(lane.move(x, src, stream), groups, i0, stream)
+
+    return fn
+
+
 def _staged_across(x: torch.Tensor, comm, intra_impl: str, wire: str, pipeline: int,
                    stream) -> torch.Tensor:
     """The staged allreduce across processes (``lower.py:472-523``): the
-    intra phase on this process's groups, the representatives it owns
-    (each group's first rank) summed from zeros in group order, the
-    partials gathered over the control plane and summed from zeros in
-    process order, the total in every row."""
-    if not _process_aligned(comm):
-        from ..runtime.peers import rest
+    intra phase on the groups that hold this process's ranks (the grouped
+    cross-process K3 on the kernel backend where the groups span
+    processes; else the one-process intra phase on this process's own
+    groups, or on the gathered rows), the representatives it owns (each group's
+    first rank) summed from zeros in group order, the partials gathered
+    among the communicator's processes only (the control plane's exchange
+    of that set) and summed from zeros in process order, the total in
+    every row."""
+    from ..runtime.peers import processes_of
 
-        raise rest("the staged allreduce over groups that span processes", 10)
     n = math.prod(x.shape[1:])
     wire_arg = None if wire == "full" else wire
-    reduced = _local_intra(comm, intra_impl, n, x.dtype, wire_arg, int(pipeline))(x, stream)
+    if _process_aligned(comm):
+        reduced = _local_intra(comm, intra_impl, n, x.dtype, wire_arg, int(pipeline))(x, stream)
+    elif intra_impl == "kernel" and _grouped_k3(n, x.dtype, wire_arg):
+        reduced = _lane(comm).allreduce_groups(x, [list(g) for g in comm._groups], stream)
+    else:
+        # the one-process intra phase on the gathered rows: K4 or K5 a
+        # group on kernel, the batched ring otherwise
+        to_groups, to_ranks, G, I = _group_major(comm)
+        full = to_groups(gather_full(comm, intra_impl, x, stream))
+        if intra_impl == "kernel":
+            full = _intra_allreduce(n, x.dtype, wire_arg, G, I)(full)
+        else:
+            full = _intra_rings(_batched_ring(comm, wire_arg, int(pipeline)), full, G, I)
+        reduced = _take_local(comm)(to_ranks(full))
     pos = {r: i for i, r in enumerate(comm.local_ranks)}
     reps = reduced[[pos[g[0]] for g in comm._groups if g[0] in pos]].cpu()
     partial = torch.zeros(x.shape[1:], dtype=x.dtype)
     for row in reps:
         partial = partial + row
     plane = _eager()._plane()
-    parts = plane.all_gather_bytes(partial.reshape(-1).view(torch.uint8))
+    parts = plane.all_gather_bytes(partial.reshape(-1).view(torch.uint8), processes_of(comm))
     total = torch.zeros(x.shape[1:], dtype=x.dtype)
     for part in parts:
         total = total + part.view(x.dtype).reshape(x.shape[1:])
