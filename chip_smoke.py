@@ -240,7 +240,10 @@ serving phase; ``--synth`` the build and the synthesized lowerings'
 phase; ``--supervise`` the build and the supervised rollback;
 ``--multiprocess`` the build and the ranks in two and four processes;
 ``--wgrad`` builds the per-rank kernels alone, holds them against their
-plain versions and prints their rows.
+plain versions and prints their rows; ``--attention`` builds the attention
+kernels alone, prints their ptxas report, holds them against their plain
+versions, runs the bf16 sp LM with and without remat under its gates and
+prints K8, K9 and K10's f32 and bf16 rows.
 ``python3 chip_smoke.py --many`` builds K1 and K2 alone,
 holds their list forms against the plain versions (``{"many_table"}``).
 ``python3 chip_smoke.py --quant check`` builds K4 alone, prints its registers and
@@ -401,6 +404,8 @@ BF16_REL = 2.0**-7
 # the forward attention kernel's block layout (csrc/ring_attention.cu,
 # FwdBlock): the faster at the LM shape of the two that were tried
 FWD_LAYOUT = "B (8 warps, 128 query rows; A, 4 warps over 64 rows, was slower)"
+# the attention kernels' sources (``--attention`` builds these alone)
+ATTENTION_SOURCES = ("ring_attention", "ring_attention_bf16")
 # the parameter-server path: the JAX example's CLI at LeNet's full width
 PS_ARGS = ["--batch", str(BATCH), "--lr", str(LR), "--epochs", "2", "--train", "8192",
            "--tau", "5", "--init-delay", "10", "--beta", "0.9", "--seed", "0"]
@@ -568,12 +573,56 @@ def phase_device() -> None:
 
 def attention_kernel(mangled: str):
     """``name<D, dtype>`` (``name<D, dtype, bidir>`` for the forward's K9
-    order) of a tensor-core attention kernel's mangled name, else None."""
+    order) of a tensor-core attention kernel's mangled name (the f32
+    kernels' ``*_mma_kernel<D, float>``, the bf16 ones' ``*_wgmma_kernel<D>``),
+    else None."""
     m = re.search(r"attn\d+(\w+_mma_kernel)ILi(\d+)E(\w)(Lb1)?", mangled)
-    if not m:
-        return None
-    return (f"{m.group(1)}<{m.group(2)}, {'float' if m.group(3) == 'f' else 'bf16'}"
-            f"{', bidir' if m.group(4) else ''}>")
+    if m:
+        return (f"{m.group(1)}<{m.group(2)}, {'float' if m.group(3) == 'f' else 'bf16'}"
+                f"{', bidir' if m.group(4) else ''}>")
+    m = re.search(r"attn16\d+(\w+_wgmma_kernel)ILi(\d+)E(Lb1)?", mangled)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}, bf16{', bidir' if m.group(3) else ''}>"
+    return None
+
+
+# SASS opcodes that show how the attention kernels multiply and copy:
+# wgmma (HGMMA), mma.sync (HMMA), TMA tile loads (UTMALDG) and cp.async
+# (LDGSTS)
+ATTN_SASS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
+
+
+def attention_sass(lib: Path) -> dict:
+    """Per attention kernel of ``lib``: static counts of :data:`ATTN_SASS`
+    opcodes, whether an HMMA takes TF32 operands, the operands of its
+    ``setmaxnreg`` instructions (USETMAXREG) and the highest register its
+    code names (above the launch's allocation where a warpgroup took more
+    by ``setmaxnreg``), from ``cuobjdump -sass``."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = attention_kernel(fn.group(1))
+            if name:
+                out[name] = {**dict.fromkeys(ATTN_SASS, 0), "tf32_hmma": 0, "setmaxnreg": [],
+                             "max_register": 0}
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)([.\w]*)\s*([^;]*);", line)
+        if not (name and op):
+            continue
+        regs = [int(x) for x in re.findall(r"\bR(\d+)\b", op.group(3))]
+        if regs:
+            out[name]["max_register"] = max(out[name]["max_register"], max(regs))
+        if op.group(1) in ATTN_SASS:
+            out[name][op.group(1)] += 1
+        if op.group(1) == "HMMA" and "TF32" in op.group(2):
+            out[name]["tf32_hmma"] += 1
+        if op.group(1) == "USETMAXREG":
+            out[name]["setmaxnreg"].append(f"{op.group(2)} {op.group(3).strip()}")
+    return out
 
 
 def quant_kernel(mangled: str):
@@ -642,9 +691,10 @@ def phase_build(names=_build.SOURCES + _build.EXTENSIONS) -> None:
     print(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
     # registers and spills (sm_90a) of every tensor-core attention kernel
     # (K8/K9's fwd_mma_kernel and K10's bwd_dq_mma_kernel and
-    # bwd_dkv_mma_kernel, at every head dim and dtype) and of K4, and K4's
-    # SASS opcode counts
-    for source, name_of in (("ring_attention", attention_kernel), ("ring_quant", quant_kernel),
+    # bwd_dkv_mma_kernel on f32, their *_wgmma_kernel on bf16, at every
+    # head dim) and of K4, and K4's SASS opcode counts
+    for source, name_of in (("ring_attention", attention_kernel),
+                            ("ring_attention_bf16", attention_kernel), ("ring_quant", quant_kernel),
                             ("conv_wgrad", lambda m: "conv_wgrad_kernel" if "conv_wgrad" in m
                              else None),
                             ("rank_bmm", lambda m: "rank_bmm_kernel" if "rank_bmm" in m else None)):
@@ -655,10 +705,21 @@ def phase_build(names=_build.SOURCES + _build.EXTENSIONS) -> None:
         log = _build.build_log(source)
         if log.exists():
             print(json.dumps({"ptxas": ptxas_report(log.read_text(), name_of)}))
+            if source in ATTENTION_SOURCES:
+                # ptxas's warnings and its notes of a serialized wgmma
+                # pipeline ("Potential Performance Loss")
+                for line in log.read_text().splitlines():
+                    if "warning" in line.lower() or "Performance Loss" in line:
+                        print(f"ptxas {source}: {line.strip()}")
         else:
             print(f"no ptxas report: {log} is missing")
     if "ring_quant" in names:
         print(json.dumps({"sass": sass_counts(_build.target("ring_quant"), quant_kernel)}))
+    # how each attention kernel multiplies and copies: the bf16 kernels by
+    # wgmma and TMA with setmaxnreg, none of them TF32 on bf16 inputs
+    for source in ATTENTION_SOURCES:
+        if source in names:
+            print(json.dumps({"attention_sass": attention_sass(_build.target(source))}))
 
 
 def check_quant(dev, gen) -> dict:
@@ -1816,6 +1877,39 @@ def lm_engine_expected(num_leaves: int, sizes: list, steps: int) -> dict:
             "accumulate": list_launches(num_leaves) * steps}
 
 
+def lm_bf16(dev, f32_losses=None) -> tuple:
+    """The sp LM in bf16, without and with remat (K8 once or twice a layer
+    and step, K10 2 launches a layer and step either way), against f32
+    (``f32_losses``, else an f32 run of its own): the loss falls, each step
+    within ``LM_BF16_RTOL`` of f32, remat within 1e-5 of no remat. Returns
+    each run's launch counts and the ``{"parallel"}`` line's entries."""
+    layers = LM_WIDTHS["num_layers"]
+    if f32_losses is None:
+        f32_losses = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_CHECK_STEPS,
+                            "kernel_full")["losses"]
+    runs, line, bf16 = {}, {}, {}
+    for remat in (False, True):
+        run = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_CHECK_STEPS, "kernel_full",
+                     dtype=torch.bfloat16, remat=remat)
+        what = "LM bf16" + (" remat" if remat else "")
+        expect_launches(run["counts"], what,
+                        ring_attention_fwd=(2 if remat else 1) * layers * LM_CHECK_STEPS,
+                        ring_attention_bwd=2 * layers * LM_CHECK_STEPS)
+        losses = run["losses"]
+        require(losses[-1] < losses[0], f"{what}: loss did not fall {losses}")
+        for u, v in zip(losses, f32_losses):
+            require(abs(u - v) <= LM_BF16_RTOL * abs(v), f"{what}: loss {u} vs f32 {v}")
+        runs["lm_bf16" + ("_remat" if remat else "")] = run["counts"]
+        bf16[remat] = run
+        line[what.replace(" ", "_")] = {k: run[k] for k in ("losses", "tokens_per_s", "step_ms",
+                                                            "peak_gb")}
+    for u, v in zip(bf16[True]["losses"], bf16[False]["losses"]):
+        require(abs(u - v) <= 1e-5 * abs(v), f"LM bf16 remat: loss {u} vs {v} without remat")
+    line["lm_bf16_remat_equal_bits"] = bf16[True]["losses"] == bf16[False]["losses"]
+    line["lm_f32_losses"] = f32_losses[:LM_CHECK_STEPS]
+    return runs, line
+
+
 def phase_parallel(dev, f32_losses=None) -> dict:
     """Tensor, pipeline and expert parallelism and the LM's bf16, remat and
     engine paths (see the module docstring); every K3 count exact. Returns
@@ -1869,32 +1963,9 @@ def phase_parallel(dev, f32_losses=None) -> dict:
         runs[f"parallel_{name}"] = counts
         line[name] = {"loss": float(lanes.mean()), "max_abs_err_vs_cpu": err}
 
-    # the sp LM in bf16, without and with remat (K8 once or twice a layer
-    # and step, K10 2 launches a layer and step either way), against f32
-    layers = LM_WIDTHS["num_layers"]
-    if f32_losses is None:
-        f32_losses = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_CHECK_STEPS,
-                            "kernel_full")["losses"]
-    bf16 = {}
-    for remat in (False, True):
-        run = lm_run(dev, LM_WIDTHS, LM_SEQ, LM_BATCH, LM_LR, LM_CHECK_STEPS, "kernel_full",
-                     dtype=torch.bfloat16, remat=remat)
-        what = "LM bf16" + (" remat" if remat else "")
-        expect_launches(run["counts"], what,
-                        ring_attention_fwd=(2 if remat else 1) * layers * LM_CHECK_STEPS,
-                        ring_attention_bwd=2 * layers * LM_CHECK_STEPS)
-        losses = run["losses"]
-        require(losses[-1] < losses[0], f"{what}: loss did not fall {losses}")
-        for u, v in zip(losses, f32_losses):
-            require(abs(u - v) <= LM_BF16_RTOL * abs(v), f"{what}: loss {u} vs f32 {v}")
-        runs["lm_bf16" + ("_remat" if remat else "")] = run["counts"]
-        bf16[remat] = run
-        line[what.replace(" ", "_")] = {k: run[k] for k in ("losses", "tokens_per_s", "step_ms",
-                                                            "peak_gb")}
-    for u, v in zip(bf16[True]["losses"], bf16[False]["losses"]):
-        require(abs(u - v) <= 1e-5 * abs(v), f"LM bf16 remat: loss {u} vs {v} without remat")
-    line["lm_bf16_remat_equal_bits"] = bf16[True]["losses"] == bf16[False]["losses"]
-    line["lm_f32_losses"] = f32_losses[:LM_CHECK_STEPS]
+    bf16_runs, bf16_line = lm_bf16(dev, f32_losses)
+    runs.update(bf16_runs)
+    line.update(bf16_line)
 
     # the LM through the engine at bench.py's chip widths, bf16, 8 ranks x 8
     # sequences of 1024, two epochs of 4 steps
@@ -4608,7 +4679,8 @@ def attention_rows(randn, dtype) -> list:
         leaves = [t.requires_grad_() for t in gathered()]
         return sdpa(*leaves, is_causal=True), leaves, draw(ab, ah, asp * an, ad)
 
-    attn = dict(source="torchmpi_tpu_torch/csrc/ring_attention.cu", shape=list(ATTN_MAIN),
+    source = "ring_attention_bf16.cu" if dtype == torch.bfloat16 else "ring_attention.cu"
+    attn = dict(source=f"torchmpi_tpu_torch/csrc/{source}", shape=list(ATTN_MAIN),
                 causal=True, tensor_cores=True, dtype=str(dtype)[6:])
     return [
         dict(attn, name="ring_attention_fwd",
@@ -6798,6 +6870,50 @@ def phase_timing(dev, runs: dict, errs: dict, timed_rows=()) -> None:
     print(json.dumps({"kernels": out}))
 
 
+def attention_only(dev) -> None:
+    """``--attention``: build the attention kernels, print their ptxas
+    report, hold them against their plain versions, run the bf16 sp LM with
+    and without remat under its gates (``{"attention_lm"}``), then time
+    K8, K9 and K10 in f32 and bf16 at the LM path's shape
+    (``{"attention_kernels": [...]}``, launches from the two LM runs)."""
+    phase_build(ATTENTION_SOURCES)
+    errs = check_attention(dev, torch.Generator(device=dev).manual_seed(0))
+    runs, line = lm_bf16(dev)
+    print(json.dumps({"attention_lm": {**line, "card": card()}}))
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows = attention_rows(randn, torch.float32) + [
+        dict(r, err=f"{r['name']}@lm_bf16") for r in attention_rows(randn, torch.bfloat16)]
+    print(json.dumps({"attention_kernels": time_rows(rows, runs, errs, launch_floor_ms())}))
+    print(json.dumps({"attention_profile": attention_profile(randn)}))
+
+
+def attention_profile(randn, calls: int = 20) -> dict:
+    """Device microseconds a call of each CUDA kernel that K8 and K10 launch
+    on bf16 inputs at the LM path's shape, causal (K10's dQ and dK/dV
+    launches apart), from ``torch.profiler`` over ``calls`` calls each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do = (randn(*ATTN_MAIN).to(torch.bfloat16) for _ in range(4))
+    o, lse = ops.ring_attention_fwd(q, k, v, True)
+    ops.ring_attention_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.ring_attention_fwd(q, k, v, True)
+            ops.ring_attention_bwd(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if "wgmma_kernel" in e.key and us:
+            out[e.key.split("(")[0].replace("void ", "")] = us / calls
+    return {"us_per_call": out, "shape": list(ATTN_MAIN), "card": card()}
+
+
 def quant_only(dev, check: bool) -> None:
     """``--quant``: build K4 alone, print its registers, spills and SASS
     counts, hold it against its plain version (``check``), and time its
@@ -6887,6 +7003,13 @@ def main(argv=None) -> None:
              "{\"multiprocess\"}, {\"bench_2x4\"} and {\"groups_4x2\"} lines), after the "
              "build; prints no result line")
     parser.add_argument(
+        "--attention", action="store_true",
+        help="only the attention kernels (K8, K9, K10): build them, print their registers, "
+             "spills and setmaxnreg, check them against their plain versions "
+             "(check_attention), train the bf16 sp LM with and without remat under its gates, "
+             "and print their f32 and bf16 kernels rows (launches from the LM runs); prints "
+             "no result line")
+    parser.add_argument(
         "--wgrad", action="store_true",
         help="only the per-rank kernels (the convolution weight gradient and the product): "
              "build them, check them against their plain versions and across stacks, print "
@@ -6917,6 +7040,9 @@ def main(argv=None) -> None:
     if args.many:
         phase_build(("reduce_kernel",))
         check_many(dev, torch.Generator(device=dev).manual_seed(0))
+        return
+    if args.attention:
+        attention_only(dev)
         return
     if args.wgrad:
         phase_build(("conv_wgrad", "rank_bmm"))

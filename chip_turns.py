@@ -14,7 +14,9 @@ L2, f32):
   tree's ``ring_allreduce`` takes ``groups``, else one K3 launch a group
   and the slabs' ``torch.cat`` (``schedule.lower._per_group``);
 - the one-process K4 at config 2's bucket 0, allreduce [8, 805386] and
-  'rs' [8, 805392], int8 and bf16 wires.
+  'rs' [8, 805392], int8 and bf16 wires;
+- K8 and K10 at the LM path's [4, 4, 1024, 8, 64], causal, on f32 and on
+  bf16 inputs (``chip_smoke.attention_rows``' kernels and inputs).
 
 It runs on any tree whose ``chip_smoke.py`` has ``phase_build``,
 ``time_ms`` and ``rotating``, so a parent unpacked beside the working tree
@@ -49,7 +51,8 @@ def main(argv=None) -> None:
         raise SystemExit("chip_turns: no CUDA device; this run needs one card")
     from torchmpi_tpu_torch.schedule import lower
 
-    cs.phase_build(("ring_kernels", "ring_quant"))
+    cs.phase_build(tuple(n for n in ("ring_kernels", "ring_quant", "ring_attention",
+                                     "ring_attention_bf16") if n in cs._build.SOURCES))
     ops = cs.ops
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -82,6 +85,16 @@ def main(argv=None) -> None:
         "k4_rs_int8_805392": timed(lambda x: ops.ring_reduce_scatter_quant(x, "int8"), 805392),
         "k4_rs_bf16_805392": timed(lambda x: ops.ring_reduce_scatter_quant(x, "bf16"), 805392),
     }
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for row in cs.attention_rows(randn, dtype):
+            if row["name"] in ("ring_attention_fwd", "ring_attention_bwd"):
+                key = {"ring_attention_fwd": "k8", "ring_attention_bwd": "k10"}[row["name"]]
+                ms[f"{key}_{tag}_attn_main"] = cs.time_ms(
+                    cs.rotating(row["kernel"], row["make"], row["in_bytes"]))
     print(json.dumps({"turns": {"tree": str(args.root), "grouped_intra": grouped, "ms": ms,
                                 "card": cs.card()}}), flush=True)
 

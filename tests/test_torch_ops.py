@@ -337,7 +337,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 def test_build_is_keyed_on_the_sources():
     names = {_build.target(s).name for s in _build.SOURCES}
-    assert len(names) == len(_build.SOURCES) == 6
+    assert len(names) == len(_build.SOURCES) == 7
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)
     assert _build.target("ring_kernels").parent == _build.BUILD_DIR
 

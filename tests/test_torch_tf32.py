@@ -1,43 +1,56 @@
 """The numeric design of the tensor-core ring attention kernels, K8/K9
 (forward) and K10 (backward), checked on the CPU.
 
-K10 (``torchmpi_tpu_torch/csrc/ring_attention.cu``) runs the five products
-of the ring attention backward (S = Q K^T, dP = dO V^T, dV += P^T dO,
-dK += dS^T Q, dQ += dS K) as ``mma.sync`` with TF32 operands and f32
-accumulators. An f32 operand x is split into ``big = tf32_rna(x)`` and
-``small = tf32_rna(x - big)``, and a product takes three terms,
-``a_big b_small + a_small b_big`` then ``a_big b_big`` (3xTF32). A bf16
-value is exact in TF32, so for bf16 inputs S and dP (both operands bf16)
-take one term, and the three products with P or dS (f32) two,
-``P_small b + P_big b``.
+f32 inputs (``torchmpi_tpu_torch/csrc/ring_attention.cu``). K10 runs the
+five products of the ring attention backward (S = Q K^T, dP = dO V^T,
+dV += P^T dO, dK += dS^T Q, dQ += dS K) as ``mma.sync`` with TF32 operands
+and f32 accumulators. An f32 operand x is split into ``big = tf32_rna(x)``
+and ``small = tf32_rna(x - big)``, and a product takes three terms,
+``a_big b_small + a_small b_big`` then ``a_big b_big`` (3xTF32).
+
+bf16 inputs (``csrc/ring_attention_bf16.cu``) run on the bf16 tensor
+cores: S and dP (both operands bf16 inputs) are bf16 x bf16 products,
+exact in f32 and summed in f32; P and dS (f32, from the softmax) go in as
+two bf16 terms, ``hi = bf16_rn(x)`` and ``lo = bf16_rn(x - hi)``, and a
+product with V, dO, Q or K takes ``lo b`` then ``hi b``. The emulation
+sums each term's products in an f32 einsum; the tensor cores truncate as
+they accumulate, which the kernels bound by summing each tile's product in
+a fresh accumulator added in f32.
 
 Here ``tf32_rna`` reproduces ``cvt.rna.tf32.f32`` on f32 bits (add 0x1000,
-clear the low 13 bits; inf and nan pass), pinned on hand-picked patterns.
-Values within one TF32 ulp of the largest finite f32 are left out: what the
-hardware gives there is not pinned here. The emulated backward repeats
-``ops.ring_attention_bwd_plain``'s einsums with each product so split, each
-term an f32 einsum (a product of two TF32 values is exact in f32, so only
-the sums round), and must stay within ``ATTN_TOL["grad"]`` of
-``chip_smoke.py`` (atol and rtol 2e-4, the limits that hold K10 to its
-plain version on the card) of the same backward in f64, at the SWEEP shapes
-of ``tests/test_torch_attention.py`` and at [4, 1, 1024, 2, 64] causal.
+clear the low 13 bits; inf and nan pass) and ``bf16_rn`` the conversion
+``cvt.rn.bf16.f32`` (to nearest, ties to even; inf and nan pass), each
+pinned on hand-picked patterns. Values within one TF32 ulp of the largest
+finite f32 are left out: what the hardware gives there is not pinned here.
+The emulated backward repeats ``ops.ring_attention_bwd_plain``'s einsums
+with each product so split, each term an f32 einsum (a product of two TF32
+or two bf16 values is exact in f32, so only the sums round), and must stay
+within ``ATTN_TOL["grad"]`` of ``chip_smoke.py`` (atol and rtol 2e-4, the
+limits that hold K10 to its plain version on the card) of the same
+backward in f64, at the SWEEP shapes of ``tests/test_torch_attention.py``
+and at [4, 1, 1024, 2, 64] causal.
 
 Plain 1xTF32 (``a_big b_big`` only), printed by
-``test_1xtf32_is_worse_than_3xtf32`` and not asserted: at [4, 1, 1024, 2,
-64] causal its largest errors against the f64 backward are 1.07e-3,
-1.48e-3 and 1.88e-3 (dq, dk, dv), each past the 2e-4 limits, where
-3xTF32 gives 6.9e-7, 1.9e-6 and 3.6e-6; that is why K10 does not use it.
+``test_1xtf32_is_worse_than_3xtf32`` and not held to the limits: at [4, 1,
+1024, 2, 64] causal its largest errors against the f64 backward are
+1.07e-3, 1.48e-3 and 1.88e-3 (dq, dk, dv), each past the 2e-4 limits,
+where 3xTF32 gives 6.9e-7, 1.9e-6 and 3.6e-6; that is why K10 does not use
+it. One bf16 term for P and dS (``hi b`` only, FlashAttention's form),
+printed by ``test_one_bf16_term_is_worse_than_two`` and not held to the
+limits: at the same shape about 5.4e-3, 4.3e-3 and 7.8e-3 (dq, dk, dv) and
+2.1e-3 (o), each past its limit, where hi and lo give 4.9e-6, 4.9e-6,
+9.3e-6 and 3.2e-6; that is why the bf16 kernels take two terms.
 
 The forward (``fwd_mma_kernel``) takes S = Q K^T and P V by the same rule
-(3xTF32 for f32 inputs; for bf16 S one term and P V two) and merges 64-key
-tiles with an online softmax in the log2 domain, each tile's P V summed
-fresh and added in f32. ``ring_fwd`` repeats that walk, in K8's and in
-K9's visiting order, and must stay within ``ATTN_TOL["o"]`` (atol 2e-5)
-and ``["lse"]`` (1e-4) of ``forward64`` at the same shapes. Plain 1xTF32,
-printed by ``test_1xtf32_forward_is_worse_than_3xtf32`` and not asserted:
-at [4, 1, 1024, 2, 64] causal its largest errors against the f64 forward
-are 9.6e-4 (o) and 3.8e-4 (lse), each past its limit, where 3xTF32 gives
-4.9e-7 and 1.1e-6.
+(3xTF32 for f32 inputs; for bf16 S one exact term and P V hi and lo) and
+merges 64-key tiles with an online softmax in the log2 domain, each tile's
+P V summed fresh and added in f32. ``ring_fwd`` repeats that walk, in K8's
+and in K9's visiting order, and must stay within ``ATTN_TOL["o"]`` (atol
+2e-5) and ``["lse"]`` (1e-4) of ``forward64`` at the same shapes. Plain
+1xTF32, printed by ``test_1xtf32_forward_is_worse_than_3xtf32`` and not
+held to the limits: at [4, 1, 1024, 2, 64] causal its largest errors
+against the f64 forward are 9.6e-4 (o) and 3.8e-4 (lse), each past its
+limit, where 3xTF32 gives 4.9e-7 and 1.1e-6.
 """
 
 import functools
@@ -60,6 +73,14 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
     to nearest, ties away from zero; inf and nan unchanged."""
     bits = x.contiguous().view(torch.int32)
     rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def bf16_rn(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rn.bf16.f32``: round an f32 tensor to bf16 (7 mantissa bits)
+    to nearest, ties to even, kept as f32; inf and nan unchanged."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    rounded = ((bits + 0x7FFF + ((bits >> 16) & 1)) & ~0xFFFF).to(torch.int32).view(torch.float32)
     return torch.where(torch.isfinite(x), rounded, x)
 
 
@@ -91,27 +112,62 @@ def test_tf32_rna_leaves_inf_and_nan():
     assert torch.equal(tf32_rna(v), v)
 
 
+@pytest.mark.parametrize("bits,want", [
+    (0x3F800000, 0x3F800000),  # 1.0 is a bf16 value
+    (0x3F807FFF, 0x3F800000),  # below half an ulp: down
+    (0x3F808000, 0x3F800000),  # 1 + 2^-8, exactly halfway above an even value: down to even
+    (0x3F818000, 0x3F820000),  # halfway above an odd value: up to even
+    (0x3F808001, 0x3F810000),  # just above halfway: up
+    (0x3FFF8000, 0x40000000),  # halfway below 2: the carry enters the next binade
+    (0xBF818000, 0xBF820000),  # a negative halfway value: to even, away from zero here
+    (0xBF808000, 0xBF800000),  # a negative halfway value: to even, towards zero here
+    (0x00012345, 0x00010000),  # a subnormal keeps its bits above the cut
+    (0x7F7F7FFF, 0x7F7F0000),  # the largest bf16 value, from below half an ulp above it
+    (0x7F7F8000, 0x7F800000),  # halfway above the largest bf16 value: up to even, inf
+])
+def test_bf16_rn_pins_the_hardware_rounding(bits, want):
+    got = bf16_rn(_f32(bits)).view(torch.int32)
+    assert int(got) & 0xFFFFFFFF == want
+
+
+def test_bf16_rn_leaves_inf_and_nan_and_matches_torch():
+    x = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    got = bf16_rn(x)
+    assert torch.equal(got[:2], x[:2]) and bool(torch.isnan(got[2]))
+    # PyTorch's own f32 -> bf16 conversion rounds the same way
+    v = torch.from_numpy(np.random.RandomState(0).randn(10000).astype(np.float32) * 100)
+    assert torch.equal(bf16_rn(v), v.to(torch.bfloat16).float())
+    # and the hi / lo terms of an f32 value keep about 16 of its 24 bits
+    hi = bf16_rn(v)
+    lo = bf16_rn(v - hi)
+    assert bool(((v - hi - lo).abs() <= v.abs() * 2.0**-16).all())
+
+
 def _terms(x: torch.Tensor):
     big = tf32_rna(x)
     return big, tf32_rna(x - big)
 
 
 def product(rule: str):
-    """An einsum whose operand products follow K10's rule: ``f32``
-    (3xTF32), ``bf16`` (one term between two inputs, two with P or dS) or
-    ``1xtf32`` (one rounded term); ``f64`` is the exact reference."""
+    """An einsum whose operand products follow the kernels' rule: ``f32``
+    (3xTF32), ``bf16`` (one exact term between two inputs, P or dS as bf16
+    hi and lo terms, lo first), ``bf16_1term`` (P or dS as one bf16 term)
+    or ``1xtf32`` (one rounded term); ``f64`` is the exact reference."""
 
     def mm(eq, a, b, inputs: bool):
         if rule == "f64":
             return torch.einsum(eq, a, b)
         if rule == "1xtf32":
             return torch.einsum(eq, tf32_rna(a), tf32_rna(b))
-        if rule == "bf16":
-            assert torch.equal(tf32_rna(b), b)  # the second operand is an input
+        if rule in ("bf16", "bf16_1term"):
+            assert torch.equal(bf16_rn(b), b)  # the second operand is a bf16 input
             if inputs:
+                assert torch.equal(bf16_rn(a), a)
                 return torch.einsum(eq, a, b)
-            a_big, a_small = _terms(a)
-            return torch.einsum(eq, a_small, b) + torch.einsum(eq, a_big, b)
+            hi = bf16_rn(a)
+            if rule == "bf16_1term":
+                return torch.einsum(eq, hi, b)
+            return torch.einsum(eq, bf16_rn(a - hi), b) + torch.einsum(eq, hi, b)
         (a_big, a_small), (b_big, b_small) = _terms(a), _terms(b)
         return (torch.einsum(eq, a_big, b_small) + torch.einsum(eq, a_small, b_big)
                 + torch.einsum(eq, a_big, b_big))
@@ -257,6 +313,21 @@ def test_tensor_core_backward_holds_the_f32_limits(rule, shape, causal):
     the f64 backward, for dq, dk and dv."""
     ok, err = max_err(rule, shape, causal, rule == "bf16", seed=sum(shape) + causal)
     assert all(ok), f"{rule} {shape} causal={causal}: max |err| {err}"
+
+
+def test_one_bf16_term_is_worse_than_two(capsys):
+    """P and dS as one bf16 term at the large shape, bf16 inputs: printed
+    (the docstring records it), and worse than hi and lo on every gradient
+    and on o."""
+    seed = sum(BIG) + 1
+    _, err2 = max_err("bf16", BIG, True, True, seed)
+    _, err1 = max_err("bf16_1term", BIG, True, True, seed)
+    _, ferr2 = fwd_err("bf16", BIG, True, False, True, seed)
+    _, ferr1 = fwd_err("bf16_1term", BIG, True, False, True, seed)
+    with capsys.disabled():
+        print(f"\n{list(BIG)} causal, bf16 inputs, max |err| against f64: (dq, dk, dv) one "
+              f"term {err1}, hi and lo {err2}; (o, lse) one term {ferr1}, hi and lo {ferr2}")
+    assert all(e1 > 10 * e2 for e1, e2 in zip(err1 + ferr1[:1], err2 + ferr2[:1]))
 
 
 def test_1xtf32_is_worse_than_3xtf32(capsys):

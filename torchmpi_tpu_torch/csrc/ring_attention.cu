@@ -1,5 +1,7 @@
-// Ring attention over virtual ranks on one card: the forward (K8), the
-// bidirectional forward (K9) and the analytic backward (K10).
+// Ring attention over virtual ranks on one card, f32 inputs: the forward
+// (K8), the bidirectional forward (K9) and the analytic backward (K10).
+// bf16 inputs take ring_attention_bf16.cu's kernels, on the bf16 tensor
+// cores.
 //
 // Replaces, in torchmpi_tpu/ops/ring_attention_kernel.py:
 // - _ring_attn_kernel (K8): rank r keeps its queries and merges the K/V
@@ -19,9 +21,8 @@
 // place. The VMEM residency, the remote copies, the two-slot buffers, the
 // neighbour barrier, cap_sem and the batch/head chunking that fitted the
 // VMEM envelope have no counterpart here. What stays is the arithmetic, in
-// f32 whatever the input dtype: scale 1/sqrt(d), causal masking by global
-// positions, l = max(l, 1e-30), o = acc / l cast to q's dtype,
-// lse = m + log(l).
+// f32: scale 1/sqrt(d), causal masking by global positions,
+// l = max(l, 1e-30), o = acc / l, lse = m + log(l).
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [p, B, n, H, D] contiguous (each
 // rank keeps the JAX layout [B, n, H, D]); lse and delta are [p, B, H, n]
@@ -60,9 +61,9 @@
 // f32 FMAs. The design spends its instructions on the MMAs and on
 // splitting operands, and keeps two blocks (16 warps) an SM up to D = 64,
 // which caps the registers at 128 a thread: at D = 64 ptxas (chip_smoke.py
-// prints its report) finds 136 bytes of spill stores for f32 (32 for
-// bf16). Capping at one block an SM (no spill) or halving mma_pb's fresh
-// accumulator (more spill) was slower on an H100.
+// prints its report) finds 136 bytes of spill stores. Capping at one
+// block an SM (no spill) or halving mma_pb's fresh accumulator (more
+// spill) was slower on an H100.
 //
 // Backward (K10), on the tensor cores. Each 64 x 64 (query, key) tile
 // takes five products: S = Q K^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q,
@@ -99,10 +100,7 @@
 // fragment is loaded into big = tf32_rna(x) and small = tf32_rna(x - big),
 // and a product takes three MMAs, a_big b_small + a_small b_big first, then
 // a_big b_big: the arithmetic of CUTLASS's OpMultiplyAddFastF32, about f32
-// accuracy. bf16 inputs are exact in TF32, so S and dP (both operands
-// bf16) take one MMA, and the products with P or dS (f32) two:
-// P_big b + P_small b. One template serves both dtypes; the number of
-// terms is fixed at compile time.
+// accuracy.
 //
 // Why two launches. dK/dV of block j sum over every visiting rank's
 // queries and dQ of rank r over every visited block's keys; one launch
@@ -123,8 +121,8 @@
 // share an SM (16 warps), which caps the registers at 128 a thread. At
 // D = 64, the LM's head dim, ptxas (nvcc -Xptxas -v, sm_90a; chip_smoke.py
 // prints its report) finds no spill in the dQ launch and 380 bytes of
-// spill stores in the f32 dK/dV launch (252 for bf16), whose dK and dV
-// accumulators take 64 of the 128 registers. The same launch at one block
+// spill stores in the dK/dV launch, whose dK and dV accumulators take 64
+// of the 128 registers. The same launch at one block
 // of 8 warps an SM, which spills nothing, was slower at the LM shape on an
 // H100 (4.0 ms against 3.7). At D = 128 one block holds an SM.
 //
@@ -154,16 +152,6 @@ struct Geometry {
     return ((size_t)r * B * H + cell) * n + i;
   }
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(unsigned short x) {
-  return __bfloat162float(__ushort_as_bfloat16(x));
-}
-template <typename S> __device__ __forceinline__ S from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ unsigned short from_f32<unsigned short>(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
 
 // The rank whose K/V block rank r merges at visit i (0 <= i < p).
 __device__ __forceinline__ int visit_src(int r, int i, int p, bool bidir) {
@@ -203,7 +191,6 @@ template <int D, typename S> struct SmemTile {
   static constexpr int kLd = D + 16 / (int)sizeof(S);
   static constexpr int kElems = kTile * kLd;
   static constexpr int kChunks = D * (int)sizeof(S) / 16;  // 16-byte copies a row
-  static constexpr bool kF32 = std::is_same<S, float>::value;
   // backward blocks an SM should hold: two up to D = 64 (16 warps; the
   // registers are then capped at 128 a thread), one at D = 128, whose dK
   // and dV accumulators alone take 128
@@ -216,26 +203,15 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return r;
 }
 
-// An element of a tile as f32: a bf16 value is its bits shifted up, and is
-// exact in TF32.
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const unsigned short* p) {
-  return __uint_as_float((uint32_t)*p << 16);
-}
-
-// The TF32 terms of N fragment registers: with kSplit, big = tf32_rna(x)
-// and small = tf32_rna(x - big); without, big holds x, exact in TF32.
+// The TF32 terms of N fragment registers: big = tf32_rna(x) and
+// small = tf32_rna(x - big).
 template <int N> struct Frag {
   uint32_t big[N], small[N];
 };
-template <bool kSplit, int N>
+template <int N>
 __device__ __forceinline__ void set_terms(Frag<N>& f, int i, float x) {
-  if constexpr (kSplit) {
-    f.big[i] = tf32_rna(x);
-    f.small[i] = tf32_rna(x - __uint_as_float(f.big[i]));
-  } else {
-    f.big[i] = __float_as_uint(x);
-  }
+  f.big[i] = tf32_rna(x);
+  f.small[i] = tf32_rna(x - __uint_as_float(f.big[i]));
 }
 
 // Four 8 x 4 f32 sub-tiles of shared memory, one 16-byte row address from
@@ -269,17 +245,10 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b on the tensor cores, the small terms first: 3xTF32 when both
-// operands are split, a_small b + a_big b when only a is, one MMA when
-// neither is.
-template <bool kSplitA, bool kSplitB>
+// c += a b on the tensor cores as 3xTF32, the small terms first.
 __device__ __forceinline__ void mma_terms(float (&c)[4], const Frag<4>& a, const Frag<2>& b) {
-  if constexpr (kSplitA && kSplitB) {
-    mma_tf32(c, a.big, b.small);
-    mma_tf32(c, a.small, b.big);
-  } else if constexpr (kSplitA) {
-    mma_tf32(c, a.small, b.big);
-  }
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.small, b.big);
   mma_tf32(c, a.big, b.big);
 }
 
@@ -288,56 +257,38 @@ __device__ __forceinline__ void mma_terms(float (&c)[4], const Frag<4>& a, const
 // both natural tiles. Lane (g, t) = (lane / 4, lane % 4) holds A's rows g and
 // g + 8, columns t and t + 4 of each k step, and B's row (= product
 // column) g, columns t and t + 4; c[j] holds rows g, g + 8, columns 2t,
-// 2t + 1 of step j. f32 tiles are read by ldmatrix, four sub-tiles at a
-// time; bf16 ones element by element (ldmatrix would hand out pairs).
+// 2t + 1 of step j. The tiles are read by ldmatrix, four sub-tiles at a
+// time.
 template <int D, typename S, int kSteps>
 __device__ __forceinline__ void mma_abt(float (&c)[kSteps][4], const S* a, const S* b,
                                         int lane) {
   static_assert(kSteps % 2 == 0, "ldmatrix reads two column steps of B at a time");
   constexpr int LD = SmemTile<D, S>::kLd;
-  if constexpr (SmemTile<D, S>::kF32) {
-    // sub-tiles: A rows 0-7 / 8-15 x words 0-3 / 4-7 of the step; B rows
-    // of two column steps x words 0-3 / 4-7
-    const int m = lane >> 3, i = lane & 7;
-    const float* pa = a + (i + 8 * (m & 1)) * LD + 4 * (m >> 1);
-    const float* pb = b + (i + 8 * (m >> 1)) * LD + 4 * (m & 1);
+  static_assert(std::is_same<S, float>::value,
+                "f32 tiles; bf16 inputs take ring_attention_bf16.cu");
+  // sub-tiles: A rows 0-7 / 8-15 x words 0-3 / 4-7 of the step; B rows
+  // of two column steps x words 0-3 / 4-7
+  const int m = lane >> 3, i = lane & 7;
+  const float* pa = a + (i + 8 * (m & 1)) * LD + 4 * (m >> 1);
+  const float* pb = b + (i + 8 * (m >> 1)) * LD + 4 * (m & 1);
 #pragma unroll
-    for (int k = 0; k < D; k += 8) {
-      uint32_t ra[4];
-      ldsm4(ra, pa + k);
-      Frag<4> fa;
+  for (int k = 0; k < D; k += 8) {
+    uint32_t ra[4];
+    ldsm4(ra, pa + k);
+    Frag<4> fa;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) set_terms<true>(fa, e, __uint_as_float(ra[e]));
+    for (int e = 0; e < 4; ++e) set_terms(fa, e, __uint_as_float(ra[e]));
 #pragma unroll
-      for (int j = 0; j < kSteps; j += 2) {
-        uint32_t rb[4];
-        ldsm4(rb, pb + j * 8 * LD + k);
-        Frag<2> f0, f1;
-        set_terms<true>(f0, 0, __uint_as_float(rb[0]));
-        set_terms<true>(f0, 1, __uint_as_float(rb[1]));
-        set_terms<true>(f1, 0, __uint_as_float(rb[2]));
-        set_terms<true>(f1, 1, __uint_as_float(rb[3]));
-        mma_terms<true, true>(c[j], fa, f0);
-        mma_terms<true, true>(c[j + 1], fa, f1);
-      }
-    }
-  } else {
-    const S* arow = a + (lane >> 2) * LD + (lane & 3);
-    const S* brow = b + (lane >> 2) * LD + (lane & 3);
-#pragma unroll
-    for (int k = 0; k < D; k += 8) {
-      Frag<4> fa;
-      set_terms<false>(fa, 0, load_f32(arow + k));
-      set_terms<false>(fa, 1, load_f32(arow + 8 * LD + k));
-      set_terms<false>(fa, 2, load_f32(arow + k + 4));
-      set_terms<false>(fa, 3, load_f32(arow + 8 * LD + k + 4));
-#pragma unroll
-      for (int j = 0; j < kSteps; ++j) {
-        Frag<2> fb;
-        set_terms<false>(fb, 0, load_f32(brow + j * 8 * LD + k));
-        set_terms<false>(fb, 1, load_f32(brow + j * 8 * LD + k + 4));
-        mma_terms<false, false>(c[j], fa, fb);
-      }
+    for (int j = 0; j < kSteps; j += 2) {
+      uint32_t rb[4];
+      ldsm4(rb, pb + j * 8 * LD + k);
+      Frag<2> f0, f1;
+      set_terms(f0, 0, __uint_as_float(rb[0]));
+      set_terms(f0, 1, __uint_as_float(rb[1]));
+      set_terms(f1, 0, __uint_as_float(rb[2]));
+      set_terms(f1, 1, __uint_as_float(rb[3]));
+      mma_terms(c[j], fa, f0);
+      mma_terms(c[j + 1], fa, f1);
     }
   }
 }
@@ -348,30 +299,29 @@ __device__ __forceinline__ void mma_abt(float (&c)[kSteps][4], const S* a, const
 // A with the step's k permuted, slot t taking column 2t and slot t + 4
 // column 2t + 1 (A's registers are then p's, reordered), so B's fragment
 // reads rows 2t and 2t + 1 of the step, column g. b: 8 kSteps natural rows of
-// B. P is f32 and always split; B is split when it is f32. The tile's sum
-// is taken in a fresh accumulator and added to c with an f32 add: the
+// B. P and B are both split (3xTF32). The tile's sum is taken in a fresh
+// accumulator and added to c with an f32 add: the
 // tensor cores truncate as they accumulate, and a sum carried through them
 // over a whole ring drifts (the note at the top).
 template <int D, typename S, int kSteps>
 __device__ __forceinline__ void mma_pb(float (&c)[D / 8][4], const float (&p)[kSteps][4],
                                        const S* b, int lane) {
   constexpr int LD = SmemTile<D, S>::kLd;
-  constexpr bool kSplitB = SmemTile<D, S>::kF32;
   const S* bcol = b + 2 * (lane & 3) * LD + (lane >> 2);
   float tile[D / 8][4] = {};
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
     Frag<4> fa;
-    set_terms<true>(fa, 0, p[kk][0]);
-    set_terms<true>(fa, 1, p[kk][2]);
-    set_terms<true>(fa, 2, p[kk][1]);
-    set_terms<true>(fa, 3, p[kk][3]);
+    set_terms(fa, 0, p[kk][0]);
+    set_terms(fa, 1, p[kk][2]);
+    set_terms(fa, 2, p[kk][1]);
+    set_terms(fa, 3, p[kk][3]);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       Frag<2> fb;
-      set_terms<kSplitB>(fb, 0, load_f32(bcol + kk * 8 * LD + j * 8));
-      set_terms<kSplitB>(fb, 1, load_f32(bcol + (kk * 8 + 1) * LD + j * 8));
-      mma_terms<true, kSplitB>(tile[j], fa, fb);
+      set_terms(fb, 0, bcol[kk * 8 * LD + j * 8]);
+      set_terms(fb, 1, bcol[(kk * 8 + 1) * LD + j * 8]);
+      mma_terms(tile[j], fa, fb);
     }
   }
 #pragma unroll
@@ -489,10 +439,6 @@ __device__ __forceinline__ void sum_halves(float (&a)[D / 8][4], float* red, int
 // Two f32 values into adjacent elements of an output row.
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(unsigned short* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = (uint32_t)from_f32<unsigned short>(a) |
-                                    ((uint32_t)from_f32<unsigned short>(b) << 16);
 }
 
 // ------------------------------------------------------------- forward
@@ -687,7 +633,7 @@ __global__ void __launch_bounds__(kBwdThreads, SmemTile<D, S>::kMinBlocks)
     float sum = 0.f;
     if (row < g.n) {
       const size_t off = g.row(r, cell, row, D);
-      for (int d = lane & 3; d < D; d += 4) sum += to_f32(dout[off + d]) * to_f32(o[off + d]);
+      for (int d = lane & 3; d < D; d += 4) sum += dout[off + d] * o[off + d];
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -913,37 +859,34 @@ inline bool geometry(int p, int B, int n, int H, int D, int causal, Geometry* g)
 }  // namespace attn
 }  // namespace tmpi
 
-#define TMPI_ATTN_DISPATCH(D_, FN, ...)                                           \
-  switch (D_) {                                                                   \
-    case 8: return (int)(dtype == tmpi::kF32 ? FN<8, float>(__VA_ARGS__)          \
-                                             : FN<8, unsigned short>(__VA_ARGS__)); \
-    case 16: return (int)(dtype == tmpi::kF32 ? FN<16, float>(__VA_ARGS__)        \
-                                              : FN<16, unsigned short>(__VA_ARGS__)); \
-    case 32: return (int)(dtype == tmpi::kF32 ? FN<32, float>(__VA_ARGS__)        \
-                                              : FN<32, unsigned short>(__VA_ARGS__)); \
-    case 64: return (int)(dtype == tmpi::kF32 ? FN<64, float>(__VA_ARGS__)        \
-                                              : FN<64, unsigned short>(__VA_ARGS__)); \
-    case 128: return (int)(dtype == tmpi::kF32 ? FN<128, float>(__VA_ARGS__)      \
-                                               : FN<128, unsigned short>(__VA_ARGS__)); \
-    default: return (int)cudaErrorInvalidValue;                                   \
+#define TMPI_ATTN_DISPATCH(D_, FN, ...)                 \
+  switch (D_) {                                         \
+    case 8: return (int)FN<8, float>(__VA_ARGS__);      \
+    case 16: return (int)FN<16, float>(__VA_ARGS__);    \
+    case 32: return (int)FN<32, float>(__VA_ARGS__);    \
+    case 64: return (int)FN<64, float>(__VA_ARGS__);    \
+    case 128: return (int)FN<128, float>(__VA_ARGS__);  \
+    default: return (int)cudaErrorInvalidValue;         \
   }
 
-// q, k, v, o: [p, B, n, H, D] contiguous of `dtype` (tmpi::kF32 or kBF16);
-// lse: [p, B, H, n] f32. bidir selects K9's visiting order.
+// q, k, v, o: [p, B, n, H, D] contiguous of `dtype` (tmpi::kF32; bf16
+// inputs take tm_ring_attention_bf16_fwd); lse: [p, B, H, n] f32. bidir
+// selects K9's visiting order.
 extern "C" int tm_ring_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                      void* lse, int dtype, int p, int B, int n, int H, int D,
                                      int causal, int bidir, void* stream) {
   using namespace tmpi::attn;
   Geometry g;
-  if ((dtype != tmpi::kF32 && dtype != tmpi::kBF16) || !geometry(p, B, n, H, D, causal, &g))
+  if (dtype != tmpi::kF32 || !geometry(p, B, n, H, D, causal, &g))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   TMPI_ATTN_DISPATCH(D, launch_fwd, q, k, v, o, l, g, bidir != 0, s)
 }
 
-// Inputs as the forward's, with o and dout of q's shape and dtype and lse
-// the forward's; delta: [p, B, H, n] f32 scratch; dq, dk, dv: outputs of
+// Inputs as the forward's (f32; bf16 inputs take
+// tm_ring_attention_bf16_bwd), with o and dout of q's shape and dtype and
+// lse the forward's; delta: [p, B, H, n] f32 scratch; dq, dk, dv: outputs of
 // q's shape and dtype. Two launches: dQ (which writes delta), then dK/dV.
 extern "C" int tm_ring_attention_bwd(const void* q, const void* k, const void* v,
                                      const void* o, const void* dout, const void* lse,
@@ -952,7 +895,7 @@ extern "C" int tm_ring_attention_bwd(const void* q, const void* k, const void* v
                                      void* stream) {
   using namespace tmpi::attn;
   Geometry g;
-  if ((dtype != tmpi::kF32 && dtype != tmpi::kBF16) || !geometry(p, B, n, H, D, causal, &g))
+  if (dtype != tmpi::kF32 || !geometry(p, B, n, H, D, causal, &g))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);

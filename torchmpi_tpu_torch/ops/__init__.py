@@ -27,7 +27,8 @@
   (the same file) ``ops/reduce_kernel.py:_scale_add_kernel``;
   ``accumulate_many`` and ``scale_accumulate_many`` run the same kernels
   over a list of leaves in one launch;
-- ``ring_attention_fwd`` (``csrc/ring_attention.cu``) replaces
+- ``ring_attention_fwd`` (``csrc/ring_attention.cu`` on f32 inputs,
+  ``csrc/ring_attention_bf16.cu`` on bf16 ones) replaces
   ``ops/ring_attention_kernel.py:_ring_attn_kernel`` and, with
   ``bidir=True``, ``_ring_attn_bidir_kernel``; ``ring_attention_bwd``
   replaces ``_ring_attn_bwd_kernel``; ``RingAttention`` is the autograd

@@ -14,12 +14,18 @@ The port of ``torchmpi_tpu/ops/ring_attention_kernel.py``:
   ``bwd_kernel`` is set, else the plain analytic ring backward (the JAX
   package's default XLA backward).
 
-All three kernels run their products on the tensor cores (``mma.sync``
-with TF32 operands and f32 accumulators, f32 operands split as 3xTF32, bf16
-ones exact in TF32): the forward is ``fwd_mma_kernel``, the backward
-``bwd_dq_mma_kernel`` then ``bwd_dkv_mma_kernel``.
+All three kernels run their products on the tensor cores, in f32
+arithmetic whatever the input dtype. On f32 inputs (``csrc/ring_attention.cu``)
+they are ``mma.sync`` with TF32 operands split as 3xTF32: the forward is
+``fwd_mma_kernel``, the backward ``bwd_dq_mma_kernel`` then
+``bwd_dkv_mma_kernel``. On bf16 inputs (``csrc/ring_attention_bf16.cu``)
+they are ``wgmma`` on the bf16 tensor cores with TMA loads: S and dP exact
+bf16 products summed in f32, P and dS as two bf16 terms (hi and lo), each
+tile's product summed fresh and added in f32; the forward is
+``fwd_wgmma_kernel``, the backward ``bwd_dq_wgmma_kernel`` then
+``bwd_dkv_wgmma_kernel``.
 
-The kernels are ``csrc/ring_attention.cu``. Tensors are rank-stacked: q, k
+Tensors are rank-stacked: q, k
 and v are ``[sp, b, n_local, h, d]`` (rank r keeps the JAX layout
 ``[b, n, h, d]``; the ring is the leading axis) and ``lse`` is
 ``[sp, b, h, n_local]`` f32. A wrapper takes the plain version only for a
@@ -34,8 +40,10 @@ block the block max, ``exp``, the row sums and the alpha/beta merge of
 ``_ring_attention_bwd_xla``. The kernels merge 64-key tiles instead of
 whole blocks (the forward with an online softmax) and sum their products
 on the tensor cores, so the two agree to rounding, not bit for bit
-(``tests/test_torch_tf32.py`` checks the kernels' 3xTF32 arithmetic, the
-forward's tile walk included, against f64 on the CPU).
+(``tests/test_torch_tf32.py`` checks the kernels' 3xTF32 and bf16
+arithmetic, the forward's tile walk included, against f64 on the CPU, and
+``tests/test_torch_attention_bf16.py`` the bf16 arithmetic against the JAX
+kernels).
 """
 
 from __future__ import annotations
@@ -62,11 +70,21 @@ _SIGNATURES = {
     # q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, p, B, n, H, D, causal, stream
     "tm_ring_attention_bwd": [_PTR] * 10 + [_INT] * 7 + [_PTR],
 }
+_SIGNATURES_BF16 = {
+    # q, k, v, o, lse, p, B, n, H, D, causal, bidir, stream
+    "tm_ring_attention_bf16_fwd": [_PTR] * 5 + [_INT] * 7 + [_PTR],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, p, B, n, H, D, causal, stream
+    "tm_ring_attention_bf16_bwd": [_PTR] * 10 + [_INT] * 6 + [_PTR],
+}
 
 
-def _lib():
+def _lib(dtype=torch.float32):
+    """The kernels' library for ``dtype``: ``csrc/ring_attention.cu`` (f32)
+    or ``csrc/ring_attention_bf16.cu`` (bf16)."""
     from ._build import library
 
+    if dtype == torch.bfloat16:
+        return library("ring_attention_bf16", _SIGNATURES_BF16)
     return library("ring_attention", _SIGNATURES)
 
 
@@ -198,10 +216,16 @@ def ring_attention_fwd(q, k, v, causal: bool = False, bidir: bool = False, strea
     lse = torch.empty((p, b, h, n), dtype=torch.float32, device=q.device)
     from ._build import check, launch
 
-    call = _lib().tm_ring_attention_fwd
-    err = launch(q.device, lambda s: call(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        DTYPES[q.dtype], p, b, n, h, d, int(causal), int(bidir), s), stream)
+    if q.dtype == torch.bfloat16:
+        call = _lib(q.dtype).tm_ring_attention_bf16_fwd
+        err = launch(q.device, lambda s: call(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            p, b, n, h, d, int(causal), int(bidir), s), stream)
+    else:
+        call = _lib().tm_ring_attention_fwd
+        err = launch(q.device, lambda s: call(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            DTYPES[q.dtype], p, b, n, h, d, int(causal), int(bidir), s), stream)
     check(err, "ring_attention_fwd")
     launches["ring_attention_fwd_bidir" if bidir else "ring_attention_fwd"] += 1
     return o, lse
@@ -264,11 +288,15 @@ def ring_attention_bwd(q, k, v, o, lse, do, causal: bool = False, stream=None):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     from ._build import check, launch
 
-    call = _lib().tm_ring_attention_bwd
-    err = launch(q.device, lambda s: call(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        DTYPES[q.dtype], p, b, n, h, d, int(causal), s), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if q.dtype == torch.bfloat16:
+        call = _lib(q.dtype).tm_ring_attention_bf16_bwd
+        err = launch(q.device, lambda s: call(*ptrs, p, b, n, h, d, int(causal), s), stream)
+    else:
+        call = _lib().tm_ring_attention_bwd
+        err = launch(q.device, lambda s: call(*ptrs, DTYPES[q.dtype], p, b, n, h, d,
+                                               int(causal), s), stream)
     check(err, "ring_attention_bwd")
     launches["ring_attention_bwd"] += 2
     return dq, dk, dv
