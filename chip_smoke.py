@@ -625,6 +625,26 @@ def attention_sass(lib: Path) -> dict:
     return out
 
 
+GEMM_SOURCES = ("conv_wgrad", "rank_bmm")
+
+
+def gemm_kernel(mangled: str):
+    """``conv_wgrad_kernel<BM, BN>`` or ``rank_bmm_kernel<BM, BN, A layout,
+    B layout>`` (``k`` a k-major tile, ``mn`` an mn-major one) of a mangled
+    name, else None."""
+    m = re.search(r"(conv_wgrad_kernel|rank_bmm_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return None
+    args = re.findall(r"L([ib])(\d+)E", m.group(2))
+    return f"{m.group(1)}<" + ", ".join(
+        v if kind == "i" else ("k" if v == "1" else "mn") for kind, v in args) + ">"
+
+
+# the per-rank kernels' opcodes: TF32 HMMA (counted apart as "tf32_hmma"),
+# LDGSTS (cp.async), plain loads and CUDA-core FMAs
+GEMM_SASS = ("HMMA", "LDGSTS", "LDG", "FFMA")
+
+
 def quant_kernel(mangled: str):
     """``ring_quant_kernel<wire, mode, maxp, vec>`` of a mangled name (maxp
     0 is the p > 8 path; vec the floats a lane moves at once), else None."""
@@ -663,11 +683,12 @@ SASS_OPS = ("MUFU", "FCHK", "F2I", "I2F", "F2F", "DMUL", "DADD", "DFMA", "SHFL",
             "LDG", "STG")
 
 
-def sass_counts(lib: Path, name_of) -> dict:
-    """Static counts of :data:`SASS_OPS` in each kernel of ``lib`` that
+def sass_counts(lib: Path, name_of, ops=SASS_OPS) -> dict:
+    """Static counts of the opcodes ``ops`` in each kernel of ``lib`` that
     ``name_of`` names, from ``cuobjdump -sass`` (instructions in the code,
     the unrolled hops and the division's slow path included; not counts of
-    executed instructions)."""
+    executed instructions); where ``ops`` has HMMA, its TF32 form counted
+    apart too, as "tf32_hmma"."""
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -677,11 +698,13 @@ def sass_counts(lib: Path, name_of) -> dict:
         if fn:
             name = name_of(fn.group(1))
             if name:
-                counts[name] = dict.fromkeys(SASS_OPS, 0)
+                counts[name] = dict.fromkeys(ops + (("tf32_hmma",) if "HMMA" in ops else ()), 0)
             continue
-        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)([.\w]*)", line)
         if name and op and op.group(1) in counts[name]:
             counts[name][op.group(1)] += 1
+            if op.group(1) == "HMMA" and "TF32" in op.group(2):
+                counts[name]["tf32_hmma"] += 1
     return counts
 
 
@@ -695,9 +718,7 @@ def phase_build(names=_build.SOURCES + _build.EXTENSIONS) -> None:
     # head dim) and of K4, and K4's SASS opcode counts
     for source, name_of in (("ring_attention", attention_kernel),
                             ("ring_attention_bf16", attention_kernel), ("ring_quant", quant_kernel),
-                            ("conv_wgrad", lambda m: "conv_wgrad_kernel" if "conv_wgrad" in m
-                             else None),
-                            ("rank_bmm", lambda m: "rank_bmm_kernel" if "rank_bmm" in m else None)):
+                            ("conv_wgrad", gemm_kernel), ("rank_bmm", gemm_kernel)):
         if source not in names:
             continue
         if source == "ring_attention":
@@ -715,6 +736,20 @@ def phase_build(names=_build.SOURCES + _build.EXTENSIONS) -> None:
             print(f"no ptxas report: {log} is missing")
     if "ring_quant" in names:
         print(json.dumps({"sass": sass_counts(_build.target("ring_quant"), quant_kernel)}))
+    # the per-rank kernels: no spill, TF32 HMMA and LDGSTS (cp.async) in
+    # every instantiation
+    for source in GEMM_SOURCES:
+        if source in names:
+            report = ptxas_report(_build.build_log(source).read_text(), gemm_kernel)
+            sass = sass_counts(_build.target(source), gemm_kernel, GEMM_SASS)
+            print(json.dumps({"gemm_sass": sass}))
+            require(bool(report) and set(report) == set(sass),
+                    f"{source}: ptxas reported {sorted(report)}, cuobjdump {sorted(sass)}")
+            for name, counts in sass.items():
+                require(report[name].get("spill_stores", 0) == 0 and
+                        report[name].get("spill_loads", 0) == 0, f"{name} spills: {report[name]}")
+                require(counts["tf32_hmma"] > 0 and counts["LDGSTS"] > 0,
+                        f"{name}: no TF32 HMMA or no LDGSTS in its SASS: {counts}")
     # how each attention kernel multiplies and copies: the bf16 kernels by
     # wgmma and TMA with setmaxnreg, none of them TF32 on bf16 inputs
     for source in ATTENTION_SOURCES:
@@ -1027,9 +1062,24 @@ WGRAD_SHAPES = (
     (2, 3, 5, 9, 11, 70, 3, 1, 2, 2),  # ragged tiles, dilation 2
     (1, 1, 7, 5, 5, 3, 3, 1, 1, 1),  # one rank, one image
 )
-# |kernel - plain| against max |plain|: the f32 sums run in another order
-# than cuDNN's (no TF32 on either side); a zeroed output reads 1
+# |kernel - plain| against max |plain|: the kernels sum as 3xTF32 on the
+# tensor cores in another order than ATen's f32 (no TF32 on the plain
+# side); a zeroed output reads 1
 WGRAD_RTOL = 1e-5
+# |kernel - f64 sums| against max |f64| at config 1's conv1 and dense0:
+# ATen's f32 meets it, and so must the per-rank kernels (3xTF32 keeps
+# f32's accuracy, one TF32 term would not); a zeroed output reads 1
+F64_RTOL = 1e-6
+
+
+def within(got, want, rtol: float, what: str) -> float:
+    """|got - want| / max|want|, which must be at most ``rtol``, and a
+    zeroed output must fail the same limit. Returns the ratio."""
+    scale = float(want.abs().max())
+    rel = float((got.double() - want.double()).abs().max()) / scale
+    require(scale > 0 and rel <= rtol, f"{what}: |kernel - reference| / max|reference| = {rel}")
+    require(float(want.abs().max()) / scale > rtol, f"{what}: a zeroed output passes {rtol}")
+    return rel
 
 
 def wgrad_inputs(shape, randn):
@@ -1067,13 +1117,15 @@ def check_wgrad(dev, gen) -> dict:
         k = ops.conv2d_weight_grad_ranks(*args)
         pl = ops.conv2d_weight_grad_ranks_plain(*args)
         torch.cuda.synchronize()
-        scale = float(pl.abs().max())
-        rel = float((k - pl).abs().max()) / scale
-        worst = max(worst, rel)
-        require(scale > 0 and rel <= WGRAD_RTOL,
-                f"conv2d_weight_grad_ranks {shape}: |kernel - plain| / max|plain| = {rel}")
+        worst = max(worst, within(k, pl, WGRAD_RTOL, f"conv2d_weight_grad_ranks {shape}"))
         if shape == WGRAD_CONV1:
             err["conv2d_weight_grad_ranks"] = float((k - pl).abs().max())
+            f64 = ops.conv2d_weight_grad_ranks_plain(args[0].double(), args[1].double(),
+                                                     *args[2:])
+            err["conv2d_weight_grad_ranks_f64_rel"] = within(
+                k, f64, F64_RTOL, f"conv2d_weight_grad_ranks {shape} against the f64 sums")
+            err["conv2d_weight_grad_ranks_plain_f64_rel"] = within(
+                pl, f64, F64_RTOL, f"the plain weight gradient {shape} against the f64 sums")
         if shape[0] == P:
             x, dy = args[:2]
             require(torch.equal(bits(k), bits(ops.conv2d_weight_grad_ranks(*args))),
@@ -1084,7 +1136,10 @@ def check_wgrad(dev, gen) -> dict:
                 require(torch.equal(bits(k), bits(parts)),
                         f"conv2d_weight_grad_ranks {shape}: stacks of {m} differ from one of {P}")
     print(f"wgrad: {len(WGRAD_SHAPES)} shapes within {WGRAD_RTOL} of max|plain| (worst {worst:.3e}); "
-          f"config 1's bit for bit in stacks of {P}, 4 and 2")
+          f"conv1 within {F64_RTOL} of max|f64| (kernel "
+          f"{err['conv2d_weight_grad_ranks_f64_rel']:.3e}, plain "
+          f"{err['conv2d_weight_grad_ranks_plain_f64_rel']:.3e}); config 1's bit for bit in "
+          f"stacks of {P}, 4 and 2")
     return err
 
 
@@ -1100,7 +1155,7 @@ def wgrad_row(randn) -> dict:
                  "from XLA",
         shape=[R, B, C, H, W], make=lambda: wgrad_inputs(WGRAD_CONV1, randn),
         in_bytes=n_in * 4, bytes=(n_in + R * O * C * k * k) * 4,
-        ops=2 * R * O * C * k * k * B * H * W,
+        ops=2 * R * O * C * k * k * B * H * W, tensor_cores=True,
         kernel=ops.conv2d_weight_grad_ranks, plain=ops.conv2d_weight_grad_ranks_plain,
         library=wgrad_grouped)
 
@@ -1142,13 +1197,14 @@ def check_bmm(dev, gen) -> dict:
         a, b = bmm_inputs(shape, randn)
         k, pl = ops.rank_bmm(a, b), ops.rank_bmm_plain(a, b)
         torch.cuda.synchronize()
-        scale = float(pl.abs().max())
-        rel = float((k - pl).abs().max()) / scale
-        worst = max(worst, rel)
-        require(scale > 0 and rel <= WGRAD_RTOL,
-                f"rank_bmm {shape}: |kernel - plain| / max|plain| = {rel}")
+        worst = max(worst, within(k, pl, WGRAD_RTOL, f"rank_bmm {shape}"))
         if shape == BMM_LENET:
             err["rank_bmm"] = float((k - pl).abs().max())
+            f64 = torch.bmm(a.double(), b.double())
+            err["rank_bmm_f64_rel"] = within(k, f64, F64_RTOL,
+                                             f"rank_bmm {shape} against the f64 sums")
+            err["rank_bmm_plain_f64_rel"] = within(
+                pl, f64, F64_RTOL, f"the plain product {shape} against the f64 sums")
         if shape[0] == P:
             require(torch.equal(bits(k), bits(ops.rank_bmm(a, b))) and
                     torch.equal(bits(k), bits(ops.rank_bmm(a.contiguous(), b.contiguous()))),
@@ -1158,7 +1214,9 @@ def check_bmm(dev, gen) -> dict:
                 require(torch.equal(bits(k), bits(parts)),
                         f"rank_bmm {shape}: stacks of {m} differ from one of {P}")
     print(f"rank_bmm: {len(BMM_SHAPES)} shapes within {WGRAD_RTOL} of max|plain| (worst "
-          f"{worst:.3e}); bit for bit in stacks of {P}, 4 and 2 and at any strides")
+          f"{worst:.3e}); dense0 within {F64_RTOL} of max|f64| (kernel "
+          f"{err['rank_bmm_f64_rel']:.3e}, plain {err['rank_bmm_plain_f64_rel']:.3e}); bit for "
+          f"bit in stacks of {P}, 4 and 2 and at any strides")
     return err
 
 
@@ -1174,7 +1232,98 @@ def bmm_row(randn) -> dict:
                  "from XLA",
         shape=[R, M, K, N], make=lambda: bmm_inputs(BMM_LENET, randn),
         in_bytes=n_in * 4, bytes=(n_in + R * M * N) * 4, ops=2 * R * M * N * K,
-        kernel=ops.rank_bmm, plain=ops.rank_bmm_plain, library=torch.bmm)
+        tensor_cores=True, kernel=ops.rank_bmm, plain=ops.rank_bmm_plain, library=torch.bmm)
+
+
+def strided_like(t: torch.Tensor, gen) -> torch.Tensor:
+    """A new random tensor with ``t``'s shape and strides (0 included), on
+    storage of its own."""
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return torch.randn(span, generator=gen, device=t.device).as_strided(t.shape, t.stride())
+
+
+def step_products(dev) -> dict:
+    """The per-rank kernels' calls of one engine vmap step, as the dispatch
+    mode issues them (operands with their strides): config 1's LeNet
+    gradient (:data:`LENET_CONVS` weight gradients, :data:`LENET_PRODUCTS`
+    products) and config 5's MLP6 (:data:`CONFIG5_PRODUCTS` products), the
+    seed-0 parameters on every rank and a batch of 8 ranks. Returns path ->
+    a list of ``(kernel, args, kwargs)``."""
+    from torchmpi_tpu_torch.engine.rankwise import rank_products
+    from torchmpi_tpu_torch.models import MLP6
+
+    (xtr, ytr), _ = synthetic_mnist()
+    cases = {"lenet": (LeNet(), BATCH), "config5": (MLP6(features=128),
+                                                     CONFIG5["batch_per_rank"] * P)}
+    out = {}
+    for path, (model, batch) in cases.items():
+        params = {k: v.to(dev).unsqueeze(0).repeat((P,) + (1,) * v.ndim)
+                  for k, v in init_params(model, seed=0).items()}
+        xb, yb = next(iter(DistributedIterator(xtr, ytr, batch, P, device=dev)))
+        calls = []
+        kept = ops.conv2d_weight_grad_ranks, ops.rank_bmm
+
+        def record(name, fn):
+            def call(*args, **kwargs):
+                calls.append((name, args, kwargs))
+                return fn(*args, **kwargs)
+            return call
+
+        ops.conv2d_weight_grad_ranks = record("conv2d_weight_grad_ranks", kept[0])
+        ops.rank_bmm = record("rank_bmm", kept[1])
+        try:
+            with rank_products():
+                torch.func.vmap(torch.func.grad(make_loss_fn(model)))(params, (xb, yb))
+        finally:
+            ops.conv2d_weight_grad_ranks, ops.rank_bmm = kept
+        out[path] = calls
+    require(sum(n == "conv2d_weight_grad_ranks" for n, _, _ in out["lenet"]) == LENET_CONVS
+            and sum(n == "rank_bmm" for n, _, _ in out["lenet"]) == LENET_PRODUCTS
+            and [n for n, _, _ in out["config5"]] == ["rank_bmm"] * CONFIG5_PRODUCTS,
+            f"a vmap step's per-rank calls: {[(p, [n for n, _, _ in c]) for p, c in out.items()]}")
+    return out
+
+
+def step_launch_rows(dev) -> dict:
+    """Each per-rank launch of a LeNet vmap step and of a config-5 step
+    (:func:`step_products`) on inputs of the same shapes and strides
+    rotated past the L2: the kernel's ms, its plan, its bound (3xTF32
+    operations or bytes) and its library call's ms (cuDNN's grouped weight
+    gradient, ``torch.bmm``), and each path's totals a step."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for path, calls in step_products(dev).items():
+        rows = []
+        for name, args, _ in calls:
+            tensors, rest = args[:2], args[2:]
+            if name == "rank_bmm":
+                (R, M, K), N = tensors[0].shape, tensors[1].shape[2]
+                library = torch.bmm
+            else:
+                x, dy = tensors
+                (O, C, kh, kw), (R, B) = rest[0], x.shape[:2]
+                M, N, K = O, C * kh * kw, B * dy.shape[3] * dy.shape[4]
+                library = wgrad_grouped
+            in_bytes = sum(t.numel() * 4 for t in tensors)
+            nops = 2 * R * M * N * K
+
+            def make(tensors=tensors, rest=rest):
+                return (*(strided_like(t, gen) for t in tensors), *rest)
+
+            ms = time_ms(rotating(getattr(ops, name), make, in_bytes))
+            bound_ms, bound_by = bound(in_bytes + R * M * N * 4, nops, True)
+            require(bound_ms <= ms, f"{name} {[R, M, N, K]}: {ms} ms is under its bound "
+                                    f"{bound_ms} ms")
+            rows.append({"kernel": name, "R_M_N_K": [R, M, N, K],
+                         "strides": [list(t.stride()) for t in tensors],
+                         "plan": list(ops.rank_gemm.plan(M, N, K)), "ms": ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": time_ms(rotating(library, make, in_bytes))})
+        out[path] = {"launches": rows,
+                     "kernel_ms_per_step": sum(r["ms"] for r in rows),
+                     "bound_ms_per_step": sum(r["bound_ms"] for r in rows),
+                     "library_ms_per_step": sum(r["library_ms"] for r in rows)}
+    return out
 
 
 def phase_kernels(dev) -> dict:
@@ -7055,6 +7204,7 @@ def main(argv=None) -> None:
 
         print(json.dumps({"wgrad_kernels": time_rows([wgrad_row(randn), bmm_row(randn)], {}, errs,
                                                      launch_floor_ms())}))
+        print(json.dumps({"wgrad_step_launches": step_launch_rows(dev), "card": card()}))
         return
     phase_build()
     mark("build")

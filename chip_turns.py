@@ -16,7 +16,9 @@ L2, f32):
 - the one-process K4 at config 2's bucket 0, allreduce [8, 805386] and
   'rs' [8, 805392], int8 and bf16 wires;
 - K8 and K10 at the LM path's [4, 4, 1024, 8, 64], causal, on f32 and on
-  bf16 inputs (``chip_smoke.attention_rows``' kernels and inputs).
+  bf16 inputs (``chip_smoke.attention_rows``' kernels and inputs);
+- the per-rank kernels at config 1's ``conv1`` weight gradient and
+  ``dense0`` forward (``chip_smoke.wgrad_row`` and ``bmm_row``).
 
 It runs on any tree whose ``chip_smoke.py`` has ``phase_build``,
 ``time_ms`` and ``rotating``, so a parent unpacked beside the working tree
@@ -52,7 +54,8 @@ def main(argv=None) -> None:
     from torchmpi_tpu_torch.schedule import lower
 
     cs.phase_build(tuple(n for n in ("ring_kernels", "ring_quant", "ring_attention",
-                                     "ring_attention_bf16") if n in cs._build.SOURCES))
+                                     "ring_attention_bf16", "conv_wgrad", "rank_bmm")
+                         if n in cs._build.SOURCES))
     ops = cs.ops
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -95,6 +98,9 @@ def main(argv=None) -> None:
                 key = {"ring_attention_fwd": "k8", "ring_attention_bwd": "k10"}[row["name"]]
                 ms[f"{key}_{tag}_attn_main"] = cs.time_ms(
                     cs.rotating(row["kernel"], row["make"], row["in_bytes"]))
+    for row in (cs.wgrad_row(randn), cs.bmm_row(randn)):
+        ms[{"conv2d_weight_grad_ranks": "wgrad_conv1", "rank_bmm": "bmm_dense0"}[row["name"]]] = \
+            cs.time_ms(cs.rotating(row["kernel"], row["make"], row["in_bytes"]))
     print(json.dumps({"turns": {"tree": str(args.root), "grouped_intra": grouped, "ms": ms,
                                 "card": cs.card()}}), flush=True)
 

@@ -22,6 +22,16 @@ the loop (CUDA events, ``chip_smoke.time_ms``). It prints one
 ``chip_smoke.py``'s settings (no TF32, deterministic cuDNN); the kernels
 build at their first call.
 
+``python3 chip_vmap_probe.py --profile ROOT [ROOT ...]`` profiles config
+1's engine vmap step of each tree (a root holding ``chip_smoke.py`` and
+``torchmpi_tpu_torch/``; a parent unpacked beside the working tree and the
+tree itself, in turns parent, change, change, parent), each in a process
+of its own, with the per-rank kernels and with the native batched ops
+(:func:`profile_one`): step ms, the host ms a step in the dispatch mode,
+the device's busy share, the per-rank kernels' device us a step, fills
+(memsets and ATen's fill kernels) a step. It prints one
+``{"vmap_profile": [...]}`` line.
+
 :func:`native_vmap` and :func:`step_in_turns` serve ``chip_smoke.py``'s
 ``rank_maps``: config 1's engine step with the kernels against the native
 form, in turns.
@@ -109,9 +119,143 @@ def step_in_turns(make_engine, batches: list, warmup: int, pairs: int) -> dict:
             "steps": len(batches) - warmup, "pairs": pairs}
 
 
+def dispatch_timer(rankwise):
+    """Wraps the dispatch mode's ``__torch_dispatch__`` (``rankwise``, a
+    tree's ``engine/rankwise.py``) to add up the host seconds spent in it,
+    the native ops it passes on included, and its calls; returns the
+    totals and the function that puts the mode back."""
+    mode = rankwise._RankProducts
+    kept = mode.__torch_dispatch__
+    totals = {"s": 0.0, "calls": 0}
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return kept(self, *args, **kwargs)
+        finally:
+            totals["s"] += time.perf_counter() - t0
+            totals["calls"] += 1
+
+    mode.__torch_dispatch__ = timed
+    return totals, lambda: setattr(mode, "__torch_dispatch__", kept)
+
+
+def profile_one(root: str, steps: int = 20, profiled: int = 10, warmup: int = 4,
+                repeats: int = 5) -> dict:
+    """Config 1's engine step under ``rank_map='vmap'`` (LeNet, p=8, batch
+    336, seed 0) of the tree at ``root``, with the per-rank kernels
+    ('kernel') and with the native batched ops ('native'): the median of
+    ``repeats`` runs' mean step ms over ``steps`` steps after ``warmup``;
+    the host ms a step spent in the dispatch mode and its calls a step
+    (timed in one more run of ``steps``); then ``profiled`` steps under ``torch.profiler``: the
+    device's busy share of the window, its busy us a step, the per-rank
+    kernels' device us and launches a step, the fills a step (memsets and
+    ATen's fill kernels: the parent's per-rank wrappers zeroed their
+    tickets by ``torch.zeros`` at every call), and the top kernels."""
+    import importlib.util
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(root) / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmpi_tpu_torch.engine import rankwise, sgd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    (xtr, ytr), _ = cs.synthetic_mnist()
+    it = cs.DistributedIterator(xtr, ytr, cs.BATCH, cs.P, device=dev)
+    batches = [b for _, b in zip(range(warmup + steps), iter(it))]
+    out = {"tree": root, "card": cs.card()}
+    for form in FORMS:
+        cs.mpi.start(ranks=cs.P)
+        kept = sgd.by_rank_products
+        if form == "native":
+            sgd.by_rank_products = lambda batched: batched
+        try:
+            engine = cs.AllReduceSGDEngine(cs.make_loss_fn(cs.LeNet()),
+                                           cs.init_params(cs.LeNet(), seed=0), lr=cs.LR,
+                                           comm=cs.mpi.current_communicator(), rank_map="vmap")
+
+            def run(some):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in some:
+                    engine.step(b)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / len(some)
+
+            run(batches[:warmup])
+            times = [run(batches[warmup:]) for _ in range(repeats)]
+            row = {"step_ms": statistics.median(times), "step_ms_runs": times}
+            if form == "kernel":
+                totals, restore = dispatch_timer(rankwise)
+                try:
+                    row["step_ms_timed_dispatch"] = run(batches[warmup:])
+                finally:
+                    restore()
+                row["dispatch_host_ms_per_step"] = totals["s"] * 1e3 / steps
+                row["dispatch_calls_per_step"] = totals["calls"] / steps
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            torch.cuda.synchronize()
+            prof.start()
+            wall_ms = run(batches[warmup:warmup + profiled])
+            prof.stop()
+            rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+            busy_us = sum(r[0] for r in rows)
+            per_rank = {k: {"us": us / profiled, "calls": n / profiled} for us, k, n in rows
+                        if "conv_wgrad_kernel" in k or "rank_bmm_kernel" in k}
+            row.update({
+                "profiled_step_ms": wall_ms,
+                "device_busy_us_per_step": busy_us / profiled,
+                "device_busy_share": busy_us / profiled / (wall_ms * 1e3),
+                "per_rank_kernels": per_rank,
+                "per_rank_kernels_us_per_step": sum(v["us"] for v in per_rank.values()),
+                "per_rank_launches_per_step": sum(v["calls"] for v in per_rank.values()),
+                "fills_per_step": sum(n for _, k, n in rows
+                                      if "memset" in k.lower() or "FillFunctor" in k) / profiled,
+                "top_kernels": [{"name": k[:90], "us": us / profiled, "calls": n / profiled}
+                                for us, k, n in sorted(rows, reverse=True)[:8]],
+            })
+            out[form] = row
+            del engine
+        finally:
+            sgd.by_rank_products = kept
+            cs.mpi.stop()
+    return out
+
+
+def profile_trees(roots) -> None:
+    """:func:`profile_one` of each tree in ``roots``, in the order given
+    (parent, change, change, parent compares two trees in turns), each in
+    a process of its own; prints one ``{"vmap_profile": [...]}`` line."""
+    import subprocess
+
+    rows = []
+    for root in roots:
+        proc = subprocess.run([sys.executable, __file__, "--profile-one", root],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_vmap_probe: the profile of {root} failed:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    print(json.dumps({"vmap_profile": rows}), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_vmap_probe: no CUDA device; this run needs one card")
+    if len(sys.argv) > 2 and sys.argv[1] == "--profile-one":
+        print(json.dumps(profile_one(sys.argv[2])), flush=True)
+        return
+    if len(sys.argv) > 2 and sys.argv[1] == "--profile":
+        profile_trees(sys.argv[2:])
+        return
     import chip_smoke as cs
     from torchmpi_tpu_torch.models import MLP6
 

@@ -9,8 +9,8 @@
   same inputs drawn from numpy seeds, within ``JAX_RTOL`` (f32 sums in
   another order: XLA's convolution against ATen's);
 - a rank's result bit for bit the same in stacks of 8, 4 and 2, as the
-  kernel's is on the card (its slices of K come from the shape alone:
-  :func:`ops.conv_wgrad.splits` never reads R);
+  kernel's is on the card (its tiles and slices of K come from the shape
+  alone: :func:`ops.rank_gemm.plan` never reads R);
 - under ``rank_products`` (a dispatch mode over the physical
   ``convolution_backward`` and ``bmm`` that vmap issues) the vmap
   gradient of the port's LeNet bit for bit the same rank by rank in stacks
@@ -29,6 +29,8 @@
   unchanged: ``tests/test_torch_xproc_sharded.py``'s C6 test holds it.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,7 +40,7 @@ import torch
 from torchmpi_tpu_torch import ops
 from torchmpi_tpu_torch.engine.rankwise import rank_products
 from torchmpi_tpu_torch.models import MLP6, LeNet, init_params, make_loss_fn
-from torchmpi_tpu_torch.ops import conv_wgrad
+from torchmpi_tpu_torch.ops import conv_wgrad, rank_bmm_kernel, rank_gemm
 
 JAX_RTOL = 1e-5
 LOOP_RTOL = 1e-5
@@ -103,15 +105,46 @@ def test_rank_result_independent_of_the_stack(shape):
 
 
 @pytest.mark.parametrize("o, n, k", [(64, 800, 8232), (32, 25, 32928), (512, 4608, 1568),
-                                     (64, 147, 401408), (3, 63, 25)])
+                                     (64, 147, 401408), (3, 63, 25), (42, 256, 3136),
+                                     (8, 10, 128)])
 def test_splits_come_from_the_shape(o, n, k):
-    """The slices of K: whole multiples of the kernel's depth, covering K,
-    about 128 blocks a rank, at most 64 slices; a function of the shape
-    alone."""
-    splits, kc = conv_wgrad.splits(o, n, k)
-    tiles = -(-o // 64) * -(-n // 64)
-    assert kc % 16 == 0 and splits * kc >= k > (splits - 1) * kc
-    assert splits <= 64 and (splits == 1 or tiles * splits <= 2 * 128)
+    """The plan of a launch (``ops.rank_gemm.plan``): the smallest of mma's
+    16-row steps that holds M, else 64 rows; 32 columns where N fits, else
+    128 beside 64 rows and 64 beside fewer; slices of K that are whole
+    stages, cover K, give about ``BLOCKS_PER_RANK`` blocks a rank, number at
+    most ``MAX_SPLITS`` and, where there are several, are each at least
+    ``MIN_SLICE`` deep."""
+    p = rank_gemm.plan(o, n, k)
+    assert p.bm == next((b for b in (16, 32, 48) if o <= b), 64) and p.bm >= min(o, 64)
+    assert p.bn == (32 if n <= 32 else 128 if p.bm == 64 else 64)
+    assert p.tiles == -(-o // p.bm) * -(-n // p.bn)
+    assert p.kc % rank_gemm.BK == 0 and p.splits * p.kc >= k > (p.splits - 1) * p.kc
+    assert p.splits <= rank_gemm.MAX_SPLITS
+    assert p.splits == 1 or (p.tiles * p.splits <= 2 * rank_gemm.BLOCKS_PER_RANK
+                             and p.kc >= rank_gemm.MIN_SLICE)
+
+
+def test_plan_is_the_same_whatever_the_stack():
+    """The plan reads (M, N, K) alone: the wrappers derive them from a
+    stack of 8, 4 or 2 ranks alike (LeNet's two convolutions and its
+    dense0 products, config 5's dense0), so every rank's slices of K are
+    the same in any stack."""
+    assert list(inspect.signature(rank_gemm.plan).parameters) == ["m", "n", "k"]
+    for m in (R, 4, 2):
+        plans = []
+        for name, (cin, cout, side) in LENET_CONVS.items():
+            x, dy = torch.zeros(m, 42, cin, side, side), torch.zeros(m, 42, cout, side, side)
+            dims = conv_wgrad._check(x, dy, (cout, cin, 5, 5), 1, 2, 1)
+            B, C, O, Ho, Wo, kh, kw = dims[1], dims[2], dims[5], dims[6], dims[7], dims[8], dims[9]
+            plans.append(rank_gemm.plan(O, C * kh * kw, B * Ho * Wo))
+        for shape_a, shape_b in (((42, 3136), (3136, 256)), ((256, 42), (42, 3136)),
+                                 ((42, 256), (256, 3136)), ((8, 784), (784, 128))):
+            _, M, N, K = rank_bmm_kernel._check(torch.zeros(m, *shape_a), torch.zeros(m, *shape_b))
+            plans.append(rank_gemm.plan(M, N, K))
+        if m == R:
+            first = plans
+        assert plans == first, m
+    assert first[1] == rank_gemm.Plan(64, 128, 7, 7, 1184)  # conv1: 7 slices of 1184
 
 
 def _lenet_case(seed):

@@ -52,7 +52,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import conv_wgrad, rank_bmm_kernel, reduce_kernel, ring_attention_kernel, ring_kernels
+from . import (conv_wgrad, rank_bmm_kernel, rank_gemm, reduce_kernel, ring_attention_kernel,
+               ring_kernels)
 from .conv_wgrad import conv2d_weight_grad_ranks, conv2d_weight_grad_ranks_plain
 from .rank_bmm_kernel import rank_bmm, rank_bmm_plain
 from .reduce_kernel import (

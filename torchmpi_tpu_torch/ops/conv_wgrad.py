@@ -8,10 +8,10 @@ grouped convolution, and cuDNN picks its weight gradient's algorithm by the
 number of groups, so a rank's gradient depended on how many ranks its
 process stacked. :func:`conv2d_weight_grad_ranks` sums each rank's gradient
 in an order fixed by that rank's data and the shape alone (the kernel's
-slices of K come from :func:`splits`, never from R), so a rank's result is
-the same bits in a stack of 8, 4 or 2. The engine's vmap routes every f32
-``groups=1`` convolution's weight gradient through it on the card
-(``engine/rankconv.py``).
+tiles and slices of K come from :func:`~torchmpi_tpu_torch.ops.rank_gemm.plan`,
+never from R), so a rank's result is the same bits in a stack of 8, 4 or 2.
+The engine's vmap routes every f32 ``groups=1`` convolution's weight
+gradient through it on the card (``engine/rankwise.py``).
 
 The wrapper takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.
@@ -24,18 +24,15 @@ from typing import Sequence, Tuple
 
 import torch
 
-_BM = _BN = 64  # the kernel's output tile
-_BK = 16  # its depth a step: a slice of K is a multiple of it
-_BLOCKS_PER_RANK = 128  # the slices of K aim at this many blocks a rank
-_MAX_SPLITS = 64
+from . import rank_gemm
 
 launches = {"conv2d_weight_grad_ranks": 0}
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, dy, out, work, tickets, R, B, C, H, W, O, Ho, Wo, kh, kw, sh, sw,
-    # ph, pw, dh, dw, kc, x's rank and image strides, dy's, stream
-    "tm_conv_wgrad": [_PTR] * 5 + [_INT] * 17 + [ctypes.c_longlong] * 4 + [_PTR],
+    # ph, pw, dh, dw, bm, bn, kc, x's rank and image strides, dy's, stream
+    "tm_conv_wgrad": [_PTR] * 5 + [_INT] * 19 + [ctypes.c_longlong] * 4 + [_PTR],
 }
 
 
@@ -51,18 +48,6 @@ def _pair(v) -> Tuple[int, int]:
             raise ValueError(f"conv2d_weight_grad_ranks takes 2-D settings, got {v}")
         return int(v[0]), int(v[1])
     return int(v), int(v)
-
-
-def splits(o: int, n: int, k: int) -> Tuple[int, int]:
-    """``(slices, slice length)`` of K = B*Ho*Wo for an ``o`` x ``n``
-    weight gradient (n = C*kh*kw): the 64 x 64 tiles of one rank times the
-    slices make about 128 blocks, each slice a multiple of 16 deep, at
-    most 64 slices. A function of the shape alone, so the order of adds
-    never depends on how many ranks a launch holds."""
-    tiles = -(-o // _BM) * -(-n // _BN)
-    want = max(1, min(_MAX_SPLITS, -(-_BLOCKS_PER_RANK // tiles)))
-    kc = max(_BK, -(-(-(-k // want)) // _BK) * _BK)
-    return -(-k // kc), kc
 
 
 def _check(x: torch.Tensor, dy: torch.Tensor, weight_shape, stride, padding, dilation):
@@ -123,19 +108,20 @@ def conv2d_weight_grad_ranks(x: torch.Tensor, dy: torch.Tensor, weight_shape: Se
     x = x if x[0, 0].is_contiguous() else x.contiguous()
     dy = dy if dy[0, 0].is_contiguous() else dy.contiguous()
     out = torch.empty((R, O, C, kh, kw), dtype=torch.float32, device=x.device)
-    n_splits, kc = splits(O, C * kh * kw, B * Ho * Wo)
-    tiles = -(-O // _BM) * -(-(C * kh * kw) // _BN)
-    work = tickets = None
-    if n_splits > 1:
-        work = torch.empty(R * tiles * n_splits * _BM * _BN, dtype=torch.float32, device=x.device)
-        tickets = torch.zeros(R * tiles, dtype=torch.int32, device=x.device)
+    p = rank_gemm.plan(O, C * kh * kw, B * Ho * Wo)
     from ._build import check, launch
 
     call = _lib().tm_conv_wgrad
-    args = (x.data_ptr(), dy.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), *dims, kc,
-            x.stride(0), x.stride(1), dy.stride(0), dy.stride(1))
-    check(launch(x.device, lambda s: call(*args, s), stream), "tm_conv_wgrad")
+
+    def go(handle):
+        work, tickets = rank_gemm.scratch(x.device, handle, R, p)
+        err = call(x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+                   None if work is None else work.data_ptr(), tickets, *dims, p.bm, p.bn, p.kc,
+                   x.stride(0), x.stride(1), dy.stride(0), dy.stride(1), handle)
+        if work is not None and stream is not None:
+            work.record_stream(stream)
+        return err
+
+    check(launch(x.device, go, stream), "tm_conv_wgrad")
     launches["conv2d_weight_grad_ranks"] += 1
     return out

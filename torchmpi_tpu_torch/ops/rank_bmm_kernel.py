@@ -8,7 +8,7 @@ batched product for its forward and for each gradient, and cuBLAS picks a
 batched product's algorithm by its batch count, so a rank's result
 depended on how many ranks its process stacked. :func:`rank_bmm` sums each
 output element in an order fixed by the shape alone (the slices of K come
-from :func:`~torchmpi_tpu_torch.ops.conv_wgrad.splits`, never from R), so a
+from :func:`~torchmpi_tpu_torch.ops.rank_gemm.plan`, never from R), so a
 rank's result is the same bits in a stack of 8, 4 or 2. The engine's vmap
 routes every f32 ``bmm`` through it on the card (``engine/rankwise.py``).
 
@@ -22,15 +22,15 @@ import ctypes
 
 import torch
 
-from .conv_wgrad import _BM, _BN, splits
+from . import rank_gemm
 
 launches = {"rank_bmm": 0}
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # a, b, out, work, tickets, R, M, N, K, kc, a's rank/row/k strides,
-    # b's rank/k/column strides, stream
-    "tm_rank_bmm": [_PTR] * 5 + [_INT] * 5 + [_LL] * 6 + [_PTR],
+    # a, b, out, work, tickets, R, M, N, K, bm, bn, kc, a's rank/row/k
+    # strides, b's rank/k/column strides, stream
+    "tm_rank_bmm": [_PTR] * 5 + [_INT] * 7 + [_LL] * 6 + [_PTR],
 }
 
 
@@ -68,19 +68,20 @@ def rank_bmm(a: torch.Tensor, b: torch.Tensor, stream=None) -> torch.Tensor:
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(f"rank_bmm takes f32, not {a.dtype} and {b.dtype}")
     out = torch.empty((R, M, N), dtype=torch.float32, device=a.device)
-    n_splits, kc = splits(M, N, K)
-    tiles = -(-M // _BM) * -(-N // _BN)
-    work = tickets = None
-    if n_splits > 1:
-        work = torch.empty(R * tiles * n_splits * _BM * _BN, dtype=torch.float32, device=a.device)
-        tickets = torch.zeros(R * tiles, dtype=torch.int32, device=a.device)
+    p = rank_gemm.plan(M, N, K)
     from ._build import check, launch
 
     call = _lib().tm_rank_bmm
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), R, M, N, K, kc,
-            *a.stride(), *b.stride())
-    check(launch(a.device, lambda s: call(*args, s), stream), "tm_rank_bmm")
+
+    def go(handle):
+        work, tickets = rank_gemm.scratch(a.device, handle, R, p)
+        err = call(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                   None if work is None else work.data_ptr(), tickets, R, M, N, K, p.bm, p.bn,
+                   p.kc, *a.stride(), *b.stride(), handle)
+        if work is not None and stream is not None:
+            work.record_stream(stream)
+        return err
+
+    check(launch(a.device, go, stream), "tm_rank_bmm")
     launches["rank_bmm"] += 1
     return out
